@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``openvivqa_tpu_torch``) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each fatal on failure:
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  2. the build of every kernel from ``openvivqa_tpu_torch/csrc`` (nvcc, sm_90a);
+  3. each kernel of the MMF_M4C greedy-eval path against its plain PyTorch
+     version on the same inputs at the path's shapes (batch 64, hidden 768,
+     FFN 3072), with the max |kernel - plain| beside its tolerance and median
+     CUDA-event times of both;
+  4. ``configs/mmf_m4c.yaml`` at its full widths (random weights from the seed,
+     with TEXT_BERT.LOAD_PRETRAINED false and no word embeddings, whose files
+     are not in the repository) on synthetic data with 100 regions and 100 OCR
+     tokens: ``TrainingMMF.evaluate_metrics`` over the dev split once in each
+     decode mode, with the launch counts of the kernels, scores, samples/s of
+     the kernel path and of the plain path, the teacher-forced max |score
+     diff| between the two paths and their greedy-token agreement, and a
+     torch.profiler table of one greedy decode (kernel time by name, the
+     device's busy share of the decode's wall time).
+The nvcc/ptxas log (registers and spills per kernel) is kept beside the
+library in build/kernels/.  The line before the last is a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device the script exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 64
+LN_TOL = 2e-3  # LayerNorm outputs: bf16 intermediates may round one ulp apart under another summation order
+# packed attention outputs: a softmax weight rounded to bf16 may land one ulp
+# (2^-8 relative) apart, moving the output by up to 2^-8 * weight * |v| with
+# N(0, 1) inputs; no LayerNorm follows to shrink it
+ATTN_TOL = 1e-2
+SLOT_TOL = 1e-2  # bf16-stored K/V slots: one bf16 ulp at |k| ~ 1 is 7.8e-3
+SCORE_TOL = 1e-2  # teacher-forced scores, kernel path vs plain path
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def median_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the model's kernel calls to the plain PyTorch versions, for the
+    comparison runs of this script only."""
+    from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
+
+    swaps = [
+        (decode_step, "fused_ffn_step", decode_step.fused_ffn_step_plain),
+        (decode_step, "fused_bert_self_step", decode_step.fused_bert_self_step_plain),
+        (encoder_layer, "fused_encoder_self_attention",
+         encoder_layer.fused_encoder_self_attention_plain),
+        (fused_attention, "fused_attention_packed", fused_attention.fused_attention_packed_plain),
+    ]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for module, name, original in saved:
+            setattr(module, name, original)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_kernels(task, shapes, seed, failures):
+    """Phase 3: every kernel of the path against its plain version."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
+    from openvivqa_tpu_torch.models.modules.bert import LN_EPS
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def lengths_bias(bs, n, zero_first: bool):
+        lengths = torch.randint(1, n + 1, (bs,), generator=gen, device=dev)
+        if zero_first:
+            lengths[0] = 0  # a sample with every key masked
+        pos = torch.arange(n, device=dev)[None]
+        return torch.where(pos < lengths[:, None], 0.0, MASK_VALUE).float().contiguous()
+
+    model = task.model
+    bf16 = torch.bfloat16
+    mmt_w = model.mmt.encoder.layer[0].kernel_weights(bf16)
+    text_w = model.text_bert.encoder.layer[0].kernel_weights(bf16)
+    heads = model.num_heads
+    hd = model.hidden_size
+    scale = 1.0 / float(hd // heads) ** 0.5
+    c_len, t_len, q_len = shapes["ctx"], shapes["dec"], shapes["question"]
+    joint = c_len + t_len
+    results = {}
+
+    def record(name, what, err, tol, ms, plain_ms):
+        """Log one case; the JSON line keeps the first case's times (the
+        kernel's main shape) and the largest error over all cases."""
+        log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= tol:
+            failures.append(f"{name} [{what}]: max err {err} > {tol}")
+        entry = results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    # kernel C: the MMT context-encode rows, then the decode-step rows
+    f = mmt_w["ffn"]
+    for what, rows in ((f"encode rows {BATCH}x{c_len}", BATCH * c_len), (f"decode rows {BATCH}", BATCH)):
+        x = randn(rows, hd)
+        args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], LN_EPS)
+        err = max_err(decode_step.fused_ffn_step(*args), decode_step.fused_ffn_step_plain(*args))
+        record("fused_ffn_step", what, err, LN_TOL,
+               median_ms(lambda: decode_step.fused_ffn_step(*args)),
+               median_ms(lambda: decode_step.fused_ffn_step_plain(*args)))
+
+    # kernel F: the MMT context encode, then the TextBert question encode
+    for what, w, s in ((f"MMT context {BATCH}x{c_len}", mmt_w, c_len),
+                       (f"TextBert {BATCH}x{q_len}", text_w, q_len)):
+        x = randn(BATCH, s, hd)
+        kb = lengths_bias(BATCH, s, zero_first=True)
+        args = (x, w["attention"], kb, scale, heads, LN_EPS)
+        err = max_err(encoder_layer.fused_encoder_self_attention(*args),
+                      encoder_layer.fused_encoder_self_attention_plain(*args))
+        record("fused_encoder_self_attention", what, err, LN_TOL,
+               median_ms(lambda: encoder_layer.fused_encoder_self_attention(*args)),
+               median_ms(lambda: encoder_layer.fused_encoder_self_attention_plain(*args)))
+
+    # packed: the MMT joint encode under its per-sample prefix-LM bias, then a
+    # batch-shared bias
+    q, k, v = randn(BATCH, joint, hd), randn(BATCH, joint, hd), randn(BATCH, joint, hd)
+    full = lengths_bias(BATCH, joint, zero_first=False)[:, None, None, :].expand(
+        BATCH, 1, joint, joint).clone()
+    full[:, :, -t_len:, -t_len:] = torch.triu(
+        torch.full((t_len, t_len), MASK_VALUE, device=dev), 1)
+    shared = full[:1].contiguous()
+    for what, bias in ((f"joint {BATCH}x{joint} per-sample bias", full),
+                       (f"joint {BATCH}x{joint} shared bias", shared)):
+        args = (q, k, v, bias, scale, heads)
+        err = max_err(fused_attention.fused_attention_packed(*args),
+                      fused_attention.fused_attention_packed_plain(*args))
+        record("fused_attention_packed", what, err, ATTN_TOL,
+               median_ms(lambda: fused_attention.fused_attention_packed(*args)),
+               median_ms(lambda: fused_attention.fused_attention_packed_plain(*args)))
+
+    # kernel D: every decode step of one sequence, kernel and plain on their own
+    # slot caches; then the time of one step
+    w = mmt_w["attention"]
+    ctx = (randn(BATCH, c_len, hd, dtype=bf16), randn(BATCH, c_len, hd, dtype=bf16))
+    cb = lengths_bias(BATCH, c_len, zero_first=False)
+    slots = {name: [torch.zeros(BATCH, t_len, hd, dtype=bf16, device=dev) for _ in range(2)]
+             for name in ("kernel", "plain")}
+    y_err = slot_err = 0.0
+    for step in range(t_len + 1):  # one step past the last slot
+        x = randn(BATCH, hd)
+        yk, _, _ = decode_step.fused_bert_self_step(
+            x, w, ctx, *slots["kernel"], step, cb, scale, heads, LN_EPS)
+        yp, _, _ = decode_step.fused_bert_self_step_plain(
+            x, w, ctx, *slots["plain"], step, cb, scale, heads, LN_EPS)
+        y_err = max(y_err, max_err(yk, yp))
+    for a, b in zip(slots["kernel"], slots["plain"]):
+        slot_err = max(slot_err, max_err(a, b))
+    log(f"  fused_bert_self_step [slots after {t_len + 1} steps]: max|kernel-plain| "
+        f"{slot_err:.3e} (tol {SLOT_TOL:.0e})")
+    if not slot_err <= SLOT_TOL:
+        failures.append(f"fused_bert_self_step slots: max err {slot_err} > {SLOT_TOL}")
+    step_args = (x, w, ctx, *slots["kernel"], t_len - 1, cb, scale, heads, LN_EPS)
+    record("fused_bert_self_step", f"step {BATCH} x ctx {c_len} + {t_len} slots", y_err, LN_TOL,
+           median_ms(lambda: decode_step.fused_bert_self_step(*step_args)),
+           median_ms(lambda: decode_step.fused_bert_self_step_plain(*step_args)))
+    return results
+
+
+def busy_us(events, device_type) -> float:
+    """Length of the union of the intervals of `events` on `device_type`: time
+    with at least one kernel running, counting overlapping kernels once."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in events if e.device_type == device_type)
+    total, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_decode(model, batch, mode):
+    """torch.profiler over one greedy decode: kernel time by name and the
+    device's busy share of the decode's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model.greedy_decode(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        model.greedy_decode(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    busy = busy_us(prof.events(), torch.autograd.DeviceType.CUDA)
+    log(f"  [{mode}] profiler: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+        f"wall ({100 * busy / wall_us:.1f} %, kernel intervals merged)")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+
+
+def run_mode(task, mode, failures):
+    """Phase 4 for one decode mode."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.ops import _cuda
+
+    n_valid = len(task.dev_dict_dataset)
+
+    def timed_eval():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = task.evaluate_metrics(task.dev_dict_dataloader)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    # the host loader alone, once: it also warms the page cache for the timed runs
+    start = time.perf_counter()
+    for _ in task.dev_dict_dataloader:
+        pass
+    log(f"  [{mode}] host loader alone: {time.perf_counter() - start:.3f} s for {n_valid} samples")
+
+    # one decode first, so the allocator's first growth is not in the timed runs
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    task.greedy_ids(first)
+    torch.cuda.synchronize()
+
+    _cuda.reset_launch_counts()
+    scores, seconds = timed_eval()
+    counts = _cuda.launch_counts()
+    log(f"  [{mode}] scores: {json.dumps(scores, default=float)}")
+    log(f"  [{mode}] launches: {json.dumps(counts)}")
+    expected = ["fused_ffn_step", "fused_encoder_self_attention"]
+    expected.append("fused_bert_self_step" if mode == "incremental" else "fused_attention_packed")
+    for name in expected:
+        if counts[name] <= 0:
+            failures.append(f"[{mode}] {name} was not launched by the main path")
+    if "CIDEr" not in scores:
+        failures.append(f"[{mode}] no CIDEr in the scores")
+
+    # in turns: kernel (above), plain, plain, kernel
+    with plain_versions():
+        plain_seconds = [timed_eval()[1], timed_eval()[1]]
+    kernel_seconds = [seconds, timed_eval()[1]]
+    for name, runs in (("kernel", kernel_seconds), ("plain", plain_seconds)):
+        log(f"  [{mode}] eval loop, {name} path: {n_valid} samples in "
+            + ", ".join(f"{t:.3f} s ({n_valid / t:.2f} samples/s)" for t in runs))
+
+    # kernel path vs plain path on the first dev batch
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(batch["question_tokens"].device)
+    model = task.model
+    out_k = model.greedy_decode(batch)
+    with plain_versions():
+        out_p = model.greedy_decode(batch)
+        tf_p = model.compute_scores(batch, out_k["prev_inds"])
+    tf_k = model.compute_scores(batch, out_k["prev_inds"])
+    expected_shape = (BATCH, task.vocab.max_answer_length,
+                      len(task.vocab) + batch["ocr_boxes"].shape[1])
+    for name, tensor in (("greedy", out_k["scores"]), ("teacher-forced", tf_k)):
+        if tuple(tensor.shape) != expected_shape or not bool(torch.isfinite(tensor).all()):
+            failures.append(f"[{mode}] {name} scores: shape {tuple(tensor.shape)} "
+                            f"(want {expected_shape}) or non-finite values")
+    # OCR slots past a sample's OCR tokens score ~MASK_VALUE on both paths,
+    # where one float32 ulp is 7.8e-3: compare the unmasked scores
+    unmasked = tf_p[valid] > MASK_VALUE / 2
+    tf_err = max_err(tf_k[valid][unmasked], tf_p[valid][unmasked])
+    ids_k = out_k["scores"].argmax(-1)[valid]
+    ids_p = out_p["scores"].argmax(-1)[valid]
+    agreement = float((ids_k == ids_p).float().mean())
+    log(f"  [{mode}] teacher-forced max|score kernel-plain| {tf_err:.3e} (tol {SCORE_TOL:.0e}); "
+        f"greedy token agreement {agreement * 100:.2f}% of {ids_k.numel()} tokens")
+    if not tf_err <= SCORE_TOL:
+        failures.append(f"[{mode}] teacher-forced score diff {tf_err} > {SCORE_TOL}")
+
+    # the greedy decode alone, one batch on the device, both paths
+    decode_ms = median_ms(lambda: model.greedy_decode(batch), reps=5)
+    with plain_versions():
+        plain_decode_ms = median_ms(lambda: model.greedy_decode(batch), reps=5)
+    log(f"  [{mode}] greedy decode of one batch of {BATCH} (CUDA-event median of 5): "
+        f"kernel path {decode_ms:.3f} ms = {BATCH / decode_ms * 1e3:.1f} samples/s, "
+        f"plain path {plain_decode_ms:.3f} ms = {BATCH / plain_decode_ms * 1e3:.1f} samples/s")
+    profile_decode(model, batch, mode)
+    return counts
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
+    sys.path.insert(0, str(ROOT))
+    from openvivqa_tpu.config import get_config
+    from openvivqa_tpu.data.synthetic import generate_synthetic_dataset
+    from openvivqa_tpu_torch.builders import build_task, populate
+    from openvivqa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device 0: {torch.cuda.get_device_name(0)} of {torch.cuda.device_count()}")
+
+    # 2. the kernel build
+    start = time.perf_counter()
+    library = _cuda.build()
+    _cuda.lib()
+    log(f"kernels: {library.relative_to(ROOT)} ready in {time.perf_counter() - start:.1f} s "
+        f"(nvcc {_cuda.build_seconds:.1f} s; ptxas report in {library.name}.log)")
+
+    # 4's inputs first: phase 3 takes its shapes and weights from the task
+    populate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        start = time.perf_counter()
+        paths = generate_synthetic_dataset(
+            tmp, n_images=240, n_regions=100, n_grids=1, d_grid_feature=8,
+            max_scene_text=100, seed=args.seed,
+        )
+        json_paths = {"TRAIN": paths["train"], "DEV": paths["dev"], "TEST": paths["test"]}
+        features = {"FEATURES": paths["features"], "SCENE_TEXT": paths["scene_text"]}
+        dataset = {"WORD_EMBEDDING": None, "FEATURE_PATH": features}
+        config = get_config(str(ROOT / "configs" / "mmf_m4c.yaml")).merged({
+            "DATASET": {
+                "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
+                "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
+            },
+            "MODEL": {"TEXT_BERT": {"LOAD_PRETRAINED": False}},
+            "TRAINING": {"SEED": args.seed},
+        })
+        tasks = {
+            "quadratic": build_task(config, "cuda"),
+            "incremental": build_task(
+                config.merged({"MODEL": {"DECODING_MODE": "incremental"}}), "cuda"),
+        }
+        task = tasks["quadratic"]
+        _, first = next(task.device_batches(task.dev_dict_dataloader))
+        shapes = {
+            "question": first["question_tokens"].shape[1],
+            "ctx": first["question_tokens"].shape[1] + first["region_features"].shape[1]
+            + first["ocr_boxes"].shape[1],
+            "dec": task.vocab.max_answer_length,
+        }
+        log(f"slice: configs/mmf_m4c.yaml, hidden {task.model.hidden_size}, "
+            f"{task.model.num_heads} heads, {len(task.model.text_bert.encoder.layer)} TextBert "
+            f"+ {len(task.model.mmt.encoder.layer)} MMT layers, batch {BATCH}, "
+            f"{len(task.dev_dict_dataset)} dev samples, shapes {json.dumps(shapes)}, "
+            f"set up in {time.perf_counter() - start:.1f} s")
+
+        # 3. the kernels against their plain versions
+        log("kernels vs plain (CUDA-event medians of 20):")
+        results = check_kernels(task, shapes, args.seed, failures)
+
+        # 4. the main path in both decode modes
+        log("main path: TrainingMMF.evaluate_metrics over the dev split")
+        launches = {name: 0 for name in _cuda.LAUNCHES}
+        for mode, mode_task in tasks.items():
+            counts = run_mode(mode_task, mode, failures)
+            for name, n in counts.items():
+                launches[name] += n
+
+    sources = {
+        "fused_ffn_step": ("ffn.cu", "openvivqa_tpu/ops/decode_step.py:675"),
+        "fused_encoder_self_attention": ("encoder_layer.cu", "openvivqa_tpu/ops/encoder_layer.py:147"),
+        "fused_attention_packed": ("fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:215"),
+        "fused_bert_self_step": ("bert_self_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        if launches[name] <= 0:
+            failures.append(f"{name} was not launched by the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"openvivqa_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name], **results[name],
+        })
+    if failures:
+        for failure in failures:
+            log(f"FAILED: {failure}")
+        return 1
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

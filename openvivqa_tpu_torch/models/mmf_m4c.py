@@ -1,0 +1,180 @@
+"""MMF_M4C for eval: TextBert + the MMT joint encoder + classifier and pointer
+heads, with the teacher-forced forward and both greedy decodes.
+
+Counterpart of ``openvivqa_tpu/models/mmf_m4c.py``.  The decode loops are
+Python loops over ``max_answer_length`` steps with static shapes:
+  * ``greedy_decode`` (the quadratic greedy): T full MMT re-encodes under the
+    prefix-LM bias, the MMT attention through the packed kernel;
+  * ``incremental_greedy_decode`` (``MODEL.DECODING_MODE: incremental``): one
+    context encode, then T single-token steps through kernels D and C.
+Both argmax with torch.argmax, which, like jnp.argmax, takes the first maximum.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..builders import META_ARCHITECTURE
+from .m4c_common import (
+    MMT,
+    OcrPtrNet,
+    TextBert,
+    feature_box_encoding,
+    ocr_joint_features,
+    ocr_padding_bias,
+)
+from .modules.masks import padding_bias
+
+_TORCH_LN_EPS = 1e-5  # the reference's plain nn.LayerNorm on the feature encodings
+
+
+def resolve_decoding_mode(config):
+    """(decoding_mode, context_blind) from the MODEL config node.  DECODING_MODE
+    "incremental" implies CONTEXT_BLIND; unset keeps the reference's mask."""
+    mode = config.get("DECODING_MODE")
+    if mode not in (None, "incremental"):
+        raise ValueError(f"MODEL.DECODING_MODE must be 'incremental' or unset, got {mode!r}")
+    return mode, bool(config.get("CONTEXT_BLIND") or mode == "incremental")
+
+
+@META_ARCHITECTURE.register()
+class MMF_M4C(nn.Module):
+    def __init__(self, config, vocab):
+        super().__init__()
+        mmt = config.get("MMT") or config.get("ENCODER")
+        self.hidden_size = mmt.get("HIDDEN_SIZE", mmt.get("D_MODEL", config.D_MODEL))
+        self.num_heads = mmt.get("NUM_ATTENTION_HEADS", mmt.get("HEAD", 8))
+        mmt_layers = mmt.get("NUM_HIDDEN_LAYERS", mmt.get("LAYERS", 4))
+        self.max_iter = vocab.max_answer_length
+        self.bos_idx = vocab.bos_idx
+        self.padding_idx = vocab.padding_idx
+        self.decoding_mode, self.context_blind = resolve_decoding_mode(config)
+        hidden = self.hidden_size
+        text_hidden = config.TEXT_BERT.HIDDEN_SIZE
+
+        self.text_bert = TextBert(config.TEXT_BERT, self.num_heads, len(vocab))
+        # a projection exists iff the MMT is not 768 wide (the reference's rule)
+        # or the text width differs from the MMT's
+        self.uses_text_proj = hidden != 768 or text_hidden != hidden
+        if self.uses_text_proj:
+            self.text_bert_out_linear = nn.Linear(text_hidden, hidden)
+        self.linear_obj_feat_to_mmt_in = nn.Linear(config.OBJECT_EMBEDDING.D_FEATURE, hidden)
+        self.linear_obj_bbox_to_mmt_in = nn.Linear(4, hidden)
+        self.obj_feat_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
+        self.obj_bbox_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
+        self.linear_ocr_feat_to_mmt_in = nn.Linear(config.OCR_EMBEDDING.D_FEATURE, hidden)
+        self.linear_ocr_bbox_to_mmt_in = nn.Linear(4, hidden)
+        self.ocr_feat_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
+        self.ocr_bbox_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
+        self.mmt = MMT(hidden, mmt_layers, self.num_heads, mmt.get("INTERMEDIATE_SIZE"))
+        # the classifier weight (V, h) doubles as the fixed answer embedding
+        self.classifier = nn.Linear(hidden, len(vocab))
+        ptr = config.get("OCR_PTR_NET")
+        self.ocr_ptr_net = OcrPtrNet(
+            ptr.HIDDEN_SIZE if ptr else hidden, ptr.get("QUERY_KEY_SIZE") if ptr else None
+        )
+
+    # -- encodings -------------------------------------------------------------
+    def kernel_weights(self) -> Dict:
+        """Kernel weight bundles of both stacks, built once per forward or decode."""
+        device = self.classifier.weight.device
+        return {
+            "text": self.text_bert.encoder.kernel_weights(device),
+            "mmt": self.mmt.encoder.kernel_weights(device),
+        }
+
+    def _mmt_streams(self, batch, weights) -> Dict:
+        txt_bias = padding_bias(batch["question_tokens"], self.padding_idx)
+        txt_emb = self.text_bert(batch["question_tokens"], txt_bias, weights["text"])
+        if self.uses_text_proj:
+            txt_emb = self.text_bert_out_linear(txt_emb)
+        obj_emb = feature_box_encoding(
+            batch["region_features"], batch["region_boxes"],
+            self.linear_obj_feat_to_mmt_in, self.obj_feat_layer_norm,
+            self.linear_obj_bbox_to_mmt_in, self.obj_bbox_layer_norm,
+        )
+        ocr_emb = feature_box_encoding(
+            ocr_joint_features(batch), batch["ocr_boxes"],
+            self.linear_ocr_feat_to_mmt_in, self.ocr_feat_layer_norm,
+            self.linear_ocr_bbox_to_mmt_in, self.ocr_bbox_layer_norm,
+        )
+        return {
+            "txt": (txt_emb, txt_bias),
+            "obj": (obj_emb, padding_bias(batch["region_features"], 0)),
+            "ocr": (ocr_emb, ocr_padding_bias(batch)),
+        }
+
+    def _scores_from_streams(self, streams, prev_inds, weights):
+        results = self.mmt(
+            *streams["txt"], *streams["obj"], *streams["ocr"],
+            fixed_ans_emb=self.classifier.weight, prev_inds=prev_inds,
+            context_blind=self.context_blind, weights=weights["mmt"],
+        )
+        fixed = self.classifier(results["mmt_dec_output"])
+        dynamic = self.ocr_ptr_net(
+            results["mmt_dec_output"], results["mmt_ocr_output"], streams["ocr"][1]
+        )
+        return torch.cat([fixed, dynamic], dim=-1)
+
+    @torch.no_grad()
+    def compute_scores(self, batch, prev_inds):
+        weights = self.kernel_weights()
+        return self._scores_from_streams(self._mmt_streams(batch, weights), prev_inds, weights)
+
+    def forward(self, batch) -> Dict:
+        """Teacher-forced scores (bs, T, V + K) on batch["answer_tokens"]."""
+        return {"scores": self.compute_scores(batch, batch["answer_tokens"])}
+
+    # -- greedy decoding ---------------------------------------------------------
+    @torch.no_grad()
+    def greedy_decode(self, batch) -> Dict:
+        """Quadratic greedy: max_iter full re-encodes; with DECODING_MODE
+        incremental, the KV-cached decode instead."""
+        if self.decoding_mode == "incremental":
+            return self.incremental_greedy_decode(batch)
+        weights = self.kernel_weights()
+        streams = self._mmt_streams(batch, weights)
+        bs = batch["question_tokens"].shape[0]
+        device = batch["question_tokens"].device
+        prev_inds = torch.zeros((bs, self.max_iter), dtype=torch.long, device=device)
+        prev_inds[:, 0] = self.bos_idx
+        for _ in range(self.max_iter):
+            scores = self._scores_from_streams(streams, prev_inds, weights)
+            prev_inds[:, 1:] = scores.argmax(dim=-1)[:, :-1]
+        return {"scores": scores, "prev_inds": prev_inds}
+
+    @torch.no_grad()
+    def incremental_greedy_decode(self, batch) -> Dict:
+        """Encode [txt, obj, ocr] once, then one single-token step per position
+        (kernels D and C) against read-only context K/V and in-place slot caches.
+        Equal to the quadratic greedy under CONTEXT_BLIND."""
+        weights = self.kernel_weights()
+        streams = self._mmt_streams(batch, weights)
+        ocr_emb, ocr_bias = streams["ocr"]
+        context = self.mmt.encode_context(
+            *streams["txt"], *streams["obj"], *streams["ocr"], weights=weights["mmt"]
+        )
+        ctx_ocr = context["ctx_out"][:, context["ocr_begin"]:context["ocr_end"]]
+        state = self.mmt.init_fused_decode(context, self.max_iter, weights["mmt"])
+        fixed_ans_emb = self.classifier.weight
+        dec_table = self.mmt.build_dec_table(fixed_ans_emb, ocr_emb)
+        ans_num = fixed_ans_emb.shape[0]
+        ptr_keys = self.ocr_ptr_net.project_keys(ctx_ocr)
+
+        bs = batch["question_tokens"].shape[0]
+        bos = torch.full((bs,), self.bos_idx, dtype=torch.long, device=ptr_keys.device)
+        token, all_scores = bos, []
+        for step in range(self.max_iter):
+            dec_emb = self.mmt.embed_step(dec_table, ans_num, token, step)
+            out = self.mmt.fused_decode_step(dec_emb, state, step)
+            fixed = self.classifier(out)
+            dynamic = self.ocr_ptr_net.score(out, ptr_keys, ocr_bias)
+            scores = torch.cat([fixed, dynamic], dim=-1)[:, 0]
+            token = scores.argmax(dim=-1)
+            all_scores.append(scores)
+        scores = torch.stack(all_scores, dim=1)
+        prev_inds = torch.cat([bos[:, None], scores[:, :-1].argmax(dim=-1)], dim=1)
+        return {"scores": scores, "prev_inds": prev_inds}

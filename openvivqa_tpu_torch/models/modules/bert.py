@@ -1,0 +1,285 @@
+"""BERT-style post-LN transformer stack for eval, routed through the kernels.
+
+Counterpart of ``openvivqa_tpu/models/modules/bert.py`` (BertSelfAttention,
+BertLayer, BertEncoderStack, BertEmbeddings).  Parameter names are those of
+the HuggingFace BertLayer the reference checkpoints hold
+(``attention.self.query``, ``attention.output.LayerNorm``,
+``intermediate.dense``, ``output.dense``, ``output.LayerNorm``, ...), so
+``openvivqa_tpu.models.modules.torch_conversion`` reads this module's
+``state_dict()`` directly.
+
+Routes (CPU tensors take each kernel's plain version):
+  * self-attention with no bias or a key-only (b, 1, 1, S) bias -> kernel F;
+  * self-attention with a full (b, 1, Sq, Sk) bias -> the packed attention
+    kernel between plain q/k/v and out projections;
+  * every FFN, multi-row encodes and single-row decode steps -> kernel C;
+  * every incremental decode step -> kernel D.
+Eval only: no dropout; call under ``torch.no_grad()``.
+
+Kernel weight bundles (`kernel_weights`) hold the matrices transposed to
+(in, out) and cast to ``kernel_dtype(device)`` (bf16 on the card) with q|k|v
+packed into one (hd, 3hd) matrix.  Callers build them once per forward or
+decode, outside any loop.  The wrappers are called through their modules'
+attributes (``_ds.fused_ffn_step``), so a comparison run can swap in the plain
+versions (chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ...ops import _cuda
+from ...ops import decode_step as _ds
+from ...ops import encoder_layer as _enc
+from ...ops import fused_attention as _attn
+
+LN_EPS = 1e-12
+
+
+def _matrix(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return linear.weight.detach().t().to(dtype).contiguous()
+
+
+def init_jax_law_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initialisers, drawn from `generator` in module order:
+    normal(0.02) for Linear and Embedding weights, zero biases, LayerNorm
+    scale 1 and bias 0."""
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, (nn.Linear, nn.Embedding)):
+                sub.weight.copy_(
+                    torch.randn(sub.weight.shape, generator=generator) * 0.02
+                )
+                if getattr(sub, "bias", None) is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, nn.LayerNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+    return module
+
+
+def _is_key_only(bias: Optional[torch.Tensor]) -> bool:
+    return bias is None or (bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
+
+
+class _Projections(nn.Module):
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.query = nn.Linear(hidden_size, hidden_size)
+        self.key = nn.Linear(hidden_size, hidden_size)
+        self.value = nn.Linear(hidden_size, hidden_size)
+
+
+class _DenseLayerNorm(nn.Module):
+    def __init__(self, in_size: int, hidden_size: int):
+        super().__init__()
+        self.dense = nn.Linear(in_size, hidden_size)
+        self.LayerNorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+
+
+class _Dense(nn.Module):
+    def __init__(self, in_size: int, out_size: int):
+        super().__init__()
+        self.dense = nn.Linear(in_size, out_size)
+
+
+class BertSelfAttention(nn.Module):
+    """q/k/v/out projections + softmax attention + residual LayerNorm
+    (HF BertAttention: ``self.{query,key,value}``, ``output.{dense,LayerNorm}``)."""
+
+    def __init__(self, hidden_size: int, num_heads: int):
+        super().__init__()
+        if hidden_size % num_heads:
+            raise ValueError(f"hidden size {hidden_size} not divisible by {num_heads} heads")
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.scale = 1.0 / float(hidden_size // num_heads) ** 0.5
+        self.self = _Projections(hidden_size)
+        self.output = _DenseLayerNorm(hidden_size, hidden_size)
+
+    @torch.no_grad()
+    def kernel_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        p = self.self
+        return {
+            "wqkv": torch.cat([_matrix(p.query, dtype), _matrix(p.key, dtype),
+                               _matrix(p.value, dtype)], dim=1),
+            "bqkv": torch.cat([p.query.bias, p.key.bias, p.value.bias]).detach().float(),
+            "wo": _matrix(self.output.dense, dtype),
+            "bo": self.output.dense.bias.detach().float(),
+            "ln_scale": self.output.LayerNorm.weight.detach().float(),
+            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+        }
+
+    def project_kv(self, states: torch.Tensor):
+        """Packed (b, S, hd) key and value projections of `states`."""
+        return self.self.key(states), self.self.value(states)
+
+    def forward(self, hidden, attention_bias=None, weights=None):
+        if _is_key_only(attention_bias):
+            b, s, _ = hidden.shape
+            if weights is None:
+                weights = self.kernel_weights(_cuda.kernel_dtype(hidden.device))
+            if attention_bias is None:
+                key_bias = torch.zeros((b, s), dtype=torch.float32, device=hidden.device)
+            else:
+                key_bias = attention_bias[:, 0, 0, :].expand(b, s).float().contiguous()
+            return _enc.fused_encoder_self_attention(
+                hidden.float().contiguous(), weights, key_bias, self.scale,
+                self.num_heads, LN_EPS,
+            )
+        q = self.self.query(hidden)
+        k, v = self.project_kv(hidden)
+        context = _attn.fused_attention_packed(
+            q, k, v, attention_bias, self.scale, self.num_heads
+        )
+        return self.output.LayerNorm(hidden + self.output.dense(context))
+
+
+class BertLayer(nn.Module):
+    """Self-attention sublayer + GELU FFN sublayer, post-LN."""
+
+    def __init__(self, hidden_size: int, num_heads: int, intermediate_size: Optional[int] = None):
+        super().__init__()
+        d_ff = intermediate_size or 4 * hidden_size
+        self.attention = BertSelfAttention(hidden_size, num_heads)
+        self.intermediate = _Dense(hidden_size, d_ff)
+        self.output = _DenseLayerNorm(d_ff, hidden_size)
+
+    @torch.no_grad()
+    def kernel_weights(self, dtype: torch.dtype) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {
+            "attention": self.attention.kernel_weights(dtype),
+            "ffn": {
+                "w1": _matrix(self.intermediate.dense, dtype),
+                "b1": self.intermediate.dense.bias.detach().float(),
+                "w2": _matrix(self.output.dense, dtype),
+                "b2": self.output.dense.bias.detach().float(),
+                "ln_scale": self.output.LayerNorm.weight.detach().float(),
+                "ln_bias": self.output.LayerNorm.bias.detach().float(),
+            },
+        }
+
+    def project_kv(self, states):
+        return self.attention.project_kv(states)
+
+    def ffn(self, hidden, weights=None):
+        f = weights
+        if f is None:
+            f = self.kernel_weights(_cuda.kernel_dtype(hidden.device))["ffn"]
+        rows = hidden.reshape(-1, hidden.shape[-1]).float().contiguous()
+        out = _ds.fused_ffn_step(
+            rows, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], eps=LN_EPS
+        )
+        return out.reshape(hidden.shape)
+
+    def forward(self, hidden, attention_bias=None, weights=None):
+        if weights is None:
+            weights = self.kernel_weights(_cuda.kernel_dtype(hidden.device))
+        hidden = self.attention(hidden, attention_bias, weights["attention"])
+        return self.ffn(hidden, weights["ffn"])
+
+
+class BertEncoderStack(nn.Module):
+    """N BertLayers (``layer.N``).  Full-sequence encode via forward;
+    incremental decode via project_context (once per sequence) and
+    fused_decode_step (once per token, kernels D and C)."""
+
+    def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
+                 intermediate_size: Optional[int] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.layer = nn.ModuleList(
+            BertLayer(hidden_size, num_heads, intermediate_size) for _ in range(num_layers)
+        )
+
+    def kernel_weights(self, device) -> List[Dict]:
+        """Per-layer kernel weight bundles in ``kernel_dtype(device)``."""
+        dtype = _cuda.kernel_dtype(device)
+        return [layer.kernel_weights(dtype) for layer in self.layer]
+
+    def forward(self, hidden, attention_bias=None, return_layer_inputs: bool = False,
+                weights=None):
+        if weights is None:
+            weights = self.kernel_weights(hidden.device)
+        layer_inputs = []
+        for layer, w in zip(self.layer, weights):
+            layer_inputs.append(hidden)
+            hidden = layer(hidden, attention_bias, w)
+        if return_layer_inputs:
+            return hidden, layer_inputs
+        return hidden
+
+    def project_context(self, layer_inputs):
+        """Per-layer packed (K, V) projections of the frozen context states."""
+        return tuple(
+            layer.project_kv(states) for layer, states in zip(self.layer, layer_inputs)
+        )
+
+    def init_fused_decode_state(self, context_kv, col_bias, dec_len: int, weights=None):
+        """Kernel-D decode state, built once per sequence: the weight bundles,
+        per-layer context (K, V) in the cache dtype (bf16 on the card), per-layer
+        zeroed (bs, dec_len, hd) slot caches and the (bs, C) float32 context bias.
+        Unlike the JAX package, the context is not padded to a chunk multiple."""
+        device = context_kv[0][0].device
+        dtype = _cuda.kernel_dtype(device)
+        bs, ctx_len = context_kv[0][0].shape[:2]
+        if weights is None:
+            weights = self.kernel_weights(device)
+
+        def cache(x):
+            return x.to(dtype).contiguous()
+
+        return {
+            "weights": weights,
+            "ctx_kvs": tuple((cache(k), cache(v)) for k, v in context_kv),
+            "slots": tuple(
+                tuple(torch.zeros((bs, dec_len, self.hidden_size), dtype=dtype, device=device)
+                      for _ in range(2))
+                for _ in self.layer
+            ),
+            "ctx_bias": col_bias[:, 0, 0, :].expand(bs, ctx_len).float().contiguous(),
+        }
+
+    def fused_decode_step(self, hidden, state, step: int):
+        """One new token (bs, 1, hd) through every layer: kernel D then kernel C.
+        The slot caches in `state` are written in place at min(step, T-1).
+        Returns (bs, 1, hd)."""
+        scale = 1.0 / float(self.hidden_size // self.num_heads) ** 0.5
+        x = hidden[:, 0, :].float().contiguous()
+        for i, w in enumerate(state["weights"]):
+            slot_k, slot_v = state["slots"][i]
+            x, _, _ = _ds.fused_bert_self_step(
+                x, w["attention"], state["ctx_kvs"][i], slot_k, slot_v, step,
+                state["ctx_bias"], scale, self.num_heads, LN_EPS,
+            )
+            f = w["ffn"]
+            x = _ds.fused_ffn_step(
+                x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], eps=LN_EPS
+            )
+        return x[:, None, :]
+
+
+class BertEmbeddings(nn.Module):
+    """Word + learned position + token-type embeddings, LayerNorm."""
+
+    def __init__(self, vocab_size: int, hidden_size: int, max_position_embeddings: int = 512,
+                 type_vocab_size: int = 2):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        self.position_embeddings = nn.Embedding(max_position_embeddings, hidden_size)
+        self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
+        self.LayerNorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+
+    def forward(self, token_ids):
+        token_ids = token_ids.long()
+        positions = torch.arange(token_ids.shape[1], device=token_ids.device)[None]
+        out = (
+            self.word_embeddings(token_ids)
+            + self.position_embeddings(positions)
+            + self.token_type_embeddings(torch.zeros_like(token_ids))
+        )
+        return self.LayerNorm(out)

@@ -1,0 +1,221 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in ``openvivqa_tpu_torch/csrc/*.cu`` are compiled with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, at first use, into
+``build/kernels/`` at the root of the checkout (named by a hash of the sources and
+flags, so an edit rebuilds).  The library is loaded with ``ctypes``; every entry
+takes raw device pointers and the current CUDA stream and returns
+``cudaGetLastError()``, which :func:`launch` turns into an exception.
+
+The device rule every wrapper follows (:func:`uses_kernel`): tensors on the CPU go
+to the kernel's plain PyTorch version, tensors on one CUDA device go to the
+kernel, anything else raises.  There is no fallback from a CUDA tensor to the
+plain version.
+
+Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches its
+kernel and nowhere else, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# wrapper name -> launches of its kernel in this process
+LAUNCHES: Dict[str, int] = {
+    "fused_ffn_step": 0,
+    "fused_encoder_self_attention": 0,
+    "fused_attention_packed": 0,
+    "fused_bert_self_step": 0,
+}
+
+# C entry -> argument kinds: p pointer, i int, l long long, f float (the
+# trailing stream argument is added by `launch`)
+_SIGNATURES = {
+    "ovq_ffn_forward": "p" * 10 + "i" * 5 + "f",
+    "ovq_encoder_attention_forward": "p" * 12 + "i" * 6 + "ff",
+    "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f",
+    "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
+}
+_CTYPES = {
+    "p": ctypes.c_void_p, "i": ctypes.c_int,
+    "l": ctypes.c_longlong, "f": ctypes.c_float,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's kernels are built from "
+            "openvivqa_tpu_torch/csrc at first use"
+        )
+    return found
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags is built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libopenvivqa_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.  The
+    nvcc output (with ptxas's registers and spills per kernel) is kept beside
+    the library as ``<library>.log``."""
+    global build_seconds
+    target = library_path()
+    if target.is_file():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = target.with_name(f"{target.name}.{os.getpid()}.partial")
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), *sources],
+        capture_output=True, text=True,
+    )
+    build_seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    target.with_name(f"{target.name}.log").write_text(log)
+    os.replace(partial, target)
+    return target
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        for name, kinds in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        loaded.ovq_error_string.argtypes = [ctypes.c_int]
+        loaded.ovq_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def launch(entry: str, *args) -> None:
+    """Call a C entry on the current stream; raise if it reports a CUDA error."""
+    library = lib()
+    err = getattr(library, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        message = library.ovq_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({message})")
+
+
+def ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:
+    return None if tensor is None else tensor.data_ptr()
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def uses_kernel(*tensors: torch.Tensor) -> bool:
+    """False when every tensor lies on the CPU (the plain version runs), True
+    when all lie on one CUDA device (the kernel runs); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return True
+    raise ValueError(
+        "kernel inputs must all lie on the CPU or all on one CUDA device, got "
+        f"{sorted(str(d) for d in devices)}"
+    )
+
+
+def kernel_dtype(device: torch.device) -> torch.dtype:
+    """Storage type of pre-cast weight matrices and decode caches: bf16 on the
+    card (the kernels' dot operand type), float32 on the CPU."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+def require(tensor: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    """Raise ValueError unless `tensor` has this dtype, shape and is contiguous."""
+    if tensor.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {tensor.dtype}")
+    if tuple(tensor.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(tensor.shape)}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
+    """The attention block (common.cu) takes at least one key and a head dim
+    that is a multiple of 16 up to 128."""
+    d = hd // heads if heads > 0 else 0
+    if keys <= 0 or heads <= 0 or hd % heads or d % 16 or not 0 < d <= 128:
+        raise ValueError(
+            f"{what}: {keys} keys of head dim {hd}/{heads}: the attention block "
+            "takes a head dim that is a multiple of 16 up to 128"
+        )
+
+
+def row_splits(rows: int, k: int) -> Tuple[int, int]:
+    """(splits, k_per_split) of the row-owning GEMM + LayerNorm (common.cu): K
+    is split only while the 32-row blocks alone cannot fill the H100's 132
+    SMs, into slices of at least 128 (multiples of 32), so that the partial
+    rows written stay small next to the weights read."""
+    blocks = -(-rows // 32)
+    if blocks >= 66:
+        return 1, k
+    splits = max(1, min(k // 128, -(-132 // blocks)))
+    k_per_split = -(-(-(-k // splits)) // 32) * 32
+    return -(-k // k_per_split), k_per_split
+
+
+def row_partials(rows: int, k: int, width: int, device) -> Tuple[Optional[torch.Tensor], int, int]:
+    """(workspace or None, splits, k_per_split) for a row-owning GEMM."""
+    splits, k_per_split = row_splits(rows, k)
+    if splits == 1:
+        return None, 1, k_per_split
+    return torch.empty((splits, rows, width), dtype=torch.float32, device=device), splits, k_per_split
+
+
+def require_width(hd: int, what: str) -> None:
+    """The row-owning LayerNorm epilogue takes widths that are multiples of 128
+    up to 1024."""
+    if hd % 128 or not 128 <= hd <= 1024:
+        raise ValueError(
+            f"{what}: hidden width {hd} is not a multiple of 128 in [128, 1024]"
+        )

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+The kernels have no CPU mode, so these tests need an NVIDIA GPU (sm_90a) and
+nvcc; elsewhere they skip.  On a machine with the card:
+
+    python -m pytest -m cuda tests/test_torch_port_cuda.py -q
+
+Kernel and plain version see the same bf16 weights and caches; bf16
+intermediates may round one ulp apart under another summation order, hence
+atol 2e-3 on LayerNorm outputs.  The packed attention has no LayerNorm after
+it: a bf16-rounded softmax weight one ulp (2^-8 relative) apart moves its
+output by up to 2^-8 * weight * |v|, hence atol 1e-2 there with N(0, 1) inputs.
+"""
+
+import pytest
+import torch
+
+from openvivqa_tpu_torch.ops import _cuda, decode_step, encoder_layer, fused_attention
+
+pytestmark = pytest.mark.cuda
+
+TOL = 2e-3
+ATTN_TOL = 1e-2
+HD, HEADS, D_FF = 256, 2, 512
+EPS = 1e-12
+MASK = -10e4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _attention_weights(gen):
+    return {
+        "wqkv": _randn(gen, HD, 3 * HD, scale=0.05, dtype=torch.bfloat16),
+        "bqkv": _randn(gen, 3 * HD, scale=0.1),
+        "wo": _randn(gen, HD, HD, scale=0.05, dtype=torch.bfloat16),
+        "bo": _randn(gen, HD, scale=0.1),
+        "ln_scale": 1 + _randn(gen, HD, scale=0.1),
+        "ln_bias": _randn(gen, HD, scale=0.1),
+    }
+
+
+def _key_bias(gen, bs, n):
+    lengths = torch.randint(1, n + 1, (bs,), generator=gen, device="cuda")
+    lengths[0] = 0
+    return torch.where(torch.arange(n, device="cuda")[None] < lengths[:, None], 0.0, MASK)
+
+
+def _err(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("rows", [1, 37, 300])
+def test_ffn_kernel_matches_plain(dev, rows):
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    args = (
+        _randn(gen, rows, HD), _randn(gen, HD, D_FF, scale=0.05, dtype=torch.bfloat16),
+        _randn(gen, D_FF, scale=0.1), _randn(gen, D_FF, HD, scale=0.05, dtype=torch.bfloat16),
+        _randn(gen, HD, scale=0.1), 1 + _randn(gen, HD, scale=0.1), _randn(gen, HD, scale=0.1),
+    )
+    before = _cuda.launch_counts()["fused_ffn_step"]
+    got = decode_step.fused_ffn_step(*args, eps=EPS)
+    assert _cuda.launch_counts()["fused_ffn_step"] == before + 1
+    assert _err(got, decode_step.fused_ffn_step_plain(*args, eps=EPS)) <= TOL
+
+
+@pytest.mark.parametrize("seq", [1, 13, 70])
+def test_encoder_attention_kernel_matches_plain(dev, seq):
+    gen = torch.Generator(device=dev).manual_seed(seq)
+    w = _attention_weights(gen)
+    x, kb = _randn(gen, 3, seq, HD), _key_bias(gen, 3, seq)
+    args = (x, w, kb, 0.125, HEADS, EPS)
+    got = encoder_layer.fused_encoder_self_attention(*args)
+    assert _err(got, encoder_layer.fused_encoder_self_attention_plain(*args)) <= TOL
+
+
+@pytest.mark.parametrize("sk,bias_shape", [
+    (45, None), (45, (1, 1, 40, 45)), (45, (3, 1, 40, 45)), (45, (3, 1, 1, 45)),
+    (300, (3, 1, 40, 300)),  # several 64-key chunks
+])
+def test_packed_attention_kernel_matches_plain(dev, sk, bias_shape):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = _randn(gen, 3, 40, HD), _randn(gen, 3, sk, HD), _randn(gen, 3, sk, HD)
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    args = (q, k, v, bias, 0.125, HEADS)
+    got = fused_attention.fused_attention_packed(*args)
+    assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+
+def test_bert_self_step_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bs, ctx_len, n_slots = 5, 77, 4
+    w = _attention_weights(gen)
+    ctx = tuple(_randn(gen, bs, ctx_len, HD, dtype=torch.bfloat16) for _ in range(2))
+    cb = _key_bias(gen, bs, ctx_len)
+    cb[0] = 0.0
+    slots = {n: [torch.zeros(bs, n_slots, HD, dtype=torch.bfloat16, device=dev) for _ in "kv"]
+             for n in ("kernel", "plain")}
+    for step in range(n_slots + 2):
+        x = _randn(gen, bs, HD)
+        got, *_ = decode_step.fused_bert_self_step(
+            x, w, ctx, *slots["kernel"], step, cb, 0.125, HEADS, EPS)
+        want, *_ = decode_step.fused_bert_self_step_plain(
+            x, w, ctx, *slots["plain"], step, cb, 0.125, HEADS, EPS)
+        assert _err(got, want) <= TOL
+    for a, b in zip(slots["kernel"], slots["plain"]):
+        assert _err(a.float(), b.float()) <= 1e-2  # one bf16 ulp at |k| in [1, 2)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, 4, HD)
+    w1_f32 = _randn(gen, HD, D_FF)
+    rest = (_randn(gen, D_FF), _randn(gen, D_FF, HD, dtype=torch.bfloat16),
+            _randn(gen, HD), _randn(gen, HD), _randn(gen, HD))
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_step.fused_ffn_step(x, w1_f32, *rest)
+    narrow = _randn(gen, 4, 96)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        decode_step.fused_ffn_step(narrow, *(torch.zeros(1, device=dev),) * 6)
+    with pytest.raises(ValueError):
+        decode_step.fused_ffn_step(x, w1_f32.cpu(), *rest)
