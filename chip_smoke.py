@@ -6,10 +6,16 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every kernel from ``openvivqa_tpu_torch/csrc`` (nvcc, sm_90a);
-  3. each kernel of the MMF_M4C greedy-eval path against its plain PyTorch
-     version on the same inputs at the path's shapes (batch 64, hidden 768,
-     FFN 3072), with the max |kernel - plain| beside its tolerance and median
-     CUDA-event times of both;
+  3. each kernel of the MMF_M4C eval and training paths against its plain
+     PyTorch version on the same inputs at the paths' shapes (batch 64, hidden
+     768, FFN 3072; the dropout attention at rate 0.1 under one seed, so both
+     draw the same Philox mask), with the max |kernel - plain| beside its
+     tolerance, median CUDA-event times of the kernel, of its plain version
+     and, for the attention kernels, of one torch.nn.functional.
+     scaled_dot_product_attention call on the same inputs (timed here only,
+     never called by the port), and each kernel's bound: the least time the
+     card could take, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), each
+     input read once and each output written once;
   4. ``configs/mmf_m4c.yaml`` at its full widths (random weights from the seed,
      with TEXT_BERT.LOAD_PRETRAINED false and no word embeddings, whose files
      are not in the repository) on synthetic data with 100 regions and 100 OCR
@@ -17,12 +23,20 @@ Phases, each fatal on failure:
      decode mode, with the launch counts of the kernels, scores, samples/s of
      the kernel path and of the plain path, the teacher-forced max |score
      diff| between the two paths and their greedy-token agreement, and a
-     torch.profiler table of one greedy decode (kernel time by name, the
-     device's busy share of the decode's wall time).
-The nvcc/ptxas log (registers and spills per kernel) is kept beside the
-library in build/kernels/.  The line before the last is a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA device the script exits non-zero before printing any result.
+     torch.profiler table of one greedy decode;
+  5. the same config trained for one epoch: ``TrainingMMF.start()`` (432 train
+     questions, 7 steps of 64, a dev eval, last and best checkpoints), then
+     ``get_predictions()`` from ``best_model.pth``, with the per-step losses,
+     the launch counts, peak device memory, the train-step time of one batch
+     on the kernel path and on the plain path, the gradients of one step on
+     both paths (same weights, batch and generator seed) per parameter group,
+     and a torch.profiler table of one train step.
+Launch counts are reset just before each main-path run (4: each decode mode;
+5: start() and get_predictions()) and read just after it.  The nvcc/ptxas log
+(registers and spills per kernel) is kept beside the library in
+build/kernels/.  The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,12 +55,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
 LN_TOL = 2e-3  # LayerNorm outputs: bf16 intermediates may round one ulp apart under another summation order
-# packed attention outputs: a softmax weight rounded to bf16 may land one ulp
-# (2^-8 relative) apart, moving the output by up to 2^-8 * weight * |v| with
-# N(0, 1) inputs; no LayerNorm follows to shrink it
+# attention outputs: a softmax weight rounded to bf16 may land one ulp (2^-8
+# relative) apart, moving the output by up to 2^-8 * weight * |v| with N(0, 1)
+# inputs; no LayerNorm follows to shrink it
 ATTN_TOL = 1e-2
+# dropout-attention gradients, relative to their largest magnitude: each
+# bf16-rounded dropped weight or logit gradient may land one ulp apart
+GRAD_RTOL = 1e-2
 SLOT_TOL = 1e-2  # bf16-stored K/V slots: one bf16 ulp at |k| ~ 1 is 7.8e-3
 SCORE_TOL = 1e-2  # teacher-forced scores, kernel path vs plain path
+# one train step's gradients, kernel path vs plain path, relative to each
+# parameter group's largest gradient: the attentions' bf16 roundings differ by
+# an ulp here and there and compound through 16 layers and back
+STEP_GRAD_RTOL = 5e-2
+DROPOUT_RATE = 0.1
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+
+SOURCES = {
+    "fused_ffn_step": ("ffn.cu", "openvivqa_tpu/ops/decode_step.py:675"),
+    "fused_encoder_self_attention": ("encoder_layer.cu", "openvivqa_tpu/ops/encoder_layer.py:147"),
+    "fused_attention_packed": ("fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:215"),
+    "fused_bert_self_step": ("bert_self_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
+    "fused_attention_packed_dropout": (
+        "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1012"),
+    "fused_attention_packed_dropout_backward": (
+        "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1057"),
+}
 
 
 def log(*parts) -> None:
@@ -69,6 +105,35 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def tensor_bytes(*items) -> int:
+    """Bytes of every tensor in `items` (nested in tuples, lists and dicts)."""
+    import torch
+
+    total = 0
+    for item in items:
+        if isinstance(item, torch.Tensor):
+            total += item.numel() * item.element_size()
+        elif isinstance(item, dict):
+            total += tensor_bytes(*item.values())
+        elif isinstance(item, (tuple, list)):
+            total += tensor_bytes(*item)
+    return total
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def plain_dropout_attention(*args):
+    """The dropout attention's autograd function with both directions in their
+    plain versions, on whatever device the tensors lie."""
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    return fused_attention.PackedDropoutAttention.apply(*args, False)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions, for the
@@ -81,6 +146,7 @@ def plain_versions():
         (encoder_layer, "fused_encoder_self_attention",
          encoder_layer.fused_encoder_self_attention_plain),
         (fused_attention, "fused_attention_packed", fused_attention.fused_attention_packed_plain),
+        (fused_attention, "fused_attention_packed_dropout", plain_dropout_attention),
     ]
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -97,8 +163,9 @@ def max_err(a, b) -> float:
 
 
 def check_kernels(task, shapes, seed, failures):
-    """Phase 3: every kernel of the path against its plain version."""
+    """Phase 3: every kernel of the paths against its plain version."""
     import torch
+    import torch.nn.functional as F
 
     from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
     from openvivqa_tpu_torch.models.modules.bert import LN_EPS
@@ -128,25 +195,35 @@ def check_kernels(task, shapes, seed, failures):
     joint = c_len + t_len
     results = {}
 
-    def record(name, what, err, tol, ms, plain_ms):
-        """Log one case; the JSON line keeps the first case's times (the
-        kernel's main shape) and the largest error over all cases."""
+    def record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms=None):
+        """Log one case; the JSON line keeps the first case's times and bound
+        (the kernel's main shape) and the largest error over all cases."""
+        bound_ms, bound_by = bound(flops, nbytes)
+        lib = "" if library_ms is None else f", one library call {library_ms:.4f} ms"
         log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"kernel at {100 * bound_ms / ms:.1f} % of it")
         if not err <= tol:
             failures.append(f"{name} [{what}]: max err {err} > {tol}")
-        entry = results.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        entry = results.setdefault(name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
     # kernel C: the MMT context-encode rows, then the decode-step rows
     f = mmt_w["ffn"]
+    d_ff = f["w1"].shape[1]
     for what, rows in ((f"encode rows {BATCH}x{c_len}", BATCH * c_len), (f"decode rows {BATCH}", BATCH)):
         x = randn(rows, hd)
         args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], LN_EPS)
-        err = max_err(decode_step.fused_ffn_step(*args), decode_step.fused_ffn_step_plain(*args))
+        out = decode_step.fused_ffn_step(*args)
+        err = max_err(out, decode_step.fused_ffn_step_plain(*args))
         record("fused_ffn_step", what, err, LN_TOL,
                median_ms(lambda: decode_step.fused_ffn_step(*args)),
-               median_ms(lambda: decode_step.fused_ffn_step_plain(*args)))
+               median_ms(lambda: decode_step.fused_ffn_step_plain(*args)),
+               4.0 * rows * hd * d_ff, tensor_bytes(args[:7], out))
 
     # kernel F: the MMT context encode, then the TextBert question encode
     for what, w, s in ((f"MMT context {BATCH}x{c_len}", mmt_w, c_len),
@@ -154,11 +231,34 @@ def check_kernels(task, shapes, seed, failures):
         x = randn(BATCH, s, hd)
         kb = lengths_bias(BATCH, s, zero_first=True)
         args = (x, w["attention"], kb, scale, heads, LN_EPS)
-        err = max_err(encoder_layer.fused_encoder_self_attention(*args),
-                      encoder_layer.fused_encoder_self_attention_plain(*args))
+        out = encoder_layer.fused_encoder_self_attention(*args)
+        err = max_err(out, encoder_layer.fused_encoder_self_attention_plain(*args))
+        rows = BATCH * s
         record("fused_encoder_self_attention", what, err, LN_TOL,
                median_ms(lambda: encoder_layer.fused_encoder_self_attention(*args)),
-               median_ms(lambda: encoder_layer.fused_encoder_self_attention_plain(*args)))
+               median_ms(lambda: encoder_layer.fused_encoder_self_attention_plain(*args)),
+               2.0 * rows * hd * 4 * hd + 4.0 * BATCH * s * s * hd, tensor_bytes(args[:3], out))
+
+    def sdpa_args(q, k, v, bias, grad=False):
+        """Head-split views of the packed projections, for the library call."""
+        def split(x):
+            x = x.detach().requires_grad_(grad)
+            return x, x.view(x.shape[0], x.shape[1], heads, hd // heads).transpose(1, 2)
+
+        (q0, qh), (k0, kh), (v0, vh) = split(q), split(k), split(v)
+        return (q0, k0, v0), (qh, kh, vh), bias
+
+    def sdpa_ms(q, k, v, bias, dropout_p=0.0, backward=False):
+        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward)
+        g = torch.ones((q.shape[0], heads, q.shape[1], hd // heads), device=dev)
+
+        def call():
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
+                                                 scale=scale)
+            if backward:
+                out.backward(g)
+
+        return median_ms(call)
 
     # packed: the MMT joint encode under its per-sample prefix-LM bias, then a
     # batch-shared bias
@@ -168,14 +268,57 @@ def check_kernels(task, shapes, seed, failures):
     full[:, :, -t_len:, -t_len:] = torch.triu(
         torch.full((t_len, t_len), MASK_VALUE, device=dev), 1)
     shared = full[:1].contiguous()
-    for what, bias in ((f"joint {BATCH}x{joint} per-sample bias", full),
-                       (f"joint {BATCH}x{joint} shared bias", shared)):
-        args = (q, k, v, bias, scale, heads)
-        err = max_err(fused_attention.fused_attention_packed(*args),
-                      fused_attention.fused_attention_packed_plain(*args))
-        record("fused_attention_packed", what, err, ATTN_TOL,
-               median_ms(lambda: fused_attention.fused_attention_packed(*args)),
-               median_ms(lambda: fused_attention.fused_attention_packed_plain(*args)))
+    with torch.no_grad():
+        for what, bias in ((f"joint {BATCH}x{joint} per-sample bias", full),
+                           (f"joint {BATCH}x{joint} shared bias", shared)):
+            args = (q, k, v, bias, scale, heads)
+            out = fused_attention.fused_attention_packed(*args)
+            err = max_err(out, fused_attention.fused_attention_packed_plain(*args))
+            record("fused_attention_packed", what, err, ATTN_TOL,
+                   median_ms(lambda: fused_attention.fused_attention_packed(*args)),
+                   median_ms(lambda: fused_attention.fused_attention_packed_plain(*args)),
+                   4.0 * BATCH * joint * joint * hd, tensor_bytes(q, k, v, bias, out),
+                   sdpa_ms(q, k, v, bias))
+
+    # the dropout attention, forward and backward, at the MMT training shape
+    # (joint sequence, per-sample bias) and the TextBert one (key-only bias)
+    seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int64, device=dev)
+    question_bias = lengths_bias(BATCH, q_len, zero_first=False)[:, None, None, :].contiguous()
+    qs, ks, vs = randn(BATCH, q_len, hd), randn(BATCH, q_len, hd), randn(BATCH, q_len, hd)
+    for what, (q_, k_, v_, bias) in (
+            (f"MMT train {BATCH}x{joint} per-sample bias, rate {DROPOUT_RATE}", (q, k, v, full)),
+            (f"TextBert train {BATCH}x{q_len} key-only bias, rate {DROPOUT_RATE}",
+             (qs, ks, vs, question_bias))):
+        g = randn(*q_.shape)
+        fwd_args = (q_, k_, v_, bias, seed_t, scale, heads, DROPOUT_RATE)
+        out, stats = fused_attention._dropout_forward_kernel(*fwd_args)
+        err = max_err(out, fused_attention.fused_attention_packed_dropout_plain(*fwd_args))
+        s_q, s_k = q_.shape[1], k_.shape[1]
+        record("fused_attention_packed_dropout", what, err, ATTN_TOL,
+               median_ms(lambda: fused_attention._dropout_forward_kernel(*fwd_args)),
+               median_ms(lambda: fused_attention.fused_attention_packed_dropout_plain(*fwd_args)),
+               4.0 * BATCH * s_q * s_k * hd, tensor_bytes(q_, k_, v_, bias, seed_t, out, stats),
+               sdpa_ms(q_, k_, v_, bias, dropout_p=DROPOUT_RATE))
+        grads = fused_attention._dropout_backward_kernel(
+            q_, k_, v_, bias, seed_t, stats, g, scale, heads, DROPOUT_RATE)
+        plain = fused_attention.fused_attention_packed_dropout_backward_plain(
+            q_, k_, v_, bias, seed_t, g, scale, heads, DROPOUT_RATE)
+        errs = [max_err(a, b) for a, b in zip(grads, plain)]
+        rel = max(e / float(b.abs().max()) for e, b in zip(errs, plain))
+        log(f"  fused_attention_packed_dropout_backward [{what}]: max|kernel-plain| / max|plain| "
+            f"over dq, dk, dv {rel:.3e} (tol {GRAD_RTOL:.0e})")
+        if not rel <= GRAD_RTOL:
+            failures.append(f"dropout backward [{what}]: relative err {rel} > {GRAD_RTOL}")
+        bwd_args = (q_, k_, v_, bias, seed_t, stats, g, scale, heads, DROPOUT_RATE)
+        plain_args = (q_, k_, v_, bias, seed_t, g, scale, heads, DROPOUT_RATE)
+        record("fused_attention_packed_dropout_backward", what + " (library: forward + backward)",
+               max(errs), math.inf,
+               median_ms(lambda: fused_attention._dropout_backward_kernel(*bwd_args)),
+               median_ms(lambda: fused_attention.fused_attention_packed_dropout_backward_plain(
+                   *plain_args)),
+               10.0 * BATCH * s_q * s_k * hd,
+               tensor_bytes(q_, k_, v_, g, bias, seed_t, stats, grads),
+               sdpa_ms(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True))
 
     # kernel D: every decode step of one sequence, kernel and plain on their own
     # slot caches; then the time of one step
@@ -199,9 +342,12 @@ def check_kernels(task, shapes, seed, failures):
     if not slot_err <= SLOT_TOL:
         failures.append(f"fused_bert_self_step slots: max err {slot_err} > {SLOT_TOL}")
     step_args = (x, w, ctx, *slots["kernel"], t_len - 1, cb, scale, heads, LN_EPS)
+    keys = c_len + t_len
     record("fused_bert_self_step", f"step {BATCH} x ctx {c_len} + {t_len} slots", y_err, LN_TOL,
            median_ms(lambda: decode_step.fused_bert_self_step(*step_args)),
-           median_ms(lambda: decode_step.fused_bert_self_step_plain(*step_args)))
+           median_ms(lambda: decode_step.fused_bert_self_step_plain(*step_args)),
+           2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
+           tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
     return results
 
 
@@ -218,21 +364,21 @@ def busy_us(events, device_type) -> float:
     return total
 
 
-def profile_decode(model, batch, mode):
-    """torch.profiler over one greedy decode: kernel time by name and the
-    device's busy share of the decode's wall time."""
+def profile(fn, label):
+    """torch.profiler over one call of `fn`: kernel time by name and the
+    device's busy share of the call's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    model.greedy_decode(batch)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        model.greedy_decode(batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - start) * 1e6
     busy = busy_us(prof.events(), torch.autograd.DeviceType.CUDA)
-    log(f"  [{mode}] profiler: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+    log(f"  [{label}] profiler: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
         f"wall ({100 * busy / wall_us:.1f} %, kernel intervals merged)")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
@@ -319,7 +465,96 @@ def run_mode(task, mode, failures):
     log(f"  [{mode}] greedy decode of one batch of {BATCH} (CUDA-event median of 5): "
         f"kernel path {decode_ms:.3f} ms = {BATCH / decode_ms * 1e3:.1f} samples/s, "
         f"plain path {plain_decode_ms:.3f} ms = {BATCH / plain_decode_ms * 1e3:.1f} samples/s")
-    profile_decode(model, batch, mode)
+    profile(lambda: model.greedy_decode(batch), mode)
+    return counts
+
+
+def param_group(name: str) -> str:
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] in ("text_bert", "mmt") else parts[0]
+
+
+def run_training(task, failures):
+    """Phase 5: one epoch of start(), then get_predictions() from best_model.pth."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    start = time.perf_counter()
+    task.start()
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    scores = task.get_predictions()
+    torch.cuda.synchronize()
+    predict_seconds = time.perf_counter() - start
+    counts = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        records = [json.loads(line) for line in handle]
+    losses = [loss for r in records if r["phase"] == "train" for loss in r["step_losses"]]
+    validation = [r for r in records if r["phase"] == "validation"]
+    log(f"  [train] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
+    log(f"  [train] dev scores after the epoch: "
+        f"{json.dumps({k: v for k, v in validation[-1].items() if k not in ('time',)})}")
+    log(f"  [train] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
+        f"test scores {json.dumps(scores, default=float)}")
+    log(f"  [train] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    n_train = len(task.train_dataset)
+    want_steps = -(-n_train // BATCH)
+    if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"[train] losses {losses}: want {want_steps} finite values")
+    for name in ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward",
+                 "fused_attention_packed", "fused_encoder_self_attention", "fused_ffn_step"):
+        if counts[name] <= 0:
+            failures.append(f"[train] {name} was not launched by the main path")
+    for name in ("best_model.pth", "last_model.pth", "test_results.json"):
+        if not (Path(task.checkpoint_path) / name).is_file():
+            failures.append(f"[train] {name} was not written")
+    if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
+        failures.append("[train] no finite CIDEr from get_predictions()")
+
+    # one batch: the train step's time on both paths, in turns
+    _, batch = next(task.device_batches(task.train_dataloader))
+    step = lambda: task._train_step(batch)  # noqa: E731
+    kernel_ms = [median_ms(step, reps=5)]
+    with plain_versions():
+        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
+    kernel_ms.append(median_ms(step, reps=5))
+    log(f"  [train] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
+        f"{kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path {plain_ms[0]:.3f}, "
+        f"{plain_ms[1]:.3f} ms")
+
+    # one step's gradients on both paths: same weights, batch and generator seed
+    def grads(seed):
+        task.generator.manual_seed(seed)
+        task.optimizer.zero_grad(set_to_none=True)
+        loss = task.compute_loss(batch)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone()
+                                      for n, p in task.model.named_parameters()}
+
+    loss_k, grads_k = grads(1234)
+    with plain_versions():
+        loss_p, grads_p = grads(1234)
+    task.optimizer.zero_grad(set_to_none=True)
+    groups = {}
+    for name, g_k in grads_k.items():
+        diff, scale = groups.get(param_group(name), (0.0, 0.0))
+        groups[param_group(name)] = (max(diff, max_err(g_k, grads_p[name])),
+                                     max(scale, float(grads_p[name].abs().max())))
+    rel = {group: diff / scale if scale > 0 else 0.0 for group, (diff, scale) in groups.items()}
+    log(f"  [train] one step, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
+        "max|grad diff| / max|grad| per parameter group "
+        + json.dumps({group: float(f"{value:.3e}") for group, value in rel.items()}))
+    worst = max(rel.values())
+    if not worst <= STEP_GRAD_RTOL:
+        failures.append(f"[train] gradient difference {worst} > {STEP_GRAD_RTOL}")
+    profile(step, "train step")
     return counts
 
 
@@ -333,9 +568,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
-    from openvivqa_tpu.config import get_config
-    from openvivqa_tpu.data.synthetic import generate_synthetic_dataset
     from openvivqa_tpu_torch.builders import build_task, populate
+    from openvivqa_tpu_torch.config import get_config
+    from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
     from openvivqa_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -360,6 +595,7 @@ def main() -> int:
 
     # 4's inputs first: phase 3 takes its shapes and weights from the task
     populate()
+    (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         start = time.perf_counter()
         paths = generate_synthetic_dataset(
@@ -375,7 +611,7 @@ def main() -> int:
                 "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
             },
             "MODEL": {"TEXT_BERT": {"LOAD_PRETRAINED": False}},
-            "TRAINING": {"SEED": args.seed},
+            "TRAINING": {"SEED": args.seed, "CHECKPOINT_PATH": str(Path(tmp) / "eval")},
         })
         tasks = {
             "quadratic": build_task(config, "cuda"),
@@ -393,29 +629,31 @@ def main() -> int:
         log(f"slice: configs/mmf_m4c.yaml, hidden {task.model.hidden_size}, "
             f"{task.model.num_heads} heads, {len(task.model.text_bert.encoder.layer)} TextBert "
             f"+ {len(task.model.mmt.encoder.layer)} MMT layers, batch {BATCH}, "
-            f"{len(task.dev_dict_dataset)} dev samples, shapes {json.dumps(shapes)}, "
-            f"set up in {time.perf_counter() - start:.1f} s")
+            f"{len(task.train_dataset)} train / {len(task.dev_dict_dataset)} dev samples, "
+            f"shapes {json.dumps(shapes)}, set up in {time.perf_counter() - start:.1f} s")
 
         # 3. the kernels against their plain versions
         log("kernels vs plain (CUDA-event medians of 20):")
         results = check_kernels(task, shapes, args.seed, failures)
 
-        # 4. the main path in both decode modes
-        log("main path: TrainingMMF.evaluate_metrics over the dev split")
+        # 4. the eval path in both decode modes
+        log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
         launches = {name: 0 for name in _cuda.LAUNCHES}
         for mode, mode_task in tasks.items():
-            counts = run_mode(mode_task, mode, failures)
-            for name, n in counts.items():
+            for name, n in run_mode(mode_task, mode, failures).items():
                 launches[name] += n
+        del tasks, task, mode_task
+        torch.cuda.empty_cache()
 
-    sources = {
-        "fused_ffn_step": ("ffn.cu", "openvivqa_tpu/ops/decode_step.py:675"),
-        "fused_encoder_self_attention": ("encoder_layer.cu", "openvivqa_tpu/ops/encoder_layer.py:147"),
-        "fused_attention_packed": ("fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:215"),
-        "fused_bert_self_step": ("bert_self_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
-    }
+        # 5. the training path
+        log("main path, training: TrainingMMF.start() for one epoch, then get_predictions()")
+        train_task = build_task(config.merged({"TRAINING": {
+            "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "train")}}), "cuda")
+        for name, n in run_training(train_task, failures).items():
+            launches[name] += n
+
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in SOURCES.items():
         if launches[name] <= 0:
             failures.append(f"{name} was not launched by the main path")
         kernels.append({

@@ -2,12 +2,14 @@
 H100, beside the JAX package, which stays the reference.
 
 Layers (each mirrors its ``openvivqa_tpu`` counterpart):
-  builders.py         - the port's ARCHITECTURE and TASK registries
+  config.py, registry.py, logging_utils.py, utils/, data/, evaluation/
+                      - the host layers, the port's own copies
+  builders.py         - the port's registries and build functions
   ops/                - hand-written CUDA kernels (csrc/) beside plain versions
   models/             - torch nn.Modules for the ported architectures
-  training/tasks/     - eval tasks over the shared host layers
-The host layers (config, registry, data, evaluation) are imported from
-``openvivqa_tpu``, which loads them without JAX.
+  training/           - optimizer, losses, checkpoints and tasks
+  train.py            - the command line entry point
+The port imports torch and never jax, nor anything of ``openvivqa_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,20 @@
-"""The port's ARCHITECTURE and TASK registries and their build functions.
+"""The port's registries and their build functions.
 
-The host layers are shared with the JAX package: vocabularies, datasets and
-word embeddings register in ``openvivqa_tpu.builders``'s registries when
-``openvivqa_tpu.data`` is imported, which imports no JAX.  The port never calls
-``openvivqa_tpu.builders.populate()``, which would import the JAX models and
-tasks; it keeps its own registries for what it implements in torch.
+The port keeps its own copies of the JAX package's host layers (config,
+registry, data, evaluation) and imports nothing of ``openvivqa_tpu``; the
+VOCAB, DATASET and WORD_EMBEDDING registries fill when ``openvivqa_tpu_torch.data``
+is imported, ARCHITECTURE and TASK when the models and tasks are.
 """
 
 from __future__ import annotations
 
-from openvivqa_tpu.builders import build_dataset, build_vocab  # noqa: F401 (shared)
-from openvivqa_tpu.registry import Registry
+from .registry import Registry
 
 META_ARCHITECTURE = Registry("ARCHITECTURE")
 META_TASK = Registry("TASK")
+META_DATASET = Registry("DATASET")
+META_VOCAB = Registry("VOCAB")
+META_WORD_EMBEDDING = Registry("WORD_EMBEDDING")
 
 
 def build_model(config, vocab):
@@ -26,23 +27,42 @@ def build_model(config, vocab):
     return META_ARCHITECTURE.get(name)(config=config, vocab=vocab)
 
 
-def build_task(config, device, params=None):
-    """Instantiate config.TASK with its model on `device`; `params` is an
-    optional flax parameter tree to load instead of a seeded random init."""
+def build_task(config, device="cuda", params=None):
+    """Instantiate config.TASK with its model on `device` (the card unless the
+    caller asks for the CPU); `params` is an optional flax parameter tree, as
+    numpy arrays, to load instead of a seeded random init."""
     return META_TASK.get(config.TASK)(config, device, params=params)
+
+
+def build_dataset(json_path, vocab, config):
+    if json_path is None:
+        return None
+    return META_DATASET.get(config.TYPE)(json_path, vocab, config)
+
+
+def build_vocab(config):
+    return META_VOCAB.get(config.TYPE)(config)
+
+
+def build_word_embedding(config):
+    """One embedding or a list of names whose vectors the vocab concatenates."""
+    names = config.WORD_EMBEDDING
+    cache = config.get("WORD_EMBEDDING_CACHE")
+    if isinstance(names, (list, tuple)):
+        return [META_WORD_EMBEDDING.get(n)(cache) for n in names]
+    return META_WORD_EMBEDDING.get(names)(cache)
 
 
 _POPULATED = False
 
 
 def populate() -> None:
-    """Import the shared data layer and the port's models and tasks so that
-    their registrations run."""
+    """Import the port's data layer, models and tasks so that their
+    registrations run."""
     global _POPULATED
     if _POPULATED:
         return
     _POPULATED = True
-    import openvivqa_tpu.data  # noqa: F401  (vocabs, datasets, word embeddings)
-
+    from . import data  # noqa: F401  (vocabs, datasets, word embeddings)
     from . import models  # noqa: F401
     from . import training  # noqa: F401

@@ -11,6 +11,8 @@
 // on the H100 is in its own source note.
 #include <mma.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ovq {
@@ -31,29 +33,6 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// four consecutive values as four bf16 in a uint2 (zeros when !valid)
-__device__ __forceinline__ uint2 load_quad(const float* p, bool valid) {
-  const float4 v = valid ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  return make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
-}
-__device__ __forceinline__ uint2 load_quad(const bf16* p, bool valid) {
-  return valid ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
-}
-
-// eight consecutive outputs from f32 values
-__device__ __forceinline__ void store_eight(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store_eight(bf16* p, const float* v) {
-  __nv_bfloat162 h[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) h[u] = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<uint4*>(h);
-}
 
 // ---------------------------------------------------------------------------
 // GEMM + bias (+ GELU): BM x 128 output tiles, 8 warps as 2 x 4, each warp a
@@ -449,13 +428,10 @@ template cudaError_t launch_gemm_residual_ln<float>(const float*, int, const bf1
 // second recomputes S = Q K^T on the tensor cores, writes the normalised weights
 // rounded to bf16 over the scores in place and accumulates O = P V in fragments.
 // Normalising before rounding keeps the TPU kernel's (and the plain version's)
-// numerics; the price is computing Q K^T twice.
+// numerics; the price is computing Q K^T twice.  With DROP, the second pass
+// multiplies each weight by its Philox keep factor (0 or 1 / (1 - rate)) before
+// the rounding, and the rows' (max, denominator) go to drop.stats.
 // ---------------------------------------------------------------------------
-constexpr int kAttnQTile = 64;
-constexpr int kAttnKeyChunk = 64;
-constexpr int kAttnThreads = 128;
-constexpr int kAttnWarps = kAttnThreads / 32;
-
 // dynamic shared memory of one attention block, or -1 for shapes it does not take
 static long long attention_smem_bytes(int sk, int d) {
   if (sk <= 0 || d % 16 || d > 128) return -1;
@@ -464,35 +440,13 @@ static long long attention_smem_bytes(int sk, int d) {
          + kAttnWarps * 256 * 4LL;                                 // per-warp output staging
 }
 
-// 64 rows x (16 * DF) values (row stride rs) -> bf16 rows of stride ld; zero
-// rows from `valid_rows` on.  All of a thread's loads are issued before its
-// stores.
-template <int DF, typename TI>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const TI* src, long long rs,
-                                           int valid_rows) {
-  constexpr int quads = 4 * DF;
-  constexpr int per_thread = 64 * quads / kAttnThreads;
-  uint2 regs[per_thread];
-#pragma unroll
-  for (int u = 0; u < per_thread; ++u) {
-    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
-    const bool valid = r < valid_rows;
-    regs[u] = load_quad(src + (valid ? r : 0) * rs + c, valid);
-  }
-#pragma unroll
-  for (int u = 0; u < per_thread; ++u) {
-    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
-    *reinterpret_cast<uint2*>(dst + (size_t)r * ld + c) = regs[u];
-  }
-}
-
-template <typename TI, typename TO, int DF>
+template <typename TI, typename TO, int DF, bool DROP>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_kernel(const TI* __restrict__ q, long long q_bs, int q_rs,
                      const TI* __restrict__ k, const TI* __restrict__ v, long long kv_bs,
                      int kv_rs, const float* __restrict__ bias, long long bias_bs, int bias_qs,
                      TO* __restrict__ out, long long out_bs, int out_rs, int sq, int sk,
-                     float scale) {
+                     float scale, Dropout drop) {
   constexpr int d = 16 * DF;
   constexpr int ldq = d + 8;
   constexpr int lds = kAttnKeyChunk + 4;  // f32 score row stride
@@ -527,6 +481,7 @@ __global__ void __launch_bounds__(kAttnThreads)
   const bool row_ok = si < sq;
   const float* brow = bias + b * bias_bs + (long long)(row_ok ? si : 0) * bias_qs;
   float row_max = -INFINITY, row_sum = 0.0f;
+  const unsigned long long seed = DROP ? (unsigned long long)*drop.seed : 0ull;
 
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
@@ -578,6 +533,15 @@ __global__ void __launch_bounds__(kAttnThreads)
       }
 #pragma unroll
       for (int u = 0; u < 32; ++u) vals[u] = row_ok ? expf(vals[u] - row_max) / row_sum : 0.0f;
+      if (DROP) {
+#pragma unroll
+        for (int u = 0; u < 32; u += 4) {
+          float factors[4];
+          dropout_factors(drop, seed, (j0 + half * 32 + u) / 4, si, h, b, factors);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) vals[u + t] *= factors[t];
+        }
+      }
       __syncwarp();  // the row pair has read its scores before the weights overwrite them
       bf16* prow = reinterpret_cast<bf16*>(srow);
 #pragma unroll
@@ -599,6 +563,11 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
   }
   if (!active) return;
+  if (DROP && row_ok && half == 0) {
+    float* st = drop.stats + (((long long)b * gridDim.y + h) * sq + si) * 2;
+    st[0] = row_max;
+    st[1] = row_sum;
+  }
 
   const int r = lane / 2, c8 = (lane % 2) * 8;
   const int i = i0 + w0 + r;
@@ -612,20 +581,20 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <typename TI, typename TO, int DF>
+template <typename TI, typename TO, int DF, bool DROP>
 static cudaError_t launch_attention_df(const TI* q, long long q_bs, int q_rs, const TI* k,
                                        const TI* v, long long kv_bs, int kv_rs,
                                        const float* bias, long long bias_bs, int bias_qs, TO* out,
                                        long long out_bs, int out_rs, int batch, int heads,
                                        int sq, int sk, float scale, long long smem,
-                                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF>,
+                                       cudaStream_t stream, Dropout drop) {
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kAttnQTile - 1) / kAttnQTile, heads, batch);
-  attention_kernel<TI, TO, DF><<<grid, kAttnThreads, smem, stream>>>(
+  attention_kernel<TI, TO, DF, DROP><<<grid, kAttnThreads, smem, stream>>>(
       q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs, sq, sk,
-      scale);
+      scale, drop);
   return cudaGetLastError();
 }
 
@@ -633,16 +602,26 @@ template <typename TI, typename TO>
 cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
-                             int heads, int sq, int sk, int d, float scale, cudaStream_t stream) {
+                             int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
+                             Dropout drop) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   const long long smem = attention_smem_bytes(sk, d);
   if (smem < 0 || q_rs % 4 || kv_rs % 4 || out_rs % 8 || q_bs % 4 || kv_bs % 4 || out_bs % 8)
     return cudaErrorInvalidValue;
-#define OVQ_ATTN_CASE(df)                                                                     \
-  case df:                                                                                    \
-    return launch_attention_df<TI, TO, df>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs,  \
-                                           bias_qs, out, out_bs, out_rs, batch, heads, sq,    \
-                                           sk, scale, smem, stream);
+  // only the float instantiation carries the dropout variant
+  constexpr bool kDropType = std::is_same<TI, float>::value && std::is_same<TO, float>::value;
+  if (drop.seed != nullptr && (!kDropType || drop.stats == nullptr)) return cudaErrorInvalidValue;
+#define OVQ_ATTN_CASE(df)                                                                      \
+  case df:                                                                                     \
+    if (kDropType && drop.seed != nullptr)                                                     \
+      return launch_attention_df<TI, TO, df, kDropType>(q, q_bs, q_rs, k, v, kv_bs, kv_rs,     \
+                                                        bias, bias_bs, bias_qs, out, out_bs,   \
+                                                        out_rs, batch, heads, sq, sk, scale,   \
+                                                        smem, stream, drop);                   \
+    return launch_attention_df<TI, TO, df, false>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias,     \
+                                                  bias_bs, bias_qs, out, out_bs, out_rs,       \
+                                                  batch, heads, sq, sk, scale, smem, stream,   \
+                                                  drop);
   switch (d / 16) {
     OVQ_ATTN_CASE(1)
     OVQ_ATTN_CASE(2)
@@ -660,11 +639,13 @@ cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k,
 template cudaError_t launch_attention<bf16, bf16>(const bf16*, long long, int, const bf16*,
                                                   const bf16*, long long, int, const float*,
                                                   long long, int, bf16*, long long, int, int,
-                                                  int, int, int, int, float, cudaStream_t);
+                                                  int, int, int, int, float, cudaStream_t,
+                                                  Dropout);
 template cudaError_t launch_attention<float, float>(const float*, long long, int, const float*,
                                                     const float*, long long, int, const float*,
                                                     long long, int, float*, long long, int, int,
-                                                    int, int, int, int, float, cudaStream_t);
+                                                    int, int, int, int, float, cudaStream_t,
+                                                    Dropout);
 
 }  // namespace ovq
 

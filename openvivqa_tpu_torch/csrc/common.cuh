@@ -31,6 +31,108 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
+// four consecutive values as four bf16 in a uint2 (zeros when !valid)
+__device__ __forceinline__ uint2 load_quad(const float* p, bool valid) {
+  const float4 v = valid ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+}
+__device__ __forceinline__ uint2 load_quad(const bf16* p, bool valid) {
+  return valid ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+}
+
+// eight consecutive outputs from f32 values
+__device__ __forceinline__ void store_eight(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store_eight(bf16* p, const float* v) {
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) h[u] = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<uint4*>(h);
+}
+
+// the attention blocks: 64-row tiles, 64-row key chunks, 4 warps of 16 rows
+constexpr int kAttnQTile = 64;
+constexpr int kAttnKeyChunk = 64;
+constexpr int kAttnThreads = 128;
+constexpr int kAttnWarps = kAttnThreads / 32;
+
+// 64 rows x (16 * DF) values (row stride rs) -> bf16 rows of stride ld; zero
+// rows from `valid_rows` on.  All of a thread's loads are issued before its
+// stores.
+template <int DF, typename TI>
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const TI* src, long long rs,
+                                           int valid_rows) {
+  constexpr int quads = 4 * DF;
+  constexpr int per_thread = 64 * quads / kAttnThreads;
+  uint2 regs[per_thread];
+#pragma unroll
+  for (int u = 0; u < per_thread; ++u) {
+    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
+    const bool valid = r < valid_rows;
+    regs[u] = load_quad(src + (valid ? r : 0) * rs + c, valid);
+  }
+#pragma unroll
+  for (int u = 0; u < per_thread; ++u) {
+    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
+    *reinterpret_cast<uint2*>(dst + (size_t)r * ld + c) = regs[u];
+  }
+}
+
+// Counter-based Philox4x32-10 (Salmon et al., SC'11; the generator behind
+// curand's Philox4_32_10): four 32-bit words from a 128-bit counter and a
+// 64-bit key.  The attention dropout keys it with the per-call seed and counts
+// (key column / 4, query row, head, sample), taking word (key column % 4), so a
+// mask element depends on its absolute position only, never on the tiling.
+// fused_attention.py::philox4x32_10 is the same function in PyTorch.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// In-kernel dropout on the attention weights: keep an element iff
+// (bits >> 9) >= threshold, threshold = min(int(rate * 2^23), 2^23 - 1) (the
+// JAX package's _dropout_threshold), and scale what is kept by keep_scale =
+// 1 / (1 - rate).  `seed` points at one int64 on the device, so drawing it
+// never waits for the host.  stats, when not null, receives each query row's
+// softmax (max, denominator) as (b, heads, sq, 2) f32 for the backward.
+struct Dropout {
+  const long long* seed;
+  unsigned threshold;
+  float keep_scale;
+  float* stats;
+};
+
+// the four keep-scale factors of key columns col4 * 4 .. col4 * 4 + 3
+__device__ __forceinline__ void dropout_factors(const Dropout& drop, unsigned long long seed,
+                                                int col4, int row, int head, int sample,
+                                                float* factors) {
+  const uint4 r = philox4x32_10(make_uint4(col4, row, head, sample), (unsigned)seed,
+                                (unsigned)(seed >> 32));
+  const unsigned words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) factors[t] = (words[t] >> 9) >= drop.threshold ? drop.keep_scale : 0.0f;
+}
+
+// the keep-scale factor of one key column
+__device__ __forceinline__ float dropout_factor(const Dropout& drop, unsigned long long seed,
+                                                int col, int row, int head, int sample) {
+  const uint4 r = philox4x32_10(make_uint4(col / 4, row, head, sample), (unsigned)seed,
+                                (unsigned)(seed >> 32));
+  const unsigned word = (col & 2) ? ((col & 1) ? r.w : r.z) : ((col & 1) ? r.y : r.x);
+  return (word >> 9) >= drop.threshold ? drop.keep_scale : 0.0f;
+}
+
 // Y[M, N] (row stride ldy) = epi(A[M, K] (row stride lda) @ W[K, N] + bias[N]).
 // A is rounded to bf16 as it is staged; W is bf16 (K, N) row-major.  K must be a
 // multiple of 32, N, ldy multiples of 8 and lda a multiple of 4.
@@ -55,10 +157,13 @@ cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const f
 // multiples of 4 (of 8 for out).
 // q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
 // the bias as bias + b * bias_bs + i * bias_qs + j (strides of 0 broadcast).
+// With drop.seed set, w_ij is the dropped weight bf16(keep_ij * softmax_ij *
+// keep_scale) (float in and out only).
 template <typename TI, typename TO>
 cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
-                             int heads, int sq, int sk, int d, float scale, cudaStream_t stream);
+                             int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
+                             Dropout drop = Dropout{nullptr, 0u, 1.0f, nullptr});
 
 }  // namespace ovq

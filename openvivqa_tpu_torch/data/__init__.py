@@ -1,0 +1,4 @@
+from . import ocr_datasets  # noqa: F401  (registers the dataset family)
+from . import ocr_vocab  # noqa: F401  (registers the vocab family)
+from . import word_embedding  # noqa: F401  (registers word embeddings)
+from .loader import DataLoader  # noqa: F401

@@ -1,9 +1,11 @@
-"""Shared components of the M4C family, for eval.
+"""Shared components of the M4C family.
 
 Counterpart of ``openvivqa_tpu/models/m4c_common.py``: TextBert, the
 object/OCR feature-box encodings, OcrPtrNet, PrevPredEmbeddings, the MMT joint
 encoder with its incremental-decode entry points, and the OCR feature helpers.
-Parameter names follow the reference's torch modules (``mmf_m4c.py``).
+Parameter names follow the reference's torch modules (``mmf_m4c.py``).  A
+``generator`` argument selects the training route: dropout drawn from it
+(``modules/bert.py``); without one every module is in eval.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.gather import take_rows, take_rows_shared
-from .modules.bert import LN_EPS, BertEmbeddings, BertEncoderStack
+from .modules.bert import LN_EPS, BertEmbeddings, BertEncoderStack, dropout
 from .modules.masks import MASK_VALUE, causal_bias, padding_bias
 
 
@@ -33,15 +35,17 @@ class TextBert(nn.Module):
             hidden, config.NUM_HIDDEN_LAYERS, num_heads, config.get("INTERMEDIATE_SIZE")
         )
 
-    def forward(self, token_ids, attention_bias, weights=None):
-        return self.encoder(self.embeddings(token_ids), attention_bias, weights=weights)
+    def forward(self, token_ids, attention_bias, weights=None, generator=None):
+        return self.encoder(self.embeddings(token_ids, generator), attention_bias,
+                            weights=weights, generator=generator)
 
 
-def feature_box_encoding(features, boxes, feat_linear, feat_ln, bbox_linear, bbox_ln):
-    """LN(W feat) + LN(W bbox): the FeatureBoxEncoding of the JAX package over
-    the reference's flat modules (``linear_obj_feat_to_mmt_in``,
+def feature_box_encoding(features, boxes, feat_linear, feat_ln, bbox_linear, bbox_ln,
+                         rate: float = 0.0, generator=None):
+    """dropout(LN(W feat) + LN(W bbox)): the FeatureBoxEncoding of the JAX
+    package over the reference's flat modules (``linear_obj_feat_to_mmt_in``,
     ``obj_feat_layer_norm``, ...).  These LayerNorms have eps 1e-5."""
-    return feat_ln(feat_linear(features)) + bbox_ln(bbox_linear(boxes))
+    return dropout(feat_ln(feat_linear(features)) + bbox_ln(bbox_linear(boxes)), rate, generator)
 
 
 class OcrPtrNet(nn.Module):
@@ -67,10 +71,12 @@ class OcrPtrNet(nn.Module):
 
 class PrevPredEmbeddings(nn.Module):
     """Decode embeddings: rows of [LN(fixed answer emb) | LN(OCR emb)] plus
-    LN(position + token type)."""
+    dropout(LN(position + token type))."""
 
-    def __init__(self, hidden_size: int, max_dec_length: int = 100, max_type_num: int = 5):
+    def __init__(self, hidden_size: int, max_dec_length: int = 100, max_type_num: int = 5,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.ans_layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.ocr_layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.position_embeddings = nn.Embedding(max_dec_length, hidden_size)
@@ -82,7 +88,8 @@ class PrevPredEmbeddings(nn.Module):
         per-sample (bs, K, h) OCR tokens; once per sequence when decoding."""
         return self.ans_layer_norm(ans_emb), self.ocr_layer_norm(ocr_emb)
 
-    def embed_from_table(self, table, ans_num: int, prev_inds, position_offset: int = 0):
+    def embed_from_table(self, table, ans_num: int, prev_inds, position_offset: int = 0,
+                         generator=None):
         ans_table, ocr_table = table
         prev_inds = prev_inds.long()
         # an id outside a table gives a zero row there, so the two lookups sum
@@ -92,11 +99,12 @@ class PrevPredEmbeddings(nn.Module):
         extra = self.emb_layer_norm(
             self.position_embeddings(positions) + self.token_type_embeddings(types)
         )
-        return raw + extra
+        return raw + dropout(extra, self.dropout, generator)
 
-    def forward(self, ans_emb, ocr_emb, prev_inds, position_offset: int = 0):
+    def forward(self, ans_emb, ocr_emb, prev_inds, position_offset: int = 0, generator=None):
         table = self.build_table(ans_emb, ocr_emb)
-        return self.embed_from_table(table, ans_emb.shape[0], prev_inds, position_offset)
+        return self.embed_from_table(table, ans_emb.shape[0], prev_inds, position_offset,
+                                     generator)
 
 
 class MMT(nn.Module):
@@ -110,8 +118,9 @@ class MMT(nn.Module):
         self.encoder = BertEncoderStack(hidden_size, num_layers, num_heads, intermediate_size)
 
     def forward(self, txt_emb, txt_bias, obj_emb, obj_bias, ocr_emb, ocr_bias,
-                fixed_ans_emb, prev_inds, context_blind: bool = False, weights=None):
-        dec_emb = self.prev_pred_embeddings(fixed_ans_emb, ocr_emb, prev_inds)
+                fixed_ans_emb, prev_inds, context_blind: bool = False, weights=None,
+                generator=None):
+        dec_emb = self.prev_pred_embeddings(fixed_ans_emb, ocr_emb, prev_inds, generator=generator)
         bs, dec_len = dec_emb.shape[:2]
         dec_bias = torch.zeros((bs, 1, 1, dec_len), dtype=torch.float32, device=dec_emb.device)
         inputs = torch.cat([txt_emb, obj_emb, ocr_emb, dec_emb], dim=1)
@@ -123,7 +132,7 @@ class MMT(nn.Module):
             # context rows cannot see decoder slots (upstream MMF semantics;
             # what makes the incremental decode exact)
             extended[:, :, : total - dec_len, -dec_len:] = MASK_VALUE
-        encoded = self.encoder(inputs, extended, weights=weights)
+        encoded = self.encoder(inputs, extended, weights=weights, generator=generator)
         ocr_begin = txt_emb.shape[1] + obj_emb.shape[1]
         return {
             "mmt_seq_output": encoded,

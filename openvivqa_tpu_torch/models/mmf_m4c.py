@@ -1,5 +1,6 @@
-"""MMF_M4C for eval: TextBert + the MMT joint encoder + classifier and pointer
-heads, with the teacher-forced forward and both greedy decodes.
+"""MMF_M4C: TextBert + the MMT joint encoder + classifier and pointer heads,
+with the teacher-forced forward (eval, or training with dropout drawn from a
+generator) and both greedy decodes.
 
 Counterpart of ``openvivqa_tpu/models/mmf_m4c.py``.  The decode loops are
 Python loops over ``max_answer_length`` steps with static shapes:
@@ -61,6 +62,8 @@ class MMF_M4C(nn.Module):
         self.uses_text_proj = hidden != 768 or text_hidden != hidden
         if self.uses_text_proj:
             self.text_bert_out_linear = nn.Linear(text_hidden, hidden)
+        self.obj_dropout = config.OBJECT_EMBEDDING.DROPOUT
+        self.ocr_dropout = config.OCR_EMBEDDING.DROPOUT
         self.linear_obj_feat_to_mmt_in = nn.Linear(config.OBJECT_EMBEDDING.D_FEATURE, hidden)
         self.linear_obj_bbox_to_mmt_in = nn.Linear(4, hidden)
         self.obj_feat_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
@@ -86,20 +89,25 @@ class MMF_M4C(nn.Module):
             "mmt": self.mmt.encoder.kernel_weights(device),
         }
 
-    def _mmt_streams(self, batch, weights) -> Dict:
+    def _mmt_streams(self, batch, weights, generator=None) -> Dict:
+        """The MMT's input streams; `weights` are the kernel bundles of an
+        eval call (None with a training `generator`)."""
         txt_bias = padding_bias(batch["question_tokens"], self.padding_idx)
-        txt_emb = self.text_bert(batch["question_tokens"], txt_bias, weights["text"])
+        txt_emb = self.text_bert(batch["question_tokens"], txt_bias,
+                                 None if weights is None else weights["text"], generator)
         if self.uses_text_proj:
             txt_emb = self.text_bert_out_linear(txt_emb)
         obj_emb = feature_box_encoding(
             batch["region_features"], batch["region_boxes"],
             self.linear_obj_feat_to_mmt_in, self.obj_feat_layer_norm,
             self.linear_obj_bbox_to_mmt_in, self.obj_bbox_layer_norm,
+            self.obj_dropout, generator,
         )
         ocr_emb = feature_box_encoding(
             ocr_joint_features(batch), batch["ocr_boxes"],
             self.linear_ocr_feat_to_mmt_in, self.ocr_feat_layer_norm,
             self.linear_ocr_bbox_to_mmt_in, self.ocr_bbox_layer_norm,
+            self.ocr_dropout, generator,
         )
         return {
             "txt": (txt_emb, txt_bias),
@@ -107,11 +115,12 @@ class MMF_M4C(nn.Module):
             "ocr": (ocr_emb, ocr_padding_bias(batch)),
         }
 
-    def _scores_from_streams(self, streams, prev_inds, weights):
+    def _scores_from_streams(self, streams, prev_inds, weights, generator=None):
         results = self.mmt(
             *streams["txt"], *streams["obj"], *streams["ocr"],
             fixed_ans_emb=self.classifier.weight, prev_inds=prev_inds,
-            context_blind=self.context_blind, weights=weights["mmt"],
+            context_blind=self.context_blind,
+            weights=None if weights is None else weights["mmt"], generator=generator,
         )
         fixed = self.classifier(results["mmt_dec_output"])
         dynamic = self.ocr_ptr_net(
@@ -124,9 +133,15 @@ class MMF_M4C(nn.Module):
         weights = self.kernel_weights()
         return self._scores_from_streams(self._mmt_streams(batch, weights), prev_inds, weights)
 
-    def forward(self, batch) -> Dict:
-        """Teacher-forced scores (bs, T, V + K) on batch["answer_tokens"]."""
-        return {"scores": self.compute_scores(batch, batch["answer_tokens"])}
+    def forward(self, batch, generator=None) -> Dict:
+        """Teacher-forced scores (bs, T, V + K) on batch["answer_tokens"]: the
+        eval route without a `generator`; with one, the training route, whose
+        dropout draws from it, building a graph for autograd."""
+        if generator is None:
+            return {"scores": self.compute_scores(batch, batch["answer_tokens"])}
+        streams = self._mmt_streams(batch, None, generator)
+        return {"scores": self._scores_from_streams(streams, batch["answer_tokens"], None,
+                                                    generator)}
 
     # -- greedy decoding ---------------------------------------------------------
     @torch.no_grad()

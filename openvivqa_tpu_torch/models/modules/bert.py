@@ -1,4 +1,4 @@
-"""BERT-style post-LN transformer stack for eval, routed through the kernels.
+"""BERT-style post-LN transformer stack, routed through the kernels.
 
 Counterpart of ``openvivqa_tpu/models/modules/bert.py`` (BertSelfAttention,
 BertLayer, BertEncoderStack, BertEmbeddings).  Parameter names are those of
@@ -8,13 +8,23 @@ the HuggingFace BertLayer the reference checkpoints hold
 ``openvivqa_tpu.models.modules.torch_conversion`` reads this module's
 ``state_dict()`` directly.
 
-Routes (CPU tensors take each kernel's plain version):
+Eval routes (CPU tensors take each kernel's plain version; call under
+``torch.no_grad()``):
   * self-attention with no bias or a key-only (b, 1, 1, S) bias -> kernel F;
   * self-attention with a full (b, 1, Sq, Sk) bias -> the packed attention
     kernel between plain q/k/v and out projections;
   * every FFN, multi-row encodes and single-row decode steps -> kernel C;
   * every incremental decode step -> kernel D.
-Eval only: no dropout; call under ``torch.no_grad()``.
+Training route, taken when a ``generator`` is passed (``openvivqa_tpu/models/
+modules/bert.py:228-338``): q/k/v projections as ``nn.Linear``, then every
+self-attention (head-shared biases only reach this module, TextBert's 10-key
+one included) through the dropout attention kernel when the rate is above 0,
+else through the packed attention's autograd function; out projection,
+dropout, residual LayerNorm; the FFN as Linear, exact-erf GELU, Linear,
+dropout, LayerNorm.  Kernels C and F are eval-only, as in the JAX package.
+Dropout draws from the explicit ``generator`` (never the global RNG), and so
+does the dropout kernel's seed, one draw per call.  Rates are the modules'
+``dropout`` attributes (0.1, the JAX package's defaults).
 
 Kernel weight bundles (`kernel_weights`) hold the matrices transposed to
 (in, out) and cast to ``kernel_dtype(device)`` (bf16 on the card) with q|k|v
@@ -29,6 +39,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops import _cuda
@@ -61,6 +72,21 @@ def init_jax_law_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from `generator`; the identity without one (eval)
+    or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep / (1.0 - rate)
+
+
+def draw_seed(generator: torch.Generator, device) -> torch.Tensor:
+    """One (1,) int64 kernel seed in [0, 2^31 - 1) from `generator`, left on
+    the device so that drawing it never waits for the host."""
+    return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device)
+
+
 def _is_key_only(bias: Optional[torch.Tensor]) -> bool:
     return bias is None or (bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
 
@@ -90,12 +116,13 @@ class BertSelfAttention(nn.Module):
     """q/k/v/out projections + softmax attention + residual LayerNorm
     (HF BertAttention: ``self.{query,key,value}``, ``output.{dense,LayerNorm}``)."""
 
-    def __init__(self, hidden_size: int, num_heads: int):
+    def __init__(self, hidden_size: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden size {hidden_size} not divisible by {num_heads} heads")
         self.hidden_size = hidden_size
         self.num_heads = num_heads
+        self.dropout = dropout
         self.scale = 1.0 / float(hidden_size // num_heads) ** 0.5
         self.self = _Projections(hidden_size)
         self.output = _DenseLayerNorm(hidden_size, hidden_size)
@@ -117,7 +144,9 @@ class BertSelfAttention(nn.Module):
         """Packed (b, S, hd) key and value projections of `states`."""
         return self.self.key(states), self.self.value(states)
 
-    def forward(self, hidden, attention_bias=None, weights=None):
+    def forward(self, hidden, attention_bias=None, weights=None, generator=None):
+        if generator is not None:
+            return self._train_forward(hidden, attention_bias, generator)
         if _is_key_only(attention_bias):
             b, s, _ = hidden.shape
             if weights is None:
@@ -137,14 +166,31 @@ class BertSelfAttention(nn.Module):
         )
         return self.output.LayerNorm(hidden + self.output.dense(context))
 
+    def _train_forward(self, hidden, attention_bias, generator):
+        q = self.self.query(hidden)
+        k, v = self.project_kv(hidden)
+        if self.dropout > 0.0:
+            context = _attn.fused_attention_packed_dropout(
+                q, k, v, attention_bias, draw_seed(generator, hidden.device), self.scale,
+                self.num_heads, self.dropout,
+            )
+        else:
+            context = _attn.fused_attention_packed(
+                q, k, v, attention_bias, self.scale, self.num_heads
+            )
+        out = dropout(self.output.dense(context), self.dropout, generator)
+        return self.output.LayerNorm(hidden + out)
+
 
 class BertLayer(nn.Module):
     """Self-attention sublayer + GELU FFN sublayer, post-LN."""
 
-    def __init__(self, hidden_size: int, num_heads: int, intermediate_size: Optional[int] = None):
+    def __init__(self, hidden_size: int, num_heads: int, intermediate_size: Optional[int] = None,
+                 dropout: float = 0.1):
         super().__init__()
         d_ff = intermediate_size or 4 * hidden_size
-        self.attention = BertSelfAttention(hidden_size, num_heads)
+        self.dropout = dropout
+        self.attention = BertSelfAttention(hidden_size, num_heads, dropout)
         self.intermediate = _Dense(hidden_size, d_ff)
         self.output = _DenseLayerNorm(d_ff, hidden_size)
 
@@ -175,7 +221,15 @@ class BertLayer(nn.Module):
         )
         return out.reshape(hidden.shape)
 
-    def forward(self, hidden, attention_bias=None, weights=None):
+    def _train_ffn(self, hidden, generator):
+        intermediate = F.gelu(self.intermediate.dense(hidden))
+        out = dropout(self.output.dense(intermediate), self.dropout, generator)
+        return self.output.LayerNorm(hidden + out)
+
+    def forward(self, hidden, attention_bias=None, weights=None, generator=None):
+        if generator is not None:
+            hidden = self.attention(hidden, attention_bias, generator=generator)
+            return self._train_ffn(hidden, generator)
         if weights is None:
             weights = self.kernel_weights(_cuda.kernel_dtype(hidden.device))
         hidden = self.attention(hidden, attention_bias, weights["attention"])
@@ -202,13 +256,17 @@ class BertEncoderStack(nn.Module):
         return [layer.kernel_weights(dtype) for layer in self.layer]
 
     def forward(self, hidden, attention_bias=None, return_layer_inputs: bool = False,
-                weights=None):
-        if weights is None:
+                weights=None, generator=None):
+        """Eval encode through the kernels, or, with a `generator`, the
+        training route (the weight bundles are not built then)."""
+        if generator is not None:
+            weights = [None] * len(self.layer)
+        elif weights is None:
             weights = self.kernel_weights(hidden.device)
         layer_inputs = []
         for layer, w in zip(self.layer, weights):
             layer_inputs.append(hidden)
-            hidden = layer(hidden, attention_bias, w)
+            hidden = layer(hidden, attention_bias, w, generator)
         if return_layer_inputs:
             return hidden, layer_inputs
         return hidden
@@ -264,17 +322,18 @@ class BertEncoderStack(nn.Module):
 
 
 class BertEmbeddings(nn.Module):
-    """Word + learned position + token-type embeddings, LayerNorm."""
+    """Word + learned position + token-type embeddings, LayerNorm, dropout."""
 
     def __init__(self, vocab_size: int, hidden_size: int, max_position_embeddings: int = 512,
-                 type_vocab_size: int = 2):
+                 type_vocab_size: int = 2, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
         self.position_embeddings = nn.Embedding(max_position_embeddings, hidden_size)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
-    def forward(self, token_ids):
+    def forward(self, token_ids, generator=None):
         token_ids = token_ids.long()
         positions = torch.arange(token_ids.shape[1], device=token_ids.device)[None]
         out = (
@@ -282,4 +341,4 @@ class BertEmbeddings(nn.Module):
             + self.position_embeddings(positions)
             + self.token_type_embeddings(torch.zeros_like(token_ids))
         )
-        return self.LayerNorm(out)
+        return dropout(self.LayerNorm(out), self.dropout, generator)

@@ -42,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_encoder_self_attention": 0,
     "fused_attention_packed": 0,
     "fused_bert_self_step": 0,
+    "fused_attention_packed_dropout": 0,
+    "fused_attention_packed_dropout_backward": 0,
 }
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
@@ -51,6 +53,8 @@ _SIGNATURES = {
     "ovq_encoder_attention_forward": "p" * 12 + "i" * 6 + "ff",
     "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f",
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
+    "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "pp" "iiiii" "f",
+    "ovq_packed_dropout_backward": "ppppp" "li" "p" "if" "pp" "ppp" "iiiii" "f",
 }
 _CTYPES = {
     "p": ctypes.c_void_p, "i": ctypes.c_int,

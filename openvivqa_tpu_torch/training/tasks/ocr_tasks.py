@@ -1,23 +1,28 @@
-"""OCR tasks, eval part: OCR-copy answer decoding and TrainingMMF's greedy
-evaluation.
+"""OCR tasks: OCR-copy answer decoding, and TrainingMMF's XE train step, greedy
+evaluation and test predictions.
 
-Counterpart of ``OcrOpenEndedTask._decode_batch`` and
-``TrainingMMF.evaluate_metrics`` in ``openvivqa_tpu/training/tasks/ocr_tasks.py``.
-Greedy ids are argmaxed on the device; only (bs, T) ids cross to the host,
-where the shared ``openvivqa_tpu.evaluation.compute_scores`` scores them.
+Counterpart of ``OcrOpenEndedTask`` and ``TrainingMMF`` in
+``openvivqa_tpu/training/tasks/ocr_tasks.py``.  Greedy ids are argmaxed on the
+device; only (bs, T) ids cross to the host, where ``compute_scores`` scores
+them.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 
 import numpy as np
 import torch
 
-from openvivqa_tpu.evaluation import compute_scores
-
 from ...builders import META_TASK
-from .base_task import BaseTask
+from ...evaluation import compute_scores
+from ...logging_utils import setup_logger
+from ..checkpoint import BEST_NAME
+from ..train_state import nll_loss
+from .open_ended_task import OpenEndedTask
+
+logger = setup_logger()
 
 
 def _pad_tables(ocr_tokens, n_rows):
@@ -29,7 +34,7 @@ def _pad_tables(ocr_tokens, n_rows):
     return tables
 
 
-class OcrOpenEndedTask(BaseTask):
+class OcrOpenEndedTask(OpenEndedTask):
     """Generative VQA with OCR copying: answers decode against each sample's
     OCR table."""
 
@@ -42,7 +47,18 @@ class OcrOpenEndedTask(BaseTask):
 
 @META_TASK.register()
 class TrainingMMF(OcrOpenEndedTask):
-    """MMF-ported M4C: greedy-decode evaluation."""
+    """MMF-ported M4C: XE training on teacher-forced scores, greedy-decode
+    evaluation and predictions."""
+
+    def compute_loss(self, batch) -> torch.Tensor:
+        """NLL of log_softmax(scores) against the shifted answers, weighted by
+        sample_valid so that batch-padding rows count for nothing."""
+        scores = self.model(batch, generator=self.generator)["scores"]
+        logprobs = torch.log_softmax(scores, dim=-1)
+        targets = batch["shifted_right_answer_tokens"]
+        weights = batch["sample_valid"][:, None].expand(targets.shape)
+        return nll_loss(logprobs.reshape(-1, logprobs.shape[-1]), targets.reshape(-1),
+                        self.vocab.padding_idx, weights=weights.reshape(-1))
 
     @torch.no_grad()
     def greedy_ids(self, device_batch) -> torch.Tensor:
@@ -64,3 +80,38 @@ class TrainingMMF(OcrOpenEndedTask):
         scores, _ = compute_scores(gts, gens)
         return scores
 
+    def get_predictions(self):
+        """Greedy predictions on the test split from best_model.pth, with
+        each token's provenance (fixed vocab or OCR), into test_results.json."""
+        best = os.path.join(self.checkpoint_path, BEST_NAME)
+        if not os.path.isfile(best):
+            raise FileNotFoundError(f"no best_model checkpoint in {self.checkpoint_path}")
+        self.load_checkpoint(best)
+
+        results, overall_gens, overall_gts = [], {}, {}
+        for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dict_dataloader)):
+            ids = self.greedy_ids(device_batch).cpu().numpy()
+            valid = np.asarray(batch["sample_valid"])
+            n_real = int(valid.sum())
+            answers_gen, in_fixed = self.vocab.decode_answer_with_determination(
+                ids[:n_real], batch["ocr_tokens"], join_words=True
+            )
+            gens, gts = {}, {}
+            for i, (gts_i, gen_i) in enumerate(zip(batch["answers"][:n_real], answers_gen)):
+                key = f"{it}_{i}"
+                gens[key] = gen_i
+                gts[key] = gts_i
+                overall_gens[key] = [gen_i]
+                overall_gts[key] = gts_i
+            results.append({
+                "id": [int(x) for x in np.asarray(batch["question_id"])[valid]],
+                "filename": [f for f, v in zip(batch["filename"], valid) if v],
+                "gens": gens,
+                "gts": gts,
+                "in_fixed_vocab": in_fixed,
+            })
+
+        scores, _ = compute_scores(overall_gts, overall_gens)
+        logger.info("Evaluation scores on test: %s", scores)
+        self.dump_json("test_results.json", {"results": results, **scores})
+        return scores

@@ -1,0 +1,133 @@
+"""Open-ended (generative) VQA task, XE training: the port's counterpart of the
+training loop of ``openvivqa_tpu/training/tasks/open_ended_task.py``.
+
+An epoch runs the subclass's train step over the shuffled train split, keeps
+each step's loss on the device and syncs once at the epoch's end.  ``start()``
+trains epoch by epoch, evaluates the dev split, keeps ``last_model.pth`` and
+promotes it to ``best_model.pth`` when the score improves; it stops at
+TRAINING.PATIENCE epochs without improvement or at TRAINING.MAX_EPOCHS, and
+resumes from ``last_model.pth`` when one is present.  Beam-search evaluation
+and SCST wait for their slice (ROADMAP queue 1, slice 3).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import List
+
+import torch
+
+from ...builders import build_dataset
+from ...data.loader import DataLoader
+from ...logging_utils import setup_logger
+from ..checkpoint import BEST_NAME, LAST_NAME, promote
+from .base_task import BaseTask
+
+logger = setup_logger()
+
+
+class OpenEndedTask(BaseTask):
+    def configuring_hyperparameters(self, config):
+        self.score_name = config.TRAINING.SCORE
+        self.patience_limit = config.TRAINING.PATIENCE
+        self.max_epochs = config.TRAINING.get("MAX_EPOCHS")
+
+    def load_datasets(self, config):
+        self.train_dataset = build_dataset(config.JSON_PATH.TRAIN, self.vocab,
+                                           config.FEATURE_DATASET)
+        self.dev_dict_dataset = build_dataset(config.JSON_PATH.DEV, self.vocab,
+                                              config.DICT_DATASET)
+        self.test_dict_dataset = build_dataset(config.JSON_PATH.TEST, self.vocab,
+                                               config.DICT_DATASET)
+
+    def create_dataloaders(self, config):
+        fd = config.DATASET.FEATURE_DATASET
+        dd = config.DATASET.DICT_DATASET
+        seed = int(config.TRAINING.get("SEED", 42))
+        self.train_dataloader = DataLoader(
+            self.train_dataset, batch_size=fd.BATCH_SIZE, shuffle=True,
+            num_workers=fd.get("WORKERS", 4) or 1, seed=seed,
+        )
+        eval_bs = max(1, dd.BATCH_SIZE // config.TRAINING.EVALUATING_BEAM_SIZE)
+        workers = dd.get("WORKERS", 4) or 1
+        self.dev_dict_dataloader = DataLoader(
+            self.dev_dict_dataset, batch_size=eval_bs, shuffle=False, num_workers=workers,
+            seed=seed,
+        )
+        self.test_dict_dataloader = DataLoader(
+            self.test_dict_dataset, batch_size=eval_bs, shuffle=False, num_workers=workers,
+            seed=seed,
+        )
+
+    def compute_loss(self, batch) -> torch.Tensor:
+        """The training loss of one device batch, with its graph."""
+        raise NotImplementedError
+
+    def _train_step(self, batch) -> torch.Tensor:
+        """One optimizer step; returns the loss, left on the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.compute_loss(batch)
+        loss.backward()
+        self.optimizer.step()
+        self.scheduler.step()
+        return loss.detach()
+
+    def evaluate_metrics(self, dataloader) -> dict:
+        raise NotImplementedError
+
+    def train(self) -> List[float]:
+        """One XE epoch; returns the per-step losses, synced once."""
+        losses = []
+        start = time.time()
+        for _, device_batch in self.device_batches(self.train_dataloader):
+            losses.append(self._train_step(device_batch))
+        step_losses = torch.stack(losses).tolist() if losses else []
+        elapsed = time.time() - start
+        mean_loss = sum(step_losses) / max(len(step_losses), 1)
+        logger.info("Epoch %d - XE training: loss=%.4f (%d it, %.1fs)",
+                    self.epoch, mean_loss, len(step_losses), elapsed)
+        self.log_metrics({
+            "phase": "train", "loss": mean_loss, "step_losses": step_losses,
+            "iterations": len(step_losses), "seconds": elapsed,
+            "samples_per_sec": round(
+                len(step_losses) * self.train_dataloader.batch_size / max(elapsed, 1e-9), 2),
+        })
+        return step_losses
+
+    def start(self):
+        if self.config.TRAINING.get("USE_SCST"):
+            raise NotImplementedError("SCST is not ported yet: ROADMAP queue 1, slice 3")
+        last = os.path.join(self.checkpoint_path, LAST_NAME)
+        metadata = self.load_checkpoint(last)
+        if metadata is not None:
+            best_val_score, patience = metadata["best_val_score"], metadata["patience"]
+            self.epoch = metadata["epoch"] + 1
+        else:
+            best_val_score, patience = -1.0, 0
+
+        while True:
+            self.train()
+            scores = self.evaluate_metrics(self.dev_dict_dataloader)
+            logger.info("Validation scores %s", scores)
+            self.log_metrics({"phase": "validation", **scores})
+            val_score = scores[self.score_name]
+
+            best = val_score > best_val_score
+            if best:
+                best_val_score, patience = val_score, 0
+            else:
+                patience += 1
+            # >= not ==: a run resumed past the limit still stops
+            exit_train = patience >= self.patience_limit
+            if exit_train:
+                logger.info("patience reached.")
+            if self.max_epochs is not None and self.epoch + 1 >= self.max_epochs:
+                exit_train = True
+
+            self.save_checkpoint({"best_val_score": best_val_score, "patience": patience})
+            if best:
+                promote(last, os.path.join(self.checkpoint_path, BEST_NAME))
+            if exit_train:
+                break
+            self.epoch += 1

@@ -10,6 +10,8 @@ intermediates may round one ulp apart under another summation order, hence
 atol 2e-3 on LayerNorm outputs.  The packed attention has no LayerNorm after
 it: a bf16-rounded softmax weight one ulp (2^-8 relative) apart moves its
 output by up to 2^-8 * weight * |v|, hence atol 1e-2 there with N(0, 1) inputs.
+The dropout attention's kernels and plain versions draw the same Philox mask
+from the same seed, so they are compared at rates above 0 too.
 """
 
 import pytest
@@ -96,6 +98,48 @@ def test_packed_attention_kernel_matches_plain(dev, sk, bias_shape):
     args = (q, k, v, bias, 0.125, HEADS)
     got = fused_attention.fused_attention_packed(*args)
     assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("sq,sk,bias_shape,rate", [
+    (40, 45, (3, 1, 40, 45), 0.1), (70, 130, (3, 1, 1, 130), 0.1), (10, 10, (3, 1, 1, 10), 0.1),
+    (40, 45, (1, 1, 40, 45), 0.0), (40, 45, None, 0.25),
+])
+def test_dropout_attention_kernels_match_plain(dev, sq, sk, bias_shape, rate):
+    """Forward and backward kernels against the plain versions under the same
+    seed, so the same Philox mask: the forward within ATTN_TOL; the gradients
+    within 1e-2 of their largest magnitude (each bf16-rounded weight or logit
+    gradient may land one ulp, 2^-8 relative, apart under another summation
+    order)."""
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v, g = (_randn(gen, 3, s, HD) for s in (sq, sk, sk, sq))
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    seed = torch.tensor([20260], dtype=torch.int64, device=dev)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = _cuda.launch_counts()
+    out = fused_attention.fused_attention_packed_dropout(*leaves, bias, seed, 0.125, HEADS, rate)
+    (out * g).sum().backward()
+    after = _cuda.launch_counts()
+    for name in ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward"):
+        assert after[name] == before[name] + 1, name
+    plain = fused_attention.fused_attention_packed_dropout_plain(
+        q, k, v, bias, seed, 0.125, HEADS, rate)
+    assert _err(out.detach(), plain) <= ATTN_TOL
+    grads = fused_attention.fused_attention_packed_dropout_backward_plain(
+        q, k, v, bias, seed, g, 0.125, HEADS, rate)
+    for leaf, want in zip(leaves, grads):
+        assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
+
+
+def test_dropout_attention_at_rate0_is_the_packed_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_randn(gen, 3, 40, HD) for _ in range(3))
+    bias = torch.where(torch.rand(3, 1, 40, 40, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    seed = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = fused_attention.fused_attention_packed_dropout(q, k, v, bias, seed, 0.125, HEADS, 0.0)
+    want = fused_attention.fused_attention_packed(q, k, v, bias, 0.125, HEADS)
+    assert torch.equal(got, want)
 
 
 def test_bert_self_step_kernel_matches_plain(dev):

@@ -11,14 +11,14 @@ import textwrap
 import pytest
 import torch
 
-from openvivqa_tpu.config import ConfigNode
+from openvivqa_tpu_torch.config import ConfigNode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 32
 K = 8
 
 
-def _config(paths, decoding_mode=None):
+def _config(paths, checkpoint_path, decoding_mode=None):
     dataset_common = {
         "MAX_SCENE_TEXT": K,
         "SCENE_TEXT_THRESHOLD": 0.3,
@@ -55,17 +55,21 @@ def _config(paths, decoding_mode=None):
             },
             "JSON_PATH": jp,
         },
-        "TRAINING": {"EVALUATING_BEAM_SIZE": 1, "SCORE": "CIDEr", "SEED": 5},
+        "TRAINING": {
+            "CHECKPOINT_PATH": str(checkpoint_path), "LEARNING_RATE": 1.0, "WARMUP": 100,
+            "EVALUATING_BEAM_SIZE": 1, "SCORE": "CIDEr", "PATIENCE": 2, "MAX_EPOCHS": 1,
+            "SEED": 5,
+        },
         "MODEL": model,
     })
 
 
 @pytest.mark.parametrize("decoding_mode", [None, "incremental"])
-def test_evaluate_metrics_end_to_end(synthetic_data, decoding_mode):
+def test_evaluate_metrics_end_to_end(synthetic_data, tmp_path, decoding_mode):
     from openvivqa_tpu_torch.builders import build_task, populate
 
     populate()
-    task = build_task(_config(synthetic_data, decoding_mode), "cpu")
+    task = build_task(_config(synthetic_data, tmp_path, decoding_mode), "cpu")
     assert next(task.model.parameters()).device.type == "cpu"
     scores = task.evaluate_metrics(task.dev_dict_dataloader)
     assert "CIDEr" in scores
@@ -77,32 +81,38 @@ def test_evaluate_metrics_end_to_end(synthetic_data, decoding_mode):
     assert len(task._decode_batch(ids.numpy(), host)) == 8
 
 
-def test_training_entry_points_wait_for_the_training_slice(synthetic_data):
+def test_training_entry_points_wait_for_the_training_slice(synthetic_data, tmp_path):
+    """Predictions wait for a trained best checkpoint: get_predictions raises
+    until start() has written best_model.pth, then reads it."""
     from openvivqa_tpu_torch.builders import build_task, populate
 
     populate()
-    task = build_task(_config(synthetic_data), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        task.start()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    task = build_task(_config(synthetic_data, tmp_path), "cpu")
+    with pytest.raises(FileNotFoundError, match="best_model"):
         task.get_predictions()
+    task.start()
+    assert "CIDEr" in task.get_predictions()
 
 
-def test_port_runs_without_jax(synthetic_data):
-    """Importing the port and running the eval task imports no JAX."""
+def test_port_runs_without_jax(synthetic_data, tmp_path):
+    """populate(), building the task, a train step and the eval task import
+    neither JAX nor anything of the JAX package."""
     script = textwrap.dedent(
         """
         import json, sys
-        from openvivqa_tpu.config import ConfigNode
+        from openvivqa_tpu_torch.config import ConfigNode
         from openvivqa_tpu_torch.builders import build_task, populate
         populate()
         task = build_task(ConfigNode(json.loads(sys.argv[1])), "cpu")
+        _, batch = next(task.device_batches(task.train_dataloader))
+        task._train_step(batch)
         scores = task.evaluate_metrics(task.dev_dict_dataloader)
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax"))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "flax", "optax", "openvivqa_tpu"))
         print(json.dumps({"cider": float(scores["CIDEr"]), "leaked": leaked}))
         """
     )
-    config = _config(synthetic_data, "incremental").to_dict()
+    config = _config(synthetic_data, tmp_path, "incremental").to_dict()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     proc = subprocess.run(
