@@ -9,7 +9,11 @@ Phases, each fatal on failure:
   3. each kernel of the MMF_M4C eval and training paths against its plain
      PyTorch version on the same inputs at the paths' shapes (batch 64, hidden
      768, FFN 3072; the dropout attention at rate 0.1 under one seed, so both
-     draw the same Philox mask), with the max |kernel - plain| beside its
+     draw the same Philox mask), and each decode-step kernel of the
+     IterativeMCAN beam path (kernels A, B and the decoder-layer step at 63
+     rows, hidden 512, FFN 2048, over T + 1 steps with the ring reordered
+     between steps as beam search does; the layer step also bit for bit
+     against its three stage kernels), with the max |kernel - plain| beside its
      tolerance, median CUDA-event times of the kernel, of its plain version
      and, for the attention kernels, of one torch.nn.functional.
      scaled_dot_product_attention call on the same inputs (timed here only,
@@ -30,9 +34,21 @@ Phases, each fatal on failure:
      the launch counts, peak device memory, the train-step time of one batch
      on the kernel path and on the plain path, the gradients of one step on
      both paths (same weights, batch and generator seed) per parameter group,
-     and a torch.profiler table of one train step.
+     and a torch.profiler table of one train step;
+  6. ``configs/iterative_mcan.yaml`` at its full widths (512 wide, 8 heads, 3 + 3
+     + 3 layers, 1024-wide regions; random weights from the seed) on the same
+     synthetic data: ``OpenEndedTask.evaluate_metrics`` over the dev split with
+     beam 3 (21 samples x 3 beams = 63 rows a step) on the layer route (3
+     decoder-layer launches a step and no plain version called) and on the
+     staged route (kernels A, B and C, OPENVIVQA_DECODE_KERNEL_PARTS=
+     self,cross,ffn); one batch on the layer, staged and plain routes: token
+     agreement, the max difference of the beams' cumulative log-probs, the
+     decode time of each; a torch.profiler table of one decode; then
+     ``start()`` for one epoch and ``get_predictions()``, the step losses, one
+     step's gradients (finite, and non-zero wherever a gradient exists), the
+     train-step time on the kernel and plain paths and peak device memory.
 Launch counts are reset just before each main-path run (4: each decode mode;
-5: start() and get_predictions()) and read just after it.  The nvcc/ptxas log
+5 and 6: each eval route, start() and get_predictions()) and read just after it.  The nvcc/ptxas log
 (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -45,6 +61,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -63,11 +80,27 @@ ATTN_TOL = 1e-2
 # bf16-rounded dropped weight or logit gradient may land one ulp apart
 GRAD_RTOL = 1e-2
 SLOT_TOL = 1e-2  # bf16-stored K/V slots: one bf16 ulp at |k| ~ 1 is 7.8e-3
+# a bf16 ring at any magnitude: one bf16 ulp is at most 2^-7 of the value, so
+# |kernel - plain| / max(|plain|, 1) stays below it
+BF16_ULP = 2.0 ** -7
 SCORE_TOL = 1e-2  # teacher-forced scores, kernel path vs plain path
 # one train step's gradients, kernel path vs plain path, relative to each
 # parameter group's largest gradient: the attentions' bf16 roundings differ by
 # an ulp here and there and compound through 16 layers and back
 STEP_GRAD_RTOL = 5e-2
+# the decoder-layer step against its plain version: each sublayer's output is
+# rounded to bf16 on its way into the next product, so float32 sums that differ
+# in their last bits may round one bf16 ulp (7.8e-3 at 1) apart there, and the
+# difference is carried through two more sublayers
+LAYER_TOL = 1e-2
+RING_TOL = 1e-4  # float32 ring: the k, v rows are f32 sums in another order
+# cumulative log-probs of the beams that hold the same tokens on two decode
+# routes: nine chained sublayers on bf16 operands under another summation order
+# move a token's log-prob by up to about 1e-2 (see LAYER_TOL), and a beam sums
+# max_answer_length of them
+LOGPROB_TOL = 5e-2
+# a key projection's bias has no gradient: softmax(q . (k + b)) does not depend on b
+GRADIENT_FREE = "fc_k.bias"
 DROPOUT_RATE = 0.1
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -81,7 +114,15 @@ SOURCES = {
         "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1012"),
     "fused_attention_packed_dropout_backward": (
         "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1057"),
+    "fused_self_attention_step": (
+        "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:230"),
+    "fused_cross_attention_step": (
+        "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:559"),
+    "fused_decoder_layer_step": (
+        "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:418"),
 }
+STEP_PLAIN = ("fused_self_attention_step_plain", "fused_cross_attention_step_plain",
+              "fused_decoder_layer_step_plain", "fused_ffn_step_plain")
 
 
 def log(*parts) -> None:
@@ -143,6 +184,9 @@ def plain_versions():
     swaps = [
         (decode_step, "fused_ffn_step", decode_step.fused_ffn_step_plain),
         (decode_step, "fused_bert_self_step", decode_step.fused_bert_self_step_plain),
+        (decode_step, "fused_self_attention_step", decode_step.fused_self_attention_step_plain),
+        (decode_step, "fused_cross_attention_step", decode_step.fused_cross_attention_step_plain),
+        (decode_step, "fused_decoder_layer_step", decode_step.fused_decoder_layer_step_plain),
         (encoder_layer, "fused_encoder_self_attention",
          encoder_layer.fused_encoder_self_attention_plain),
         (fused_attention, "fused_attention_packed", fused_attention.fused_attention_packed_plain),
@@ -158,12 +202,50 @@ def plain_versions():
             setattr(module, name, original)
 
 
+@contextlib.contextmanager
+def decode_parts(parts: str):
+    """OPENVIVQA_DECODE_KERNEL_PARTS for the calls inside."""
+    saved = os.environ.get("OPENVIVQA_DECODE_KERNEL_PARTS")
+    os.environ["OPENVIVQA_DECODE_KERNEL_PARTS"] = parts
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["OPENVIVQA_DECODE_KERNEL_PARTS"]
+        else:
+            os.environ["OPENVIVQA_DECODE_KERNEL_PARTS"] = saved
+
+
+@contextlib.contextmanager
+def count_plain_calls(calls: dict):
+    """Count the calls of the decode-step kernels' plain versions."""
+    from openvivqa_tpu_torch.ops import decode_step
+
+    saved = {name: getattr(decode_step, name) for name in STEP_PLAIN}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in STEP_PLAIN:
+        setattr(decode_step, name, counting(name))
+    try:
+        yield
+    finally:
+        for name, original in saved.items():
+            setattr(decode_step, name, original)
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_kernels(task, shapes, seed, failures):
-    """Phase 3: every kernel of the paths against its plain version."""
+def check_kernels(task, shapes, seed, failures, generative):
+    """Phase 3: every kernel of the paths against its plain version;
+    `generative` is the IterativeMCAN task, whose decoder gives the step
+    kernels their weights and shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -348,7 +430,136 @@ def check_kernels(task, shapes, seed, failures):
            median_ms(lambda: decode_step.fused_bert_self_step_plain(*step_args)),
            2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
+    check_step_kernels(generative, gen, record, failures)
     return results
+
+
+def check_step_kernels(task, gen, record, failures):
+    """Kernels A, B and the decoder-layer step at the beam path's shapes: the
+    dev loader's samples x beams rows, the decoder's widths, T ring slots and
+    100 regions + the question length encoder keys.  T + 1 steps (the last
+    clamps to the last slot), some tokens padding, the ring reordered between
+    steps as beam search does; kernel and plain version start every step from
+    one ring.  None of the three has a one-call library equivalent (each fuses
+    projections, a cache write, an attention and a LayerNorm)."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.ops import decode_step
+
+    dev = task.device
+    bf16 = torch.bfloat16
+    layer = task.model.decoder.layers[0]
+    core = layer.self_attn.attention
+    hd, heads, scale = core.d_model, core.h, core.scale
+    self_w, cross_w = layer.self_attn.fused_weights(bf16), layer.enc_attn.fused_weights(bf16)
+    f = layer.pwff.fused_weights(bf16)
+    d_ff = f["w1"].shape[1]
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    rows = first["question_tokens"].shape[0] * task.evaluating_beam_size
+    t_len = task.vocab.max_answer_length
+    sk = first["region_features"].shape[1] + first["question_tokens"].shape[1]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def masked(*shape, share):
+        return torch.where(torch.rand(shape, generator=gen, device=dev) < share,
+                           MASK_VALUE, 0.0).float()
+
+    def ffn(y):
+        return decode_step.fused_ffn_step(
+            y, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"])
+
+    enc_k, enc_v = randn(rows, sk, hd, dtype=bf16), randn(rows, sk, hd, dtype=bf16)
+    enc_bias = masked(rows, sk, share=0.2).contiguous()
+    where = f"{rows} rows, hd {hd}, T {t_len}, Sk {sk}"
+
+    def ring(dtype):
+        return [torch.zeros(rows, t_len, hd, dtype=dtype, device=dev),
+                torch.zeros(rows, t_len, hd, dtype=dtype, device=dev),
+                torch.zeros(rows, t_len, device=dev)]
+
+    def ring_err(a, b):
+        """Max |a - b| over the ring; relative to max(|b|, 1) for a bf16 ring."""
+        scale = (lambda y: y.float().abs().clamp(min=1.0)) if a[0].dtype == bf16 else (lambda y: 1.0)
+        return max(float(((x.float() - y.float()).abs() / scale(y)).max()) for x, y in zip(a, b))
+
+    # kernel A, float32 ring (the beam path's) and bf16 ring; the layer step on
+    # its own float32 ring, bit for bit against the stage kernels chained
+    errs = {"A f32": [0.0, 0.0], "A bf16": [0.0, 0.0], "layer": [0.0, 0.0]}
+    layer_equals_stages = True
+    rings = {"A f32": ring(torch.float32), "A bf16": ring(bf16), "layer": ring(torch.float32)}
+    for step in range(t_len + 1):
+        x, sb = randn(rows, hd), masked(rows, share=0.2).contiguous()
+        for name in ("A f32", "A bf16"):
+            plain_ring = [r.clone() for r in rings[name]]
+            yk, *_ = decode_step.fused_self_attention_step(
+                x, self_w, sb, step, *rings[name], scale, heads)
+            yp, *_ = decode_step.fused_self_attention_step_plain(
+                x, self_w, sb, step, *plain_ring, scale, heads)
+            errs[name] = [max(errs[name][0], max_err(yk, yp)),
+                          max(errs[name][1], ring_err(rings[name], plain_ring))]
+        plain_ring = [r.clone() for r in rings["layer"]]
+        stage_ring = [r.clone() for r in rings["layer"]]
+        args = (enc_k, enc_v, enc_bias, scale, heads)
+        yk, *_ = decode_step.fused_decoder_layer_step(
+            x, self_w, cross_w, f, sb, step, *rings["layer"], *args)
+        yp, *_ = decode_step.fused_decoder_layer_step_plain(
+            x, self_w, cross_w, f, sb, step, *plain_ring, *args)
+        ys, *_ = decode_step.fused_self_attention_step(
+            x, self_w, sb, step, *stage_ring, scale, heads)
+        ys = ffn(decode_step.fused_cross_attention_step(ys, cross_w, *args))
+        layer_equals_stages &= torch.equal(yk, ys) and all(
+            torch.equal(a, b) for a, b in zip(rings["layer"], stage_ring))
+        errs["layer"] = [max(errs["layer"][0], max_err(yk, yp)),
+                         max(errs["layer"][1], ring_err(rings["layer"], plain_ring))]
+        perm = torch.randint(0, rows, (rows,), generator=gen, device=dev)
+        rings = {name: [r.index_select(0, perm) for r in value] for name, value in rings.items()}
+    for name, tol in (("A f32", RING_TOL), ("A bf16", BF16_ULP), ("layer", RING_TOL)):
+        log(f"  ring caches [{name}, after each of {t_len + 1} steps]: max|kernel-plain|"
+            f"{' / max(|plain|, 1)' if name == 'A bf16' else ''} {errs[name][1]:.3e} "
+            f"(tol {tol:.1e})")
+        if not errs[name][1] <= tol:
+            failures.append(f"ring caches [{name}]: max err {errs[name][1]} > {tol}")
+    if not errs["A bf16"][0] <= LN_TOL:
+        failures.append(f"fused_self_attention_step [bf16 ring]: y err {errs['A bf16'][0]}")
+    log(f"  fused_decoder_layer_step equals kernels A, B, C chained, bit for bit: "
+        f"{layer_equals_stages}")
+    if not layer_equals_stages:
+        failures.append("fused_decoder_layer_step differs from its stage kernels chained")
+
+    last = t_len - 1
+    a_args = (x, self_w, sb, last, *rings["A f32"], scale, heads)
+    attn_flops = lambda keys: 4.0 * rows * keys * hd  # noqa: E731
+    a_flops = 2.0 * rows * hd * 4 * hd + attn_flops(t_len)
+    a_bytes = tensor_bytes(x, self_w, sb, rings["A f32"], yk) + 2 * rows * hd * 4 + rows * 4
+    record("fused_self_attention_step", where + ", f32 ring (library: none)", errs["A f32"][0],
+           LN_TOL, median_ms(lambda: decode_step.fused_self_attention_step(*a_args)),
+           median_ms(lambda: decode_step.fused_self_attention_step_plain(*a_args)),
+           a_flops, a_bytes)
+
+    b_args = (x, cross_w, enc_k, enc_v, enc_bias, scale, heads)
+    yb = decode_step.fused_cross_attention_step(*b_args)
+    b_flops = 2.0 * rows * hd * 2 * hd + attn_flops(sk)
+    b_bytes = tensor_bytes(x, cross_w, enc_k, enc_v, enc_bias, yb)
+    record("fused_cross_attention_step", where + ", bf16 encoder K/V (library: none)",
+           max_err(yb, decode_step.fused_cross_attention_step_plain(*b_args)), LN_TOL,
+           median_ms(lambda: decode_step.fused_cross_attention_step(*b_args)),
+           median_ms(lambda: decode_step.fused_cross_attention_step_plain(*b_args)),
+           b_flops, b_bytes)
+
+    l_args = (x, self_w, cross_w, f, sb, last, *rings["layer"], enc_k, enc_v, enc_bias, scale,
+              heads)
+    record("fused_decoder_layer_step", where + f", d_ff {d_ff} (library: none)",
+           errs["layer"][0], LAYER_TOL,
+           median_ms(lambda: decode_step.fused_decoder_layer_step(*l_args)),
+           median_ms(lambda: decode_step.fused_decoder_layer_step_plain(*l_args)),
+           a_flops + b_flops + 4.0 * rows * hd * d_ff,
+           a_bytes + b_bytes + tensor_bytes(f) - 2 * tensor_bytes(x))
+    staged_ms = median_ms(lambda: ffn(decode_step.fused_cross_attention_step(
+        decode_step.fused_self_attention_step(*a_args)[0], *b_args[1:])))
+    log(f"  kernels A, B, C chained from Python at the same shapes: {staged_ms:.4f} ms")
 
 
 def busy_us(events, device_type) -> float:
@@ -558,6 +769,162 @@ def run_training(task, failures):
     return counts
 
 
+def run_generative(task, failures):
+    """Phase 6, eval: beam search over the dev split on the layer and staged
+    routes, then one batch on the layer, staged and plain routes."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+    from openvivqa_tpu_torch.training.decode import generate
+
+    beam = task.evaluating_beam_size
+    n_valid = len(task.dev_dict_dataset)
+    n_batches = len(task.dev_dict_dataloader)
+    steps = task.vocab.max_answer_length
+    n_layers = len(task.model.decoder.layers)
+    launches = {name: 0 for name in _cuda.LAUNCHES}
+
+    def timed_eval():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = task.evaluate_metrics(task.dev_dict_dataloader)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    rows = batch["question_tokens"].shape[0] * beam
+    generate(task.model, batch, beam)  # the allocator's first growth, outside the timed runs
+    torch.cuda.synchronize()
+
+    want = {"layer": {"fused_decoder_layer_step": steps * n_layers * n_batches},
+            "staged": {name: steps * n_layers * n_batches for name in (
+                "fused_self_attention_step", "fused_cross_attention_step", "fused_ffn_step")}}
+    seconds = {}
+    for route, parts in (("layer", "layer"), ("staged", "self,cross,ffn")):
+        plain_calls = {}
+        with decode_parts(parts), count_plain_calls(plain_calls):
+            _cuda.reset_launch_counts()
+            scores, seconds[route] = timed_eval()
+            counts = _cuda.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        log(f"  [beam, {route}] {n_valid} samples in {n_batches} batches of {rows} rows x {steps} "
+            f"steps: {seconds[route]:.3f} s ({n_valid / seconds[route]:.2f} samples/s by the host "
+            f"clock); scores {json.dumps(scores, default=float)}")
+        log(f"  [beam, {route}] launches: {json.dumps(counts)}; plain calls: "
+            f"{json.dumps(plain_calls)}")
+        for name, n in want[route].items():
+            if counts[name] != n:
+                failures.append(f"[beam, {route}] {name}: {counts[name]} launches, want {n}")
+        if counts["fused_attention_packed"] <= 0:
+            failures.append(f"[beam, {route}] the encoders did not launch the packed attention")
+        if plain_calls:
+            failures.append(f"[beam, {route}] plain versions were called: {plain_calls}")
+        if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
+            failures.append(f"[beam, {route}] no finite CIDEr")
+
+    # one batch, all beams, on the three routes
+    def decode(parts, plain=False):
+        with decode_parts(parts), (plain_versions() if plain else contextlib.nullcontext()):
+            return generate(task.model, batch, beam, out_size=beam)
+
+    routes = {"layer": ("layer", False), "staged": ("self,cross,ffn", False),
+              "plain": ("layer", True)}
+    outs = {route: decode(*args) for route, args in routes.items()}
+    valid = torch.from_numpy(host["sample_valid"]).to(batch["question_tokens"].device)
+    tokens, logprobs = outs["layer"]
+    expected = (valid.shape[0], beam, steps)
+    if tuple(tokens.shape) != expected or not bool(torch.isfinite(logprobs).all()):
+        failures.append(f"[beam] outputs {tuple(tokens.shape)} (want {expected}) or non-finite")
+    for route in ("staged", "plain"):
+        # a beam whose candidates lie closer than the routes' rounding may flip
+        # and then holds another sequence: the log-probs are compared on the
+        # beams whose tokens agree
+        same = (outs[route][0] == tokens).all(dim=-1) & valid[:, None]
+        agreement = float((outs[route][0][valid] == tokens[valid]).float().mean())
+        token_diff = max_err(outs[route][1][same], logprobs[same])
+        diff = max_err(outs[route][1][same].sum(-1), logprobs[same].sum(-1))
+        log(f"  [beam] {route} vs layer route, one batch, all {beam} beams: token agreement "
+            f"{agreement * 100:.2f}% of {tokens[valid].numel()} tokens, {int(same.sum())} of "
+            f"{int(valid.sum()) * beam} beams equal; on those, max|log-prob diff| per token "
+            f"{token_diff:.3e}, per beam (cumulative) {diff:.3e} (tol {LOGPROB_TOL:.0e})")
+        if not diff <= LOGPROB_TOL:
+            failures.append(f"[beam] {route} vs layer: log-prob diff {diff} > {LOGPROB_TOL}")
+        if agreement < 0.9:
+            failures.append(f"[beam] {route} vs layer: token agreement {agreement}")
+    times = {route: median_ms(lambda a=args: decode(*a), reps=5) for route, args in routes.items()}
+    log(f"  [beam] generate() of one batch of {valid.shape[0]} x beam {beam} (CUDA-event median "
+        "of 5): " + ", ".join(f"{route} route {ms:.3f} ms = {valid.shape[0] / ms * 1e3:.1f} "
+                              f"samples/s" for route, ms in times.items()))
+    profile(lambda: generate(task.model, batch, beam), "beam decode, layer route")
+    return launches
+
+
+def run_generative_training(task, failures):
+    """Phase 6, training: one epoch of start(), get_predictions(), then one
+    batch's gradients and train-step time."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    start = time.perf_counter()
+    task.start()
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    scores = task.get_predictions()
+    torch.cuda.synchronize()
+    predict_seconds = time.perf_counter() - start
+    counts = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        records = [json.loads(line) for line in handle]
+    losses = [loss for r in records if r["phase"] == "train" for loss in r["step_losses"]]
+    log(f"  [xe] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
+    log(f"  [xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
+        f"test scores {json.dumps(scores, default=float)}")
+    log(f"  [xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
+    if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"[xe] losses {losses}: want {want_steps} finite values")
+    for name in ("fused_attention_packed", "fused_decoder_layer_step"):
+        if counts[name] <= 0:
+            failures.append(f"[xe] {name} was not launched by start() and get_predictions()")
+    for name in ("best_model.pth", "last_model.pth", "test_results.json"):
+        if not (Path(task.checkpoint_path) / name).is_file():
+            failures.append(f"[xe] {name} was not written")
+    if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
+        failures.append("[xe] no finite CIDEr from get_predictions()")
+
+    _, batch = next(task.device_batches(task.train_dataloader))
+    task.optimizer.zero_grad(set_to_none=True)
+    task.compute_loss(batch).backward()
+    bad = [name for name, p in task.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not (name.endswith(GRADIENT_FREE) or float(p.grad.abs().max()) > 0.0)]
+    n_params = sum(1 for _ in task.model.parameters())
+    log(f"  [xe] one gradient step: {n_params - len(bad)} of {n_params} parameter tensors with "
+        f"finite gradients, non-zero except the gradient-free key biases")
+    if bad:
+        failures.append(f"[xe] missing, non-finite or zero gradients: {bad[:8]}")
+    task.optimizer.zero_grad(set_to_none=True)
+
+    step = lambda: task._train_step(batch)  # noqa: E731
+    kernel_ms = [median_ms(step, reps=5)]
+    with plain_versions():
+        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
+    kernel_ms.append(median_ms(step, reps=5))
+    log(f"  [xe] one train step of {task.train_dataloader.batch_size} (CUDA-event median of 5, "
+        f"in turns): kernel path {kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path "
+        f"{plain_ms[0]:.3f}, {plain_ms[1]:.3f} ms")
+    profile(step, "IterativeMCAN train step")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -618,6 +985,15 @@ def main() -> int:
             "incremental": build_task(
                 config.merged({"MODEL": {"DECODING_MODE": "incremental"}}), "cuda"),
         }
+        features_only = {"FEATURE_PATH": {"FEATURES": paths["features"]}}
+        generative_config = get_config(str(ROOT / "configs" / "iterative_mcan.yaml")).merged({
+            "DATASET": {
+                "FEATURE_DATASET": features_only, "DICT_DATASET": features_only,
+                "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
+            },
+            "TRAINING": {"SEED": args.seed, "CHECKPOINT_PATH": str(Path(tmp) / "beam_eval")},
+        })
+        generative = build_task(generative_config, "cuda")
         task = tasks["quadratic"]
         _, first = next(task.device_batches(task.dev_dict_dataloader))
         shapes = {
@@ -634,7 +1010,7 @@ def main() -> int:
 
         # 3. the kernels against their plain versions
         log("kernels vs plain (CUDA-event medians of 20):")
-        results = check_kernels(task, shapes, args.seed, failures)
+        results = check_kernels(task, shapes, args.seed, failures, generative)
 
         # 4. the eval path in both decode modes
         log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
@@ -650,6 +1026,27 @@ def main() -> int:
         train_task = build_task(config.merged({"TRAINING": {
             "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "train")}}), "cuda")
         for name, n in run_training(train_task, failures).items():
+            launches[name] += n
+        del train_task
+        torch.cuda.empty_cache()
+
+        # 6. the beam-searched generative path
+        decoder = generative.model.decoder
+        log(f"main path, beam search: configs/iterative_mcan.yaml, d_model {decoder.d_model}, "
+            f"{decoder.layers[0].self_attn.attention.h} heads, "
+            f"{len(generative.model.self_encoder.layers)} + "
+            f"{len(generative.model.guided_encoder.guided_attn_layers)} + {len(decoder.layers)} "
+            f"layers, {sum(p.numel() for p in generative.model.parameters()) / 1e6:.2f}M "
+            f"parameters; OpenEndedTask.evaluate_metrics over the dev split, beam "
+            f"{generative.evaluating_beam_size}")
+        for name, n in run_generative(generative, failures).items():
+            launches[name] += n
+        del generative
+        torch.cuda.empty_cache()
+        log("main path, XE training: OpenEndedTask.start() for one epoch, then get_predictions()")
+        xe_task = build_task(generative_config.merged({"TRAINING": {
+            "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "beam_train")}}), "cuda")
+        for name, n in run_generative_training(xe_task, failures).items():
             launches[name] += n
 
     kernels = []

@@ -3,7 +3,8 @@
 The port keeps its own copies of the JAX package's host layers (config,
 registry, data, evaluation) and imports nothing of ``openvivqa_tpu``; the
 VOCAB, DATASET and WORD_EMBEDDING registries fill when ``openvivqa_tpu_torch.data``
-is imported, ARCHITECTURE and TASK when the models and tasks are.
+is imported, ARCHITECTURE, ENCODER, DECODER, ATTENTION, TEXT_EMBEDDING and
+VISION_EMBEDDING when ``openvivqa_tpu_torch.models`` is, TASK when the tasks are.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ META_TASK = Registry("TASK")
 META_DATASET = Registry("DATASET")
 META_VOCAB = Registry("VOCAB")
 META_WORD_EMBEDDING = Registry("WORD_EMBEDDING")
+META_ENCODER = Registry("ENCODER")
+META_DECODER = Registry("DECODER")
+META_ATTENTION = Registry("ATTENTION")
+META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
+META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
 
 
 def build_model(config, vocab):
@@ -42,6 +48,26 @@ def build_dataset(json_path, vocab, config):
 
 def build_vocab(config):
     return META_VOCAB.get(config.TYPE)(config)
+
+
+def build_encoder(config):
+    return META_ENCODER.get(config.ARCHITECTURE)(config=config)
+
+
+def build_decoder(config, vocab):
+    return META_DECODER.get(config.ARCHITECTURE)(config=config, vocab=vocab)
+
+
+def build_attention(config):
+    return META_ATTENTION.get(config.ARCHITECTURE)(config=config)
+
+
+def build_text_embedding(config, vocab):
+    return META_TEXT_EMBEDDING.get(config.ARCHITECTURE)(config=config, vocab=vocab)
+
+
+def build_vision_embedding(config):
+    return META_VISION_EMBEDDING.get(config.ARCHITECTURE)(config=config)
 
 
 def build_word_embedding(config):

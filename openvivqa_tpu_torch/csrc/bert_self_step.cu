@@ -25,51 +25,6 @@
 
 namespace ovq {
 
-constexpr int kStepChunk = 64;
-constexpr int kStepThreads = 128;
-constexpr int kStepWarps = kStepThreads / 32;
-constexpr int kStepMaxHeadDim = 2 * kStepThreads;
-
-// keys [0, n) of one source (row stride hd, this head's columns at h * d) folded
-// into the running (m, s, acc) of the block; bias == nullptr means bias 0
-__device__ void fold_keys(const bf16* keys, const bf16* values, const float* bias, int n, int hd,
-                          int d, float scale, const float* qs, float* ps, float& m, float& s,
-                          float (&acc)[2]) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int j0 = 0; j0 < n; j0 += kStepChunk) {
-    const int count = min(kStepChunk, n - j0);
-    for (int jj = warp; jj < count; jj += kStepWarps) {
-      const bf16* krow = keys + (size_t)(j0 + jj) * hd;
-      float part = 0.0f;
-      for (int c = lane; c < d; c += 32) part = fmaf(qs[c], __bfloat162float(krow[c]), part);
-      part = warp_sum(part);
-      if (lane == 0) ps[jj] = part * scale + (bias != nullptr ? bias[j0 + jj] : 0.0f);
-    }
-    __syncthreads();
-    float chunk_max = -INFINITY;
-    for (int jj = 0; jj < count; ++jj) chunk_max = fmaxf(chunk_max, ps[jj]);
-    const float m_new = fmaxf(m, chunk_max);
-    const float alpha = expf(m - m_new);
-    acc[0] *= alpha;
-    acc[1] *= alpha;
-    float chunk_sum = 0.0f;
-    for (int jj = 0; jj < count; ++jj) {
-      const float p = expf(ps[jj] - m_new);
-      chunk_sum += p;
-      const bf16* vrow = values + (size_t)(j0 + jj) * hd;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int c = threadIdx.x + u * kStepThreads;
-        if (c < d) acc[u] = fmaf(p, __bfloat162float(vrow[c]), acc[u]);
-      }
-    }
-    s = s * alpha + chunk_sum;
-    m = m_new;
-    __syncthreads();
-  }
-}
-
 __global__ void __launch_bounds__(kStepThreads)
     bert_self_step_attn_kernel(const float* __restrict__ qkv, const bf16* __restrict__ ctx_k,
                                const bf16* __restrict__ ctx_v, const float* __restrict__ ctx_bias,
@@ -95,9 +50,10 @@ __global__ void __launch_bounds__(kStepThreads)
   float acc[2] = {0.0f, 0.0f};
   // the decoded slots 0..t first (bias 0; later slots are masked, so skipped),
   // then the frozen context with its padding bias
-  fold_keys(sk, sv, nullptr, t + 1, hd, d, scale, qs, ps, m, s, acc);
+  fold_keys(sk, sv, [](int) { return 0.0f; }, t + 1, hd, d, scale, qs, ps, m, s, acc);
+  const float* cb = ctx_bias + (size_t)b * ctx_len;
   fold_keys(ctx_k + (size_t)b * ctx_len * hd + col, ctx_v + (size_t)b * ctx_len * hd + col,
-            ctx_bias + (size_t)b * ctx_len, ctx_len, hd, d, scale, qs, ps, m, s, acc);
+            [cb](int j) { return cb[j]; }, ctx_len, hd, d, scale, qs, ps, m, s, acc);
 
   float* orow = out + (size_t)b * hd + col;
 #pragma unroll

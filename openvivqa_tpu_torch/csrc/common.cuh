@@ -82,6 +82,64 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const TI* src, lon
   }
 }
 
+// -- single-query attention steps (kernels A, B and D) ---------------------------
+// One block per (head, decode row): the query's d values sit in shared memory and
+// the keys stream past in chunks of 64 under an online softmax.
+constexpr int kStepChunk = 64;
+constexpr int kStepThreads = 128;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepMaxHeadDim = 2 * kStepThreads;
+constexpr float kMaskValue = -10e4f;  // models/modules/masks.py MASK_VALUE
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// keys [0, n) of one source (float or bf16 rows of stride hd, this head's columns
+// first) folded into the block's running (max m, denominator s, accumulator acc):
+// logit_j = scale * q . k_j + bias_of(j).  Every thread of the block calls it;
+// qs holds the query's d values, ps is kStepChunk floats of scratch, and thread
+// c accumulates output columns c and c + kStepThreads.
+template <typename TK, typename BiasFn>
+__device__ __forceinline__ void fold_keys(const TK* keys, const TK* values, BiasFn bias_of, int n,
+                                          int hd, int d, float scale, const float* qs, float* ps,
+                                          float& m, float& s, float (&acc)[2]) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int j0 = 0; j0 < n; j0 += kStepChunk) {
+    const int count = min(kStepChunk, n - j0);
+    for (int jj = warp; jj < count; jj += kStepWarps) {
+      const TK* krow = keys + (size_t)(j0 + jj) * hd;
+      float part = 0.0f;
+      for (int c = lane; c < d; c += 32) part = fmaf(qs[c], to_float(krow[c]), part);
+      part = warp_sum(part);
+      if (lane == 0) ps[jj] = part * scale + bias_of(j0 + jj);
+    }
+    __syncthreads();
+    float chunk_max = -INFINITY;
+    for (int jj = 0; jj < count; ++jj) chunk_max = fmaxf(chunk_max, ps[jj]);
+    const float m_new = fmaxf(m, chunk_max);
+    const float alpha = expf(m - m_new);
+    acc[0] *= alpha;
+    acc[1] *= alpha;
+    float chunk_sum = 0.0f;
+    for (int jj = 0; jj < count; ++jj) {
+      const float p = expf(ps[jj] - m_new);
+      chunk_sum += p;
+      const TK* vrow = values + (size_t)(j0 + jj) * hd;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = threadIdx.x + u * kStepThreads;
+        if (c < d) acc[u] = fmaf(p, to_float(vrow[c]), acc[u]);
+      }
+    }
+    s = s * alpha + chunk_sum;
+    m = m_new;
+    __syncthreads();
+  }
+}
+
 // Counter-based Philox4x32-10 (Salmon et al., SC'11; the generator behind
 // curand's Philox4_32_10): four 32-bit words from a 128-bit counter and a
 // 64-bit key.  The attention dropout keys it with the per-call seed and counts

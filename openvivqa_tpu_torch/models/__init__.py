@@ -1,3 +1,12 @@
-"""The port's model architectures (importing registers them)."""
+"""The port's model architectures and their building blocks (importing
+registers them)."""
 
+from .modules import (  # noqa: F401
+    attentions,
+    decoders,
+    encoders,
+    text_embeddings,
+    vision_embeddings,
+)
+from . import iterative_mcan  # noqa: F401
 from . import mmf_m4c  # noqa: F401

@@ -1,0 +1,251 @@
+"""The scaled dot-product attention core and the multi-head wrapper with its
+decode-time caches.
+
+Counterpart of ``ScaledDotProductAttention``, ``_DecodeKVCache``,
+``_StaticEncKVCache`` and ``MultiHeadAttention`` in
+``openvivqa_tpu/models/modules/attentions.py``.  Parameter names are the
+reference's (``attention.fc_q`` ... ``attention.fc_o``, ``layer_norm``).  The
+geometry, memory and adaptive attention cores and the AoA gates wait for the
+models that use them (ROADMAP queue 1, slice 5); a config that asks for them
+raises at build time.
+
+Full-sequence attention runs on the raw (b, S, h * d) projections through the
+packed attention kernel (``ops/fused_attention.fused_attention_packed``, with
+its autograd function in training) whenever the bias is shared by the heads;
+there is no key-count crossover on the card.  A per-head bias, or d_k != d_v,
+takes the plain head-split attention until the flat attention kernel is ported.
+
+Decode (one token per row): the stateful self-attention keeps a ring cache of
+projected keys and values (``_DecodeKVCache``), the cross-attention the encoder
+projections computed once per generate (``_StaticEncKVCache``).  Each has two
+routes, chosen by the caller from ``ops/decode_step.decode_kernel_parts()``: the
+stage kernel (A or B; `weights` given), or the plain module route (projections
+as ``nn.Linear``, the packed attention on the ring).  The whole-layer route
+lives in ``decoders.DecoderLayer``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ...builders import META_ATTENTION, build_attention
+from ...ops import _cuda
+from ...ops import decode_step as _ds
+from ...ops import fused_attention as _attn
+from .bert import dropout
+from .ffn import LN_EPS, matrix
+from .masks import MASK_VALUE
+
+
+def _bias_4d(attention_bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A (bs, sk) key-padding bias becomes (bs, 1, 1, sk); 4-D passes."""
+    if attention_bias is None or attention_bias.ndim == 4:
+        return attention_bias
+    if attention_bias.ndim == 2:
+        return attention_bias[:, None, None, :]
+    raise ValueError(
+        "attention_bias must be 4-D (bs/1, h/1, sq/1, sk) or 2-D (bs, sk); "
+        f"got ndim={attention_bias.ndim}"
+    )
+
+
+class _ProjectionMixin:
+    """The q/k/v/o projections every attention core shares."""
+
+    def _build_projections(self, config) -> None:
+        self.h = config.HEAD
+        self.d_k = config.D_KEY
+        self.d_v = config.D_VALUE
+        self.d_model = config.D_MODEL
+        self.scale = 1.0 / math.sqrt(self.d_k)
+        self.fc_q = nn.Linear(self.d_model, self.h * self.d_k)
+        self.fc_k = nn.Linear(self.d_model, self.h * self.d_k)
+        self.fc_v = nn.Linear(self.d_model, self.h * self.d_v)
+        self.fc_o = nn.Linear(self.h * self.d_v, self.d_model)
+
+    def attend(self, q, k, v, attention_bias=None) -> torch.Tensor:
+        """softmax(q k^T / sqrt(d_k) + bias) v on packed projections q (b, Sq,
+        h * d_k), k (b, Sk, h * d_k), v (b, Sk, h * d_v); returns (b, Sq, h * d_v)
+        before the out projection."""
+        bias = _bias_4d(attention_bias)
+        if self.d_k == self.d_v and (bias is None or bias.shape[1] == 1):
+            return _attn.fused_attention_packed(
+                q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
+                bias, self.scale, self.h,
+            )
+        b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+        qh = q.view(b, sq, self.h, self.d_k)
+        kh = k.view(b, sk, self.h, self.d_k)
+        vh = v.view(b, sk, self.h, self.d_v)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * self.scale
+        if bias is not None:
+            logits = logits + bias
+        weights = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(b, sq, self.h * self.d_v)
+
+
+@META_ATTENTION.register()
+class ScaledDotProductAttention(nn.Module, _ProjectionMixin):
+    """softmax(Q K^T / sqrt(d_k) + bias) V with its four projections."""
+
+    def __init__(self, config):
+        super().__init__()
+        self._build_projections(config)
+
+    def forward(self, queries, keys, values, attention_bias=None) -> torch.Tensor:
+        out = self.attend(self.fc_q(queries), self.fc_k(keys), self.fc_v(values), attention_bias)
+        return self.fc_o(out)
+
+
+class _DecodeKVCache:
+    """The stateful self-attention's ring: packed (rows, T, h * d) float32 keys
+    and values and the (rows, T) float32 padding bias of the tokens written so
+    far.  Slot min(t, T - 1) is written at step t (a step past the end
+    overwrites the last slot, as the JAX package's clamped update does).  Beam
+    search reorders the three tensors between steps."""
+
+    def __init__(self, rows: int, max_len: int, k_width: int, v_width: int, device):
+        self.key = torch.zeros((rows, max_len, k_width), dtype=torch.float32, device=device)
+        self.value = torch.zeros((rows, max_len, v_width), dtype=torch.float32, device=device)
+        self.bias = torch.zeros((rows, max_len), dtype=torch.float32, device=device)
+
+    def append(self, k_new, v_new, step_bias, t: int):
+        """Write one token's (rows, 1, width) projections and (rows,) bias in
+        place; returns the ring and its (rows, 1, 1, T) bias with the slots
+        past t masked."""
+        max_len = self.key.shape[1]
+        slot = min(int(t), max_len - 1)
+        self.key[:, slot] = k_new[:, 0]
+        self.value[:, slot] = v_new[:, 0]
+        self.bias[:, slot] = step_bias
+        future = torch.where(
+            torch.arange(max_len, device=self.key.device) > slot, MASK_VALUE, 0.0
+        ).to(torch.float32)
+        return self.key, self.value, (self.bias + future)[:, None, None, :]
+
+
+class _StaticEncKVCache:
+    """The cross-attention's encoder projections, (rows, Sk, h * d) each,
+    computed once per generate (the encoder stream is constant across decode
+    steps and identical across a sample's beams, so beam search never reorders
+    it)."""
+
+    def __init__(self, key: torch.Tensor, value: torch.Tensor):
+        self.key = key
+        self.value = value
+
+
+class MultiHeadAttention(nn.Module):
+    """Attention core, dropout on its output, residual and post-LayerNorm, with
+    the decode-time caches."""
+
+    def __init__(self, config):
+        super().__init__()
+        if config.USE_AOA:
+            raise NotImplementedError("the AoA gates are not ported yet (ROADMAP queue 1)")
+        self.attention = build_attention(config)
+        self.dropout = config.DROPOUT
+        self.layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+        self.can_be_stateful = bool(config.CAN_BE_STATEFUL)
+
+    def forward(self, queries, keys, values, attention_bias=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.attention(queries, keys, values, attention_bias)
+        out = dropout(out, self.dropout, generator)
+        return self.layer_norm(queries + out)
+
+    # -- decode ------------------------------------------------------------------
+    def supports_fused_decode(self) -> bool:
+        """Whether kernels A / B and the layer step compute this module: a
+        scaled dot-product core (no AoA reaches here) whose heads tile the
+        model width, d_k == d_v and h * d_k == d_model."""
+        core = self.attention
+        return (
+            isinstance(core, ScaledDotProductAttention)
+            and core.d_k == core.d_v
+            and core.h * core.d_k == core.d_model
+        )
+
+    @torch.no_grad()
+    def fused_weights(self, dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """The decode kernels' operands, matrices as (in, out) in `dtype` (bf16
+        on the card unless told otherwise), vectors float32: with q|k|v packed
+        into one (d_model, 3 h d) matrix for the stateful self-attention
+        (kernel A), with the q projection alone for the cross-attention (kernel
+        B, whose keys and values are cached)."""
+        core = self.attention
+        dtype = dtype or _cuda.kernel_dtype(core.fc_q.weight.device)
+        out = {
+            "wo": matrix(core.fc_o, dtype), "bo": core.fc_o.bias.detach().float(),
+            "ln_scale": self.layer_norm.weight.detach().float(),
+            "ln_bias": self.layer_norm.bias.detach().float(),
+        }
+        if self.can_be_stateful:
+            projections = (core.fc_q, core.fc_k, core.fc_v)
+            out["wqkv"] = torch.cat([matrix(p, dtype) for p in projections], dim=1)
+            out["bqkv"] = torch.cat([p.bias for p in projections]).detach().float()
+        else:
+            out["wq"] = matrix(core.fc_q, dtype)
+            out["bq"] = core.fc_q.bias.detach().float()
+        return out
+
+    def init_decode_cache(self, rows: int, max_len: int, device) -> _DecodeKVCache:
+        core = self.attention
+        return _DecodeKVCache(rows, max_len, core.h * core.d_k, core.h * core.d_v, device)
+
+    def fill_enc_cache(self, keys, values, dtype: torch.dtype = torch.float32) -> _StaticEncKVCache:
+        """Project the constant encoder stream once, stored in `dtype`."""
+        core = self.attention
+        return _StaticEncKVCache(
+            core.fc_k(keys).to(dtype).contiguous(), core.fc_v(values).to(dtype).contiguous()
+        )
+
+    def decode_step(self, queries, cache: _DecodeKVCache, step_bias, t: int,
+                    weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One token (rows, 1, d_model) through the stateful self-attention:
+        its key and value join the ring at slot min(t, T - 1) with the token's
+        padding bias step_bias (rows,), and it attends over the slots up to
+        there.  With `weights` (``fused_weights()``) the whole sublayer is kernel
+        A; without, the plain module route."""
+        if weights is not None:
+            y, _, _, _ = _ds.fused_self_attention_step(
+                queries[:, 0].float().contiguous(), weights, step_bias, t,
+                cache.key, cache.value, cache.bias, self.attention.scale, self.attention.h,
+                LN_EPS,
+            )
+            return y[:, None, :]
+        core = self.attention
+        keys, values, bias = cache.append(core.fc_k(queries), core.fc_v(queries), step_bias, t)
+        out = core.fc_o(core.attend(core.fc_q(queries), keys, values, bias))
+        return self.layer_norm(queries + out)
+
+    def cross_decode_step(self, queries, enc_cache: _StaticEncKVCache, enc_bias,
+                          weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One token (rows, 1, d_model) against the cached encoder projections
+        under enc_bias (rows, Sk): kernel B with `weights`, else the plain
+        module route."""
+        if weights is not None:
+            y = _ds.fused_cross_attention_step(
+                queries[:, 0].float().contiguous(), weights, enc_cache.key, enc_cache.value,
+                enc_bias, self.attention.scale, self.attention.h, LN_EPS,
+            )
+            return y[:, None, :]
+        core = self.attention
+        out = core.fc_o(core.attend(
+            core.fc_q(queries), enc_cache.key, enc_cache.value, enc_bias[:, None, None, :]
+        ))
+        return self.layer_norm(queries + out)
+
+
+def key_bias_rows(attention_bias: Optional[torch.Tensor], rows: int, keys: int,
+                  device) -> torch.Tensor:
+    """A (bs/1, 1, 1, Sk) key-padding bias, or None, as the contiguous (rows, Sk)
+    float32 tensor the decode kernels read."""
+    if attention_bias is None:
+        return torch.zeros((rows, keys), dtype=torch.float32, device=device)
+    return attention_bias[:, 0, 0, :].expand(rows, keys).float().contiguous()
+

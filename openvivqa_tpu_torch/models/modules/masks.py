@@ -1,11 +1,16 @@
-"""Additive attention biases: 0 attends, MASK_VALUE (-1e5) masks.
+"""Additive attention biases (0 attends, MASK_VALUE (-1e5) masks) and the
+interleaved sinusoid table.
 
-Counterpart of the bias helpers in ``openvivqa_tpu/models/modules/masks.py``.
-Biases stay float32: -1e5 overflows float16.
+Counterpart of the bias helpers and ``sinusoid_encoding_table`` in
+``openvivqa_tpu/models/modules/masks.py``.  Biases stay float32: -1e5 overflows
+float16.  The box-geometry embeddings wait for the models that use them.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 # the reference writes -10e4 (i.e. -1e5); the kernels use the same constant
@@ -25,3 +30,35 @@ def causal_bias(seq_len: int, device=None) -> torch.Tensor:
     """(1, 1, L, L) float32 bias: future positions get MASK_VALUE."""
     upper = torch.triu(torch.ones((seq_len, seq_len), dtype=torch.float32, device=device), 1)
     return (upper * MASK_VALUE)[None, None]
+
+
+def validity_to_bias(validity_mask: torch.Tensor) -> torch.Tensor:
+    """(bs, L) 1-valid / 0-pad mask -> additive (bs, 1, 1, L) float32 bias."""
+    return ((1.0 - validity_mask.to(torch.float32)) * MASK_VALUE)[:, None, None, :]
+
+
+def combine_biases(*biases: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Logical-or of additive biases: a position is masked if any input masks
+    it; the output is 0 / MASK_VALUE.  None inputs are skipped."""
+    present = [b for b in biases if b is not None]
+    if not present:
+        return None
+    masked = present[0] != 0
+    for bias in present[1:]:
+        masked = masked | (bias != 0)
+    return masked.to(torch.float32) * MASK_VALUE
+
+
+def sinusoid_encoding_table(max_len: int, d_model: int,
+                            padding_idx: Optional[int] = None) -> np.ndarray:
+    """(max_len, d_model) float32 table: row p has sin(p / 10000^(2i/d)) at even
+    columns and cos at odd columns; row `padding_idx`, when given, is zero."""
+    positions = np.arange(max_len, dtype=np.float32)[:, None]
+    dims = np.arange(d_model // 2, dtype=np.float32)[None, :]
+    angle = positions / np.power(10000.0, 2 * dims / d_model)
+    table = np.zeros((max_len, d_model), dtype=np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    if padding_idx is not None:
+        table[padding_idx] = 0.0
+    return table

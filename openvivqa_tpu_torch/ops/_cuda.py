@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in ``openvivqa_tpu_torch/csrc/*.cu`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use, into
-``build/kernels/`` at the root of the checkout (named by a hash of the sources and
-flags, so an edit rebuilds).  The library is loaded with ``ctypes``; every entry
+``sm_90a`` (one ``nvcc -c`` per source, all started together, then one link) into
+one shared library with a plain C interface, at first use, into ``build/kernels/``
+at the root of the checkout (named by a hash of the sources and flags, so an edit
+rebuilds).  The library is loaded with ``ctypes``; every entry
 takes raw device pointers and the current CUDA stream and returns
 ``cudaGetLastError()``, which :func:`launch` turns into an exception.
 
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -33,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # wrapper name -> launches of its kernel in this process
@@ -44,6 +46,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_bert_self_step": 0,
     "fused_attention_packed_dropout": 0,
     "fused_attention_packed_dropout_backward": 0,
+    "fused_self_attention_step": 0,
+    "fused_cross_attention_step": 0,
+    "fused_decoder_layer_step": 0,
 }
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
@@ -55,6 +60,9 @@ _SIGNATURES = {
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
     "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "pp" "iiiii" "f",
     "ovq_packed_dropout_backward": "ppppp" "li" "p" "if" "pp" "ppp" "iiiii" "f",
+    "ovq_self_attention_step_forward": "p" * 15 + "i" * 8 + "ff",
+    "ovq_cross_attention_step_forward": "p" * 14 + "i" * 7 + "ff",
+    "ovq_decoder_layer_step_forward": "p" * 33 + "i" * 13 + "ff",
 }
 _CTYPES = {
     "p": ctypes.c_void_p, "i": ctypes.c_int,
@@ -89,26 +97,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.  The
-    nvcc output (with ptxas's registers and spills per kernel) is kept beside
-    the library as ``<library>.log``."""
+    """Compile the kernels unless the library for these sources exists: every
+    source to its object file in parallel, then one link.  The nvcc output
+    (with ptxas's registers and spills per kernel) is kept beside the library
+    as ``<library>.log``."""
     global build_seconds
     target = library_path()
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name(f"{target.name}.{os.getpid()}.partial")
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), *sources],
-        capture_output=True, text=True,
-    )
+    with tempfile.TemporaryDirectory(prefix="objects_", dir=BUILD_DIR) as objects:
+        jobs = []
+        for source in sorted(CSRC.glob("*.cu")):
+            obj = Path(objects) / f"{source.stem}.o"
+            jobs.append((source, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        outputs = [(source, proc.communicate()[0], proc.returncode) for source, _, proc in jobs]
+        log = "".join(f"== {source.name}\n{out}" for source, out, _ in outputs)
+        failed = [source.name for source, _, code in outputs if code != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        partial = target.with_name(f"{target.name}.{os.getpid()}.partial")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(partial), *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}{link.stderr}")
     build_seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    target.with_name(f"{target.name}.log").write_text(log)
+    target.with_name(f"{target.name}.log").write_text(log + link.stdout + link.stderr)
     os.replace(partial, target)
     return target
 

@@ -1,19 +1,31 @@
-"""Kernel C (the BERT FFN sublayer on rows) and kernel D (one M4C decode token's
-self-attention sublayer over [frozen context | decoded slots]), each beside its
-plain PyTorch version.
+"""The decode-step kernels, each beside its plain PyTorch version: kernel C (the
+FFN sublayer on rows), kernel D (one M4C decode token's self-attention sublayer
+over [frozen context | decoded slots]), kernel A (one decode token's stateful
+self-attention sublayer over a ring cache), kernel B (its cross-attention
+sublayer over cached encoder K/V) and the decoder-layer step (A, B, then C in
+one call).
 
-Counterparts of ``fused_ffn_step`` and ``fused_bert_self_step`` in
-``openvivqa_tpu/ops/decode_step.py``.  The CUDA sources are ``csrc/ffn.cu`` and
-``csrc/bert_self_step.cu``; their notes say what bounds each on the H100.
+Counterparts of ``fused_ffn_step``, ``fused_bert_self_step``,
+``fused_self_attention_step``, ``fused_cross_attention_step`` and
+``fused_decoder_layer_step`` in ``openvivqa_tpu/ops/decode_step.py``.  The CUDA
+sources are ``csrc/ffn.cu``, ``csrc/bert_self_step.cu`` and
+``csrc/decoder_layer_step.cu``; their notes say what bounds each on the H100.
 
 Numerics, the same in a kernel and its plain version: activations, softmax,
 LayerNorm and accumulators are float32; every projection casts its activation
 to the weight's dtype (bf16 on the card, where the weights are pre-cast once,
-float32 on the CPU) and accumulates in float32.
+float32 on the CPU) and accumulates in float32; an attention reads float32
+queries against keys and values as their cache stores them.  The GELU is the
+exact erf one everywhere (the TPU FFN kernel's A&S 7.1.26 erf is a Mosaic
+workaround, not carried over).
+
+The ring caches and slot caches are written IN PLACE; the wrappers return the
+tensors they were given.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -25,9 +37,92 @@ MASK_VALUE = -10e4  # equal to models/modules/masks.py MASK_VALUE
 _LN_EPS = 1e-6  # flax nn.LayerNorm default, as in the JAX package
 
 
+_PARTS = {"layer", "self", "cross", "ffn", "none"}
+
+
+def decode_kernel_parts() -> frozenset:
+    """Which fused decode stages engage, from OPENVIVQA_DECODE_KERNEL_PARTS: a
+    comma-separated subset of {layer, self, cross, ffn, none}.  'layer' (the
+    default) is the whole-decoder-layer step; the stage kernels exist for
+    attribution; 'none' leaves every stage to the modules' plain route."""
+    parts = os.environ.get("OPENVIVQA_DECODE_KERNEL_PARTS", "")
+    if not parts:
+        return frozenset({"layer"})
+    chosen = frozenset(p.strip().lower() for p in parts.split(",") if p.strip())
+    unknown = chosen - _PARTS
+    if unknown:
+        # a mistyped value would otherwise silently disable every fused stage
+        raise ValueError(
+            f"OPENVIVQA_DECODE_KERNEL_PARTS: unknown part(s) {sorted(unknown)}; "
+            "expected comma-separated subset of layer,self,cross,ffn,none"
+        )
+    return chosen
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w with a rounded to w's dtype and a float32 result."""
     return a.to(w.dtype).float() @ w.float()
+
+
+def _single_query_attention(q, keys, values, bias, scale: float, h: int):
+    """softmax(scale * q . keys + bias) values per head: q (rows, hd) float32,
+    keys/values (rows, S, hd) as stored, bias (rows, S).  Returns (rows, hd)."""
+    rows, hd = q.shape
+    d = hd // h
+    k = keys.float().view(rows, -1, h, d)
+    v = values.float().view(rows, -1, h, d)
+    logits = torch.einsum("bhd,bkhd->bhk", q.view(rows, h, d), k) * scale
+    weights = torch.softmax(logits + bias[:, None, :], dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", weights, v).reshape(rows, hd)
+
+
+def _out_residual_ln(x, context, w, eps: float):
+    out = _dot(context, w["wo"]) + w["bo"]
+    return F.layer_norm(x + out, (x.shape[-1],), w["ln_scale"], w["ln_bias"], eps)
+
+
+def _require_rows(x, what: str) -> Tuple[int, int]:
+    """(rows, hd) of the float32 row block every step kernel takes."""
+    if x.ndim != 2:
+        raise ValueError(f"{what}: x must be (rows, hd), got {tuple(x.shape)}")
+    rows, hd = x.shape
+    _cuda.require_width(hd, what)
+    _cuda.require(x, "x", torch.float32, (rows, hd))
+    return rows, hd
+
+
+def _require_ffn_weights(w1, b1, w2, b2, ln_scale, ln_bias, hd: int) -> int:
+    d_ff = w1.shape[-1]
+    _cuda.require(w1, "w1", torch.bfloat16, (hd, d_ff))
+    _cuda.require(w2, "w2", torch.bfloat16, (d_ff, hd))
+    for name, vec, n in (("b1", b1, d_ff), ("b2", b2, hd),
+                         ("ln_scale", ln_scale, hd), ("ln_bias", ln_bias, hd)):
+        _cuda.require(vec, name, torch.float32, (n,))
+    return d_ff
+
+
+def _require_attention_weights(w, in_name: str, in_width: int, hd: int, h: int) -> None:
+    """The bf16 in-projection w[in_name] (hd, in_width) with its bias
+    'b' + in_name[1:], the bf16 out projection and the float32 vectors."""
+    if h <= 0 or hd % h or hd // h > 256:
+        raise ValueError(f"head dim {hd}/{h} must be an integer of at most 256")
+    _cuda.require(w[in_name], in_name, torch.bfloat16, (hd, in_width))
+    _cuda.require(w["b" + in_name[1:]], "b" + in_name[1:], torch.float32, (in_width,))
+    _cuda.require(w["wo"], "wo", torch.bfloat16, (hd, hd))
+    for name in ("bo", "ln_scale", "ln_bias"):
+        _cuda.require(w[name], name, torch.float32, (hd,))
+
+
+def _require_kv(k, v, names, rows: int, hd: int) -> Tuple[int, int]:
+    """(keys, 1 if bf16 else 0) of a (rows, keys, hd) float32 or bf16 K/V pair."""
+    if k.ndim != 3 or k.shape[1] == 0:
+        raise ValueError(f"{names[0]}: expected (rows, keys >= 1, hd), got {tuple(k.shape)}")
+    if k.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{names[0]}: expected float32 or bfloat16, got {k.dtype}")
+    keys = k.shape[1]
+    _cuda.require(k, names[0], k.dtype, (rows, keys, hd))
+    _cuda.require(v, names[1], k.dtype, (rows, keys, hd))
+    return keys, int(k.dtype == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -44,17 +139,8 @@ def fused_ffn_step(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = _LN_EPS):
     On the card w1 (hd, d_ff) and w2 (d_ff, hd) are bf16, the rest float32."""
     if not _cuda.uses_kernel(x, w1, b1, w2, b2, ln_scale, ln_bias):
         return fused_ffn_step_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, eps)
-    if x.ndim != 2:
-        raise ValueError(f"x: expected (rows, hd), got {tuple(x.shape)}")
-    rows, hd = x.shape
-    d_ff = w1.shape[-1]
-    _cuda.require_width(hd, "fused_ffn_step")
-    _cuda.require(x, "x", torch.float32, (rows, hd))
-    _cuda.require(w1, "w1", torch.bfloat16, (hd, d_ff))
-    _cuda.require(w2, "w2", torch.bfloat16, (d_ff, hd))
-    for name, vec, n in (("b1", b1, d_ff), ("b2", b2, hd),
-                         ("ln_scale", ln_scale, hd), ("ln_bias", ln_bias, hd)):
-        _cuda.require(vec, name, torch.float32, (n,))
+    rows, hd = _require_rows(x, "fused_ffn_step")
+    d_ff = _require_ffn_weights(w1, b1, w2, b2, ln_scale, ln_bias, hd)
     hidden = torch.empty((rows, d_ff), dtype=torch.bfloat16, device=x.device)
     partial, splits, k_per_split = _cuda.row_partials(rows, d_ff, hd, x.device)
     y = torch.empty_like(x)
@@ -81,24 +167,20 @@ def fused_bert_self_step_plain(
     scale: float, h: int, eps: float,
 ):
     bs, hd = x.shape
-    d = hd // h
     n_slots = slot_k.shape[1]
     t = _slot(step, n_slots)
     q, k_new, v_new = (_dot(x, w["wqkv"]) + w["bqkv"]).split(hd, dim=-1)
     slot_k[:, t] = k_new.to(slot_k.dtype)
     slot_v[:, t] = v_new.to(slot_v.dtype)
-    keys = torch.cat([ctx_kv[0], slot_k], dim=1).float().view(bs, -1, h, d)
-    values = torch.cat([ctx_kv[1], slot_v], dim=1).float().view(bs, -1, h, d)
     slot_bias = torch.where(
         torch.arange(n_slots, device=x.device) <= t, 0.0, MASK_VALUE
     ).to(torch.float32)
     bias = torch.cat([ctx_bias, slot_bias.expand(bs, n_slots)], dim=1)
-    logits = torch.einsum("bhd,bkhd->bhk", q.view(bs, h, d), keys) * scale
-    weights = torch.softmax(logits + bias[:, None, :], dim=-1)
-    context = torch.einsum("bhk,bkhd->bhd", weights, values).reshape(bs, hd)
-    out = _dot(context, w["wo"]) + w["bo"]
-    y = F.layer_norm(x + out, (hd,), w["ln_scale"], w["ln_bias"], eps)
-    return y, slot_k, slot_v
+    context = _single_query_attention(
+        q, torch.cat([ctx_kv[0], slot_k], dim=1), torch.cat([ctx_kv[1], slot_v], dim=1),
+        bias, scale, h,
+    )
+    return _out_residual_ln(x, context, w, eps), slot_k, slot_v
 
 
 def fused_bert_self_step(
@@ -116,19 +198,11 @@ def fused_bert_self_step(
         return fused_bert_self_step_plain(
             x, w, ctx_kv, slot_k, slot_v, step, ctx_bias, scale, h, eps
         )
-    if x.ndim != 2 or slot_k.ndim != 3 or ctx_kv[0].ndim != 3:
-        raise ValueError("x must be (bs, hd); ctx K/V and slots (bs, rows, hd)")
-    bs, hd = x.shape
+    if slot_k.ndim != 3 or ctx_kv[0].ndim != 3:
+        raise ValueError("ctx K/V and slots must be (bs, rows, hd)")
+    bs, hd = _require_rows(x, "fused_bert_self_step")
     ctx_len, n_slots = ctx_kv[0].shape[1], slot_k.shape[1]
-    _cuda.require_width(hd, "fused_bert_self_step")
-    if hd % h or hd // h > 256:
-        raise ValueError(f"head dim {hd}/{h} must be an integer of at most 256")
-    _cuda.require(x, "x", torch.float32, (bs, hd))
-    _cuda.require(w["wqkv"], "wqkv", torch.bfloat16, (hd, 3 * hd))
-    _cuda.require(w["bqkv"], "bqkv", torch.float32, (3 * hd,))
-    _cuda.require(w["wo"], "wo", torch.bfloat16, (hd, hd))
-    for name in ("bo", "ln_scale", "ln_bias"):
-        _cuda.require(w[name], name, torch.float32, (hd,))
+    _require_attention_weights(w, "wqkv", 3 * hd, hd, h)
     for name, cache in (("ctx_k", ctx_kv[0]), ("ctx_v", ctx_kv[1])):
         _cuda.require(cache, name, torch.bfloat16, (bs, ctx_len, hd))
     for name, cache in (("slot_k", slot_k), ("slot_v", slot_v)):
@@ -148,3 +222,179 @@ def fused_bert_self_step(
     )
     _cuda.count("fused_bert_self_step")
     return y, slot_k, slot_v
+
+
+# ---------------------------------------------------------------------------
+# kernel A
+# ---------------------------------------------------------------------------
+def fused_self_attention_step_plain(
+    x, w: Dict[str, torch.Tensor], step_bias, step: int, cache_k, cache_v, cache_bias,
+    scale: float, h: int, eps: float = _LN_EPS,
+):
+    hd = x.shape[1]
+    max_len = cache_k.shape[1]
+    t = _slot(step, max_len)
+    q, k_new, v_new = (_dot(x, w["wqkv"]) + w["bqkv"]).split(hd, dim=-1)
+    cache_k[:, t] = k_new.to(cache_k.dtype)
+    cache_v[:, t] = v_new.to(cache_v.dtype)
+    cache_bias[:, t] = step_bias
+    future = torch.where(
+        torch.arange(max_len, device=x.device) > t, MASK_VALUE, 0.0
+    ).to(torch.float32)
+    context = _single_query_attention(q, cache_k, cache_v, cache_bias + future, scale, h)
+    return _out_residual_ln(x, context, w, eps), cache_k, cache_v, cache_bias
+
+
+def _require_ring(step_bias, cache_k, cache_v, cache_bias, rows: int, hd: int) -> Tuple[int, int]:
+    max_len, is_bf16 = _require_kv(cache_k, cache_v, ("cache_k", "cache_v"), rows, hd)
+    _cuda.require(cache_bias, "cache_bias", torch.float32, (rows, max_len))
+    _cuda.require(step_bias, "step_bias", torch.float32, (rows,))
+    return max_len, is_bf16
+
+
+def _attention_pointers(w, in_name: str):
+    p = _cuda.ptr
+    return (p(w[in_name]), p(w["b" + in_name[1:]]), p(w["wo"]), p(w["bo"]),
+            p(w["ln_scale"]), p(w["ln_bias"]))
+
+
+def fused_self_attention_step(
+    x, w: Dict[str, torch.Tensor], step_bias, step: int, cache_k, cache_v, cache_bias,
+    scale: float, h: int, eps: float = _LN_EPS,
+):
+    """One stateful decode step of a self-attention sublayer: q|k|v projection of
+    x (rows, hd), the new k, v and the token's padding bias step_bias (rows,)
+    written IN PLACE at slot min(step, T-1) of the ring cache_k/cache_v (rows, T,
+    hd; float32 or bf16) and cache_bias (rows, T), attention over the ring with
+    slots past that one masked, out projection, residual and LayerNorm(eps).  w
+    holds wqkv (hd, 3hd), bqkv, wo (hd, hd), bo, ln_scale, ln_bias.  Returns
+    (y, cache_k, cache_v, cache_bias)."""
+    tensors = (x, step_bias, cache_k, cache_v, cache_bias, *w.values())
+    if not _cuda.uses_kernel(*tensors):
+        return fused_self_attention_step_plain(
+            x, w, step_bias, step, cache_k, cache_v, cache_bias, scale, h, eps
+        )
+    rows, hd = _require_rows(x, "fused_self_attention_step")
+    _require_attention_weights(w, "wqkv", 3 * hd, hd, h)
+    max_len, cache_bf16 = _require_ring(step_bias, cache_k, cache_v, cache_bias, rows, hd)
+    qkv = torch.empty((rows, 3 * hd), dtype=torch.float32, device=x.device)
+    context = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
+    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
+    y = torch.empty_like(x)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_self_attention_step_forward", p(x), *_attention_pointers(w, "wqkv"), p(step_bias),
+        p(cache_k), p(cache_v), p(cache_bias), p(qkv), p(context), p(partial), p(y),
+        rows, max_len, _slot(step, max_len), hd, h, cache_bf16, splits, k_per_split, scale, eps,
+    )
+    _cuda.count("fused_self_attention_step")
+    return y, cache_k, cache_v, cache_bias
+
+
+# ---------------------------------------------------------------------------
+# kernel B
+# ---------------------------------------------------------------------------
+def fused_cross_attention_step_plain(
+    x, w: Dict[str, torch.Tensor], enc_k, enc_v, enc_bias, scale: float, h: int,
+    eps: float = _LN_EPS,
+):
+    q = _dot(x, w["wq"]) + w["bq"]
+    context = _single_query_attention(q, enc_k, enc_v, enc_bias, scale, h)
+    return _out_residual_ln(x, context, w, eps)
+
+
+def fused_cross_attention_step(
+    x, w: Dict[str, torch.Tensor], enc_k, enc_v, enc_bias, scale: float, h: int,
+    eps: float = _LN_EPS,
+):
+    """One decode step of a cross-attention sublayer: q projection of x (rows,
+    hd), attention over the cached encoder projections enc_k/enc_v (rows, Sk,
+    hd; float32 or bf16) under enc_bias (rows, Sk) float32, out projection,
+    residual and LayerNorm.  w holds wq (hd, hd), bq, wo, bo, ln_scale, ln_bias.
+    Returns the post-LN rows (rows, hd)."""
+    tensors = (x, enc_k, enc_v, enc_bias, *w.values())
+    if not _cuda.uses_kernel(*tensors):
+        return fused_cross_attention_step_plain(x, w, enc_k, enc_v, enc_bias, scale, h, eps)
+    rows, hd = _require_rows(x, "fused_cross_attention_step")
+    _require_attention_weights(w, "wq", hd, hd, h)
+    sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
+    _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
+    q = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
+    context = torch.empty_like(q)
+    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
+    y = torch.empty_like(x)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_cross_attention_step_forward", p(x), *_attention_pointers(w, "wq"),
+        p(enc_k), p(enc_v), p(enc_bias), p(q), p(context), p(partial), p(y),
+        rows, sk, hd, h, enc_bf16, splits, k_per_split, scale, eps,
+    )
+    _cuda.count("fused_cross_attention_step")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the decoder-layer step: A, then B, then C
+# ---------------------------------------------------------------------------
+def fused_decoder_layer_step_plain(
+    x, self_w, cross_w, ffn_w, step_bias, step: int, cache_k, cache_v, cache_bias,
+    enc_k, enc_v, enc_bias, scale: float, h: int,
+):
+    y, _, _, _ = fused_self_attention_step_plain(
+        x, self_w, step_bias, step, cache_k, cache_v, cache_bias, scale, h
+    )
+    y = fused_cross_attention_step_plain(y, cross_w, enc_k, enc_v, enc_bias, scale, h)
+    f = ffn_w
+    y = fused_ffn_step_plain(y, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"])
+    return y, cache_k, cache_v, cache_bias
+
+
+def fused_decoder_layer_step(
+    x, self_w, cross_w, ffn_w, step_bias, step: int, cache_k, cache_v, cache_bias,
+    enc_k, enc_v, enc_bias, scale: float, h: int,
+):
+    """One whole decoder-layer decode step in one call: the stateful
+    self-attention sublayer (``fused_self_attention_step``), the cross-attention
+    sublayer over the cached encoder K/V (``fused_cross_attention_step``) and the
+    FFN sublayer (``fused_ffn_step``), LayerNorm eps 1e-6 throughout.  Weight
+    dicts: self_w wqkv, bqkv, wo, bo, ln_scale, ln_bias; cross_w wq, bq, wo, bo,
+    ln_scale, ln_bias; ffn_w w1, b1, w2, b2, ln_scale, ln_bias.  On the card the
+    weight matrices are bf16 and the encoder K/V usually too (pre-cast once per
+    generate); the ring is written in place.  Returns (y, cache_k, cache_v,
+    cache_bias)."""
+    tensors = (x, step_bias, cache_k, cache_v, cache_bias, enc_k, enc_v, enc_bias,
+               *self_w.values(), *cross_w.values(), *ffn_w.values())
+    if not _cuda.uses_kernel(*tensors):
+        return fused_decoder_layer_step_plain(
+            x, self_w, cross_w, ffn_w, step_bias, step, cache_k, cache_v, cache_bias,
+            enc_k, enc_v, enc_bias, scale, h,
+        )
+    rows, hd = _require_rows(x, "fused_decoder_layer_step")
+    _require_attention_weights(self_w, "wqkv", 3 * hd, hd, h)
+    _require_attention_weights(cross_w, "wq", hd, hd, h)
+    f = ffn_w
+    d_ff = _require_ffn_weights(f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], hd)
+    max_len, cache_bf16 = _require_ring(step_bias, cache_k, cache_v, cache_bias, rows, hd)
+    sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
+    _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
+
+    def rows_of(width, dtype=torch.float32):
+        return torch.empty((rows, width), dtype=dtype, device=x.device)
+
+    qkv, context, y1, y2, y = rows_of(3 * hd), rows_of(hd), rows_of(hd), rows_of(hd), rows_of(hd)
+    hidden = rows_of(d_ff, torch.bfloat16)
+    splits, k_per_split = _cuda.row_splits(rows, hd)
+    ffn_splits, ffn_k_per_split = _cuda.row_splits(rows, d_ff)
+    partial = torch.empty((max(splits, ffn_splits), rows, hd), dtype=torch.float32,
+                          device=x.device)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_decoder_layer_step_forward", p(x), *_attention_pointers(self_w, "wqkv"),
+        *_attention_pointers(cross_w, "wq"), p(f["w1"]), p(f["b1"]), p(f["w2"]), p(f["b2"]),
+        p(f["ln_scale"]), p(f["ln_bias"]), p(step_bias), p(cache_k), p(cache_v), p(cache_bias),
+        p(enc_k), p(enc_v), p(enc_bias), p(qkv), p(context), p(partial), p(y1), p(y2),
+        p(hidden), p(y), rows, max_len, _slot(step, max_len), sk, hd, h, d_ff, cache_bf16,
+        enc_bf16, splits, k_per_split, ffn_splits, ffn_k_per_split, scale, _LN_EPS,
+    )
+    _cuda.count("fused_decoder_layer_step")
+    return y, cache_k, cache_v, cache_bias

@@ -82,8 +82,11 @@ class BaseTask:
     def build_model(self, params: Optional[Mapping[str, Any]]):
         model = build_model(self.config.MODEL, self.vocab)
         if params is None:
-            seed = int(self.config.TRAINING.get("SEED", 42))
-            init_jax_law_(model, torch.Generator().manual_seed(seed))
+            generator = torch.Generator().manual_seed(int(self.config.TRAINING.get("SEED", 42)))
+            if hasattr(model, "init_weights_"):  # a model with initialisers of its own
+                model.init_weights_(generator)
+            else:  # the BERT family's law
+                init_jax_law_(model, generator)
         else:
             state = params_from_flax(params, self.config.MODEL)
             model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})

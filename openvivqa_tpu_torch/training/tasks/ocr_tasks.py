@@ -66,19 +66,8 @@ class TrainingMMF(OcrOpenEndedTask):
         scores = self.model.greedy_decode(device_batch)["scores"]
         return scores.argmax(dim=-1).to(torch.int32)
 
-    def evaluate_metrics(self, dataloader) -> dict:
-        gens, gts = {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
-            ids = self.greedy_ids(device_batch).cpu().numpy()
-            answers_gen = self._decode_batch(ids, batch)
-            for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
-                if not batch["sample_valid"][i]:
-                    continue
-                key = self.eval_key(batch, it, i)
-                gens[key] = [gen_i]
-                gts[key] = gts_i
-        scores, _ = compute_scores(gts, gens)
-        return scores
+    def generate_answers(self, batch, device_batch) -> list:
+        return self._decode_batch(self.greedy_ids(device_batch).cpu().numpy(), batch)
 
     def get_predictions(self):
         """Greedy predictions on the test split from best_model.pth, with

@@ -1,35 +1,44 @@
-"""Open-ended (generative) VQA task, XE training: the port's counterpart of the
-training loop of ``openvivqa_tpu/training/tasks/open_ended_task.py``.
+"""Open-ended (generative) VQA task: XE training on teacher-forced log-probs,
+beam-searched evaluation and test predictions.  The port's counterpart of
+``openvivqa_tpu/training/tasks/open_ended_task.py``.
 
-An epoch runs the subclass's train step over the shuffled train split, keeps
-each step's loss on the device and syncs once at the epoch's end.  ``start()``
-trains epoch by epoch, evaluates the dev split, keeps ``last_model.pth`` and
-promotes it to ``best_model.pth`` when the score improves; it stops at
-TRAINING.PATIENCE epochs without improvement or at TRAINING.MAX_EPOCHS, and
-resumes from ``last_model.pth`` when one is present.  Beam-search evaluation
-and SCST wait for their slice (ROADMAP queue 1, slice 3).
+An epoch runs the train step over the shuffled train split, keeps each step's
+loss on the device and syncs once at the epoch's end.  ``start()`` trains epoch
+by epoch, evaluates the dev split with beam search (TRAINING.EVALUATING_BEAM_SIZE
+beams over batches of DICT_DATASET.BATCH_SIZE // beams samples), keeps
+``last_model.pth`` and promotes it to ``best_model.pth`` when the score
+improves; it stops at TRAINING.PATIENCE epochs without improvement or at
+TRAINING.MAX_EPOCHS, and resumes from ``last_model.pth`` when one is present.
+SCST (``train_scst``) is not ported yet (ROADMAP queue 1, slice 3).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import List
 
+import numpy as np
 import torch
 
-from ...builders import build_dataset
+from ...builders import META_TASK, build_dataset
 from ...data.loader import DataLoader
+from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
+from ..decode import generate
+from ..train_state import nll_loss
 from .base_task import BaseTask
 
 logger = setup_logger()
 
 
+@META_TASK.register()
 class OpenEndedTask(BaseTask):
     def configuring_hyperparameters(self, config):
         self.score_name = config.TRAINING.SCORE
+        self.evaluating_beam_size = config.TRAINING.EVALUATING_BEAM_SIZE
         self.patience_limit = config.TRAINING.PATIENCE
         self.max_epochs = config.TRAINING.get("MAX_EPOCHS")
 
@@ -61,8 +70,14 @@ class OpenEndedTask(BaseTask):
         )
 
     def compute_loss(self, batch) -> torch.Tensor:
-        """The training loss of one device batch, with its graph."""
-        raise NotImplementedError
+        """The training loss of one device batch, with its graph: the NLL of
+        the teacher-forced log-probs against the shifted answers, weighted by
+        sample_valid so that batch-padding rows count for nothing."""
+        logprobs = self.model(batch, generator=self.generator)
+        targets = batch["shifted_right_answer_tokens"]
+        weights = batch["sample_valid"][:, None].expand(targets.shape)
+        return nll_loss(logprobs.reshape(-1, logprobs.shape[-1]), targets.reshape(-1),
+                        self.vocab.padding_idx, weights=weights.reshape(-1))
 
     def _train_step(self, batch) -> torch.Tensor:
         """One optimizer step; returns the loss, left on the device."""
@@ -73,8 +88,31 @@ class OpenEndedTask(BaseTask):
         self.scheduler.step()
         return loss.detach()
 
+    def _decode_batch(self, outs: np.ndarray, batch=None) -> list:
+        """(bs, T) ids -> answer strings, consecutive repeats merged; OCR-aware
+        subclasses read the per-sample OCR tables from `batch`."""
+        token_lists = self.vocab.decode_answer(
+            outs.reshape(-1, self.vocab.max_answer_length), join_words=False
+        )
+        return [" ".join(k for k, _ in itertools.groupby(tokens)) for tokens in token_lists]
+
+    def generate_answers(self, batch, device_batch) -> list:
+        """Beam-searched answers of one batch; only (bs, T) ids cross to the host."""
+        outs, _ = generate(self.model, device_batch, self.evaluating_beam_size)
+        return self._decode_batch(outs.cpu().numpy(), batch)
+
     def evaluate_metrics(self, dataloader) -> dict:
-        raise NotImplementedError
+        gens, gts = {}, {}
+        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
+            answers_gen = self.generate_answers(batch, device_batch)
+            for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
+                if not batch["sample_valid"][i]:
+                    continue
+                key = self.eval_key(batch, it, i)
+                gens[key] = [gen_i]
+                gts[key] = gts_i
+        scores, _ = compute_scores(gts, gens)
+        return scores
 
     def train(self) -> List[float]:
         """One XE epoch; returns the per-step losses, synced once."""
@@ -131,3 +169,40 @@ class OpenEndedTask(BaseTask):
             if exit_train:
                 break
             self.epoch += 1
+
+    def get_predictions(self):
+        """Beam-searched predictions on the test split from best_model.pth,
+        scored and written to test_results.json."""
+        best = os.path.join(self.checkpoint_path, BEST_NAME)
+        if not os.path.isfile(best):
+            raise FileNotFoundError(
+                "Prediction requires a trained model: no best_model checkpoint "
+                f"in {self.checkpoint_path}"
+            )
+        self.load_checkpoint(best)
+
+        results, overall_gens, overall_gts = [], {}, {}
+        for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dict_dataloader)):
+            answers_gen = self.generate_answers(batch, device_batch)
+            valid = np.asarray(batch["sample_valid"])
+            gens, gts = {}, {}
+            for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
+                if not valid[i]:
+                    continue
+                key = f"{it}_{i}"
+                gens[key] = gen_i
+                gts[key] = gts_i
+                overall_gens[key] = [gen_i]
+                overall_gts[key] = gts_i
+            results.append({
+                "id": [int(x) for x in np.asarray(batch["question_id"])[valid]],
+                "image_id": [int(x) for x in np.asarray(batch["image_id"])[valid]],
+                "filename": [f for f, v in zip(batch["filename"], valid) if v],
+                "gens": gens,
+                "gts": gts,
+            })
+
+        scores, _ = compute_scores(overall_gts, overall_gens)
+        logger.info("Evaluation scores on test: %s", scores)
+        self.dump_json("test_results.json", {"results": results, **scores})
+        return scores

@@ -162,6 +162,156 @@ def test_bert_self_step_kernel_matches_plain(dev):
         assert _err(a.float(), b.float()) <= 1e-2  # one bf16 ulp at |k| in [1, 2)
 
 
+STEP_ROWS, STEP_T, STEP_SK = 63, 5, 77
+
+
+def _cross_weights(gen):
+    w = _attention_weights(gen)
+    return {"wq": w["wqkv"][:, :HD].contiguous(), "bq": w["bqkv"][:HD].contiguous(),
+            **{k: w[k] for k in ("wo", "bo", "ln_scale", "ln_bias")}}
+
+
+def _ffn_weights(gen):
+    return {
+        "w1": _randn(gen, HD, D_FF, scale=0.05, dtype=torch.bfloat16), "b1": _randn(gen, D_FF, scale=0.1),
+        "w2": _randn(gen, D_FF, HD, scale=0.05, dtype=torch.bfloat16), "b2": _randn(gen, HD, scale=0.1),
+        "ln_scale": 1 + _randn(gen, HD, scale=0.1), "ln_bias": _randn(gen, HD, scale=0.1),
+    }
+
+
+def _rings(dtype, dev):
+    """Two equal rings (kernel's and plain's): keys, values, bias."""
+    return {n: [torch.zeros(STEP_ROWS, STEP_T, HD, dtype=dtype, device=dev),
+                torch.zeros(STEP_ROWS, STEP_T, HD, dtype=dtype, device=dev),
+                torch.zeros(STEP_ROWS, STEP_T, device=dev)] for n in ("kernel", "plain")}
+
+
+def _step_bias(gen, dev):
+    """Some rows' current token is padding."""
+    return torch.where(torch.rand(STEP_ROWS, generator=gen, device=dev) < 0.2, MASK, 0.0)
+
+
+def _reorder(rings, gen, dev):
+    """What beam search does between steps: rows take other rows' histories."""
+    perm = torch.randint(0, STEP_ROWS, (STEP_ROWS,), generator=gen, device=dev)
+    for name in rings:
+        rings[name] = [x.index_select(0, perm) for x in rings[name]]
+
+
+def _ring_err(rings):
+    return max(_err(a.float(), b.float()) for a, b in zip(rings["kernel"], rings["plain"]))
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.float32, torch.bfloat16])
+def test_self_attention_step_kernel_matches_plain(dev, ring_dtype):
+    """Kernel A over T + 2 steps (the last two clamp to the last slot) on 63
+    rows with padded tokens and a reorder of the ring between steps.  The f32
+    ring holds the GEMM's f32 sums, equal to the plain version's up to
+    summation order (1e-4); a bf16 ring may round one ulp apart (1e-2)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = _attention_weights(gen)
+    rings = _rings(ring_dtype, dev)
+    for step in range(STEP_T + 2):
+        x, sb = _randn(gen, STEP_ROWS, HD), _step_bias(gen, dev)
+        before = _cuda.launch_counts()["fused_self_attention_step"]
+        got, *same = decode_step.fused_self_attention_step(
+            x, w, sb, step, *rings["kernel"], 0.125, HEADS, 1e-6)
+        assert _cuda.launch_counts()["fused_self_attention_step"] == before + 1
+        assert all(a is b for a, b in zip(same, rings["kernel"]))  # written in place
+        want, *_ = decode_step.fused_self_attention_step_plain(
+            x, w, sb, step, *rings["plain"], 0.125, HEADS, 1e-6)
+        assert _err(got, want) <= TOL
+        assert _ring_err(rings) <= (1e-4 if ring_dtype == torch.float32 else 1e-2)
+        # both sides go on from one ring, so that a one-ulp difference in a
+        # stored key is not carried into the next step's comparison
+        rings["plain"] = [x.clone() for x in rings["kernel"]]
+        _reorder(rings, gen, dev)
+
+
+@pytest.mark.parametrize("enc_dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_step_kernel_matches_plain(dev, enc_dtype):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = _cross_weights(gen)
+    x = _randn(gen, STEP_ROWS, HD)
+    enc_k, enc_v = (_randn(gen, STEP_ROWS, STEP_SK, HD, dtype=enc_dtype) for _ in range(2))
+    eb = _key_bias(gen, STEP_ROWS, STEP_SK)  # row 0 has every key masked
+    got = decode_step.fused_cross_attention_step(x, w, enc_k, enc_v, eb, 0.125, HEADS)
+    want = decode_step.fused_cross_attention_step_plain(x, w, enc_k, enc_v, eb, 0.125, HEADS)
+    assert _err(got, want) <= TOL
+
+
+LAYER_TOL = 1e-2
+
+
+def test_decoder_layer_step_kernel_matches_its_stages_and_plain(dev):
+    """The layer step is kernels A, B and C chained in one call: bit-equal to
+    calling the three stage kernels in turn.  Against the plain version its
+    LayerNorm output is compared at 1e-2, not the single sublayers' 2e-3: each
+    sublayer's output is rounded to bf16 on its way into the next product, so
+    float32 sums that differ in their last bits may round one bf16 ulp (7.8e-3
+    at 1) apart there, and the difference is carried through two more
+    sublayers."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    self_w, cross_w, ffn_w = _attention_weights(gen), _cross_weights(gen), _ffn_weights(gen)
+    enc_k, enc_v = (_randn(gen, STEP_ROWS, STEP_SK, HD, dtype=torch.bfloat16) for _ in range(2))
+    eb = _key_bias(gen, STEP_ROWS, STEP_SK)
+    rings = _rings(torch.float32, dev)
+    rings["staged"] = [x.clone() for x in rings["kernel"]]
+    f = ffn_w
+    for step in range(STEP_T + 1):
+        x, sb = _randn(gen, STEP_ROWS, HD), _step_bias(gen, dev)
+        got, *_ = decode_step.fused_decoder_layer_step(
+            x, self_w, cross_w, ffn_w, sb, step, *rings["kernel"], enc_k, enc_v, eb, 0.125, HEADS)
+        staged, *_ = decode_step.fused_self_attention_step(
+            x, self_w, sb, step, *rings["staged"], 0.125, HEADS)
+        staged = decode_step.fused_cross_attention_step(
+            staged, cross_w, enc_k, enc_v, eb, 0.125, HEADS)
+        staged = decode_step.fused_ffn_step(
+            staged, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"])
+        assert torch.equal(got, staged)
+        assert all(torch.equal(a, b) for a, b in zip(rings["kernel"], rings["staged"]))
+        want, *_ = decode_step.fused_decoder_layer_step_plain(
+            x, self_w, cross_w, ffn_w, sb, step, *rings["plain"], enc_k, enc_v, eb, 0.125, HEADS)
+        assert _err(got, want) <= LAYER_TOL
+        assert _ring_err({k: rings[k] for k in ("kernel", "plain")}) <= 1e-4
+        rings["plain"] = [x.clone() for x in rings["kernel"]]
+        _reorder(rings, gen, dev)
+
+
+def test_step_wrappers_refuse_a_wrong_dtype_and_a_non_contiguous_tensor(dev):
+    """A CUDA input to kernels A, B or the layer step launches the kernel or
+    raises ValueError; nothing falls back to the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    self_w, cross_w, ffn_w = _attention_weights(gen), _cross_weights(gen), _ffn_weights(gen)
+    x, sb = _randn(gen, STEP_ROWS, HD), _step_bias(gen, dev)
+    ring = _rings(torch.float32, dev)["kernel"]
+    enc_k, enc_v = (_randn(gen, STEP_ROWS, STEP_SK, HD, dtype=torch.bfloat16) for _ in range(2))
+    eb = _key_bias(gen, STEP_ROWS, STEP_SK)
+    f32_w = dict(self_w, wqkv=self_w["wqkv"].float())
+    strided_ring = [torch.zeros(STEP_ROWS, STEP_T, 2 * HD, device=dev)[:, :, :HD], *ring[1:]]
+    strided_enc = _randn(gen, STEP_ROWS, STEP_SK, 2 * HD, dtype=torch.bfloat16)[:, :, :HD]
+    counts = _cuda.launch_counts()
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_step.fused_self_attention_step(x, f32_w, sb, 0, *ring, 0.125, HEADS)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_step.fused_self_attention_step(x, self_w, sb, 0, *strided_ring, 0.125, HEADS)
+    with pytest.raises(ValueError, match="float32"):
+        decode_step.fused_cross_attention_step(x.double(), cross_w, enc_k, enc_v, eb, 0.125, HEADS)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_step.fused_cross_attention_step(x, cross_w, strided_enc, enc_v, eb, 0.125, HEADS)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_step.fused_decoder_layer_step(
+            x, f32_w, cross_w, ffn_w, sb, 0, *ring, enc_k, enc_v, eb, 0.125, HEADS)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_step.fused_decoder_layer_step(
+            x, self_w, cross_w, ffn_w, sb, 0, *ring, strided_enc, enc_v, eb, 0.125, HEADS)
+    with pytest.raises(ValueError, match="float16"):
+        decode_step.fused_decoder_layer_step(
+            x, self_w, cross_w, ffn_w, sb, 0, ring[0].half(), ring[1].half(), ring[2],
+            enc_k, enc_v, eb, 0.125, HEADS)
+    assert _cuda.launch_counts() == counts
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     x = _randn(gen, 4, HD)

@@ -50,9 +50,9 @@ def _dataset_config(paths, kind):
     })
 
 
-def _vocab_config(paths):
+def _vocab_config(paths, kind="OcrVocab"):
     return ConfigNode({
-        "TYPE": "OcrVocab", "TOKENIZER": None, "MIN_FREQ": 1, "WORD_EMBEDDING": None,
+        "TYPE": kind, "TOKENIZER": None, "MIN_FREQ": 1, "WORD_EMBEDDING": None,
         "PAD_TOKEN": "<pad>", "BOS_TOKEN": "<bos>", "EOS_TOKEN": "<eos>", "UNK_TOKEN": "<unk>",
         "IMG_TOKEN": "<img>", "FEAT_TOKEN": "<feat>", "BOX_TOKEN": "<box>", "OCR_TOKEN": "<ocr>",
         "OCR_DET_TOKEN": "<ocr_det>", "OCR_REC_TOKEN": "<ocr_rec>",
@@ -63,10 +63,11 @@ def _vocab_config(paths):
 
 @pytest.mark.parametrize("kind,split,shuffle", [
     ("OcrFeatureDataset", "train", True), ("OcrDictionaryDataset", "dev", False),
+    ("FeatureDataset", "train", True), ("DictionaryDataset", "dev", False),
 ])
 def test_loader_batches_match_the_jax_package(synthetic_data, kind, split, shuffle):
     builders.populate()
-    vocab_config = _vocab_config(synthetic_data)
+    vocab_config = _vocab_config(synthetic_data, "OcrVocab" if kind.startswith("Ocr") else "Vocab")
     ours = builders.build_vocab(vocab_config)
     theirs = jax_builders.build_vocab(vocab_config)
     assert ours.itos == theirs.itos

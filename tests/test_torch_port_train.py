@@ -290,11 +290,20 @@ def test_train_step_matches_jax(synthetic_data, tmp_path):
 
 def test_gradient_step_gives_finite_nonzero_grads(synthetic_data, tmp_path):
     """The training route at its 0.1 dropout rates: every trainable parameter
-    gets a finite gradient that is not zero."""
-    task = build_task(_config(synthetic_data, tmp_path), "cpu")
-    _, batch = next(task.device_batches(task.train_dataloader))
+    gets a finite gradient that is not zero.  The OCR branch of the
+    previous-token embedding gets one only from an answer that copies an OCR
+    token.  An answer word found both in the vocab and among the OCR tokens
+    takes either index by numpy's global generator (the reference's rule), and
+    the eleven training samples need not hold a single copy: the generator is
+    seeded, the loader has one worker, and the gradients of the whole train
+    split are accumulated."""
+    config = _config(synthetic_data, tmp_path)
+    config = config.merged({"DATASET": {"FEATURE_DATASET": {"WORKERS": 1}}})
+    np.random.seed(11)
+    task = build_task(config, "cpu")
     task.optimizer.zero_grad(set_to_none=True)
-    task.compute_loss(batch).backward()
+    for _, batch in task.device_batches(task.train_dataloader):
+        task.compute_loss(batch).backward()
     for name, param in task.model.named_parameters():
         assert param.grad is not None, name
         assert bool(torch.isfinite(param.grad).all()), name
