@@ -13,7 +13,9 @@ Phases, each fatal on failure:
      IterativeMCAN beam path (kernels A, B and the decoder-layer step at 63
      rows, hidden 512, FFN 2048, over T + 1 steps with the ring reordered
      between steps as beam search does; the layer step also bit for bit
-     against its three stage kernels), with the max |kernel - plain| beside its
+     against its three stage kernels), and kernel E of the Iterative M4C
+     decode step (64 rows, hidden 512, 210 bf16 encoder keys, eps 1e-12),
+     with the max |kernel - plain| beside its
      tolerance, median CUDA-event times of the kernel, of its plain version
      and, for the attention kernels, of one torch.nn.functional.
      scaled_dot_product_attention call on the same inputs (timed here only,
@@ -46,9 +48,28 @@ Phases, each fatal on failure:
      decode time of each; a torch.profiler table of one decode; then
      ``start()`` for one epoch and ``get_predictions()``, the step losses, one
      step's gradients (finite, and non-zero wherever a gradient exists), the
-     train-step time on the kernel and plain paths and peak device memory.
-Launch counts are reset just before each main-path run (4: each decode mode;
-5 and 6: each eval route, start() and get_predictions()) and read just after it.  The nvcc/ptxas log
+     train-step time on the kernel and plain paths and peak device memory;
+  7. ``configs/mmf_iterative_m4c.yaml`` at its full widths (hidden 512, 8
+     heads, TextBert 4 + joint encoder 4 + cross-attention decoder 4 layers,
+     FFN 2048; random weights, TEXT_BERT.LOAD_PRETRAINED false) on phase 4's
+     data: ``TrainingMMF.evaluate_metrics`` over the dev split with
+     ``DECODING_MODE: incremental`` (F and C in the encodes; kernels A, E and C
+     each step: A = E = steps x 4 layers x dev batches launches, no plain
+     version called) and as written (quadratic greedy: F, C and the packed
+     attention), each with the kernel vs plain path checks of phase 4; the
+     incremental vs the quadratic greedy on one batch;
+     ``configs/mmf_iterative_multilevel_m4c.yaml``, one incremental greedy
+     batch (E launches counted); one incremental greedy batch (kernel D) each of
+     ``configs/mmf_regional_m4c.yaml`` and ``configs/mmf_language_adaptive_m4c.yaml``
+     at their widths (random weights; the regional grid stream at the
+     generator's 49 x 2048 grids; the language-adaptive model's frozen random
+     12-layer, 768-wide vinai/phobert-base-sized backbone); then ``start()`` for
+     one epoch of ``mmf_iterative_m4c``, ``get_predictions()``, the train-step
+     time on both paths, peak memory and the gradients of the train split
+     (finite, non-zero except the key-projection biases).
+Launch counts are reset just before each main-path run (4 and 7: each decode
+mode and decode batch; 5, 6 and 7: each eval route, start() and
+get_predictions()) and read just after it.  The nvcc/ptxas log
 (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -100,7 +121,8 @@ RING_TOL = 1e-4  # float32 ring: the k, v rows are f32 sums in another order
 # max_answer_length of them
 LOGPROB_TOL = 5e-2
 # a key projection's bias has no gradient: softmax(q . (k + b)) does not depend on b
-GRADIENT_FREE = "fc_k.bias"
+# (MultiHeadAttention's fc_k, BERT's self.key)
+GRADIENT_FREE = ("fc_k.bias", "self.key.bias")
 DROPOUT_RATE = 0.1
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -120,9 +142,12 @@ SOURCES = {
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:559"),
     "fused_decoder_layer_step": (
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:418"),
+    "fused_cross_attention_streamed": (
+        "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:1146"),
 }
 STEP_PLAIN = ("fused_self_attention_step_plain", "fused_cross_attention_step_plain",
-              "fused_decoder_layer_step_plain", "fused_ffn_step_plain")
+              "fused_decoder_layer_step_plain", "fused_ffn_step_plain",
+              "fused_cross_attention_streamed_plain")
 
 
 def log(*parts) -> None:
@@ -187,6 +212,8 @@ def plain_versions():
         (decode_step, "fused_self_attention_step", decode_step.fused_self_attention_step_plain),
         (decode_step, "fused_cross_attention_step", decode_step.fused_cross_attention_step_plain),
         (decode_step, "fused_decoder_layer_step", decode_step.fused_decoder_layer_step_plain),
+        (decode_step, "fused_cross_attention_streamed",
+         decode_step.fused_cross_attention_streamed_plain),
         (encoder_layer, "fused_encoder_self_attention",
          encoder_layer.fused_encoder_self_attention_plain),
         (fused_attention, "fused_attention_packed", fused_attention.fused_attention_packed_plain),
@@ -242,10 +269,11 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_kernels(task, shapes, seed, failures, generative):
+def check_kernels(task, shapes, seed, failures, generative, iterative):
     """Phase 3: every kernel of the paths against its plain version;
     `generative` is the IterativeMCAN task, whose decoder gives the step
-    kernels their weights and shapes."""
+    kernels their weights and shapes; `iterative` the MMF_IterativeM4C task,
+    whose decoder gives kernel E its weights and shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -431,7 +459,44 @@ def check_kernels(task, shapes, seed, failures, generative):
            2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
     check_step_kernels(generative, gen, record, failures)
+    check_streamed_cross(iterative, gen, record)
     return results
+
+
+def check_streamed_cross(task, gen, record):
+    """Kernel E at the Iterative M4C decode step's shapes: the dev batch's rows,
+    the joint encoder's keys (question + regions + OCR tokens), the decoder's
+    first layer's weights, bf16 encoder K/V, some keys masked, eps 1e-12.  It
+    has no one-call library equivalent (q projection, attention, out
+    projection, residual and LayerNorm)."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.bert import LN_EPS
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.ops import decode_step
+
+    dev = task.device
+    model = task.model
+    w = model.decoder.layer[0].crossattention.cross_kernel_weights(torch.bfloat16)
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    rows = first["question_tokens"].shape[0]
+    sk = sum(first[k].shape[1] for k in ("question_tokens", "region_features", "ocr_boxes"))
+    hd, heads = model.hidden_size, model.num_heads
+    scale = 1.0 / float(hd // heads) ** 0.5
+    x = torch.randn((rows, hd), generator=gen, device=dev)
+    kv = tuple(torch.randn((rows, sk, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2))
+    lengths = torch.randint(sk // 2, sk + 1, (rows,), generator=gen, device=dev)
+    bias = torch.where(torch.arange(sk, device=dev)[None] < lengths[:, None], 0.0,
+                       MASK_VALUE).float().contiguous()
+    args = (x, w, kv, bias, scale, heads, LN_EPS)
+    y = decode_step.fused_cross_attention_streamed(*args)
+    record("fused_cross_attention_streamed",
+           f"{rows} rows, hd {hd}, S {sk}, bf16 encoder K/V, eps {LN_EPS:.0e} (library: none)",
+           max_err(y, decode_step.fused_cross_attention_streamed_plain(*args)), LN_TOL,
+           median_ms(lambda: decode_step.fused_cross_attention_streamed(*args)),
+           median_ms(lambda: decode_step.fused_cross_attention_streamed_plain(*args)),
+           2.0 * rows * hd * 2 * hd + 4.0 * rows * sk * hd, tensor_bytes(x, w, kv, bias, y))
 
 
 def check_step_kernels(task, gen, record, failures):
@@ -594,8 +659,10 @@ def profile(fn, label):
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
-def run_mode(task, mode, failures):
-    """Phase 4 for one decode mode."""
+def run_mode(task, mode, failures, expected, exact=None):
+    """Phases 4 and 7 for one decode mode: the dev eval must launch every
+    kernel in `expected`, the kernels in `exact` that many times, and no
+    decode-step plain version."""
     import torch
 
     from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
@@ -621,16 +688,21 @@ def run_mode(task, mode, failures):
     task.greedy_ids(first)
     torch.cuda.synchronize()
 
-    _cuda.reset_launch_counts()
-    scores, seconds = timed_eval()
-    counts = _cuda.launch_counts()
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        scores, seconds = timed_eval()
+        counts = _cuda.launch_counts()
     log(f"  [{mode}] scores: {json.dumps(scores, default=float)}")
-    log(f"  [{mode}] launches: {json.dumps(counts)}")
-    expected = ["fused_ffn_step", "fused_encoder_self_attention"]
-    expected.append("fused_bert_self_step" if mode == "incremental" else "fused_attention_packed")
+    log(f"  [{mode}] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}")
     for name in expected:
         if counts[name] <= 0:
             failures.append(f"[{mode}] {name} was not launched by the main path")
+    for name, n in (exact or {}).items():
+        if counts[name] != n:
+            failures.append(f"[{mode}] {name}: {counts[name]} launches, want {n}")
+    if plain_calls:
+        failures.append(f"[{mode}] plain versions were called: {plain_calls}")
     if "CIDEr" not in scores:
         failures.append(f"[{mode}] no CIDEr in the scores")
 
@@ -668,6 +740,8 @@ def run_mode(task, mode, failures):
         f"greedy token agreement {agreement * 100:.2f}% of {ids_k.numel()} tokens")
     if not tf_err <= SCORE_TOL:
         failures.append(f"[{mode}] teacher-forced score diff {tf_err} > {SCORE_TOL}")
+    if agreement < 0.9:
+        failures.append(f"[{mode}] greedy token agreement {agreement} < 0.9")
 
     # the greedy decode alone, one batch on the device, both paths
     decode_ms = median_ms(lambda: model.greedy_decode(batch), reps=5)
@@ -685,8 +759,10 @@ def param_group(name: str) -> str:
     return ".".join(parts[:2]) if parts[0] in ("text_bert", "mmt") else parts[0]
 
 
-def run_training(task, failures):
-    """Phase 5: one epoch of start(), then get_predictions() from best_model.pth."""
+def run_training(task, failures, label="train", check_grads=False):
+    """Phases 5 and 7: one epoch of start(), then get_predictions() from
+    best_model.pth; with `check_grads`, also the gradients of the whole train
+    split (check_gradients)."""
     import torch
 
     from openvivqa_tpu_torch.ops import _cuda
@@ -709,25 +785,25 @@ def run_training(task, failures):
         records = [json.loads(line) for line in handle]
     losses = [loss for r in records if r["phase"] == "train" for loss in r["step_losses"]]
     validation = [r for r in records if r["phase"] == "validation"]
-    log(f"  [train] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
-    log(f"  [train] dev scores after the epoch: "
+    log(f"  [{label}] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
+    log(f"  [{label}] dev scores after the epoch: "
         f"{json.dumps({k: v for k, v in validation[-1].items() if k not in ('time',)})}")
-    log(f"  [train] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
+    log(f"  [{label}] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
         f"test scores {json.dumps(scores, default=float)}")
-    log(f"  [train] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    log(f"  [{label}] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
     n_train = len(task.train_dataset)
     want_steps = -(-n_train // BATCH)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
-        failures.append(f"[train] losses {losses}: want {want_steps} finite values")
+        failures.append(f"[{label}] losses {losses}: want {want_steps} finite values")
     for name in ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward",
                  "fused_attention_packed", "fused_encoder_self_attention", "fused_ffn_step"):
         if counts[name] <= 0:
-            failures.append(f"[train] {name} was not launched by the main path")
+            failures.append(f"[{label}] {name} was not launched by the main path")
     for name in ("best_model.pth", "last_model.pth", "test_results.json"):
         if not (Path(task.checkpoint_path) / name).is_file():
-            failures.append(f"[train] {name} was not written")
+            failures.append(f"[{label}] {name} was not written")
     if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
-        failures.append("[train] no finite CIDEr from get_predictions()")
+        failures.append(f"[{label}] no finite CIDEr from get_predictions()")
 
     # one batch: the train step's time on both paths, in turns
     _, batch = next(task.device_batches(task.train_dataloader))
@@ -736,7 +812,7 @@ def run_training(task, failures):
     with plain_versions():
         plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
     kernel_ms.append(median_ms(step, reps=5))
-    log(f"  [train] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
+    log(f"  [{label}] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
         f"{kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path {plain_ms[0]:.3f}, "
         f"{plain_ms[1]:.3f} ms")
 
@@ -747,7 +823,8 @@ def run_training(task, failures):
         loss = task.compute_loss(batch)
         loss.backward()
         return float(loss.detach()), {n: p.grad.detach().clone()
-                                      for n, p in task.model.named_parameters()}
+                                      for n, p in task.model.named_parameters()
+                                      if p.grad is not None}
 
     loss_k, grads_k = grads(1234)
     with plain_versions():
@@ -759,14 +836,48 @@ def run_training(task, failures):
         groups[param_group(name)] = (max(diff, max_err(g_k, grads_p[name])),
                                      max(scale, float(grads_p[name].abs().max())))
     rel = {group: diff / scale if scale > 0 else 0.0 for group, (diff, scale) in groups.items()}
-    log(f"  [train] one step, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
+    log(f"  [{label}] one step, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
         "max|grad diff| / max|grad| per parameter group "
         + json.dumps({group: float(f"{value:.3e}") for group, value in rel.items()}))
     worst = max(rel.values())
     if not worst <= STEP_GRAD_RTOL:
-        failures.append(f"[train] gradient difference {worst} > {STEP_GRAD_RTOL}")
-    profile(step, "train step")
+        failures.append(f"[{label}] gradient difference {worst} > {STEP_GRAD_RTOL}")
+    if check_grads:
+        check_gradients(task, failures, label)
+    profile(step, f"{label} step")
     return counts
+
+
+def check_gradients(task, failures, label):
+    """The gradients of the losses summed over the train split (every
+    parameter then has the data it could get a gradient from, an OCR copy
+    among the answers included): finite on every trainable parameter and
+    non-zero except the key-projection biases; none, or zero, on a frozen
+    parameter."""
+    import torch
+
+    task.optimizer.zero_grad(set_to_none=True)
+    for _, batch in task.device_batches(task.train_dataloader):
+        task.compute_loss(batch).backward()
+    bad, frozen = [], 0
+    for name, p in task.model.named_parameters():
+        if not p.requires_grad:
+            frozen += 1
+            if p.grad is not None and bool(p.grad.any()):
+                bad.append(name)
+        elif (p.grad is None or not bool(torch.isfinite(p.grad).all())
+              or not (name.endswith(GRADIENT_FREE) or float(p.grad.abs().max()) > 0.0)):
+            bad.append(name)
+    n_params = sum(1 for _ in task.model.parameters())
+    log(f"  [{label}] gradients over the train split: {n_params - len(bad)} of {n_params} "
+        f"parameter tensors as required ({frozen} frozen: no gradient; the rest finite, "
+        "non-zero except the gradient-free key biases)")
+    if bad:
+        failures.append(f"[{label}] missing, non-finite, zero or frozen-but-nonzero gradients: "
+                        f"{bad[:8]}")
+    task.optimizer.zero_grad(set_to_none=True)
+
+
 
 
 def run_generative(task, failures):
@@ -925,6 +1036,144 @@ def run_generative_training(task, failures):
     return counts
 
 
+def one_greedy_batch(task, label, failures, want):
+    """One dev batch's greedy decode: finite scores of the right shape,
+    `want[name]` launches of each kernel named there and no decode-step plain
+    version called; the decode's CUDA-event time."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    _, batch = next(task.device_batches(task.dev_dict_dataloader))
+    model = task.model
+    model.greedy_decode(batch)  # the allocator's first growth, outside the counted run
+    torch.cuda.synchronize()
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        scores = model.greedy_decode(batch)["scores"]
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+    ms = median_ms(lambda: model.greedy_decode(batch), reps=5)
+    rows = batch["question_tokens"].shape[0]
+    shape = (rows, task.vocab.max_answer_length, len(task.vocab) + batch["ocr_boxes"].shape[1])
+    log(f"  [{label}] {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters; greedy "
+        f"decode of one batch of {rows}: {ms:.3f} ms (CUDA-event median of 5); launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; plain calls "
+        f"{json.dumps(plain_calls)}")
+    if tuple(scores.shape) != shape or not bool(torch.isfinite(scores).all()):
+        failures.append(f"[{label}] scores {tuple(scores.shape)} (want {shape}) or non-finite")
+    for name, n in want.items():
+        if counts[name] != n:
+            failures.append(f"[{label}] {name}: {counts[name]} launches, want {n}")
+    if plain_calls:
+        failures.append(f"[{label}] plain versions were called: {plain_calls}")
+    return counts
+
+
+def compare_decode_modes(quadratic, incremental, failures):
+    """The incremental greedy against the quadratic one on one dev batch
+    (the two tasks hold the same weights, drawn from one seed)."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+
+    host, batch = next(incremental.device_batches(incremental.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(batch["question_tokens"].device)
+    out_q = quadratic.model.greedy_decode(batch)["scores"][valid]
+    out_i = incremental.model.greedy_decode(batch)["scores"][valid]
+    agreement = float((out_q.argmax(-1) == out_i.argmax(-1)).float().mean())
+    unmasked = out_q > MASK_VALUE / 2
+    diff = max_err(out_q[unmasked], out_i[unmasked])
+    log(f"  [iterative] incremental vs quadratic greedy, one batch: token agreement "
+        f"{agreement * 100:.2f}% of {out_q.shape[0] * out_q.shape[1]} tokens, max|score diff| "
+        f"{diff:.3e} (unmasked scores)")
+    if agreement < 0.9:
+        failures.append(f"[iterative] incremental vs quadratic token agreement {agreement}")
+
+
+def with_data(config_file, paths, seed, checkpoint, model=None, features_only=False):
+    """`configs/<config_file>` on the synthetic data at `paths`, with `model`
+    merged into its MODEL node."""
+    from openvivqa_tpu_torch.config import get_config
+
+    json_paths = {"TRAIN": paths["train"], "DEV": paths["dev"], "TEST": paths["test"]}
+    if features_only:
+        dataset = {"FEATURE_PATH": {"FEATURES": paths["features"]}}
+    else:
+        dataset = {"WORD_EMBEDDING": None, "FEATURE_PATH": {
+            "FEATURES": paths["features"], "SCENE_TEXT": paths["scene_text"]}}
+    return get_config(str(ROOT / "configs" / config_file)).merged({
+        "DATASET": {
+            "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
+            "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
+        },
+        "MODEL": model or {},
+        "TRAINING": {"SEED": seed, "CHECKPOINT_PATH": checkpoint},
+    })
+
+
+NO_PRETRAINED = {"TEXT_BERT": {"LOAD_PRETRAINED": False}}
+
+
+def run_iterative(tasks, config, paths, tmp, seed, failures):
+    """Phase 7: the Iterative M4C family and the other MMF_M4C variants.
+    `tasks` holds the quadratic and incremental MMF_IterativeM4C tasks; it is
+    emptied once they have run."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from openvivqa_tpu_torch.ops import _cuda
+
+    launches = {name: 0 for name in _cuda.LAUNCHES}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    incremental = tasks["incremental"]
+    steps = incremental.vocab.max_answer_length
+    n_layers = len(incremental.model.decoder.layer)
+    per_batch = steps * n_layers
+    want = per_batch * len(incremental.dev_dict_dataloader)
+    add(run_mode(incremental, "iterative incremental", failures,
+                 ["fused_ffn_step", "fused_encoder_self_attention"],
+                 {"fused_self_attention_step": want, "fused_cross_attention_streamed": want}))
+    add(run_mode(tasks["quadratic"], "iterative quadratic", failures,
+                 ["fused_ffn_step", "fused_encoder_self_attention", "fused_attention_packed"]))
+    compare_decode_modes(tasks["quadratic"], incremental, failures)
+    tasks.clear()
+    del incremental
+    torch.cuda.empty_cache()
+
+    incremental_mode = {**NO_PRETRAINED, "DECODING_MODE": "incremental"}
+    multilevel = build_task(with_data("mmf_iterative_multilevel_m4c.yaml", paths, seed,
+                                      str(Path(tmp) / "multilevel"), incremental_mode), "cuda")
+    add(one_greedy_batch(multilevel, "multilevel incremental", failures, {
+        "fused_self_attention_step": per_batch, "fused_cross_attention_streamed": per_batch}))
+    del multilevel
+
+    # the grid stream at the regional config's width: the generator's 49 x 2048 grids
+    grid_paths = generate_synthetic_dataset(str(Path(tmp) / "grid_data"), n_images=60,
+                                            n_regions=100, max_scene_text=100, seed=seed)
+    for config_file, label in (("mmf_regional_m4c.yaml", "regional incremental"),
+                               ("mmf_language_adaptive_m4c.yaml", "language-adaptive incremental")):
+        task = build_task(with_data(config_file, grid_paths, seed, str(Path(tmp) / label),
+                                    incremental_mode), "cuda")
+        mmt_layers = len(task.model.mmt.encoder.layer)
+        add(one_greedy_batch(task, label, failures, {
+            "fused_bert_self_step": task.vocab.max_answer_length * mmt_layers}))
+        del task
+        torch.cuda.empty_cache()
+
+    log("  Iterative M4C training: TrainingMMF.start() for one epoch, then get_predictions()")
+    train_task = build_task(config.merged({"TRAINING": {
+        "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "iterative_train")}}), "cuda")
+    add(run_training(train_task, failures, label="iterative train", check_grads=True))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -936,7 +1185,6 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
     from openvivqa_tpu_torch.builders import build_task, populate
-    from openvivqa_tpu_torch.config import get_config
     from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
     from openvivqa_tpu_torch.ops import _cuda
 
@@ -969,31 +1217,23 @@ def main() -> int:
             tmp, n_images=240, n_regions=100, n_grids=1, d_grid_feature=8,
             max_scene_text=100, seed=args.seed,
         )
-        json_paths = {"TRAIN": paths["train"], "DEV": paths["dev"], "TEST": paths["test"]}
-        features = {"FEATURES": paths["features"], "SCENE_TEXT": paths["scene_text"]}
-        dataset = {"WORD_EMBEDDING": None, "FEATURE_PATH": features}
-        config = get_config(str(ROOT / "configs" / "mmf_m4c.yaml")).merged({
-            "DATASET": {
-                "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
-                "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
-            },
-            "MODEL": {"TEXT_BERT": {"LOAD_PRETRAINED": False}},
-            "TRAINING": {"SEED": args.seed, "CHECKPOINT_PATH": str(Path(tmp) / "eval")},
-        })
+        config = with_data("mmf_m4c.yaml", paths, args.seed, str(Path(tmp) / "eval"),
+                           NO_PRETRAINED)
         tasks = {
             "quadratic": build_task(config, "cuda"),
             "incremental": build_task(
                 config.merged({"MODEL": {"DECODING_MODE": "incremental"}}), "cuda"),
         }
-        features_only = {"FEATURE_PATH": {"FEATURES": paths["features"]}}
-        generative_config = get_config(str(ROOT / "configs" / "iterative_mcan.yaml")).merged({
-            "DATASET": {
-                "FEATURE_DATASET": features_only, "DICT_DATASET": features_only,
-                "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths},
-            },
-            "TRAINING": {"SEED": args.seed, "CHECKPOINT_PATH": str(Path(tmp) / "beam_eval")},
-        })
+        generative_config = with_data("iterative_mcan.yaml", paths, args.seed,
+                                      str(Path(tmp) / "beam_eval"), features_only=True)
         generative = build_task(generative_config, "cuda")
+        iterative_config = with_data("mmf_iterative_m4c.yaml", paths, args.seed,
+                                     str(Path(tmp) / "iterative"), NO_PRETRAINED)
+        iterative = {
+            "quadratic": build_task(iterative_config, "cuda"),
+            "incremental": build_task(
+                iterative_config.merged({"MODEL": {"DECODING_MODE": "incremental"}}), "cuda"),
+        }
         task = tasks["quadratic"]
         _, first = next(task.device_batches(task.dev_dict_dataloader))
         shapes = {
@@ -1010,13 +1250,16 @@ def main() -> int:
 
         # 3. the kernels against their plain versions
         log("kernels vs plain (CUDA-event medians of 20):")
-        results = check_kernels(task, shapes, args.seed, failures, generative)
+        results = check_kernels(task, shapes, args.seed, failures, generative,
+                                iterative["incremental"])
 
         # 4. the eval path in both decode modes
         log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
         launches = {name: 0 for name in _cuda.LAUNCHES}
         for mode, mode_task in tasks.items():
-            for name, n in run_mode(mode_task, mode, failures).items():
+            expected = ["fused_ffn_step", "fused_encoder_self_attention",
+                        "fused_bert_self_step" if mode == "incremental" else "fused_attention_packed"]
+            for name, n in run_mode(mode_task, mode, failures, expected).items():
                 launches[name] += n
         del tasks, task, mode_task
         torch.cuda.empty_cache()
@@ -1047,6 +1290,20 @@ def main() -> int:
         xe_task = build_task(generative_config.merged({"TRAINING": {
             "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "beam_train")}}), "cuda")
         for name, n in run_generative_training(xe_task, failures).items():
+            launches[name] += n
+        del xe_task
+        torch.cuda.empty_cache()
+
+        # 7. the Iterative M4C family and the other MMF_M4C variants
+        model = iterative["incremental"].model
+        log(f"main path, Iterative M4C: configs/mmf_iterative_m4c.yaml, hidden "
+            f"{model.hidden_size}, {model.num_heads} heads, {len(model.text_bert.encoder.layer)} "
+            f"TextBert + {len(model.encoder.layer)} encoder + {len(model.decoder.layer)} "
+            f"cross-attention decoder layers, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+            f"parameters; TrainingMMF.evaluate_metrics over the dev split in both decode modes")
+        del model
+        for name, n in run_iterative(iterative, iterative_config, paths, tmp, args.seed,
+                                     failures).items():
             launches[name] += n
 
     kernels = []

@@ -14,11 +14,21 @@
 //      with a (rows, Sk) float32 bias
 //        y = LN(x + softmax(scale (x Wq + bq) . enc_k + enc_bias) enc_v Wo + bo);
 //   ovq_decoder_layer_step_forward: A, then B on A's rows, then kernel C (the
-//      FFN sublayer, ffn.cu) on B's rows, under one eps.
+//      FFN sublayer, ffn.cu) on B's rows, under one eps;
+//   E  ovq_cross_attention_streamed_forward: the Iterative M4C family's
+//      cross-attention sublayer over the frozen encoder projections (rows, S, hd),
+//      the same function as B, called with the BertLayer eps of 1e-12.
 //
 // They replace the Pallas kernels `_self_attn_kernel` / `fused_self_attention_step`,
-// `_cross_attn_kernel` / `fused_cross_attention_step` and `_layer_kernel` /
-// `fused_decoder_layer_step` (openvivqa_tpu/ops/decode_step.py).  Weight matrices
+// `_cross_attn_kernel` / `fused_cross_attention_step`, `_layer_kernel` /
+// `fused_decoder_layer_step` and `_streamed_cross_kernel` /
+// `fused_cross_attention_streamed` (openvivqa_tpu/ops/decode_step.py).  The TPU's
+// kernel E differs from its B only in layout: it pads the encoder K/V to a chunk
+// multiple and walks the chunks over a sequential grid dimension because a
+// 210-key block does not fit VMEM beside the weights.  Here B's attention block
+// already walks the keys in 64-key chunks under an online softmax with a count
+// for the ragged end, so E runs B's device code behind its own entry (and the
+// wrapper's own launch counter); nothing is padded.  Weight matrices
 // are bf16 (K, N) row-major, activations are rounded to bf16 at each product,
 // sums, softmax (over f32 queries and the stored keys) and LayerNorm are f32; the
 // FFN's GELU is the exact erff one of kernel C.  Nothing assumes that a row keeps
@@ -217,6 +227,18 @@ extern "C" int ovq_cross_attention_step_forward(
                                                heads, scale, eps, stream)
                   : ovq::cross_step<float>(x, w, enc_k, enc_v, enc_bias, ws, y, rows, sk, hd,
                                            heads, scale, eps, stream);
+}
+
+// kernel E: the arguments of B's entry, the eps the caller's (1e-12 for BertLayer)
+extern "C" int ovq_cross_attention_streamed_forward(
+    const float* x, const ovq::bf16* wq, const float* bq, const ovq::bf16* wo, const float* bo,
+    const float* gamma, const float* beta, const void* enc_k, const void* enc_v,
+    const float* enc_bias, float* q, float* ctx, float* partial, float* y, int rows, int sk,
+    int hd, int heads, int enc_bf16, int splits, int k_per_split, float scale, float eps,
+    cudaStream_t stream) {
+  return ovq_cross_attention_step_forward(x, wq, bq, wo, bo, gamma, beta, enc_k, enc_v, enc_bias,
+                                          q, ctx, partial, y, rows, sk, hd, heads, enc_bf16,
+                                          splits, k_per_split, scale, eps, stream);
 }
 
 // y1 and y2 (rows, hd) carry the rows between the sublayers; hidden (rows, d_ff)

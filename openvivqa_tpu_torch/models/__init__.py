@@ -10,3 +10,4 @@ from .modules import (  # noqa: F401
 )
 from . import iterative_mcan  # noqa: F401
 from . import mmf_m4c  # noqa: F401
+from . import mmf_variants  # noqa: F401

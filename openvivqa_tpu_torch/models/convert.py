@@ -3,8 +3,10 @@
 
 The port's parameter names are the reference's torch names, the ones
 ``openvivqa_tpu.models.modules.torch_conversion``'s converters read
-(``convert_mmf_m4c``, ``convert_iterative_mcan``), so those converters are this
-bridge's inverses and the port also loads the reference's own checkpoints.  Flax Dense kernels are (in, out) and torch
+(``convert_mmf_m4c``, ``convert_mmf_regional_m4c``, ``convert_mmf_iterative_m4c``,
+``convert_mmf_language_adaptive``, ``convert_iterative_mcan``), so those
+converters are this bridge's inverses and the port also loads the reference's own
+checkpoints.  Flax Dense kernels are (in, out) and torch
 Linear weights (out, in); LayerNorm scale/bias become weight/bias.
 """
 
@@ -35,16 +37,23 @@ def _embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
     out[f"{name}.weight"] = _arr(tree["embedding"])
 
 
-def _bert_layer(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
-    attention = tree["BertSelfAttention_0"]
+def _bert_attention(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
     for flax_name, torch_name in (
-        ("Dense_0", "attention.self.query"),
-        ("Dense_1", "attention.self.key"),
-        ("Dense_2", "attention.self.value"),
-        ("Dense_3", "attention.output.dense"),
+        ("Dense_0", "self.query"),
+        ("Dense_1", "self.key"),
+        ("Dense_2", "self.value"),
+        ("Dense_3", "output.dense"),
     ):
-        _linear(out, f"{name}.{torch_name}", attention[flax_name])
-    _layer_norm(out, f"{name}.attention.output.LayerNorm", attention["LayerNorm_0"])
+        _linear(out, f"{name}.{torch_name}", tree[flax_name])
+    _layer_norm(out, f"{name}.output.LayerNorm", tree["LayerNorm_0"])
+
+
+def _bert_layer(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """A BertLayer; its BertSelfAttention_1, where present, is the HF decoder's
+    ``crossattention``."""
+    _bert_attention(out, f"{name}.attention", tree["BertSelfAttention_0"])
+    if "BertSelfAttention_1" in tree:
+        _bert_attention(out, f"{name}.crossattention", tree["BertSelfAttention_1"])
     _linear(out, f"{name}.intermediate.dense", tree["Dense_0"])
     _linear(out, f"{name}.output.dense", tree["Dense_1"])
     _layer_norm(out, f"{name}.output.LayerNorm", tree["LayerNorm_0"])
@@ -63,32 +72,86 @@ def _feature_box(out: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
     _layer_norm(out, f"{prefix}_bbox_layer_norm", tree["LayerNorm_1"])
 
 
-def _mmf_m4c(tree: Mapping[str, Any]) -> StateDict:
-    out: StateDict = {}
-    text = tree["text_bert"]
-    embeddings = text["BertEmbeddings_0"]
-    _embedding(out, "text_bert.embeddings.word_embeddings", embeddings["Embed_0"])
-    _embedding(out, "text_bert.embeddings.position_embeddings", embeddings["Embed_1"])
-    _embedding(out, "text_bert.embeddings.token_type_embeddings", embeddings["Embed_2"])
-    _layer_norm(out, "text_bert.embeddings.LayerNorm", embeddings["LayerNorm_0"])
-    _bert_encoder(out, "text_bert.encoder", text["BertEncoderStack_0"])
-    if "text_bert_out_linear" in tree:
-        _linear(out, "text_bert_out_linear", tree["text_bert_out_linear"])
+def _bert_embeddings(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    _embedding(out, f"{name}.word_embeddings", tree["Embed_0"])
+    _embedding(out, f"{name}.position_embeddings", tree["Embed_1"])
+    _embedding(out, f"{name}.token_type_embeddings", tree["Embed_2"])
+    _layer_norm(out, f"{name}.LayerNorm", tree["LayerNorm_0"])
+
+
+def _prev_pred_embeddings(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    _layer_norm(out, f"{name}.ans_layer_norm", tree["LayerNorm_0"])
+    _layer_norm(out, f"{name}.ocr_layer_norm", tree["LayerNorm_1"])
+    _layer_norm(out, f"{name}.emb_layer_norm", tree["LayerNorm_2"])
+    _embedding(out, f"{name}.position_embeddings", tree["Embed_0"])
+    _embedding(out, f"{name}.token_type_embeddings", tree["Embed_1"])
+
+
+def _m4c_heads(out: StateDict, tree: Mapping[str, Any]) -> None:
+    """The object and OCR encodings, the classifier and the pointer net."""
     _feature_box(out, "obj", tree["obj_encoding"])
     _feature_box(out, "ocr", tree["ocr_encoding"])
-
-    ppe = tree["mmt"]["prev_pred_embeddings"]
-    _layer_norm(out, "mmt.prev_pred_embeddings.ans_layer_norm", ppe["LayerNorm_0"])
-    _layer_norm(out, "mmt.prev_pred_embeddings.ocr_layer_norm", ppe["LayerNorm_1"])
-    _layer_norm(out, "mmt.prev_pred_embeddings.emb_layer_norm", ppe["LayerNorm_2"])
-    _embedding(out, "mmt.prev_pred_embeddings.position_embeddings", ppe["Embed_0"])
-    _embedding(out, "mmt.prev_pred_embeddings.token_type_embeddings", ppe["Embed_1"])
-    _bert_encoder(out, "mmt.encoder", tree["mmt"]["encoder"])
-
     out["classifier.weight"] = np.ascontiguousarray(_arr(tree["classifier_kernel"]).T)
     out["classifier.bias"] = _arr(tree["classifier_bias"])
     _linear(out, "ocr_ptr_net.query", tree["ocr_ptr_net"]["Dense_0"])
     _linear(out, "ocr_ptr_net.key", tree["ocr_ptr_net"]["Dense_1"])
+
+
+def _text_bert(out: StateDict, tree: Mapping[str, Any]) -> None:
+    text = tree["text_bert"]
+    _bert_embeddings(out, "text_bert.embeddings", text["BertEmbeddings_0"])
+    _bert_encoder(out, "text_bert.encoder", text["BertEncoderStack_0"])
+    if "text_bert_out_linear" in tree:
+        _linear(out, "text_bert_out_linear", tree["text_bert_out_linear"])
+
+
+def _mmt(out: StateDict, tree: Mapping[str, Any]) -> None:
+    _prev_pred_embeddings(out, "mmt.prev_pred_embeddings", tree["mmt"]["prev_pred_embeddings"])
+    _bert_encoder(out, "mmt.encoder", tree["mmt"]["encoder"])
+
+
+def _mmf_m4c(tree: Mapping[str, Any]) -> StateDict:
+    """MMF_M4C, and MMF_REGIONAL_M4C and MMF_SAL by their extra modules.  The
+    SAL stream has no reference checkpoint and no JAX converter: its names
+    (``ocr_word_proj``, ``ocr_word_norm``) are the port's."""
+    out: StateDict = {}
+    _text_bert(out, tree)
+    _mmt(out, tree)
+    _m4c_heads(out, tree)
+    if "region_encoding" in tree:
+        _feature_box(out, "region", tree["region_encoding"])
+    if "ocr_word_proj" in tree:
+        _linear(out, "ocr_word_proj", tree["ocr_word_proj"])
+        _layer_norm(out, "ocr_word_norm", tree["ocr_word_norm"])
+    return out
+
+
+def _mmf_language_adaptive(tree: Mapping[str, Any]) -> StateDict:
+    """The frozen backbone under ``text_bert.embedding`` (an HF model's
+    ``embeddings`` and ``encoder``), its projection and the fine-tuning encoder
+    (``text_bert.encoder``), then MMF_M4C's MMT and heads."""
+    out: StateDict = {}
+    _bert_embeddings(out, "text_bert.embedding.embeddings", tree["language_embeddings"])
+    _bert_encoder(out, "text_bert.embedding.encoder", tree["language_backbone"])
+    if "language_proj" in tree:
+        _linear(out, "text_bert.text_bert_out_linear", tree["language_proj"])
+    _bert_encoder(out, "text_bert.encoder", tree["finetune_encoder"])
+    _mmt(out, tree)
+    _m4c_heads(out, tree)
+    return out
+
+
+def _mmf_iterative_m4c(tree: Mapping[str, Any]) -> StateDict:
+    """MMF_IterativeM4C and its multilevel variant: TextBert, the joint
+    ``encoder``, ``prev_pred_embeddings`` and the cross-attention ``decoder``."""
+    out: StateDict = {}
+    _text_bert(out, tree)
+    _bert_encoder(out, "encoder", tree["joint_encoder"])
+    _prev_pred_embeddings(out, "prev_pred_embeddings", tree["dec_embeddings"])
+    n_layers = sum(1 for key in tree if key.startswith("dec_layer_"))
+    for i in range(n_layers):
+        _bert_layer(out, f"decoder.layer.{i}", tree[f"dec_layer_{i}"])
+    _m4c_heads(out, tree)
     return out
 
 
@@ -148,9 +211,15 @@ def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
 
 def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     """A flax ``params`` collection (numpy arrays) -> the port's state_dict as
-    float32 numpy arrays, for MMF_M4C and IterativeMCAN trees, told apart by
-    their top-level keys.  `config` (the MODEL node) is accepted for symmetry
-    with the JAX converters; the tree alone determines the layer counts."""
+    float32 numpy arrays, for the MMF_M4C family (MMF_M4C, MMF_REGIONAL_M4C,
+    MMF_SAL, MMF_LanguageAdaptiveM4C, MMF_IterativeM4C and its multilevel
+    variant) and IterativeMCAN trees, told apart by their top-level keys.
+    `config` (the MODEL node) is accepted for symmetry with the JAX converters;
+    the tree alone determines the layer counts."""
+    if "joint_encoder" in tree:
+        return _mmf_iterative_m4c(tree)
+    if "language_backbone" in tree:
+        return _mmf_language_adaptive(tree)
     if "text_bert" in tree:
         return _mmf_m4c(tree)
     if "self_encoder" in tree and "decoder" in tree:

@@ -107,6 +107,16 @@ class PrevPredEmbeddings(nn.Module):
                                      generator)
 
 
+def _join(streams):
+    """(emb, bias) pairs -> the joint (bs, L, h) input and (bs, 1, 1, L) bias."""
+    return (torch.cat([emb for emb, _ in streams], dim=1),
+            torch.cat([bias for _, bias in streams], dim=-1))
+
+
+def _ocr_begin(txt_emb, obj_emb, pre_ocr_streams) -> int:
+    return txt_emb.shape[1] + obj_emb.shape[1] + sum(emb.shape[1] for emb, _ in pre_ocr_streams)
+
+
 class MMT(nn.Module):
     """Joint transformer over [txt, obj, ocr, dec] with the prefix-LM mask and a
     causal decoder block."""
@@ -119,12 +129,15 @@ class MMT(nn.Module):
 
     def forward(self, txt_emb, txt_bias, obj_emb, obj_bias, ocr_emb, ocr_bias,
                 fixed_ans_emb, prev_inds, context_blind: bool = False, weights=None,
-                generator=None):
+                generator=None, pre_ocr_streams=(), extra_streams=()):
+        """`pre_ocr_streams` and `extra_streams` are (emb, bias) pairs joined
+        between obj and ocr and between ocr and dec (MMF_REGIONAL_M4C's grid
+        stream, MMF_SAL's OCR word stream)."""
         dec_emb = self.prev_pred_embeddings(fixed_ans_emb, ocr_emb, prev_inds, generator=generator)
         bs, dec_len = dec_emb.shape[:2]
         dec_bias = torch.zeros((bs, 1, 1, dec_len), dtype=torch.float32, device=dec_emb.device)
-        inputs = torch.cat([txt_emb, obj_emb, ocr_emb, dec_emb], dim=1)
-        col_bias = torch.cat([txt_bias, obj_bias, ocr_bias, dec_bias], dim=-1)
+        inputs, col_bias = _join([(txt_emb, txt_bias), (obj_emb, obj_bias), *pre_ocr_streams,
+                                  (ocr_emb, ocr_bias), *extra_streams, (dec_emb, dec_bias)])
         total = inputs.shape[1]
         extended = col_bias.expand(bs, 1, total, total).clone()
         extended[:, :, -dec_len:, -dec_len:] = causal_bias(dec_len, dec_emb.device)
@@ -133,7 +146,7 @@ class MMT(nn.Module):
             # what makes the incremental decode exact)
             extended[:, :, : total - dec_len, -dec_len:] = MASK_VALUE
         encoded = self.encoder(inputs, extended, weights=weights, generator=generator)
-        ocr_begin = txt_emb.shape[1] + obj_emb.shape[1]
+        ocr_begin = _ocr_begin(txt_emb, obj_emb, pre_ocr_streams)
         return {
             "mmt_seq_output": encoded,
             "mmt_txt_output": encoded[:, : txt_emb.shape[1]],
@@ -143,13 +156,13 @@ class MMT(nn.Module):
 
     # -- incremental decoding -------------------------------------------------
     def encode_context(self, txt_emb, txt_bias, obj_emb, obj_bias, ocr_emb, ocr_bias,
-                       weights=None) -> Dict:
-        inputs = torch.cat([txt_emb, obj_emb, ocr_emb], dim=1)
-        col_bias = torch.cat([txt_bias, obj_bias, ocr_bias], dim=-1)
+                       weights=None, pre_ocr_streams=(), extra_streams=()) -> Dict:
+        inputs, col_bias = _join([(txt_emb, txt_bias), (obj_emb, obj_bias), *pre_ocr_streams,
+                                  (ocr_emb, ocr_bias), *extra_streams])
         ctx_out, layer_inputs = self.encoder(
             inputs, col_bias, return_layer_inputs=True, weights=weights
         )
-        ocr_begin = txt_emb.shape[1] + obj_emb.shape[1]
+        ocr_begin = _ocr_begin(txt_emb, obj_emb, pre_ocr_streams)
         return {
             "ctx_out": ctx_out,
             "context_kv": self.encoder.project_context(layer_inputs),

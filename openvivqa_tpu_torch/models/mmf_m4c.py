@@ -54,14 +54,8 @@ class MMF_M4C(nn.Module):
         self.padding_idx = vocab.padding_idx
         self.decoding_mode, self.context_blind = resolve_decoding_mode(config)
         hidden = self.hidden_size
-        text_hidden = config.TEXT_BERT.HIDDEN_SIZE
 
-        self.text_bert = TextBert(config.TEXT_BERT, self.num_heads, len(vocab))
-        # a projection exists iff the MMT is not 768 wide (the reference's rule)
-        # or the text width differs from the MMT's
-        self.uses_text_proj = hidden != 768 or text_hidden != hidden
-        if self.uses_text_proj:
-            self.text_bert_out_linear = nn.Linear(text_hidden, hidden)
+        self._build_text(config, vocab)
         self.obj_dropout = config.OBJECT_EMBEDDING.DROPOUT
         self.ocr_dropout = config.OCR_EMBEDDING.DROPOUT
         self.linear_obj_feat_to_mmt_in = nn.Linear(config.OBJECT_EMBEDDING.D_FEATURE, hidden)
@@ -72,13 +66,31 @@ class MMF_M4C(nn.Module):
         self.linear_ocr_bbox_to_mmt_in = nn.Linear(4, hidden)
         self.ocr_feat_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
         self.ocr_bbox_layer_norm = nn.LayerNorm(hidden, eps=_TORCH_LN_EPS)
-        self.mmt = MMT(hidden, mmt_layers, self.num_heads, mmt.get("INTERMEDIATE_SIZE"))
+        self._build_joint(config, mmt_layers, mmt.get("INTERMEDIATE_SIZE"))
         # the classifier weight (V, h) doubles as the fixed answer embedding
         self.classifier = nn.Linear(hidden, len(vocab))
         ptr = config.get("OCR_PTR_NET")
         self.ocr_ptr_net = OcrPtrNet(
             ptr.HIDDEN_SIZE if ptr else hidden, ptr.get("QUERY_KEY_SIZE") if ptr else None
         )
+
+    # -- construction hooks (the variants' modules) ----------------------------
+    def _build_text(self, config, vocab):
+        """The question encoder: TextBert, and its projection where
+        `_projects_text` says so."""
+        text_hidden = config.TEXT_BERT.HIDDEN_SIZE
+        self.text_bert = TextBert(config.TEXT_BERT, self.num_heads, len(vocab))
+        self.uses_text_proj = self._projects_text(text_hidden)
+        if self.uses_text_proj:
+            self.text_bert_out_linear = nn.Linear(text_hidden, self.hidden_size)
+
+    def _projects_text(self, text_hidden: int) -> bool:
+        # the reference's rule: a projection exists iff the MMT is not 768 wide;
+        # also where the text width differs from the MMT's
+        return self.hidden_size != 768 or text_hidden != self.hidden_size
+
+    def _build_joint(self, config, num_layers: int, intermediate_size):
+        self.mmt = MMT(self.hidden_size, num_layers, self.num_heads, intermediate_size)
 
     # -- encodings -------------------------------------------------------------
     def kernel_weights(self) -> Dict:
@@ -89,14 +101,21 @@ class MMF_M4C(nn.Module):
             "mmt": self.mmt.encoder.kernel_weights(device),
         }
 
-    def _mmt_streams(self, batch, weights, generator=None) -> Dict:
-        """The MMT's input streams; `weights` are the kernel bundles of an
-        eval call (None with a training `generator`)."""
+    def _txt(self, batch, weights, generator=None):
+        """(txt_emb, txt_bias) of the question stream."""
         txt_bias = padding_bias(batch["question_tokens"], self.padding_idx)
         txt_emb = self.text_bert(batch["question_tokens"], txt_bias,
                                  None if weights is None else weights["text"], generator)
         if self.uses_text_proj:
             txt_emb = self.text_bert_out_linear(txt_emb)
+        return txt_emb, txt_bias
+
+    def _mmt_streams(self, batch, weights, generator=None) -> Dict:
+        """The MMT's input streams; `weights` are the kernel bundles of an
+        eval call (None with a training `generator`).  Variants add
+        ``pre_ocr`` / ``extra`` (emb, bias) streams (MMF_REGIONAL_M4C, MMF_SAL)
+        or change the question stream (MMF_LanguageAdaptiveM4C)."""
+        txt_emb, txt_bias = self._txt(batch, weights, generator)
         obj_emb = feature_box_encoding(
             batch["region_features"], batch["region_boxes"],
             self.linear_obj_feat_to_mmt_in, self.obj_feat_layer_norm,
@@ -113,7 +132,14 @@ class MMF_M4C(nn.Module):
             "txt": (txt_emb, txt_bias),
             "obj": (obj_emb, padding_bias(batch["region_features"], 0)),
             "ocr": (ocr_emb, ocr_padding_bias(batch)),
+            "pre_ocr": (),
+            "extra": (),
         }
+
+    def _greedy_invariants(self, batch, weights, generator=None):
+        """Everything independent of prev_inds, computed once per forward or
+        greedy decode; `_scores_from_streams` consumes it."""
+        return self._mmt_streams(batch, weights, generator)
 
     def _scores_from_streams(self, streams, prev_inds, weights, generator=None):
         results = self.mmt(
@@ -121,6 +147,7 @@ class MMF_M4C(nn.Module):
             fixed_ans_emb=self.classifier.weight, prev_inds=prev_inds,
             context_blind=self.context_blind,
             weights=None if weights is None else weights["mmt"], generator=generator,
+            pre_ocr_streams=streams["pre_ocr"], extra_streams=streams["extra"],
         )
         fixed = self.classifier(results["mmt_dec_output"])
         dynamic = self.ocr_ptr_net(
@@ -131,7 +158,8 @@ class MMF_M4C(nn.Module):
     @torch.no_grad()
     def compute_scores(self, batch, prev_inds):
         weights = self.kernel_weights()
-        return self._scores_from_streams(self._mmt_streams(batch, weights), prev_inds, weights)
+        return self._scores_from_streams(self._greedy_invariants(batch, weights), prev_inds,
+                                         weights)
 
     def forward(self, batch, generator=None) -> Dict:
         """Teacher-forced scores (bs, T, V + K) on batch["answer_tokens"]: the
@@ -139,7 +167,7 @@ class MMF_M4C(nn.Module):
         dropout draws from it, building a graph for autograd."""
         if generator is None:
             return {"scores": self.compute_scores(batch, batch["answer_tokens"])}
-        streams = self._mmt_streams(batch, None, generator)
+        streams = self._greedy_invariants(batch, None, generator)
         return {"scores": self._scores_from_streams(streams, batch["answer_tokens"], None,
                                                     generator)}
 
@@ -151,7 +179,7 @@ class MMF_M4C(nn.Module):
         if self.decoding_mode == "incremental":
             return self.incremental_greedy_decode(batch)
         weights = self.kernel_weights()
-        streams = self._mmt_streams(batch, weights)
+        streams = self._greedy_invariants(batch, weights)
         bs = batch["question_tokens"].shape[0]
         device = batch["question_tokens"].device
         prev_inds = torch.zeros((bs, self.max_iter), dtype=torch.long, device=device)
@@ -170,7 +198,8 @@ class MMF_M4C(nn.Module):
         streams = self._mmt_streams(batch, weights)
         ocr_emb, ocr_bias = streams["ocr"]
         context = self.mmt.encode_context(
-            *streams["txt"], *streams["obj"], *streams["ocr"], weights=weights["mmt"]
+            *streams["txt"], *streams["obj"], *streams["ocr"], weights=weights["mmt"],
+            pre_ocr_streams=streams["pre_ocr"], extra_streams=streams["extra"],
         )
         ctx_ocr = context["ctx_out"][:, context["ocr_begin"]:context["ocr_end"]]
         state = self.mmt.init_fused_decode(context, self.max_iter, weights["mmt"])

@@ -11,10 +11,14 @@ the HuggingFace BertLayer the reference checkpoints hold
 Eval routes (CPU tensors take each kernel's plain version; call under
 ``torch.no_grad()``):
   * self-attention with no bias or a key-only (b, 1, 1, S) bias -> kernel F;
-  * self-attention with a full (b, 1, Sq, Sk) bias -> the packed attention
-    kernel between plain q/k/v and out projections;
+  * self-attention with a full (b, 1, Sq, Sk) bias (the causal decoder's
+    (1, 1, T, T) one included), and every cross-attention (``kv_states``, the
+    ``crossattention`` sublayer of a cross-attention BertLayer) whatever its
+    bias -> the packed attention kernel between plain q/k/v and out
+    projections; kernel F is self-attention only and never sees them;
   * every FFN, multi-row encodes and single-row decode steps -> kernel C;
-  * every incremental decode step -> kernel D.
+  * every incremental decode step of the MMT -> kernel D (the Iterative M4C
+    family's decoder steps are driven by its model: kernels A, E and C).
 Training route, taken when a ``generator`` is passed (``openvivqa_tpu/models/
 modules/bert.py:228-338``): q/k/v projections as ``nn.Linear``, then every
 self-attention (head-shared biases only reach this module, TextBert's 10-key
@@ -114,7 +118,9 @@ class _Dense(nn.Module):
 
 class BertSelfAttention(nn.Module):
     """q/k/v/out projections + softmax attention + residual LayerNorm
-    (HF BertAttention: ``self.{query,key,value}``, ``output.{dense,LayerNorm}``)."""
+    (HF BertAttention: ``self.{query,key,value}``, ``output.{dense,LayerNorm}``).
+    With ``kv_states`` it is a cross-attention: keys and values project those
+    states while the residual stays on ``hidden``."""
 
     def __init__(self, hidden_size: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
@@ -140,14 +146,37 @@ class BertSelfAttention(nn.Module):
             "ln_bias": self.output.LayerNorm.bias.detach().float(),
         }
 
+    @torch.no_grad()
+    def cross_kernel_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """Kernel E's bundle: the q projection alone (keys and values are
+        projected once per sequence) and the out projection + LayerNorm."""
+        return {
+            "wq": _matrix(self.self.query, dtype),
+            "bq": self.self.query.bias.detach().float(),
+            "wo": _matrix(self.output.dense, dtype),
+            "bo": self.output.dense.bias.detach().float(),
+            "ln_scale": self.output.LayerNorm.weight.detach().float(),
+            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+        }
+
     def project_kv(self, states: torch.Tensor):
         """Packed (b, S, hd) key and value projections of `states`."""
         return self.self.key(states), self.self.value(states)
 
-    def forward(self, hidden, attention_bias=None, weights=None, generator=None):
+    def attend(self, hidden, keys, values, attention_bias):
+        """Eval sublayer of `hidden`'s queries over pre-projected float32 (b,
+        S, hd) keys and values: the packed attention between the q and out
+        projections, then the residual LayerNorm."""
+        context = _attn.fused_attention_packed(
+            self.self.query(hidden), keys, values, attention_bias, self.scale, self.num_heads
+        )
+        return self.output.LayerNorm(hidden + self.output.dense(context))
+
+    def forward(self, hidden, attention_bias=None, weights=None, generator=None,
+                kv_states=None):
         if generator is not None:
-            return self._train_forward(hidden, attention_bias, generator)
-        if _is_key_only(attention_bias):
+            return self._train_forward(hidden, attention_bias, generator, kv_states)
+        if kv_states is None and _is_key_only(attention_bias):
             b, s, _ = hidden.shape
             if weights is None:
                 weights = self.kernel_weights(_cuda.kernel_dtype(hidden.device))
@@ -159,16 +188,12 @@ class BertSelfAttention(nn.Module):
                 hidden.float().contiguous(), weights, key_bias, self.scale,
                 self.num_heads, LN_EPS,
             )
-        q = self.self.query(hidden)
-        k, v = self.project_kv(hidden)
-        context = _attn.fused_attention_packed(
-            q, k, v, attention_bias, self.scale, self.num_heads
-        )
-        return self.output.LayerNorm(hidden + self.output.dense(context))
+        k, v = self.project_kv(hidden if kv_states is None else kv_states)
+        return self.attend(hidden, k, v, attention_bias)
 
-    def _train_forward(self, hidden, attention_bias, generator):
+    def _train_forward(self, hidden, attention_bias, generator, kv_states=None):
         q = self.self.query(hidden)
-        k, v = self.project_kv(hidden)
+        k, v = self.project_kv(hidden if kv_states is None else kv_states)
         if self.dropout > 0.0:
             context = _attn.fused_attention_packed_dropout(
                 q, k, v, attention_bias, draw_seed(generator, hidden.device), self.scale,
@@ -183,38 +208,63 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Self-attention sublayer + GELU FFN sublayer, post-LN."""
+    """Self-attention sublayer (+ with ``cross_attention`` the HF decoder's
+    ``crossattention`` sublayer over encoder states) + GELU FFN sublayer,
+    post-LN."""
 
     def __init__(self, hidden_size: int, num_heads: int, intermediate_size: Optional[int] = None,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, cross_attention: bool = False):
         super().__init__()
         d_ff = intermediate_size or 4 * hidden_size
         self.dropout = dropout
         self.attention = BertSelfAttention(hidden_size, num_heads, dropout)
+        self.crossattention = (
+            BertSelfAttention(hidden_size, num_heads, dropout) if cross_attention else None
+        )
         self.intermediate = _Dense(hidden_size, d_ff)
         self.output = _DenseLayerNorm(d_ff, hidden_size)
 
     @torch.no_grad()
     def kernel_weights(self, dtype: torch.dtype) -> Dict[str, Dict[str, torch.Tensor]]:
+        cross = {}
+        if self.crossattention is not None:
+            cross = {"crossattention": self.crossattention.cross_kernel_weights(dtype)}
+        return {"attention": self.attention.kernel_weights(dtype), **cross,
+                "ffn": self.ffn_kernel_weights(dtype)}
+
+    @torch.no_grad()
+    def ffn_kernel_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         return {
-            "attention": self.attention.kernel_weights(dtype),
-            "ffn": {
-                "w1": _matrix(self.intermediate.dense, dtype),
-                "b1": self.intermediate.dense.bias.detach().float(),
-                "w2": _matrix(self.output.dense, dtype),
-                "b2": self.output.dense.bias.detach().float(),
-                "ln_scale": self.output.LayerNorm.weight.detach().float(),
-                "ln_bias": self.output.LayerNorm.bias.detach().float(),
-            },
+            "w1": _matrix(self.intermediate.dense, dtype),
+            "b1": self.intermediate.dense.bias.detach().float(),
+            "w2": _matrix(self.output.dense, dtype),
+            "b2": self.output.dense.bias.detach().float(),
+            "ln_scale": self.output.LayerNorm.weight.detach().float(),
+            "ln_bias": self.output.LayerNorm.bias.detach().float(),
         }
 
     def project_kv(self, states):
         return self.attention.project_kv(states)
 
+    def project_cross_kv(self, states):
+        """Packed (b, S, hd) cross-attention key and value projections of the
+        encoder states: once per sequence when decoding."""
+        return self.crossattention.project_kv(states)
+
+    def decode_step(self, hidden, k_cache, v_cache, attention_bias, cross_kv=None,
+                    encoder_bias=None):
+        """The plain decode route of one (b, 1, hd) token: self-attention over
+        the pre-projected float32 caches, cross-attention over the pre-projected
+        encoder K/V when given, then the FFN (kernel C).  Eval only."""
+        hidden = self.attention.attend(hidden, k_cache, v_cache, attention_bias)
+        if cross_kv is not None:
+            hidden = self.crossattention.attend(hidden, *cross_kv, encoder_bias)
+        return self.ffn(hidden)
+
     def ffn(self, hidden, weights=None):
         f = weights
         if f is None:
-            f = self.kernel_weights(_cuda.kernel_dtype(hidden.device))["ffn"]
+            f = self.ffn_kernel_weights(_cuda.kernel_dtype(hidden.device))
         rows = hidden.reshape(-1, hidden.shape[-1]).float().contiguous()
         out = _ds.fused_ffn_step(
             rows, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], eps=LN_EPS
@@ -226,28 +276,36 @@ class BertLayer(nn.Module):
         out = dropout(self.output.dense(intermediate), self.dropout, generator)
         return self.output.LayerNorm(hidden + out)
 
-    def forward(self, hidden, attention_bias=None, weights=None, generator=None):
+    def forward(self, hidden, attention_bias=None, weights=None, generator=None,
+                encoder_states=None, encoder_bias=None):
         if generator is not None:
             hidden = self.attention(hidden, attention_bias, generator=generator)
+        else:
+            weights = weights or self.kernel_weights(_cuda.kernel_dtype(hidden.device))
+            hidden = self.attention(hidden, attention_bias, weights["attention"])
+        if self.crossattention is not None:
+            hidden = self.crossattention(hidden, encoder_bias, generator=generator,
+                                         kv_states=encoder_states)
+        if generator is not None:
             return self._train_ffn(hidden, generator)
-        if weights is None:
-            weights = self.kernel_weights(_cuda.kernel_dtype(hidden.device))
-        hidden = self.attention(hidden, attention_bias, weights["attention"])
         return self.ffn(hidden, weights["ffn"])
 
 
 class BertEncoderStack(nn.Module):
     """N BertLayers (``layer.N``).  Full-sequence encode via forward;
     incremental decode via project_context (once per sequence) and
-    fused_decode_step (once per token, kernels D and C)."""
+    fused_decode_step (once per token, kernels D and C).  With
+    ``cross_attention`` every layer has the ``crossattention`` sublayer (a BERT
+    decoder stack, whose decode steps its model drives layer by layer)."""
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
-                 intermediate_size: Optional[int] = None):
+                 intermediate_size: Optional[int] = None, cross_attention: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.layer = nn.ModuleList(
-            BertLayer(hidden_size, num_heads, intermediate_size) for _ in range(num_layers)
+            BertLayer(hidden_size, num_heads, intermediate_size, cross_attention=cross_attention)
+            for _ in range(num_layers)
         )
 
     def kernel_weights(self, device) -> List[Dict]:
@@ -256,19 +314,28 @@ class BertEncoderStack(nn.Module):
         return [layer.kernel_weights(dtype) for layer in self.layer]
 
     def forward(self, hidden, attention_bias=None, return_layer_inputs: bool = False,
-                weights=None, generator=None):
+                weights=None, generator=None, encoder_states=None, encoder_bias=None,
+                return_all: bool = False):
         """Eval encode through the kernels, or, with a `generator`, the
-        training route (the weight bundles are not built then)."""
+        training route (the weight bundles are not built then).  Returns the
+        last hidden states, with ``return_layer_inputs`` also each layer's
+        input, with ``return_all`` also each layer's output (the multilevel
+        decoder cross-attends layer i's)."""
+        if return_all and return_layer_inputs:
+            raise ValueError("return_all and return_layer_inputs are mutually exclusive")
         if generator is not None:
             weights = [None] * len(self.layer)
         elif weights is None:
             weights = self.kernel_weights(hidden.device)
-        layer_inputs = []
+        layer_inputs, all_states = [], []
         for layer, w in zip(self.layer, weights):
             layer_inputs.append(hidden)
-            hidden = layer(hidden, attention_bias, w, generator)
+            hidden = layer(hidden, attention_bias, w, generator, encoder_states, encoder_bias)
+            all_states.append(hidden)
         if return_layer_inputs:
             return hidden, layer_inputs
+        if return_all:
+            return hidden, all_states
         return hidden
 
     def project_context(self, layer_inputs):

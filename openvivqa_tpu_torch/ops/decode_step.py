@@ -2,12 +2,14 @@
 FFN sublayer on rows), kernel D (one M4C decode token's self-attention sublayer
 over [frozen context | decoded slots]), kernel A (one decode token's stateful
 self-attention sublayer over a ring cache), kernel B (its cross-attention
-sublayer over cached encoder K/V) and the decoder-layer step (A, B, then C in
-one call).
+sublayer over cached encoder K/V), kernel E (the Iterative M4C family's
+cross-attention sublayer over frozen encoder K/V, LayerNorm eps an argument)
+and the decoder-layer step (A, B, then C in one call).
 
 Counterparts of ``fused_ffn_step``, ``fused_bert_self_step``,
-``fused_self_attention_step``, ``fused_cross_attention_step`` and
-``fused_decoder_layer_step`` in ``openvivqa_tpu/ops/decode_step.py``.  The CUDA
+``fused_self_attention_step``, ``fused_cross_attention_step``,
+``fused_cross_attention_streamed`` and ``fused_decoder_layer_step`` in
+``openvivqa_tpu/ops/decode_step.py``.  The CUDA
 sources are ``csrc/ffn.cu``, ``csrc/bert_self_step.cu`` and
 ``csrc/decoder_layer_step.cu``; their notes say what bounds each on the H100.
 
@@ -303,6 +305,26 @@ def fused_cross_attention_step_plain(
     return _out_residual_ln(x, context, w, eps)
 
 
+def _cross_attention_kernel(entry: str, what: str, x, w, enc_k, enc_v, enc_bias, scale: float,
+                            h: int, eps: float):
+    """Kernels B and E: validate, launch `entry`, count `what`."""
+    rows, hd = _require_rows(x, what)
+    _require_attention_weights(w, "wq", hd, hd, h)
+    sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
+    _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
+    q = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
+    context = torch.empty_like(q)
+    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
+    y = torch.empty_like(x)
+    p = _cuda.ptr
+    _cuda.launch(
+        entry, p(x), *_attention_pointers(w, "wq"), p(enc_k), p(enc_v), p(enc_bias), p(q),
+        p(context), p(partial), p(y), rows, sk, hd, h, enc_bf16, splits, k_per_split, scale, eps,
+    )
+    _cuda.count(what)
+    return y
+
+
 def fused_cross_attention_step(
     x, w: Dict[str, torch.Tensor], enc_k, enc_v, enc_bias, scale: float, h: int,
     eps: float = _LN_EPS,
@@ -315,22 +337,38 @@ def fused_cross_attention_step(
     tensors = (x, enc_k, enc_v, enc_bias, *w.values())
     if not _cuda.uses_kernel(*tensors):
         return fused_cross_attention_step_plain(x, w, enc_k, enc_v, enc_bias, scale, h, eps)
-    rows, hd = _require_rows(x, "fused_cross_attention_step")
-    _require_attention_weights(w, "wq", hd, hd, h)
-    sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
-    _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
-    q = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
-    context = torch.empty_like(q)
-    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
-    y = torch.empty_like(x)
-    p = _cuda.ptr
-    _cuda.launch(
-        "ovq_cross_attention_step_forward", p(x), *_attention_pointers(w, "wq"),
-        p(enc_k), p(enc_v), p(enc_bias), p(q), p(context), p(partial), p(y),
-        rows, sk, hd, h, enc_bf16, splits, k_per_split, scale, eps,
-    )
-    _cuda.count("fused_cross_attention_step")
-    return y
+    return _cross_attention_kernel("ovq_cross_attention_step_forward",
+                                   "fused_cross_attention_step",
+                                   x, w, enc_k, enc_v, enc_bias, scale, h, eps)
+
+
+# ---------------------------------------------------------------------------
+# kernel E
+# ---------------------------------------------------------------------------
+def fused_cross_attention_streamed_plain(
+    x, w: Dict[str, torch.Tensor], enc_kv, enc_bias, scale: float, h: int, eps: float,
+):
+    return fused_cross_attention_step_plain(x, w, *enc_kv, enc_bias, scale, h, eps)
+
+
+def fused_cross_attention_streamed(
+    x, w: Dict[str, torch.Tensor], enc_kv: Tuple[torch.Tensor, torch.Tensor], enc_bias,
+    scale: float, h: int, eps: float,
+):
+    """One decode token's cross-attention sublayer over the frozen encoder
+    projections of the Iterative M4C family: q projection of x (rows, hd), one
+    softmax per head over enc_kv = (k, v) (rows, S, hd; bf16 on the card, float32
+    also taken) under enc_bias (rows, S) float32, out projection, residual and
+    LayerNorm(eps).  w holds wq (hd, hd), bq, wo, bo, ln_scale, ln_bias.  The
+    encoder K/V is not padded to a chunk multiple, as the JAX package's VMEM
+    layout needs.  Kernel B's function behind its own entry and launch count.
+    Returns the post-LN rows (rows, hd)."""
+    tensors = (x, *enc_kv, enc_bias, *w.values())
+    if not _cuda.uses_kernel(*tensors):
+        return fused_cross_attention_streamed_plain(x, w, enc_kv, enc_bias, scale, h, eps)
+    return _cross_attention_kernel("ovq_cross_attention_streamed_forward",
+                                   "fused_cross_attention_streamed",
+                                   x, w, *enc_kv, enc_bias, scale, h, eps)
 
 
 # ---------------------------------------------------------------------------

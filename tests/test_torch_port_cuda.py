@@ -132,6 +132,36 @@ def test_dropout_attention_kernels_match_plain(dev, sq, sk, bias_shape, rate):
         assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("case", ["cross 5x210", "causal 5x5"])
+def test_dropout_attention_kernels_at_decoder_shapes(dev, case):
+    """The Iterative M4C decoder's training shapes at its widths (hidden 512, 8
+    heads): the cross-attention's 5 queries over 210 encoder keys under a
+    key-only bias, and the causal 5 x 5 self-attention under a shared (1, 1,
+    5, 5) bias; one q-tile and one partial key tile in the kernels' 64-row
+    tiling.  Tolerances as in test_dropout_attention_kernels_match_plain."""
+    hd, heads, bs = 512, 8, 64
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sk = 210 if case.startswith("cross") else 5
+    q, g = _randn(gen, bs, 5, hd), _randn(gen, bs, 5, hd)
+    k, v = _randn(gen, bs, sk, hd), _randn(gen, bs, sk, hd)
+    if sk == 5:
+        bias = torch.triu(torch.full((5, 5), MASK, device=dev), 1)[None, None]
+    else:
+        bias = _key_bias(gen, bs, sk)[:, None, None, :]
+        bias[0] = 0.0  # _key_bias masks every key of sample 0
+    seed = torch.tensor([4242], dtype=torch.int64, device=dev)
+    scale = 1.0 / (hd // heads) ** 0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fused_attention.fused_attention_packed_dropout(*leaves, bias, seed, scale, heads, 0.1)
+    (out * g).sum().backward()
+    plain = fused_attention.fused_attention_packed_dropout_plain(q, k, v, bias, seed, scale, heads, 0.1)
+    assert _err(out.detach(), plain) <= ATTN_TOL
+    grads = fused_attention.fused_attention_packed_dropout_backward_plain(
+        q, k, v, bias, seed, g, scale, heads, 0.1)
+    for leaf, want in zip(leaves, grads):
+        assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
+
+
 def test_dropout_attention_at_rate0_is_the_packed_kernel(dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v = (_randn(gen, 3, 40, HD) for _ in range(3))
@@ -238,6 +268,37 @@ def test_cross_attention_step_kernel_matches_plain(dev, enc_dtype):
     got = decode_step.fused_cross_attention_step(x, w, enc_k, enc_v, eb, 0.125, HEADS)
     want = decode_step.fused_cross_attention_step_plain(x, w, enc_k, enc_v, eb, 0.125, HEADS)
     assert _err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("rows,sk,hd,heads,enc_dtype", [
+    (STEP_ROWS, STEP_SK, HD, HEADS, torch.float32),
+    (STEP_ROWS, STEP_SK, HD, HEADS, torch.bfloat16),
+    (64, 210, 512, 8, torch.bfloat16),  # the Iterative M4C decode step
+])
+def test_cross_attention_streamed_kernel_matches_plain(dev, rows, sk, hd, heads, enc_dtype):
+    """Kernel E at the BertLayer eps of 1e-12, with a row whose keys are all
+    masked, counted by its own launch counter and not kernel B's."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w = {"wq": _randn(gen, hd, hd, scale=0.05, dtype=torch.bfloat16),
+         "bq": _randn(gen, hd, scale=0.1),
+         "wo": _randn(gen, hd, hd, scale=0.05, dtype=torch.bfloat16),
+         "bo": _randn(gen, hd, scale=0.1),
+         "ln_scale": 1 + _randn(gen, hd, scale=0.1), "ln_bias": _randn(gen, hd, scale=0.1)}
+    x = _randn(gen, rows, hd)
+    kv = tuple(_randn(gen, rows, sk, hd, dtype=enc_dtype) for _ in range(2))
+    eb = _key_bias(gen, rows, sk)
+    scale = 1.0 / (hd // heads) ** 0.5
+    before = _cuda.launch_counts()
+    got = decode_step.fused_cross_attention_streamed(x, w, kv, eb, scale, heads, EPS)
+    after = _cuda.launch_counts()
+    assert after["fused_cross_attention_streamed"] == before["fused_cross_attention_streamed"] + 1
+    assert after["fused_cross_attention_step"] == before["fused_cross_attention_step"]
+    want = decode_step.fused_cross_attention_streamed_plain(x, w, kv, eb, scale, heads, EPS)
+    assert _err(got, want) <= TOL
+    with pytest.raises(ValueError, match="float32"):
+        decode_step.fused_cross_attention_streamed(x, w, kv, eb.double(), scale, heads, EPS)
+    with pytest.raises(ValueError, match="shape"):
+        decode_step.fused_cross_attention_streamed(x, w, kv, eb[:, :-1], scale, heads, EPS)
 
 
 LAYER_TOL = 1e-2
