@@ -66,9 +66,24 @@ Phases, each fatal on failure:
      12-layer, 768-wide vinai/phobert-base-sized backbone); then ``start()`` for
      one epoch of ``mmf_iterative_m4c``, ``get_predictions()``, the train-step
      time on both paths, peak memory and the gradients of the train split
-     (finite, non-zero except the key-projection biases).
+     (finite, non-zero except the key-projection biases);
+  8. ``configs/vit_mt5.yaml`` (ViTmT5 under VlspEvjVqaTask) at its full widths
+     (ViT-base 12 x 768 at 224 x 224, mT5-small 8 x 512 with 6 heads of 64 and
+     250,112 rows, a 3 x 512 decoder; random weights from the seed, no
+     checkpoint or tokenizer file) on a synthetic EVJVQA set (80 images, four
+     splits, Japanese and Vietnamese questions): the two-bias attention against
+     its plain version at the mT5 train and eval batches in both head-bias
+     forms with a fully masked sample, beside one scaled_dot_product_attention
+     call; the mT5 encoder on the kernel and plain routes; beam-3
+     ``evaluate_metrics`` over the dev split (two-bias = 8 x batches, packed =
+     12 x batches, layer step = steps x 3 x batches launches, no plain version
+     called); plain vs kernel route on one batch (token agreement >= 90 %,
+     ``generate()`` times); ``start()`` for one epoch, ``get_predictions()``
+     (both test-split files), one step's gradients (none on the frozen ViT and
+     mT5, non-zero elsewhere but the key biases), train-step times, peak
+     memory and torch.profiler tables.
 Launch counts are reset just before each main-path run (4 and 7: each decode
-mode and decode batch; 5, 6 and 7: each eval route, start() and
+mode and decode batch; 5, 6, 7 and 8: each eval route, start() and
 get_predictions()) and read just after it.  The nvcc/ptxas log
 (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
@@ -144,10 +159,13 @@ SOURCES = {
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:418"),
     "fused_cross_attention_streamed": (
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:1146"),
+    "fused_attention_packed_2bias": (
+        "fused_attention_2bias.cu", "openvivqa_tpu/ops/fused_attention.py:661"),
 }
 STEP_PLAIN = ("fused_self_attention_step_plain", "fused_cross_attention_step_plain",
               "fused_decoder_layer_step_plain", "fused_ffn_step_plain",
               "fused_cross_attention_streamed_plain")
+ATTENTION_PLAIN = ("fused_attention_packed_plain", "fused_attention_packed_2bias_plain")
 
 
 def log(*parts) -> None:
@@ -218,6 +236,8 @@ def plain_versions():
          encoder_layer.fused_encoder_self_attention_plain),
         (fused_attention, "fused_attention_packed", fused_attention.fused_attention_packed_plain),
         (fused_attention, "fused_attention_packed_dropout", plain_dropout_attention),
+        (fused_attention, "fused_attention_packed_2bias",
+         fused_attention.fused_attention_packed_2bias_plain),
     ]
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -245,28 +265,55 @@ def decode_parts(parts: str):
 
 @contextlib.contextmanager
 def count_plain_calls(calls: dict):
-    """Count the calls of the decode-step kernels' plain versions."""
-    from openvivqa_tpu_torch.ops import decode_step
+    """Count the calls of the decode-step kernels' and the attention kernels'
+    plain versions."""
+    from openvivqa_tpu_torch.ops import decode_step, fused_attention
 
-    saved = {name: getattr(decode_step, name) for name in STEP_PLAIN}
+    saved = {(module, name): getattr(module, name)
+             for module, names in ((decode_step, STEP_PLAIN), (fused_attention, ATTENTION_PLAIN))
+             for name in names}
 
-    def counting(name):
+    def counting(key):
         def call(*args, **kwargs):
-            calls[name] = calls.get(name, 0) + 1
-            return saved[name](*args, **kwargs)
+            calls[key[1]] = calls.get(key[1], 0) + 1
+            return saved[key](*args, **kwargs)
         return call
 
-    for name in STEP_PLAIN:
-        setattr(decode_step, name, counting(name))
+    for module, name in saved:
+        setattr(module, name, counting((module, name)))
     try:
         yield
     finally:
-        for name, original in saved.items():
-            setattr(decode_step, name, original)
+        for (module, name), original in saved.items():
+            setattr(module, name, original)
 
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def make_recorder(results, failures):
+    """record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms):
+    log one case of a kernel against its plain version; `results` keeps, per
+    kernel, the first case's times and bound (the kernel's main shape) and the
+    largest error over all cases, for the JSON line."""
+
+    def record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms=None):
+        bound_ms, bound_by = bound(flops, nbytes)
+        lib = "" if library_ms is None else f", one library call {library_ms:.4f} ms"
+        log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"kernel at {100 * bound_ms / ms:.1f} % of it")
+        if not err <= tol:
+            failures.append(f"{name} [{what}]: max err {err} > {tol}")
+        entry = results.setdefault(name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    return record
 
 
 def check_kernels(task, shapes, seed, failures, generative, iterative):
@@ -304,23 +351,7 @@ def check_kernels(task, shapes, seed, failures, generative, iterative):
     c_len, t_len, q_len = shapes["ctx"], shapes["dec"], shapes["question"]
     joint = c_len + t_len
     results = {}
-
-    def record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms=None):
-        """Log one case; the JSON line keeps the first case's times and bound
-        (the kernel's main shape) and the largest error over all cases."""
-        bound_ms, bound_by = bound(flops, nbytes)
-        lib = "" if library_ms is None else f", one library call {library_ms:.4f} ms"
-        log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
-            f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
-            f"kernel at {100 * bound_ms / ms:.1f} % of it")
-        if not err <= tol:
-            failures.append(f"{name} [{what}]: max err {err} > {tol}")
-        entry = results.setdefault(name, {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-        })
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    record = make_recorder(results, failures)
 
     # kernel C: the MMT context-encode rows, then the decode-step rows
     f = mmt_w["ffn"]
@@ -1174,6 +1205,280 @@ def run_iterative(tasks, config, paths, tmp, seed, failures):
     return launches
 
 
+# the mT5 encoder's output, kernel route against plain, relative to its largest
+# magnitude: each of the eight layers rounds q, k, v and the softmax weights to
+# bf16 on both routes, where float32 sums that differ in their last bits round
+# one bf16 ulp (2^-8 relative) apart; the flips compound through the residual
+# stream, a few ulps by the final RMS norm
+ENCODER_RTOL = 2.0 ** -5
+BACKBONES = ("vision_encoder.backbone.", "text_embedding.backbone.")
+
+
+def with_evjvqa(paths, seed, checkpoint):
+    """``configs/vit_mt5.yaml`` on the synthetic EVJVQA set at `paths`, one epoch."""
+    from openvivqa_tpu_torch.config import get_config
+
+    dataset = {"FEATURE_PATH": {"IMAGE": paths["images"]}}
+    return get_config(str(ROOT / "configs" / "vit_mt5.yaml")).merged({
+        "DATASET": {
+            "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
+            "JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                          "PUBLIC_TEST": paths["public_test"],
+                          "PRIVATE_TEST": paths["private_test"]},
+            "VOCAB": {"JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                                    "TEST": paths["public_test"]}},
+        },
+        "TRAINING": {"SEED": seed, "CHECKPOINT_PATH": checkpoint, "MAX_EPOCHS": 1},
+    })
+
+
+def check_two_bias(task, gen, record, failures):
+    """The two-bias attention at the mT5 encoder's shapes (a train batch and
+    an eval batch of question lengths; hd 384 over 6 heads; scale 1) against
+    its plain version, in both head-bias forms: the padding bias head-shared
+    beside the (1, h, L, L) position table the port passes, and the two added
+    into one (b, h, L, L) head bias (the JAX package's form).  Sample 0 has
+    every key masked and must stay finite.  The library call is one float32
+    ``scaled_dot_product_attention`` with the combined bias as its mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE, padding_bias
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    dev = task.device
+    backbone = task.model.text_embedding.backbone
+    attn = backbone.encoder.block[0].layer[0].SelfAttention
+    heads, hd = attn.num_heads, attn.q.out_features
+    d = hd // heads
+    for what, loader in (("train batch", task.train_dataloader),
+                         ("eval batch", task.dev_dict_dataloader)):
+        _, first = next(task.device_batches(loader))
+        tokens = first["question_tokens"]
+        b, n = tokens.shape
+        with torch.no_grad():
+            table = backbone.position_bias(n, dev)
+        padding = padding_bias(tokens, task.vocab.padding_idx).contiguous()
+        padding[0] = MASK_VALUE  # a sample with every key masked
+        summed = (table + padding).contiguous()
+        q, k, v = (torch.randn((b, n, hd), generator=gen, device=dev) for _ in range(3))
+        split = [x.view(b, n, heads, d).transpose(1, 2) for x in (q, k, v)]
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            *split, attn_mask=summed, scale=1.0))
+        for form, bias, head_bias in (("padding + shared table", padding, table),
+                                      ("(b, h, L, L) head bias", None, summed)):
+            args = (q, k, v, bias, head_bias, 1.0, heads)
+            out = fused_attention.fused_attention_packed_2bias(*args)
+            if not bool(torch.isfinite(out).all()):
+                failures.append(f"fused_attention_packed_2bias [{what}, {form}]: non-finite")
+            record("fused_attention_packed_2bias",
+                   f"mT5 {what} {b} x {n}, hd {hd} over {heads} heads, {form}, sample 0 "
+                   "fully masked", max_err(out, fused_attention.fused_attention_packed_2bias_plain(
+                       *args)), ATTN_TOL,
+                   median_ms(lambda: fused_attention.fused_attention_packed_2bias(*args)),
+                   median_ms(lambda: fused_attention.fused_attention_packed_2bias_plain(*args)),
+                   4.0 * b * heads * n * n * d, tensor_bytes(q, k, v, bias, head_bias, out),
+                   library_ms)
+
+
+def run_vit_mt5(config, seed, failures):
+    """Phase 8: ``configs/vit_mt5.yaml`` (ViTmT5 under VlspEvjVqaTask) at its
+    full widths on the synthetic EVJVQA set.  Returns (launches, kernel
+    results)."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.models.modules.masks import padding_bias
+    from openvivqa_tpu_torch.ops import _cuda
+    from openvivqa_tpu_torch.training.decode import generate
+
+    start = time.perf_counter()
+    task = build_task(config, "cuda")
+    model = task.model
+    vit = model.vision_encoder.backbone
+    t5 = model.text_embedding.backbone
+    t5_attn = t5.encoder.block[0].layer[0].SelfAttention
+    n_vit, n_t5 = len(vit.encoder.layer), len(t5.encoder.block)
+    n_dec = len(model.decoder.layers)
+    beam = task.evaluating_beam_size
+    steps = task.vocab.max_answer_length
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    q_len = first["question_tokens"].shape[1]
+    keys = vit.embeddings.num_patches + 1 + q_len
+    log(f"  ViTmT5: ViT {n_vit} x {vit.layernorm.normalized_shape[0]}, mT5 {n_t5} x "
+        f"{t5.shared.embedding_dim} ({t5_attn.num_heads} heads, inner {t5_attn.q.out_features}, "
+        f"{t5.shared.num_embeddings} rows), decoder {n_dec} x {model.decoder.d_model}; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters "
+        f"({sum(p.numel() for n, p in model.named_parameters() if n.startswith(BACKBONES)) / 1e6:.2f}"
+        f"M frozen); {len(task.train_dataset)} train / {len(task.dev_dict_dataset)} dev / "
+        f"{len(task.public_test_dict_dataset)} public / {len(task.private_test_dict_dataset)} "
+        f"private samples, questions of {q_len} tokens, {steps} answer steps, decoder "
+        f"cross-attention over {keys} keys; set up in {time.perf_counter() - start:.1f} s")
+
+    # 1. the two-bias kernel against its plain version
+    results = {}
+    check_two_bias(task, torch.Generator(device=task.device).manual_seed(seed),
+                   make_recorder(results, failures), failures)
+
+    # 2. the mT5 encoder of one batch, kernel route against plain
+    tokens = first["question_tokens"]
+    bias = padding_bias(tokens, task.vocab.padding_idx)
+    blocks = {"kernel": [], "plain": []}
+    route = "kernel"
+    hooks = [block.register_forward_hook(lambda module, args, out: blocks[route].append(out))
+             for block in t5.encoder.block]
+    with torch.no_grad():
+        encoded = t5(tokens, bias)
+        route = "plain"
+        with plain_versions():
+            encoded_plain = t5(tokens, bias)
+    for hook in hooks:
+        hook.remove()
+    err, top = max_err(encoded, encoded_plain), float(encoded_plain.abs().max())
+    log(f"  [vit_mt5] mT5 encoder of one eval batch, kernel vs plain route: max|diff| "
+        f"{err:.3e}, mean|diff| {float((encoded - encoded_plain).abs().mean()):.3e}, "
+        f"max|output| {top:.3f}: max|diff| / max|output| {err / top:.3e} (tol 2^-5); "
+        "max|diff| after each block "
+        + ", ".join(f"{max_err(a, b):.1e}" for a, b in zip(blocks["kernel"], blocks["plain"])))
+    if not err / top <= ENCODER_RTOL:
+        failures.append(f"[vit_mt5] mT5 encoder kernel vs plain: {err / top} > {ENCODER_RTOL}")
+
+    # 3. beam-3 evaluate_metrics over the dev split, with launch counts
+    n_batches = len(task.dev_dict_dataloader)
+    n_valid = len(task.dev_dict_dataset)
+    generate(model, first, beam)  # the allocator's first growth, outside the counted run
+    torch.cuda.synchronize()
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        eval_start = time.perf_counter()
+        scores = task.evaluate_metrics(task.dev_dict_dataloader)
+        torch.cuda.synchronize()
+        eval_seconds = time.perf_counter() - eval_start
+        counts = _cuda.launch_counts()
+    launches = dict(counts)
+    log(f"  [vit_mt5 beam] {n_valid} samples in {n_batches} batches of {first['question_tokens'].shape[0]}"
+        f" x beam {beam} rows x {steps} steps: {eval_seconds:.3f} s ({n_valid / eval_seconds:.2f} "
+        f"samples/s by the host clock); scores {json.dumps(scores, default=float)}")
+    log(f"  [vit_mt5 beam] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}")
+    want = {"fused_attention_packed_2bias": n_t5 * n_batches,
+            "fused_attention_packed": n_vit * n_batches,
+            "fused_decoder_layer_step": steps * n_dec * n_batches}
+    for name, n in want.items():
+        if counts[name] != n:
+            failures.append(f"[vit_mt5 beam] {name}: {counts[name]} launches, want {n}")
+    if plain_calls:
+        failures.append(f"[vit_mt5 beam] plain versions were called: {plain_calls}")
+    if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
+        failures.append("[vit_mt5 beam] no finite CIDEr")
+    with plain_versions():
+        torch.cuda.synchronize()
+        plain_start = time.perf_counter()
+        task.evaluate_metrics(task.dev_dict_dataloader)
+        torch.cuda.synchronize()
+    log(f"  [vit_mt5 beam] the same eval on the plain path: "
+        f"{time.perf_counter() - plain_start:.3f} s")
+
+    # 4. one batch, all beams, kernel route against plain
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(task.device)
+    tokens_k, logprobs_k = generate(model, batch, beam, out_size=beam)
+    with plain_versions():
+        tokens_p, logprobs_p = generate(model, batch, beam, out_size=beam)
+    expected = (valid.shape[0], beam, steps)
+    if tuple(tokens_k.shape) != expected or not bool(torch.isfinite(logprobs_k).all()):
+        failures.append(f"[vit_mt5 beam] outputs {tuple(tokens_k.shape)} (want {expected}) or "
+                        "non-finite log-probs")
+    same = (tokens_p == tokens_k).all(dim=-1) & valid[:, None]
+    agreement = float((tokens_p[valid] == tokens_k[valid]).float().mean())
+    diff = max_err(logprobs_p[same].sum(-1), logprobs_k[same].sum(-1)) if bool(same.any()) else 0.0
+    log(f"  [vit_mt5 beam] plain vs kernel route, one batch, all {beam} beams: token agreement "
+        f"{agreement * 100:.2f}% of {tokens_k[valid].numel()} tokens, {int(same.sum())} of "
+        f"{int(valid.sum()) * beam} beams equal; on those, max|cumulative log-prob diff| "
+        f"{diff:.3e}")
+    if agreement < 0.9:
+        failures.append(f"[vit_mt5 beam] plain vs kernel token agreement {agreement} < 0.9")
+    decode_ms = median_ms(lambda: generate(model, batch, beam), reps=5)
+    with plain_versions():
+        plain_decode_ms = median_ms(lambda: generate(model, batch, beam), reps=5)
+    rows = valid.shape[0]
+    log(f"  [vit_mt5 beam] generate() of one batch of {rows} x beam {beam} (CUDA-event median "
+        f"of 5, encode included): kernel route {decode_ms:.3f} ms = "
+        f"{rows / decode_ms * 1e3:.1f} samples/s, plain route {plain_decode_ms:.3f} ms")
+    profile(lambda: generate(model, batch, beam), "vit_mt5 beam decode")
+
+    # 5. XE training: start() for one epoch, then get_predictions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    train_start = time.perf_counter()
+    task.start()
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - train_start
+    predict_start = time.perf_counter()
+    test_scores = task.get_predictions()
+    torch.cuda.synchronize()
+    predict_seconds = time.perf_counter() - predict_start
+    counts = _cuda.launch_counts()
+    for name, n in counts.items():
+        launches[name] += n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        records = [json.loads(line) for line in handle]
+    losses = [loss for r in records if r["phase"] == "train" for loss in r["step_losses"]]
+    log(f"  [vit_mt5 xe] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
+    log(f"  [vit_mt5 xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
+        f"scores {json.dumps(test_scores, default=float)}")
+    log(f"  [vit_mt5 xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
+    if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"[vit_mt5 xe] losses {losses}: want {want_steps} finite values")
+    for name in ("fused_attention_packed_2bias", "fused_attention_packed",
+                 "fused_decoder_layer_step"):
+        if counts[name] <= 0:
+            failures.append(f"[vit_mt5 xe] {name} was not launched by start() and "
+                            "get_predictions()")
+    for name in ("best_model.pth", "last_model.pth", "public_test_results.json",
+                 "private_test_results.json"):
+        if not (Path(task.checkpoint_path) / name).is_file():
+            failures.append(f"[vit_mt5 xe] {name} was not written")
+    for split in ("public_test", "private_test"):
+        if not math.isfinite(test_scores.get(split, {}).get("CIDEr", math.nan)):
+            failures.append(f"[vit_mt5 xe] no finite CIDEr on {split}")
+
+    # 6. one batch's gradients: none on the frozen backbones, non-zero elsewhere
+    _, train_batch = next(task.device_batches(task.train_dataloader))
+    task.optimizer.zero_grad(set_to_none=True)
+    task.compute_loss(train_batch).backward()
+    bad, frozen = [], 0
+    for name, p in model.named_parameters():
+        if name.startswith(BACKBONES):
+            frozen += 1
+            if p.requires_grad or (p.grad is not None and bool(p.grad.any())):
+                bad.append(name)
+        elif (p.grad is None or not bool(torch.isfinite(p.grad).all())
+              or not (name.endswith(GRADIENT_FREE) or float(p.grad.abs().max()) > 0.0)):
+            bad.append(name)
+    n_params = sum(1 for _ in model.parameters())
+    log(f"  [vit_mt5 xe] one gradient step: {n_params - len(bad)} of {n_params} parameter "
+        f"tensors as required ({frozen} in the frozen ViT and mT5: no gradient; the rest "
+        "finite, non-zero except the gradient-free key biases)")
+    if bad or not frozen:
+        failures.append(f"[vit_mt5 xe] wrong gradients: {bad[:8]}")
+    task.optimizer.zero_grad(set_to_none=True)
+    step = lambda: task._train_step(train_batch)  # noqa: E731
+    kernel_ms = [median_ms(step, reps=5)]
+    with plain_versions():
+        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
+    kernel_ms.append(median_ms(step, reps=5))
+    log(f"  [vit_mt5 xe] one train step of {task.train_dataloader.batch_size} (CUDA-event median "
+        f"of 5, in turns): kernel path {kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path "
+        f"{plain_ms[0]:.3f}, {plain_ms[1]:.3f} ms")
+    profile(step, "vit_mt5 train step")
+    return launches, results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1185,7 +1490,10 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
     from openvivqa_tpu_torch.builders import build_task, populate
-    from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from openvivqa_tpu_torch.data.synthetic import (
+        generate_evjvqa_dataset,
+        generate_synthetic_dataset,
+    )
     from openvivqa_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1305,6 +1613,19 @@ def main() -> int:
         for name, n in run_iterative(iterative, iterative_config, paths, tmp, args.seed,
                                      failures).items():
             launches[name] += n
+        del iterative
+        torch.cuda.empty_cache()
+
+        # 8. ViTmT5 under VlspEvjVqaTask
+        log("main path, ViTmT5: configs/vit_mt5.yaml under VlspEvjVqaTask, beam-3 "
+            "evaluate_metrics over the dev split, one XE epoch, get_predictions()")
+        evjvqa = generate_evjvqa_dataset(str(Path(tmp) / "evjvqa"), n_images=80,
+                                         n_questions_per_image=3, ja_share=0.3, seed=args.seed)
+        vit_launches, vit_results = run_vit_mt5(
+            with_evjvqa(evjvqa, args.seed, str(Path(tmp) / "vit_mt5")), args.seed, failures)
+        for name, n in vit_launches.items():
+            launches[name] += n
+        results.update(vit_results)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -430,7 +430,9 @@ template cudaError_t launch_gemm_residual_ln<float>(const float*, int, const bf1
 // Normalising before rounding keeps the TPU kernel's (and the plain version's)
 // numerics; the price is computing Q K^T twice.  With DROP, the second pass
 // multiplies each weight by its Philox keep factor (0 or 1 / (1 - rate)) before
-// the rounding, and the rows' (max, denominator) go to drop.stats.
+// the rounding, and the rows' (max, denominator) go to drop.stats.  With HB, each
+// logit also takes its element of the per-head bias, read from global memory
+// like the head-shared one (strides of 0 where it is shared).
 // ---------------------------------------------------------------------------
 // dynamic shared memory of one attention block, or -1 for shapes it does not take
 static long long attention_smem_bytes(int sk, int d) {
@@ -440,13 +442,13 @@ static long long attention_smem_bytes(int sk, int d) {
          + kAttnWarps * 256 * 4LL;                                 // per-warp output staging
 }
 
-template <typename TI, typename TO, int DF, bool DROP>
+template <typename TI, typename TO, int DF, bool DROP, bool HB>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_kernel(const TI* __restrict__ q, long long q_bs, int q_rs,
                      const TI* __restrict__ k, const TI* __restrict__ v, long long kv_bs,
                      int kv_rs, const float* __restrict__ bias, long long bias_bs, int bias_qs,
                      TO* __restrict__ out, long long out_bs, int out_rs, int sq, int sk,
-                     float scale, Dropout drop) {
+                     float scale, Dropout drop, HeadBias hb) {
   constexpr int d = 16 * DF;
   constexpr int ldq = d + 8;
   constexpr int lds = kAttnKeyChunk + 4;  // f32 score row stride
@@ -480,6 +482,8 @@ __global__ void __launch_bounds__(kAttnThreads)
   const int si = i0 + w0 + sr;
   const bool row_ok = si < sq;
   const float* brow = bias + b * bias_bs + (long long)(row_ok ? si : 0) * bias_qs;
+  const float* hrow =
+      HB ? hb.p + b * hb.bs + h * hb.hs + (long long)(row_ok ? si : 0) * hb.qs : nullptr;
   float row_max = -INFINITY, row_sum = 0.0f;
   const unsigned long long seed = DROP ? (unsigned long long)*drop.seed : 0ull;
 
@@ -514,7 +518,12 @@ __global__ void __launch_bounds__(kAttnThreads)
 #pragma unroll
       for (int u = 0; u < 32; ++u) {
         const int c = half * 32 + u;
-        vals[u] = (row_ok && j0 + c < sk) ? srow[c] * scale + brow[j0 + c] : -INFINITY;
+        if (!(row_ok && j0 + c < sk))
+          vals[u] = -INFINITY;
+        else if (HB)
+          vals[u] = srow[c] * scale + brow[j0 + c] + hrow[j0 + c];
+        else
+          vals[u] = srow[c] * scale + brow[j0 + c];
         chunk_max = fmaxf(chunk_max, vals[u]);
       }
       chunk_max = fmaxf(chunk_max, __shfl_xor_sync(0xffffffffu, chunk_max, 1));
@@ -581,20 +590,20 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <typename TI, typename TO, int DF, bool DROP>
+template <typename TI, typename TO, int DF, bool DROP, bool HB>
 static cudaError_t launch_attention_df(const TI* q, long long q_bs, int q_rs, const TI* k,
                                        const TI* v, long long kv_bs, int kv_rs,
                                        const float* bias, long long bias_bs, int bias_qs, TO* out,
                                        long long out_bs, int out_rs, int batch, int heads,
                                        int sq, int sk, float scale, long long smem,
-                                       cudaStream_t stream, Dropout drop) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF, DROP>,
+                                       cudaStream_t stream, Dropout drop, HeadBias hb) {
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF, DROP, HB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kAttnQTile - 1) / kAttnQTile, heads, batch);
-  attention_kernel<TI, TO, DF, DROP><<<grid, kAttnThreads, smem, stream>>>(
+  attention_kernel<TI, TO, DF, DROP, HB><<<grid, kAttnThreads, smem, stream>>>(
       q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs, sq, sk,
-      scale, drop);
+      scale, drop, hb);
   return cudaGetLastError();
 }
 
@@ -603,25 +612,29 @@ cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
                              int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
-                             Dropout drop) {
+                             Dropout drop, HeadBias head_bias) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   const long long smem = attention_smem_bytes(sk, d);
   if (smem < 0 || q_rs % 4 || kv_rs % 4 || out_rs % 8 || q_bs % 4 || kv_bs % 4 || out_bs % 8)
     return cudaErrorInvalidValue;
-  // only the float instantiation carries the dropout variant
-  constexpr bool kDropType = std::is_same<TI, float>::value && std::is_same<TO, float>::value;
-  if (drop.seed != nullptr && (!kDropType || drop.stats == nullptr)) return cudaErrorInvalidValue;
+  // only the float instantiation carries the dropout and the head-bias variants,
+  // and no launch takes both
+  constexpr bool kFloatIO = std::is_same<TI, float>::value && std::is_same<TO, float>::value;
+  if (drop.seed != nullptr && (!kFloatIO || drop.stats == nullptr)) return cudaErrorInvalidValue;
+  if (head_bias.p != nullptr && (!kFloatIO || drop.seed != nullptr)) return cudaErrorInvalidValue;
 #define OVQ_ATTN_CASE(df)                                                                      \
   case df:                                                                                     \
-    if (kDropType && drop.seed != nullptr)                                                     \
-      return launch_attention_df<TI, TO, df, kDropType>(q, q_bs, q_rs, k, v, kv_bs, kv_rs,     \
-                                                        bias, bias_bs, bias_qs, out, out_bs,   \
-                                                        out_rs, batch, heads, sq, sk, scale,   \
-                                                        smem, stream, drop);                   \
-    return launch_attention_df<TI, TO, df, false>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias,     \
-                                                  bias_bs, bias_qs, out, out_bs, out_rs,       \
-                                                  batch, heads, sq, sk, scale, smem, stream,   \
-                                                  drop);
+    if (kFloatIO && drop.seed != nullptr)                                                      \
+      return launch_attention_df<TI, TO, df, kFloatIO, false>(                                 \
+          q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs,      \
+          batch, heads, sq, sk, scale, smem, stream, drop, head_bias);                         \
+    if (kFloatIO && head_bias.p != nullptr)                                                    \
+      return launch_attention_df<TI, TO, df, false, kFloatIO>(                                 \
+          q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs,      \
+          batch, heads, sq, sk, scale, smem, stream, drop, head_bias);                         \
+    return launch_attention_df<TI, TO, df, false, false>(                                      \
+        q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs, batch, \
+        heads, sq, sk, scale, smem, stream, drop, head_bias);
   switch (d / 16) {
     OVQ_ATTN_CASE(1)
     OVQ_ATTN_CASE(2)
@@ -640,12 +653,12 @@ template cudaError_t launch_attention<bf16, bf16>(const bf16*, long long, int, c
                                                   const bf16*, long long, int, const float*,
                                                   long long, int, bf16*, long long, int, int,
                                                   int, int, int, int, float, cudaStream_t,
-                                                  Dropout);
+                                                  Dropout, HeadBias);
 template cudaError_t launch_attention<float, float>(const float*, long long, int, const float*,
                                                     const float*, long long, int, const float*,
                                                     long long, int, float*, long long, int, int,
                                                     int, int, int, int, float, cudaStream_t,
-                                                    Dropout);
+                                                    Dropout, HeadBias);
 
 }  // namespace ovq
 

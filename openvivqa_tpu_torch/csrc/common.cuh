@@ -6,8 +6,8 @@
 //   * launch_gemm_bias:        Y = epi(A @ W + bias), bf16 wmma tiles, f32 accumulators;
 //   * launch_gemm_residual_ln: Y = LayerNorm(R + A @ W + bias), one block owns whole rows
 //                              so the LayerNorm runs in the GEMM's epilogue;
-//   * launch_attention:        softmax(scale * Q K^T + bias) V per (sample, head, q-tile)
-//                              on packed (rows, heads * head_dim) layouts.
+//   * launch_attention:        softmax(scale * Q K^T + bias [+ head_bias]) V per (sample,
+//                              head, q-tile) on packed (rows, heads * head_dim) layouts.
 // Every launcher returns cudaGetLastError() after its launch.
 #pragma once
 
@@ -171,6 +171,17 @@ struct Dropout {
   float* stats;
 };
 
+// A second additive bias with a head axis (T5's relative positions, DeBERTa's
+// disentangled terms), added after the head-shared one: element (b, h, i, j)
+// at p + b * bs + h * hs + i * qs + j.  A stride of 0 shares it, so a table
+// shared by the samples (bs = 0) is read, never broadcast in device memory.
+struct HeadBias {
+  const float* p;
+  long long bs;
+  long long hs;
+  int qs;
+};
+
 // the four keep-scale factors of key columns col4 * 4 .. col4 * 4 + 3
 __device__ __forceinline__ void dropout_factors(const Dropout& drop, unsigned long long seed,
                                                 int col4, int row, int head, int sample,
@@ -216,12 +227,14 @@ cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const f
 // q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
 // the bias as bias + b * bias_bs + i * bias_qs + j (strides of 0 broadcast).
 // With drop.seed set, w_ij is the dropped weight bf16(keep_ij * softmax_ij *
-// keep_scale) (float in and out only).
+// keep_scale) (float in and out only).  With head_bias.p set (float in and out,
+// no dropout), the logit is scale * q_i . k_j + bias[b, i, j] + head_bias[b, h, i, j].
 template <typename TI, typename TO>
 cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
                              int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
-                             Dropout drop = Dropout{nullptr, 0u, 1.0f, nullptr});
+                             Dropout drop = Dropout{nullptr, 0u, 1.0f, nullptr},
+                             HeadBias head_bias = HeadBias{nullptr, 0, 0, 0});
 
 }  // namespace ovq

@@ -27,6 +27,19 @@ def _sentence(rng: np.random.Generator, lo: int, hi: int) -> str:
     return " ".join(rng.choice(_VI_WORDS, size=n).tolist())
 
 
+def write_images(img_dir: str, n_images: int, seed: int) -> None:
+    """Small raw JPEGs {image_id}.jpg for the image-input (ViT) datasets, the
+    JAX package's generator's files: 32 x 32 uniform noise from a generator of
+    their own (seed + 104729), so adding images never changes the generated
+    text and features."""
+    from PIL import Image
+
+    img_rng = np.random.default_rng(seed + 104729)
+    for image_id in range(n_images):
+        pixels = img_rng.integers(0, 256, size=(32, 32, 3)).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(img_dir, f"{image_id}.jpg"))
+
+
 def generate_synthetic_dataset(
     root: str,
     n_images: int = 6,
@@ -48,6 +61,7 @@ def generate_synthetic_dataset(
       root/annotations/{train,dev,test}.json
       root/features/{image_id}.npy          (region/grid features + boxes)
       root/scene_text/{image_id}.npy        (OCR features, texts, boxes, scores)
+      root/images/{image_id}.jpg             (see write_images)
     """
     rng = np.random.default_rng(seed)
     splits = splits or {"train": 0.6, "dev": 0.2, "test": 0.2}
@@ -103,17 +117,7 @@ def generate_synthetic_dataset(
             allow_pickle=True,
         )
 
-    # small raw JPEGs for the image-input (ViT) datasets; dedicated rng so
-    # adding images never changes the generated text/features
-    img_rng = np.random.default_rng(seed + 104729)
-    try:
-        from PIL import Image
-
-        for image_id in range(n_images):
-            pixels = img_rng.integers(0, 256, size=(32, 32, 3)).astype(np.uint8)
-            Image.fromarray(pixels).save(os.path.join(img_dir, f"{image_id}.jpg"))
-    except ImportError:
-        pass
+    write_images(img_dir, n_images, seed)
 
     # annotations split by image so every split shares the feature store
     images = [
@@ -160,5 +164,70 @@ def generate_synthetic_dataset(
 
     paths["features"] = feat_dir
     paths["scene_text"] = ocr_dir
+    paths["images"] = img_dir
+    return paths
+
+
+# hiragana, katakana and kanji for the Japanese questions of the EVJVQA layout
+_JA_CHARS = list("これはなんですかいろのねこいぬくるまあかあおしろくろどこにありますひとつふたつ"
+                 "ネコイヌ車赤青白黒何色人家木花")
+_EVJVQA_SPLITS = {"train": 0.55, "dev": 0.15, "public_test": 0.15, "private_test": 0.15}
+
+
+def _ja_sentence(rng: np.random.Generator, lo: int, hi: int) -> str:
+    n = int(rng.integers(lo, hi + 1))
+    return "".join(rng.choice(_JA_CHARS, size=n).tolist())
+
+
+def generate_evjvqa_dataset(
+    root: str,
+    n_images: int = 12,
+    n_questions_per_image: int = 3,
+    ja_share: float = 0.3,
+    seed: int = 0,
+) -> Dict[str, str]:
+    """An EVJVQA-shaped set (the VLSP 2022 contest's layout): raw images and
+    four annotation splits, train, dev, public test and private test (55, 15,
+    15 and 15 %), in which about `ja_share` of the questions are Japanese (8-24
+    characters, one answer of 2-6) and the rest Vietnamese (3-7 words, one
+    answer of 1-3).  Returns the paths by split name and "images".
+
+    Layout:
+      root/annotations/evjvqa_{train,dev,public_test,private_test}.json
+      root/images/{image_id}.jpg             (see write_images)
+    """
+    rng = np.random.default_rng(seed)
+    ann_dir = os.path.join(root, "annotations")
+    img_dir = os.path.join(root, "images")
+    for d in (ann_dir, img_dir):
+        os.makedirs(d, exist_ok=True)
+    write_images(img_dir, n_images, seed)
+
+    annotations: List[dict] = []
+    for image_id in range(n_images):
+        for _ in range(n_questions_per_image):
+            if rng.random() < ja_share:
+                question, answers = _ja_sentence(rng, 8, 24), [_ja_sentence(rng, 2, 6)]
+            else:
+                question, answers = _sentence(rng, 3, 7) + " ?", [_sentence(rng, 1, 3)]
+            annotations.append({
+                "id": len(annotations), "image_id": image_id, "question": question,
+                "answers": answers, "QA-type": int(rng.integers(0, 3)),
+            })
+    rng.shuffle(annotations)  # type: ignore[arg-type]
+
+    images = [{"id": i, "filename": f"{i}.jpg"} for i in range(n_images)]
+    paths = {}
+    start = 0
+    for split, frac in _EVJVQA_SPLITS.items():
+        count = max(1, int(round(frac * len(annotations))))
+        chunk = annotations[start:start + count] or annotations[-1:]
+        start += count
+        used = {a["image_id"] for a in chunk}
+        path = os.path.join(ann_dir, f"evjvqa_{split}.json")
+        with open(path, "w") as handle:
+            json.dump({"images": [img for img in images if img["id"] in used],
+                       "annotations": chunk}, handle, ensure_ascii=False)
+        paths[split] = path
     paths["images"] = img_dir
     return paths

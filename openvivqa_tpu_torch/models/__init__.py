@@ -5,9 +5,11 @@ from .modules import (  # noqa: F401
     attentions,
     decoders,
     encoders,
+    pretrained_embeddings,
     text_embeddings,
     vision_embeddings,
 )
 from . import iterative_mcan  # noqa: F401
 from . import mmf_m4c  # noqa: F401
 from . import mmf_variants  # noqa: F401
+from . import vit_models  # noqa: F401

@@ -8,12 +8,36 @@ the cache through its loop and the invariants of ``prepare_decode`` beside it.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
 
 BatchTensors = Dict[str, torch.Tensor]
+
+
+def init_xavier_law_(model: nn.Module, generator: torch.Generator,
+                     skip: Iterable[nn.Module] = ()) -> None:
+    """The JAX package's initialisers of the MCAN-family models, drawn from
+    `generator` in module order: Xavier-uniform Linear weights with zero
+    biases, N(0, 1) embedding tables, LayerNorm scale 1 and bias 0.  The
+    modules in `skip`, and everything under them, are left as they are."""
+    skipped = {id(p) for module in skip for p in module.parameters()}
+    with torch.no_grad():
+        for sub in model.modules():
+            if id(getattr(sub, "weight", None)) in skipped:
+                continue
+            if isinstance(sub, nn.Linear):
+                bound = (6.0 / (sub.in_features + sub.out_features)) ** 0.5
+                uniform = torch.rand(sub.weight.shape, generator=generator)
+                sub.weight.copy_((2.0 * uniform - 1.0) * bound)
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, nn.Embedding):
+                sub.weight.copy_(torch.randn(sub.weight.shape, generator=generator))
+            elif isinstance(sub, nn.LayerNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
 
 
 class ClassificationModel(nn.Module):

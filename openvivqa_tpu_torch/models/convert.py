@@ -6,8 +6,10 @@ The port's parameter names are the reference's torch names, the ones
 (``convert_mmf_m4c``, ``convert_mmf_regional_m4c``, ``convert_mmf_iterative_m4c``,
 ``convert_mmf_language_adaptive``, ``convert_iterative_mcan``), so those
 converters are this bridge's inverses and the port also loads the reference's own
-checkpoints.  Flax Dense kernels are (in, out) and torch
-Linear weights (out, in); LayerNorm scale/bias become weight/bias.
+checkpoints; the ViT and T5 backbones carry HF's names, which
+``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
+Flax Dense kernels are (in, out) and torch Linear weights (out, in); LayerNorm
+scale/bias become weight/bias.
 """
 
 from __future__ import annotations
@@ -198,7 +200,11 @@ def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
         _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
     _positionwise_ffn(out, "fusion", tree["fusion"])
     _layer_norm(out, "norm", tree["norm"])
-    decoder = tree["decoder"]
+    _decoder(out, tree["decoder"])
+    return out
+
+
+def _decoder(out: StateDict, decoder: Mapping[str, Any]) -> None:
     _text_embedding(out, "decoder.word_emb", decoder["word_emb"])
     out["decoder.fc.weight"] = np.ascontiguousarray(_arr(decoder["fc"]["kernel"]).T)
     for i, layer in _layers(decoder):
@@ -206,6 +212,72 @@ def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
         _multi_head_attention(out, f"{prefix}.self_attn", layer["self_attn"])
         _multi_head_attention(out, f"{prefix}.enc_attn", layer["enc_attn"])
         _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
+
+
+def _kernel(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """A bias-free Dense (T5's projections)."""
+    out[f"{name}.weight"] = np.ascontiguousarray(_arr(tree["kernel"]).T)
+
+
+def _vit_backbone(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """ViTEmbedding's raw-pixel front and backbone -> HF ViTModel names (the
+    inverse of ``hf_conversion.convert_vit_weights``): the flax Conv kernel
+    (kh, kw, in, out) becomes the torch Conv2d weight (out, in, kh, kw)."""
+    patch = f"{name}.embeddings.patch_embeddings.projection"
+    out[f"{patch}.weight"] = np.ascontiguousarray(
+        _arr(tree["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{patch}.bias"] = _arr(tree["patch_embed"]["bias"])
+    out[f"{name}.embeddings.cls_token"] = _arr(tree["cls_token"])
+    out[f"{name}.embeddings.position_embeddings"] = _arr(tree["position_embedding"])
+    backbone = tree["backbone"]
+    for i, layer in _layers(backbone):
+        prefix = f"{name}.encoder.layer.{i}"
+        _layer_norm(out, f"{prefix}.layernorm_before", layer["layernorm_before"])
+        _layer_norm(out, f"{prefix}.layernorm_after", layer["layernorm_after"])
+        for flax_name in ("query", "key", "value"):
+            _linear(out, f"{prefix}.attention.attention.{flax_name}", layer["attention"][flax_name])
+        _linear(out, f"{prefix}.attention.output.dense", layer["attention"]["out"])
+        _linear(out, f"{prefix}.intermediate.dense", layer["intermediate"])
+        _linear(out, f"{prefix}.output.dense", layer["output"])
+    _layer_norm(out, f"{name}.layernorm", backbone["final_layernorm"])
+
+
+def _t5_encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """T5EncoderStack -> HF T5EncoderModel names (the inverse of
+    ``hf_conversion.convert_t5_encoder_weights``); ``encoder.embed_tokens`` is
+    ``shared``."""
+    out[f"{name}.shared.weight"] = _arr(tree["token_embed"]["embedding"])
+    out[f"{name}.encoder.embed_tokens.weight"] = out[f"{name}.shared.weight"]
+    out[f"{name}.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _arr(
+        tree["relative_attention_bias"]["embedding"])
+    out[f"{name}.encoder.final_layer_norm.weight"] = _arr(tree["final_layer_norm"]["weight"])
+    n_blocks = sum(1 for key in tree if key.startswith("block_"))
+    for i in range(n_blocks):
+        block = tree[f"block_{i}"]
+        attn, ff = f"{name}.encoder.block.{i}.layer.0", f"{name}.encoder.block.{i}.layer.1"
+        out[f"{attn}.layer_norm.weight"] = _arr(block["ln_attn"]["weight"])
+        for proj in ("q", "k", "v", "o"):
+            _kernel(out, f"{attn}.SelfAttention.{proj}", block["attention"][proj])
+        out[f"{ff}.layer_norm.weight"] = _arr(block["ln_ff"]["weight"])
+        for proj, weights in block["ff"].items():
+            _kernel(out, f"{ff}.DenseReluDense.{proj}", weights)
+
+
+def _vit_mt5(tree: Mapping[str, Any]) -> StateDict:
+    """ViTmT5: the ViT and T5 embeddings (frozen backbones under HF names,
+    their projections ``proj``), the ``fusion`` Linear and the decoder.  The JAX
+    package has no converter for it: this bridge and its inverse (from
+    ``hf_conversion``'s backbone converters) are written by hand."""
+    out: StateDict = {}
+    vision = tree["vision_encoder"]
+    if "backbone" in vision:
+        _vit_backbone(out, "vision_encoder.backbone", vision)
+    _linear(out, "vision_encoder.proj", vision["Dense_0"])
+    text = tree["text_embedding"]
+    _t5_encoder(out, "text_embedding.backbone", text["backbone"])
+    _linear(out, "text_embedding.proj", text["Dense_0"])
+    _linear(out, "fusion", tree["fusion"])
+    _decoder(out, tree["decoder"])
     return out
 
 
@@ -213,7 +285,8 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     """A flax ``params`` collection (numpy arrays) -> the port's state_dict as
     float32 numpy arrays, for the MMF_M4C family (MMF_M4C, MMF_REGIONAL_M4C,
     MMF_SAL, MMF_LanguageAdaptiveM4C, MMF_IterativeM4C and its multilevel
-    variant) and IterativeMCAN trees, told apart by their top-level keys.
+    variant), IterativeMCAN and ViTmT5 trees, told apart by their top-level
+    keys.
     `config` (the MODEL node) is accepted for symmetry with the JAX converters;
     the tree alone determines the layer counts."""
     if "joint_encoder" in tree:
@@ -224,4 +297,6 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
         return _mmf_m4c(tree)
     if "self_encoder" in tree and "decoder" in tree:
         return _iterative_mcan(tree)
+    if "vision_encoder" in tree and "text_embedding" in tree and "fusion" in tree:
+        return _vit_mt5(tree)
     raise ValueError(f"no bridge for a parameter tree with keys {sorted(tree)}")

@@ -18,7 +18,7 @@ from ..builders import (
     build_text_embedding,
     build_vision_embedding,
 )
-from .base import BatchTensors, GenerativeModel
+from .base import BatchTensors, GenerativeModel, init_xavier_law_
 from .modules.ffn import LN_EPS, PositionWiseFeedForward
 
 
@@ -36,22 +36,8 @@ class IterativeMCAN(GenerativeModel):
         self.decoder = build_decoder(config.DECODER, vocab=vocab)
 
     def init_weights_(self, generator: torch.Generator) -> None:
-        """The JAX package's initialisers for this model, drawn from
-        `generator` in module order: Xavier-uniform Linear weights with zero
-        biases, N(0, 1) embedding tables, LayerNorm scale 1 and bias 0."""
-        with torch.no_grad():
-            for sub in self.modules():
-                if isinstance(sub, nn.Linear):
-                    bound = (6.0 / (sub.in_features + sub.out_features)) ** 0.5
-                    uniform = torch.rand(sub.weight.shape, generator=generator)
-                    sub.weight.copy_((2.0 * uniform - 1.0) * bound)
-                    if sub.bias is not None:
-                        sub.bias.zero_()
-                elif isinstance(sub, nn.Embedding):
-                    sub.weight.copy_(torch.randn(sub.weight.shape, generator=generator))
-                elif isinstance(sub, nn.LayerNorm):
-                    sub.weight.fill_(1.0)
-                    sub.bias.zero_()
+        """The JAX package's initialisers for this model (``init_xavier_law_``)."""
+        init_xavier_law_(self, generator)
 
     def encode(self, batch: BatchTensors, generator=None):
         vision_features, vision_bias = self.vision_embedding(batch["region_features"], generator)

@@ -1,11 +1,33 @@
-"""The embedding-table size of a BERT-layout pretrained backbone.
+"""Pretrained-backbone embeddings: the frozen backbone, a projection to D_MODEL,
+exact GELU and dropout.
 
-The port's own copy of ``backbone_table_rows`` and the vocab sizes it knows
-(``openvivqa_tpu/models/modules/pretrained_embeddings.py``); the pretrained
-wrappers themselves wait for the backbones' slice.
+The port's counterparts of ``backbone_table_rows``, ``BACKBONE_SPECS``,
+``resolve_backbone_spec``, ``_ProjectedBackboneEmbedding``, ``T5Embedding`` and
+``ViTEmbedding`` in ``openvivqa_tpu/models/modules/pretrained_embeddings.py``.
+Backbones are built at the published shapes of the checkpoint PRETRAINED_NAME
+names (mT5-small: 8 layers of 512, 6 heads of 64, gated gelu_new FFN of 1024,
+250,112 rows; ViT-base: 12 layers of 768, 12 heads, patch 16 at 224), with
+random weights: no checkpoint file is in the repository, and nothing is
+downloaded.  Their parameters are HF's, under ``backbone.``.
+
+A backbone is frozen as the reference freezes it: ``requires_grad`` off and its
+forward under ``torch.no_grad()`` (no gradient, no Adam update, no dropout), the
+counterpart of the JAX package's ``stop_gradient``.  The BERT-family text
+wrappers (BertEmbedding, RobertaEmbedding, XLMRobertaEmbedding), ALBERT and
+DeBERTa wait for their slice (ROADMAP); a config naming them fails to build.
 """
 
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...builders import META_TEXT_EMBEDDING, META_VISION_EMBEDDING
+from .bert import dropout
+from .masks import padding_bias, validity_to_bias
 
 # real vocab sizes of the BERT-layout checkpoints the reference configs name
 _BERT_FAMILY_VOCABS = {
@@ -40,3 +62,167 @@ def backbone_table_rows(config, vocab_len: int = 0) -> int:
             "PRETRAINED_VOCAB_SIZE to the checkpoint's real vocab rows"
         )
     return max(vocab_len, rows)
+
+
+# Default dims follow the checkpoint PRETRAINED_NAME names; explicit config keys
+# (D_PRETRAINED_FEATURE, PRETRAINED_LAYERS, NUM_ATTENTION_HEADS,
+# PRETRAINED_VOCAB_SIZE, ...) override them.
+BACKBONE_SPECS = {
+    "google/mt5-small": dict(
+        family="t5", hidden=512, layers=8, heads=6, d_kv=64, d_ff=1024,
+        vocab_size=250112, gated_act=True, act_fn="gelu_new",
+    ),
+    "google/mt5-base": dict(
+        family="t5", hidden=768, layers=12, heads=12, d_kv=64, d_ff=2048,
+        vocab_size=250112, gated_act=True, act_fn="gelu_new",
+    ),
+    "t5-small": dict(
+        family="t5", hidden=512, layers=6, heads=8, d_kv=64, d_ff=2048,
+        vocab_size=32128, gated_act=False, act_fn="relu",
+    ),
+    "t5-base": dict(
+        family="t5", hidden=768, layers=12, heads=12, d_kv=64, d_ff=3072,
+        vocab_size=32128, gated_act=False, act_fn="relu",
+    ),
+    "albert-base-v2": dict(
+        family="albert", hidden=768, layers=12, heads=12, embedding_size=128,
+        intermediate=3072, vocab_size=30000,
+    ),
+    "albert-large-v2": dict(
+        family="albert", hidden=1024, layers=24, heads=16, embedding_size=128,
+        intermediate=4096, vocab_size=30000,
+    ),
+    "microsoft/deberta-v3-base": dict(
+        family="deberta", hidden=768, layers=12, heads=12, intermediate=3072,
+        vocab_size=128100, position_buckets=256, share_att_key=True,
+        norm_rel_ebd="layer_norm",
+    ),
+    "microsoft/deberta-v3-large": dict(
+        family="deberta", hidden=1024, layers=24, heads=16, intermediate=4096,
+        vocab_size=128100, position_buckets=256, share_att_key=True,
+        norm_rel_ebd="layer_norm",
+    ),
+    "microsoft/deberta-v2-xlarge": dict(
+        family="deberta", hidden=1536, layers=24, heads=24, intermediate=6144,
+        vocab_size=128100, position_buckets=256, share_att_key=True,
+        norm_rel_ebd="layer_norm", conv_kernel_size=3, conv_groups=1,
+    ),
+}
+
+_FAMILY_DEFAULTS = {
+    # used when PRETRAINED_NAME is absent or unknown: base-model shapes
+    "t5": BACKBONE_SPECS["google/mt5-small"],
+    "albert": BACKBONE_SPECS["albert-base-v2"],
+    "deberta": BACKBONE_SPECS["microsoft/deberta-v3-base"],
+}
+
+
+def resolve_backbone_spec(config, family: str, vocab=None) -> dict:
+    """Spec = family default <- PRETRAINED_NAME entry <- explicit keys; the
+    table holds at least the vocab's rows, so framework-vocab ids stay
+    addressable without a tokenizer."""
+    spec = dict(_FAMILY_DEFAULTS[family])
+    name = config.get("PRETRAINED_NAME")
+    if name in BACKBONE_SPECS and BACKBONE_SPECS[name]["family"] == family:
+        spec = dict(BACKBONE_SPECS[name])
+    for cfg_key, spec_key in (
+        ("D_PRETRAINED_FEATURE", "hidden"),
+        ("HIDDEN_SIZE", "hidden"),
+        ("PRETRAINED_LAYERS", "layers"),
+        ("NUM_HIDDEN_LAYERS", "layers"),
+        ("NUM_ATTENTION_HEADS", "heads"),
+        ("PRETRAINED_VOCAB_SIZE", "vocab_size"),
+        ("PRETRAINED_INTERMEDIATE_SIZE", "intermediate"),
+        ("PRETRAINED_D_KV", "d_kv"),
+        ("PRETRAINED_D_FF", "d_ff"),
+        ("PRETRAINED_EMBEDDING_SIZE", "embedding_size"),
+    ):
+        value = config.get(cfg_key)
+        if value is not None:
+            spec[spec_key] = int(value)
+    if vocab is not None:
+        spec["vocab_size"] = max(spec["vocab_size"], len(vocab))
+    return spec
+
+
+class _ProjectedBackboneEmbedding(nn.Module):
+    """Frozen text backbone -> Linear(D_MODEL) -> GELU -> dropout; returns
+    (features, padding bias).  The bias comes from `padding_mask` (a
+    tokenizer's validity mask) when given, else from the ids equal to
+    `padding_idx` (the vocab's by default)."""
+
+    family = "t5"
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        spec = resolve_backbone_spec(config, self.family, vocab)
+        self.padding_idx = vocab.padding_idx
+        self.dropout = config.DROPOUT
+        self.backbone = self._build_backbone(spec)
+        self.backbone.requires_grad_(False)  # frozen, as the reference freezes it
+        self.proj = nn.Linear(spec["hidden"], config.D_MODEL)
+
+    def _build_backbone(self, spec) -> nn.Module:
+        raise NotImplementedError
+
+    def forward(self, tokens, generator: Optional[torch.Generator] = None,
+                padding_idx: Optional[int] = None, padding_mask=None):
+        if padding_mask is not None:
+            bias = validity_to_bias(padding_mask)
+        else:
+            bias = padding_bias(tokens, self.padding_idx if padding_idx is None else padding_idx)
+        with torch.no_grad():
+            encoded = self.backbone(tokens, bias)
+        out = dropout(F.gelu(self.proj(encoded)), self.dropout, generator)
+        return out, bias
+
+
+@META_TEXT_EMBEDDING.register()
+class T5Embedding(_ProjectedBackboneEmbedding):
+    """The mT5 / T5 encoder (``modules/t5.py``) behind the projection."""
+
+    family = "t5"
+
+    def _build_backbone(self, spec) -> nn.Module:
+        from .t5 import T5EncoderStack
+
+        return T5EncoderStack(
+            vocab_size=spec["vocab_size"], d_model=spec["hidden"], num_layers=spec["layers"],
+            num_heads=spec["heads"], d_kv=spec.get("d_kv", 64), d_ff=spec.get("d_ff"),
+            gated_act=spec.get("gated_act", True), act_fn=spec.get("act_fn", "gelu_new"),
+        )
+
+
+@META_VISION_EMBEDDING.register()
+class ViTEmbedding(nn.Module):
+    """Frozen ViT backbone over (b, H, W, 3) pixels -> Linear(D_MODEL) -> GELU
+    -> dropout; returns (features, padding bias).  Given (b, L, D) features
+    instead (pre-extracted ViT outputs), the backbone is skipped.  An all-zero
+    feature row is padding (``padding_bias(features, 0)``, as the JAX package
+    computes it)."""
+
+    def __init__(self, config):
+        super().__init__()
+        from .vit import ViTBackbone
+
+        hidden = int(config.get("D_PRETRAINED_FEATURE", 768))
+        self.dropout = config.DROPOUT
+        self.backbone = ViTBackbone(
+            hidden_size=hidden,
+            num_layers=int(config.get("PRETRAINED_LAYERS", 12)),  # ViT-base depth
+            num_heads=int(config.get("PRETRAINED_HEADS", max(1, hidden // 64))),
+            intermediate_size=config.get("PRETRAINED_INTERMEDIATE_SIZE"),
+            patch=int(config.get("PATCH_SIZE", 16)),
+            image_size=int(config.get("IMAGE_SIZE", 224)),
+        )
+        self.backbone.requires_grad_(False)  # frozen, as the reference freezes it
+        self.proj = nn.Linear(hidden, config.D_MODEL)
+
+    def forward(self, pixel_values, generator: Optional[torch.Generator] = None):
+        if pixel_values.ndim == 4:
+            with torch.no_grad():
+                features = self.backbone(pixel_values)
+        else:
+            features = pixel_values.detach()
+        mask = padding_bias(features, padding_idx=0)
+        return dropout(F.gelu(self.proj(features)), self.dropout, generator), mask

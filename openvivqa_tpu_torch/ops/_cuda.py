@@ -50,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_cross_attention_step": 0,
     "fused_decoder_layer_step": 0,
     "fused_cross_attention_streamed": 0,
+    "fused_attention_packed_2bias": 0,
 }
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "ovq_cross_attention_step_forward": "p" * 14 + "i" * 7 + "ff",
     "ovq_decoder_layer_step_forward": "p" * 33 + "i" * 13 + "ff",
     "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 7 + "ff",
+    "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
 }
 _CTYPES = {
     "p": ctypes.c_void_p, "i": ctypes.c_int,

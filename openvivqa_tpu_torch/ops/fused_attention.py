@@ -1,10 +1,11 @@
 """Packed attention, softmax(scale * Q K^T + bias) V on the raw (b, S, h * d)
-projections, with and without in-kernel dropout on the attention weights, each
-beside its plain PyTorch version.
+projections, with and without in-kernel dropout on the attention weights, and
+with a second, per-head bias, each beside its plain PyTorch version.
 
-Counterparts of ``fused_attention_packed`` and ``fused_attention_packed_dropout``
-in ``openvivqa_tpu/ops/fused_attention.py``; the CUDA sources are
-``csrc/fused_attention.cu`` and ``csrc/fused_attention_dropout.cu``.  The bias is
+Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``
+and ``fused_attention_packed_2bias`` in ``openvivqa_tpu/ops/fused_attention.py``;
+the CUDA sources are ``csrc/fused_attention.cu``, ``csrc/fused_attention_dropout.cu``
+and ``csrc/fused_attention_2bias.cu``.  The bias is
 head-shared, ``(bb, 1, bq, Sk)`` with ``bb`` in {1, b} and ``bq`` in {1, Sq}, and
 is never broadcast in memory.  It is a mask constant: neither gradient flows to
 it (the JAX package returns zeros for it under dropout and never uses the
@@ -13,6 +14,9 @@ packed one's).
 Dot operands and softmax weights are rounded to ``op_dtype`` (bf16 on the card,
 as in the TPU kernels; float32 on the CPU unless asked otherwise); the softmax
 and accumulators are float32.
+
+The two-bias attention is forward only on the card: the backbones that call it
+(T5, DeBERTa) run frozen, under ``torch.no_grad()``.
 
 Gradients:
   * ``fused_attention_packed``: the analytic formula of the JAX package's
@@ -318,3 +322,80 @@ def fused_attention_packed_dropout(q, k, v, bias, seed, scale: float, num_heads:
     return PackedDropoutAttention.apply(
         q, k, v, bias, seed, scale, num_heads, rate, _cuda.uses_kernel(*tensors)
     )
+
+
+# -- a second, per-head bias (T5 relative positions, DeBERTa) ------------------------
+def _check_2bias_shapes(q, k, v, bias, head_bias, num_heads: int) -> None:
+    """Raise ValueError unless q is (b, Sq, h * d), k and v (b, Sk, h * d), bias
+    broadcasts as a head-shared (bb, 1, bq, Sk) and head_bias is a float32
+    (hb, h, Sq, Sk) with hb in {1, b}."""
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2] != q.shape[2]:
+        raise ValueError("fused_attention_packed_2bias: q must be (b, Sq, hd) and k, v (b, Sk, hd)")
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    if num_heads <= 0 or hd % num_heads:
+        raise ValueError(f"fused_attention_packed_2bias: {num_heads} heads do not tile width {hd}")
+    _bias_3d(bias, b, sq, sk, q.device)
+    if head_bias.ndim != 4 or head_bias.shape[0] not in (1, b) \
+            or tuple(head_bias.shape[1:]) != (num_heads, sq, sk):
+        raise ValueError(
+            f"fused_attention_packed_2bias: head_bias {tuple(head_bias.shape)} is not "
+            f"(1 or {b}, {num_heads}, {sq}, {sk})"
+        )
+    if head_bias.dtype != torch.float32:
+        raise ValueError(f"fused_attention_packed_2bias: head_bias must be float32, "
+                         f"got {head_bias.dtype}")
+
+
+def fused_attention_packed_2bias_plain(
+    q, k, v, bias, head_bias, scale: float, num_heads: int,
+    op_dtype: Optional[torch.dtype] = None,
+):
+    """The TPU kernel's arithmetic: logits (scale * q k^T + bias) + head_bias in
+    float32 on op_dtype-rounded operands, the softmax weights rounded to
+    op_dtype before the product with V."""
+    op_dtype = op_dtype or _cuda.kernel_dtype(q.device)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    qh, kh, vh = (_heads(x, num_heads, op_dtype) for x in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    logits = logits + _bias_3d(bias, b, sq, sk, q.device)[:, None] + head_bias.float()
+    weights = torch.softmax(logits, dim=-1).to(op_dtype).float()
+    return torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(b, sq, hd)
+
+
+def _packed_2bias_kernel(q, k, v, bias, head_bias, scale: float, num_heads: int):
+    b, sq, sk, hd = _check_packed(q, k, v, num_heads, "fused_attention_packed_2bias")
+    hb = head_bias.shape[0]
+    _cuda.require(head_bias, "head_bias", torch.float32, (hb, num_heads, sq, sk))
+    bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+    out = torch.empty_like(q)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_packed_2bias_attention_forward", p(q), p(k), p(v), p(bias3), *_bias_strides(bias3),
+        p(head_bias), 0 if hb == 1 else num_heads * sq * sk, p(out), b, sq, sk, hd, num_heads,
+        scale,
+    )
+    _cuda.count("fused_attention_packed_2bias")
+    return out
+
+
+def fused_attention_packed_2bias(q, k, v, bias, head_bias, scale: float, num_heads: int):
+    """softmax(scale * Q K^T + bias + head_bias) V on packed projections: q (b,
+    Sq, h*d), k/v (b, Sk, h*d) float32; bias head-shared (bb, 1, bq, Sk) or None;
+    head_bias (hb, h, Sq, Sk) float32 with hb in {1, b} (T5's relative-position
+    table shared by the batch, or per-sample terms).  Returns (b, Sq, h*d).
+
+    On the card it launches the kernel, forward only: it raises when a gradient
+    would be needed.  On the CPU the plain version runs, with autograd."""
+    _check_2bias_shapes(q, k, v, bias, head_bias, num_heads)
+    tensors = (q, k, v, head_bias) if bias is None else (q, k, v, head_bias, bias)
+    if not _cuda.uses_kernel(*tensors):
+        return fused_attention_packed_2bias_plain(q, k, v, bias, head_bias, scale, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            "fused_attention_packed_2bias has no backward kernel: call it on frozen "
+            "inputs or under torch.no_grad()"
+        )
+    return _packed_2bias_kernel(q, k, v, bias, head_bias, scale, num_heads)

@@ -1,1 +1,2 @@
 from . import ocr_tasks  # noqa: F401  (registers TrainingMMF)
+from . import vlsp_evjvqa_task  # noqa: F401  (registers VlspEvjVqaTask)

@@ -10,7 +10,6 @@ them.
 from __future__ import annotations
 
 import itertools
-import os
 
 import numpy as np
 import torch
@@ -18,7 +17,6 @@ import torch
 from ...builders import META_TASK
 from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
-from ..checkpoint import BEST_NAME
 from ..train_state import nll_loss
 from .open_ended_task import OpenEndedTask
 
@@ -72,10 +70,7 @@ class TrainingMMF(OcrOpenEndedTask):
     def get_predictions(self):
         """Greedy predictions on the test split from best_model.pth, with
         each token's provenance (fixed vocab or OCR), into test_results.json."""
-        best = os.path.join(self.checkpoint_path, BEST_NAME)
-        if not os.path.isfile(best):
-            raise FileNotFoundError(f"no best_model checkpoint in {self.checkpoint_path}")
-        self.load_checkpoint(best)
+        self.load_best_model()
 
         results, overall_gens, overall_gts = [], {}, {}
         for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dict_dataloader)):

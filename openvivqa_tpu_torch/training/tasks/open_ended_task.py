@@ -170,30 +170,22 @@ class OpenEndedTask(BaseTask):
                 break
             self.epoch += 1
 
-    def get_predictions(self):
-        """Beam-searched predictions on the test split from best_model.pth,
-        scored and written to test_results.json."""
-        best = os.path.join(self.checkpoint_path, BEST_NAME)
-        if not os.path.isfile(best):
-            raise FileNotFoundError(
-                "Prediction requires a trained model: no best_model checkpoint "
-                f"in {self.checkpoint_path}"
-            )
-        self.load_checkpoint(best)
-
+    def _predict_split(self, dataloader, out_name: str, key=lambda batch, it, i: f"{it}_{i}"):
+        """Beam-searched answers of one split, scored and written to
+        <checkpoint dir>/<out_name>, each sample under key(batch, it, i)."""
         results, overall_gens, overall_gts = [], {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dict_dataloader)):
+        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
             answers_gen = self.generate_answers(batch, device_batch)
             valid = np.asarray(batch["sample_valid"])
             gens, gts = {}, {}
             for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
                 if not valid[i]:
                     continue
-                key = f"{it}_{i}"
-                gens[key] = gen_i
-                gts[key] = gts_i
-                overall_gens[key] = [gen_i]
-                overall_gts[key] = gts_i
+                name = key(batch, it, i)
+                gens[name] = gen_i
+                gts[name] = gts_i
+                overall_gens[name] = [gen_i]
+                overall_gts[name] = gts_i
             results.append({
                 "id": [int(x) for x in np.asarray(batch["question_id"])[valid]],
                 "image_id": [int(x) for x in np.asarray(batch["image_id"])[valid]],
@@ -203,6 +195,21 @@ class OpenEndedTask(BaseTask):
             })
 
         scores, _ = compute_scores(overall_gts, overall_gens)
-        logger.info("Evaluation scores on test: %s", scores)
-        self.dump_json("test_results.json", {"results": results, **scores})
+        logger.info("Evaluation scores on %s: %s", out_name, scores)
+        self.dump_json(out_name, {"results": results, **scores})
         return scores
+
+    def load_best_model(self) -> None:
+        best = os.path.join(self.checkpoint_path, BEST_NAME)
+        if not os.path.isfile(best):
+            raise FileNotFoundError(
+                "Prediction requires a trained model: no best_model checkpoint "
+                f"in {self.checkpoint_path}"
+            )
+        self.load_checkpoint(best)
+
+    def get_predictions(self):
+        """Beam-searched predictions on the test split from best_model.pth,
+        scored and written to test_results.json."""
+        self.load_best_model()
+        return self._predict_split(self.test_dict_dataloader, "test_results.json")

@@ -386,3 +386,72 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         decode_step.fused_ffn_step(narrow, *(torch.zeros(1, device=dev),) * 6)
     with pytest.raises(ValueError):
         decode_step.fused_ffn_step(x, w1_f32.cpu(), *rest)
+
+
+T5_HEADS, T5_HD = 6, 384  # mT5-small: 6 heads of 64, inner width 384
+
+
+@pytest.mark.parametrize("form,sq,sk", [
+    ("table + padding", 27, 27), ("table + padding", 40, 70),
+    ("per-sample head bias", 27, 27), ("per-sample head bias, row bias", 40, 70),
+])
+def test_two_bias_attention_kernel_matches_plain(dev, form, sq, sk):
+    """The two-bias attention at T5's geometry (hd 384 over 6 heads, scale 1)
+    against its plain version: the (1, h, Sq, Sk) table beside a (b, 1, 1, Sk)
+    padding bias, and per-sample (b, h, Sq, Sk) head biases with no or a
+    (b, 1, Sq, Sk) head-shared bias.  Sample 0 has every key masked: it stays
+    finite and agrees too (its logits sit near -1e5, where one float32 ulp is
+    7.8e-3, but kernel and plain round the same sums)."""
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    bs = 5
+    q, k, v = _randn(gen, bs, sq, T5_HD), _randn(gen, bs, sk, T5_HD), _randn(gen, bs, sk, T5_HD)
+    padding = _key_bias(gen, bs, sk)[:, None, None, :].contiguous()
+    table = _randn(gen, 1, T5_HEADS, sq, sk)
+    if form == "table + padding":
+        bias, head_bias = padding, table
+    elif form == "per-sample head bias":
+        bias, head_bias = None, (table + padding).contiguous()
+    else:
+        bias = torch.where(torch.rand(bs, 1, sq, sk, generator=gen, device=dev) < 0.2, MASK, 0.0)
+        head_bias = (table + padding).contiguous()
+    args = (q, k, v, bias, head_bias, 1.0, T5_HEADS)
+    before = _cuda.launch_counts()["fused_attention_packed_2bias"]
+    got = fused_attention.fused_attention_packed_2bias(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["fused_attention_packed_2bias"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_packed_2bias_plain(*args)) <= ATTN_TOL
+
+
+def test_two_bias_attention_forms_agree(dev):
+    """T5's two forms of one bias: the padding as the head-shared operand beside
+    the shared table, or the two added into one (b, h, L, L) head bias (the
+    JAX package's form)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (_randn(gen, 4, 24, T5_HD) for _ in range(3))
+    padding = _key_bias(gen, 4, 24)[:, None, None, :].contiguous()
+    table = _randn(gen, 1, T5_HEADS, 24, 24)
+    shared = fused_attention.fused_attention_packed_2bias(q, k, v, padding, table, 1.0, T5_HEADS)
+    summed = fused_attention.fused_attention_packed_2bias(
+        q, k, v, None, (table + padding).contiguous(), 1.0, T5_HEADS)
+    assert _err(shared, summed) <= ATTN_TOL
+
+
+def test_two_bias_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q = _randn(gen, 2, 8, T5_HD)
+    table = _randn(gen, 1, T5_HEADS, 8, 8)
+    counts = _cuda.launch_counts()
+    with pytest.raises(ValueError, match="head_bias"):
+        fused_attention.fused_attention_packed_2bias(q, q, q, None, table[:, :3], 1.0, T5_HEADS)
+    with pytest.raises(ValueError, match="float32"):
+        fused_attention.fused_attention_packed_2bias(q, q, q, None, table.double(), 1.0, T5_HEADS)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention.fused_attention_packed_2bias(
+            q, q, q, None, table.transpose(2, 3), 1.0, T5_HEADS)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        fused_attention.fused_attention_packed_2bias(
+            q.clone().requires_grad_(), q, q, None, table, 1.0, T5_HEADS)
+    with pytest.raises(ValueError):
+        fused_attention.fused_attention_packed_2bias(q, q, q, None, table.cpu(), 1.0, T5_HEADS)
+    assert _cuda.launch_counts() == counts
