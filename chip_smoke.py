@@ -15,7 +15,11 @@ Phases, each fatal on failure:
      between steps as beam search does; the layer step also bit for bit
      against its three stage kernels), and kernel E of the Iterative M4C
      decode step (64 rows, hidden 512, 210 bf16 encoder keys, eps 1e-12),
-     with the max |kernel - plain| beside its
+     the flat attention at JointTransformer's beam-eval cross step (60 rows x
+     8 heads x 1 query over the joint stream's keys, d 64, one fully masked
+     row), with a per-head bias and at d_k != d_v, and the streamed attention
+     at 64 x 1536 x 1536 (hd 512, 8 heads; beside the packed kernel at that
+     shape) and at a ragged 1601 keys, with the max |kernel - plain| beside its
      tolerance, median CUDA-event times of the kernel, of its plain version
      and, for the attention kernels, of one torch.nn.functional.
      scaled_dot_product_attention call on the same inputs (timed here only,
@@ -81,11 +85,26 @@ Phases, each fatal on failure:
      ``generate()`` times); ``start()`` for one epoch, ``get_predictions()``
      (both test-split files), one step's gradients (none on the frozen ViT and
      mT5, non-zero elsewhere but the key biases), train-step times, peak
-     memory and torch.profiler tables.
+     memory and torch.profiler tables;
+  9. ``configs/joint_transformer_vlsp.yaml`` (JointTransformer under
+     VlspEvjVqaTask) at its full widths (d_model 512, 8 heads, 3 + 3 layers,
+     FFN 2048; random weights from the seed) on phase 8's EVJVQA set and its
+     VinVL-shaped feature store (75-100 regions x 2048, 49 grids x 1024, their
+     boxes): beam-3 ``evaluate_metrics`` over the dev split on the layer route
+     (layer step = steps x 3 x batches, packed = 3 x batches, flat none) and on
+     the module route, OPENVIVQA_DECODE_KERNEL_PARTS=none (flat = steps x 3 x 2
+     x batches, layer step none), no plain version called; one batch on the
+     layer, module and plain routes (token agreement >= 90 %, cumulative
+     log-prob differences, ``generate()`` times, torch.profiler tables);
+     ``start()`` for one epoch, ``get_predictions()``, one step's gradients,
+     train-step times and peak memory; the model's Encoder over a 16 x 1536
+     stream with a padding bias (3 streamed launches per forward, in eval and
+     in training with a backward; within 2^-5 of the plain route relative to
+     its largest output).
 Launch counts are reset just before each main-path run (4 and 7: each decode
-mode and decode batch; 5, 6, 7 and 8: each eval route, start() and
-get_predictions()) and read just after it.  The nvcc/ptxas log
-(registers and spills per kernel) is kept beside the library in
+mode and decode batch; 5, 6, 7, 8 and 9: each eval route, start() and
+get_predictions(); 9: each long-stream forward) and read just after it.  The
+nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -161,11 +180,15 @@ SOURCES = {
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:1146"),
     "fused_attention_packed_2bias": (
         "fused_attention_2bias.cu", "openvivqa_tpu/ops/fused_attention.py:661"),
+    "fused_attention_packed_streamed": (
+        "fused_attention_streamed.cu", "openvivqa_tpu/ops/fused_attention.py:483"),
+    "fused_attention": ("fused_attention_flat.cu", "openvivqa_tpu/ops/fused_attention.py:1239"),
 }
 STEP_PLAIN = ("fused_self_attention_step_plain", "fused_cross_attention_step_plain",
               "fused_decoder_layer_step_plain", "fused_ffn_step_plain",
               "fused_cross_attention_streamed_plain")
-ATTENTION_PLAIN = ("fused_attention_packed_plain", "fused_attention_packed_2bias_plain")
+ATTENTION_PLAIN = ("fused_attention_packed_plain", "fused_attention_packed_2bias_plain",
+                   "fused_attention_packed_streamed_plain", "fused_attention_plain")
 
 
 def log(*parts) -> None:
@@ -238,6 +261,9 @@ def plain_versions():
         (fused_attention, "fused_attention_packed_dropout", plain_dropout_attention),
         (fused_attention, "fused_attention_packed_2bias",
          fused_attention.fused_attention_packed_2bias_plain),
+        (fused_attention, "fused_attention_packed_streamed",
+         fused_attention.fused_attention_packed_streamed_plain),
+        (fused_attention, "fused_attention", fused_attention.fused_attention_plain),
     ]
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -316,11 +342,13 @@ def make_recorder(results, failures):
     return record
 
 
-def check_kernels(task, shapes, seed, failures, generative, iterative):
+def check_kernels(task, shapes, seed, failures, generative, iterative, joint_task):
     """Phase 3: every kernel of the paths against its plain version;
     `generative` is the IterativeMCAN task, whose decoder gives the step
     kernels their weights and shapes; `iterative` the MMF_IterativeM4C task,
-    whose decoder gives kernel E its weights and shapes."""
+    whose decoder gives kernel E its weights and shapes; `joint_task` the
+    JointTransformer task, whose dev batch gives the flat attention its
+    shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -491,6 +519,7 @@ def check_kernels(task, shapes, seed, failures, generative, iterative):
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
     check_step_kernels(generative, gen, record, failures)
     check_streamed_cross(iterative, gen, record)
+    check_flat_and_streamed(joint_task, gen, record, failures)
     return results
 
 
@@ -1479,6 +1508,327 @@ def run_vit_mt5(config, seed, failures):
     return launches, results
 
 
+# the streamed attention's kernel rows: (samples, keys = queries) at (hd, heads), from
+# where the JAX package leaves the packed kernel at hd 512 on, and a ragged 64-key
+# chunk; phase 9's long stream (samples, length) through JointTransformer's Encoder
+STREAMED_WIDTH = (512, 8)
+STREAMED_SHAPES = ((64, 1536), (16, 1601))
+LONG_STREAM = (16, 1536)
+
+
+def with_joint(paths, seed, checkpoint):
+    """``configs/joint_transformer_vlsp.yaml`` on the synthetic EVJVQA set at
+    `paths` (its VinVL-shaped feature store), one epoch."""
+    from openvivqa_tpu_torch.config import get_config
+
+    dataset = {"FEATURE_PATH": {"FEATURES": paths["features"]}}
+    return get_config(str(ROOT / "configs" / "joint_transformer_vlsp.yaml")).merged({
+        "DATASET": {
+            "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
+            "JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                          "PUBLIC_TEST": paths["public_test"],
+                          "PRIVATE_TEST": paths["private_test"]},
+            "VOCAB": {"JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                                    "TEST": paths["public_test"]}},
+        },
+        "TRAINING": {"SEED": seed, "CHECKPOINT_PATH": checkpoint, "MAX_EPOCHS": 1},
+    })
+
+
+def check_flat_and_streamed(task, gen, record, failures):
+    """The flat attention at JointTransformer's beam-eval cross step (the dev
+    loader's samples x beams rows, 8 heads, one query, the joint stream's keys,
+    d 64, float32 K/V as the module route stores them, head-split views of
+    packed projections, a (rows, 1, 1, Sk) padding bias whose row 0 masks every
+    key), then with a per-head (16, 8, 64, Sk) bias and at d_k 64 / d_v 32;
+    the streamed attention at 64 x 1536 x 1536, hd 512 over 8 heads, with a
+    per-sample padding bias, beside the packed kernel at the same shape, then
+    at 1601 keys (a ragged 64-key chunk).  The library call is one float32
+    ``scaled_dot_product_attention`` with the bias as its mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    dev = task.device
+    core = task.model.decoder.layers[0].enc_attn.attention
+    heads, d = core.h, core.d_k
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    rows = first["question_tokens"].shape[0] * task.evaluating_beam_size
+    with torch.no_grad():
+        sk = task.model.streams(first)[1].shape[-1]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def split(b, s, dh):
+        """A (b, h, s, dh) head-split view of a packed (b, s, h * dh) tensor."""
+        return randn(b, s, heads * dh).view(b, s, heads, dh).transpose(1, 2)
+
+    def padding(b, n):
+        bias = torch.where(torch.rand((b, 1, 1, n), generator=gen, device=dev) < 0.2,
+                           MASK_VALUE, 0.0)
+        bias[0] = MASK_VALUE  # a row with every key masked
+        return bias
+
+    cases = (
+        (f"cross step {rows} rows x {heads} heads x 1 query x {sk} keys, d {d}, row 0 fully "
+         "masked", rows, 1, d, d, padding(rows, sk)),
+        (f"per-head bias 16 x {heads} x 64 x {sk}, d {d}", 16, 64, d, d,
+         torch.where(torch.rand((16, heads, 64, sk), generator=gen, device=dev) < 0.2,
+                     MASK_VALUE, 0.0)),
+        (f"d_k {d} / d_v {d // 2}, 16 x {heads} x 64 x {sk}", 16, 64, d, d // 2, padding(16, sk)),
+    )
+    for what, b, sq, dk, dv, bias in cases:
+        q, k, v = split(b, sq, dk), split(b, sk, dk), split(b, sk, dv)
+        scale = dk ** -0.5
+        args = (q, k, v, bias, scale)
+        out = fused_attention.fused_attention(*args)
+        if not bool(torch.isfinite(out).all()):
+            failures.append(f"fused_attention [{what}]: non-finite output")
+        record("fused_attention", what,
+               max_err(out, fused_attention.fused_attention_plain(*args)), ATTN_TOL,
+               median_ms(lambda: fused_attention.fused_attention(*args)),
+               median_ms(lambda: fused_attention.fused_attention_plain(*args)),
+               2.0 * b * heads * sq * sk * (dk + dv), tensor_bytes(q, k, v, bias, out),
+               median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                scale=scale)))
+
+    hd, heads = STREAMED_WIDTH
+    scale = (hd // heads) ** -0.5
+    for b, n in STREAMED_SHAPES:
+        q, k, v = randn(b, n, hd), randn(b, n, hd), randn(b, n, hd)
+        lengths = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev)
+        bias = torch.where(torch.arange(n, device=dev)[None] < lengths[:, None], 0.0,
+                           MASK_VALUE)[:, None, None, :].contiguous()
+        args = (q, k, v, bias, scale, heads)
+        out = fused_attention.fused_attention_packed_streamed(*args)
+        ms = median_ms(lambda: fused_attention.fused_attention_packed_streamed(*args))
+        packed_ms = median_ms(lambda: fused_attention.fused_attention_packed(*args))
+        split_heads = [x.view(b, n, heads, hd // heads).transpose(1, 2) for x in (q, k, v)]
+        record("fused_attention_packed_streamed",
+               f"{b} x {n} x {n}, hd {hd} over {heads} heads, per-sample padding (the packed "
+               f"kernel at this shape: {packed_ms:.4f} ms)",
+               max_err(out, fused_attention.fused_attention_packed_streamed_plain(*args)),
+               ATTN_TOL, ms,
+               median_ms(lambda: fused_attention.fused_attention_packed_streamed_plain(*args)),
+               4.0 * b * n * n * hd, tensor_bytes(q, k, v, bias, out),
+               median_ms(lambda: F.scaled_dot_product_attention(*split_heads, attn_mask=bias,
+                                                                scale=scale)))
+        del q, k, v, out, split_heads
+        torch.cuda.empty_cache()
+
+
+def run_joint_transformer(task, seed, failures):
+    """Phase 9: ``configs/joint_transformer_vlsp.yaml`` (JointTransformer under
+    VlspEvjVqaTask) at its full widths on the synthetic EVJVQA set and its
+    feature store.  Returns the launches of its main-path runs."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import padding_bias
+    from openvivqa_tpu_torch.ops import _cuda
+    from openvivqa_tpu_torch.training.decode import generate
+
+    model = task.model
+    beam = task.evaluating_beam_size
+    steps = task.vocab.max_answer_length
+    n_enc, n_dec = len(model.encoder.layers), len(model.decoder.layers)
+    n_batches = len(task.dev_dict_dataloader)
+    n_valid = len(task.dev_dict_dataset)
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    with torch.no_grad():
+        keys = model.streams(batch)[1].shape[-1]
+    rows = batch["question_tokens"].shape[0] * beam
+    log(f"  JointTransformer: d_model {model.decoder.d_model}, "
+        f"{model.encoder.layers[0].mhatt.attention.h} heads, {n_enc} encoder + {n_dec} decoder "
+        f"layers, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters; "
+        f"{len(task.train_dataset)} train / {n_valid} dev / {len(task.public_test_dict_dataset)} "
+        f"public / {len(task.private_test_dict_dataset)} private samples; joint stream of {keys} "
+        f"keys (regions, region boxes, grids, grid boxes, question), {steps} answer steps, "
+        f"{rows} decode rows")
+    launches = {name: 0 for name in _cuda.LAUNCHES}
+    generate(model, batch, beam)  # the allocator's first growth, outside the counted runs
+    torch.cuda.synchronize()
+
+    # 1. beam-3 evaluate_metrics over the dev split on the layer and module routes
+    want = {
+        "layer": {"fused_decoder_layer_step": steps * n_dec * n_batches, "fused_attention": 0,
+                  "fused_attention_packed": n_enc * n_batches},
+        "module": {"fused_attention": steps * n_dec * 2 * n_batches,
+                   "fused_decoder_layer_step": 0, "fused_attention_packed": n_enc * n_batches},
+    }
+    for route, parts in (("layer", "layer"), ("module", "none")):
+        plain_calls = {}
+        with decode_parts(parts), count_plain_calls(plain_calls):
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            scores = task.evaluate_metrics(task.dev_dict_dataloader)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = _cuda.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        log(f"  [joint beam, {route}] {n_valid} samples in {n_batches} batches: {seconds:.3f} s "
+            f"({n_valid / seconds:.2f} samples/s by the host clock); scores "
+            f"{json.dumps(scores, default=float)}")
+        used = {k: v for k, v in counts.items() if v}
+        log(f"  [joint beam, {route}] launches: {json.dumps(used)}; plain calls: "
+            f"{json.dumps(plain_calls)}")
+        for name, n in want[route].items():
+            if counts[name] != n:
+                failures.append(f"[joint beam, {route}] {name}: {counts[name]} launches, want {n}")
+        if plain_calls:
+            failures.append(f"[joint beam, {route}] plain versions were called: {plain_calls}")
+        if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
+            failures.append(f"[joint beam, {route}] no finite CIDEr")
+
+    # 2. one batch, all beams, on the layer, module and plain routes
+    def decode(parts, plain=False):
+        with decode_parts(parts), (plain_versions() if plain else contextlib.nullcontext()):
+            return generate(model, batch, beam, out_size=beam)
+
+    routes = {"layer": ("layer", False), "module": ("none", False), "plain": ("layer", True)}
+    outs = {route: decode(*args) for route, args in routes.items()}
+    valid = torch.from_numpy(host["sample_valid"]).to(task.device)
+    expected = (valid.shape[0], beam, steps)
+    for route, (tokens, logprobs) in outs.items():
+        if tuple(tokens.shape) != expected or not bool(torch.isfinite(logprobs).all()):
+            failures.append(f"[joint beam] {route} route: outputs {tuple(tokens.shape)} (want "
+                            f"{expected}) or non-finite log-probs")
+    for a, b in (("module", "layer"), ("layer", "plain"), ("module", "plain")):
+        (tokens_a, logprobs_a), (tokens_b, logprobs_b) = outs[a], outs[b]
+        same = (tokens_a == tokens_b).all(dim=-1) & valid[:, None]
+        agreement = float((tokens_a[valid] == tokens_b[valid]).float().mean())
+        diff = max_err(logprobs_a[same].sum(-1), logprobs_b[same].sum(-1)) if bool(
+            same.any()) else 0.0
+        log(f"  [joint beam] {a} vs {b} route, one batch, all {beam} beams: token agreement "
+            f"{agreement * 100:.2f}% of {tokens_a[valid].numel()} tokens, {int(same.sum())} of "
+            f"{int(valid.sum()) * beam} beams equal; on those, max|cumulative log-prob diff| "
+            f"{diff:.3e}")
+        if agreement < 0.9:
+            failures.append(f"[joint beam] {a} vs {b} token agreement {agreement} < 0.9")
+    times = {route: median_ms(lambda a=args: decode(*a), reps=5) for route, args in routes.items()}
+    log(f"  [joint beam] generate() of one batch of {valid.shape[0]} x beam {beam} with its "
+        "encode (CUDA-event median of 5): " + ", ".join(
+            f"{route} route {ms:.3f} ms" for route, ms in times.items()))
+    with decode_parts("layer"):
+        profile(lambda: generate(model, batch, beam), "joint beam decode, layer route")
+    with decode_parts("none"):
+        profile(lambda: generate(model, batch, beam), "joint beam decode, module route")
+
+    # 3. XE training: start() for one epoch, then get_predictions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    start = time.perf_counter()
+    task.start()
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    test_scores = task.get_predictions()
+    torch.cuda.synchronize()
+    predict_seconds = time.perf_counter() - start
+    counts = _cuda.launch_counts()
+    for name, n in counts.items():
+        launches[name] += n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        records = [json.loads(line) for line in handle]
+    losses = [loss for r in records if r["phase"] == "train" for loss in r["step_losses"]]
+    log(f"  [joint xe] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
+    log(f"  [joint xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
+        f"scores {json.dumps(test_scores, default=float)}")
+    log(f"  [joint xe] launches: {json.dumps({k: v for k, v in counts.items() if v})}; peak "
+        f"device memory {peak_gb:.2f} GB")
+    want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
+    if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"[joint xe] losses {losses}: want {want_steps} finite values")
+    for name in ("fused_attention_packed", "fused_decoder_layer_step"):
+        if counts[name] <= 0:
+            failures.append(f"[joint xe] {name} was not launched by start() and get_predictions()")
+    for name in ("best_model.pth", "last_model.pth", "public_test_results.json",
+                 "private_test_results.json"):
+        if not (Path(task.checkpoint_path) / name).is_file():
+            failures.append(f"[joint xe] {name} was not written")
+    for split in ("public_test", "private_test"):
+        if not math.isfinite(test_scores.get(split, {}).get("CIDEr", math.nan)):
+            failures.append(f"[joint xe] no finite CIDEr on {split}")
+
+    _, train_batch = next(task.device_batches(task.train_dataloader))
+    task.optimizer.zero_grad(set_to_none=True)
+    task.compute_loss(train_batch).backward()
+    bad = [name for name, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not (name.endswith(GRADIENT_FREE) or float(p.grad.abs().max()) > 0.0)]
+    n_params = sum(1 for _ in model.parameters())
+    log(f"  [joint xe] one gradient step: {n_params - len(bad)} of {n_params} parameter tensors "
+        "with finite gradients, non-zero except the gradient-free key biases")
+    if bad:
+        failures.append(f"[joint xe] missing, non-finite or zero gradients: {bad[:8]}")
+    task.optimizer.zero_grad(set_to_none=True)
+    step = lambda: task._train_step(train_batch)  # noqa: E731
+    kernel_ms = [median_ms(step, reps=5)]
+    with plain_versions():
+        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
+    kernel_ms.append(median_ms(step, reps=5))
+    log(f"  [joint xe] one train step of {task.train_dataloader.batch_size} (CUDA-event median "
+        f"of 5, in turns): kernel path {kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path "
+        f"{plain_ms[0]:.3f}, {plain_ms[1]:.3f} ms")
+    profile(step, "joint train step")
+
+    # 4. a long stream through the model's own Encoder: the streamed kernel
+    samples, length = LONG_STREAM
+    width = model.decoder.d_model
+    gen = torch.Generator(device=task.device).manual_seed(seed)
+    features = torch.randn((samples, length, width), generator=gen, device=task.device)
+    lengths = torch.randint(length // 2, length + 1, (samples,), generator=gen,
+                            device=task.device)
+    features[torch.arange(length, device=task.device)[None] >= lengths[:, None]] = 0.0
+    bias = padding_bias(features, 0)
+    encoder = model.encoder
+    encoder.eval()
+    with torch.no_grad():
+        _cuda.reset_launch_counts()
+        out = encoder(features, bias)
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        with plain_versions():
+            out_plain = encoder(features, bias)
+        encode_ms = median_ms(lambda: encoder(features, bias), reps=5)
+        with plain_versions():
+            plain_encode_ms = median_ms(lambda: encoder(features, bias), reps=5)
+    err, top = max_err(out, out_plain), float(out_plain.abs().max())
+    _cuda.reset_launch_counts()
+    encoder.train()
+    leaf = features.clone().requires_grad_()
+    encoder(leaf, bias, task.generator).sum().backward()
+    torch.cuda.synchronize()
+    train_counts = _cuda.launch_counts()
+    encoder.eval()
+    for name in ("fused_attention_packed_streamed",):
+        launches[name] += counts[name] + train_counts[name]
+    log(f"  [joint long stream] the Encoder on {samples} x {length} x {width} with a padding "
+        "bias: "
+        f"streamed launches {counts['fused_attention_packed_streamed']} in eval, "
+        f"{train_counts['fused_attention_packed_streamed']} in training (packed "
+        f"{counts['fused_attention_packed'] + train_counts['fused_attention_packed']}); kernel "
+        f"vs plain route max|diff| {err:.3e} / max|output| {top:.3f} = {err / top:.3e} (tol "
+        f"2^-5); eval {encode_ms:.3f} ms kernel route, {plain_encode_ms:.3f} ms plain route "
+        "(CUDA-event medians of 5)")
+    for name, n in (("eval", counts), ("training", train_counts)):
+        if n["fused_attention_packed_streamed"] != n_enc or n["fused_attention_packed"]:
+            failures.append(f"[joint long stream] {name}: streamed launches "
+                            f"{n['fused_attention_packed_streamed']}, want {n_enc}, packed none")
+    if not err / top <= ENCODER_RTOL:
+        failures.append(f"[joint long stream] kernel vs plain: {err / top} > {ENCODER_RTOL}")
+    if leaf.grad is None or not bool(torch.isfinite(leaf.grad).all()) or not bool(leaf.grad.any()):
+        failures.append("[joint long stream] the training route's input gradient is missing, "
+                        "non-finite or zero")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1542,6 +1892,9 @@ def main() -> int:
             "incremental": build_task(
                 iterative_config.merged({"MODEL": {"DECODING_MODE": "incremental"}}), "cuda"),
         }
+        evjvqa = generate_evjvqa_dataset(str(Path(tmp) / "evjvqa"), n_images=80,
+                                         n_questions_per_image=3, ja_share=0.3, seed=args.seed)
+        joint = build_task(with_joint(evjvqa, args.seed, str(Path(tmp) / "joint")), "cuda")
         task = tasks["quadratic"]
         _, first = next(task.device_batches(task.dev_dict_dataloader))
         shapes = {
@@ -1559,7 +1912,7 @@ def main() -> int:
         # 3. the kernels against their plain versions
         log("kernels vs plain (CUDA-event medians of 20):")
         results = check_kernels(task, shapes, args.seed, failures, generative,
-                                iterative["incremental"])
+                                iterative["incremental"], joint)
 
         # 4. the eval path in both decode modes
         log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
@@ -1619,13 +1972,20 @@ def main() -> int:
         # 8. ViTmT5 under VlspEvjVqaTask
         log("main path, ViTmT5: configs/vit_mt5.yaml under VlspEvjVqaTask, beam-3 "
             "evaluate_metrics over the dev split, one XE epoch, get_predictions()")
-        evjvqa = generate_evjvqa_dataset(str(Path(tmp) / "evjvqa"), n_images=80,
-                                         n_questions_per_image=3, ja_share=0.3, seed=args.seed)
         vit_launches, vit_results = run_vit_mt5(
             with_evjvqa(evjvqa, args.seed, str(Path(tmp) / "vit_mt5")), args.seed, failures)
         for name, n in vit_launches.items():
             launches[name] += n
         results.update(vit_results)
+        torch.cuda.empty_cache()
+
+        # 9. JointTransformer under VlspEvjVqaTask
+        log("main path, JointTransformer: configs/joint_transformer_vlsp.yaml under "
+            "VlspEvjVqaTask, beam-3 evaluate_metrics over the dev split on the layer and module "
+            "routes, one XE epoch, get_predictions(), a long stream through its Encoder")
+        for name, n in run_joint_transformer(joint, args.seed, failures).items():
+            launches[name] += n
+        del joint
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

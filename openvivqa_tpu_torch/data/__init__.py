@@ -1,5 +1,5 @@
 from . import image_datasets  # noqa: F401  (registers the raw-image datasets)
-from . import multilingual  # noqa: F401  (registers the EVJVQA vocabs and datasets)
+from . import multilingual  # noqa: F401  (registers the EVJVQA and multimodal vocabs, datasets)
 from . import ocr_datasets  # noqa: F401  (registers the dataset family)
 from . import ocr_vocab  # noqa: F401  (registers the vocab family)
 from . import word_embedding  # noqa: F401  (registers word embeddings)

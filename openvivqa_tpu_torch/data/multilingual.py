@@ -3,9 +3,10 @@
 The port's copy of the generative part of ``openvivqa_tpu/data/multilingual.py``:
 Japanese questions are tokenised by character, Vietnamese and English ones by
 word; the EVJVQA vocab is built from train + dev only (the test answers are
-unseen); the RawQuestion datasets keep the raw question string on the host
-beside its vocab-encoded ``question_tokens``.  The classification and
-multimodal vocabs go with the classification slice.
+unseen); the multimodal vocabs add the modality special tokens of the
+single-stream models (``MultiModalVocab``); the RawQuestion datasets keep the
+raw question string on the host beside its vocab-encoded ``question_tokens``.
+The classification vocab goes with the classification slice.
 
 With ``HF_TOKENIZER`` set in a dataset's config the JAX package also emits the
 questions in a pretrained tokenizer's ids; the port has no tokenizer files, and
@@ -21,6 +22,7 @@ from typing import Dict, List
 from ..builders import META_DATASET, META_VOCAB
 from ..utils.instance import Instance
 from .datasets import DictionaryDataset, FeatureDataset, teacher_forcing_pair
+from .multimodal_vocab import MultiModalVocab
 from .text_utils import is_japanese_sentence, preprocess_sentence
 from .vocab import Vocab
 
@@ -32,8 +34,10 @@ def multilingual_tokenize(text: str, tokenizer) -> List[str]:
     return preprocess_sentence(text, tokenizer)
 
 
-@META_VOCAB.register()
-class MultilingualVocab(Vocab):
+class _MultilingualMakeVocabMixin:
+    """Vocab counts over multilingual questions and answers: a Japanese
+    question and its answers by character, the others by word."""
+
     def make_vocab(self, json_paths) -> None:
         self.freqs = Counter()
         self.max_question_length = 0
@@ -57,8 +61,26 @@ class MultilingualVocab(Vocab):
 
 
 @META_VOCAB.register()
+class MultilingualVocab(_MultilingualMakeVocabMixin, Vocab):
+    pass
+
+
+@META_VOCAB.register()
+class MultilingualMultiModalVocab(_MultilingualMakeVocabMixin, MultiModalVocab):
+    pass
+
+
+@META_VOCAB.register()
 class VlspEvjVqaVocab(MultilingualVocab):
     """The EVJVQA vocab, built from train + dev only."""
+
+    def vocab_json_paths(self, config):
+        return [config.JSON_PATH.TRAIN, config.JSON_PATH.DEV]
+
+
+@META_VOCAB.register()
+class VlspVqaMultiModalVocab(MultilingualMultiModalVocab):
+    """The EVJVQA vocab of the single-stream models, built from train + dev only."""
 
     def vocab_json_paths(self, config):
         return [config.JSON_PATH.TRAIN, config.JSON_PATH.DEV]

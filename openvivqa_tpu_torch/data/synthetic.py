@@ -179,6 +179,36 @@ def _ja_sentence(rng: np.random.Generator, lo: int, hi: int) -> str:
     return "".join(rng.choice(_JA_CHARS, size=n).tolist())
 
 
+# the VinVL feature store of configs/joint_transformer_vlsp.yaml: up to 100
+# regions of 2048 (REGION_EMBEDDING.D_FEATURE), a 7 x 7 grid of 1024
+# (GRID_EMBEDDING.D_FEATURE)
+_VINVL_REGIONS, _VINVL_D_REGION, _VINVL_GRIDS, _VINVL_D_GRID = 100, 2048, 49, 1024
+
+
+def write_vinvl_features(feat_dir: str, n_images: int, seed: int) -> None:
+    """A VinVL-shaped feature store, {image_id}.npy per image: region_features
+    (r, 2048) with r drawn from [75, 100] (a detector keeps a varying number of
+    boxes; the datasets pad to MAX_REGIONS), region_boxes (r, 4),
+    grid_features (49, 1024) and grid_boxes (49, 4), boxes as (x1, y1, x2, y2)
+    in [0, 1].  Drawn from a generator of its own (seed + 7919), so the
+    features never change the generated text or images."""
+    rng = np.random.default_rng(seed + 7919)
+
+    def boxes(n):
+        corners = rng.uniform(0, 1, size=(n, 4)).astype(np.float32)
+        corners[:, 2:] = np.maximum(corners[:, 2:], corners[:, :2] + 0.01)
+        return corners
+
+    for image_id in range(n_images):
+        regions = int(rng.integers(_VINVL_REGIONS - _VINVL_REGIONS // 4, _VINVL_REGIONS + 1))
+        np.save(os.path.join(feat_dir, f"{image_id}.npy"), {
+            "region_features": rng.normal(size=(regions, _VINVL_D_REGION)).astype(np.float32),
+            "region_boxes": boxes(regions),
+            "grid_features": rng.normal(size=(_VINVL_GRIDS, _VINVL_D_GRID)).astype(np.float32),
+            "grid_boxes": boxes(_VINVL_GRIDS),
+        }, allow_pickle=True)
+
+
 def generate_evjvqa_dataset(
     root: str,
     n_images: int = 12,
@@ -186,22 +216,27 @@ def generate_evjvqa_dataset(
     ja_share: float = 0.3,
     seed: int = 0,
 ) -> Dict[str, str]:
-    """An EVJVQA-shaped set (the VLSP 2022 contest's layout): raw images and
-    four annotation splits, train, dev, public test and private test (55, 15,
-    15 and 15 %), in which about `ja_share` of the questions are Japanese (8-24
+    """An EVJVQA-shaped set (the VLSP 2022 contest's layout): raw images, a
+    VinVL-shaped feature store per image (``write_vinvl_features``) and four
+    annotation splits, train, dev, public test and private test (55, 15, 15
+    and 15 %), in which about `ja_share` of the questions are Japanese (8-24
     characters, one answer of 2-6) and the rest Vietnamese (3-7 words, one
-    answer of 1-3).  Returns the paths by split name and "images".
+    answer of 1-3).  Returns the paths by split name, "images" and
+    "features".
 
     Layout:
       root/annotations/evjvqa_{train,dev,public_test,private_test}.json
       root/images/{image_id}.jpg             (see write_images)
+      root/features/{image_id}.npy           (see write_vinvl_features)
     """
     rng = np.random.default_rng(seed)
     ann_dir = os.path.join(root, "annotations")
     img_dir = os.path.join(root, "images")
-    for d in (ann_dir, img_dir):
+    feat_dir = os.path.join(root, "features")
+    for d in (ann_dir, img_dir, feat_dir):
         os.makedirs(d, exist_ok=True)
     write_images(img_dir, n_images, seed)
+    write_vinvl_features(feat_dir, n_images, seed)
 
     annotations: List[dict] = []
     for image_id in range(n_images):
@@ -230,4 +265,5 @@ def generate_evjvqa_dataset(
                        "annotations": chunk}, handle, ensure_ascii=False)
         paths[split] = path
     paths["images"] = img_dir
+    paths["features"] = feat_dir
     return paths

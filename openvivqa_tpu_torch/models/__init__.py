@@ -10,6 +10,7 @@ from .modules import (  # noqa: F401
     vision_embeddings,
 )
 from . import iterative_mcan  # noqa: F401
+from . import joint_transformer  # noqa: F401
 from . import mmf_m4c  # noqa: F401
 from . import mmf_variants  # noqa: F401
 from . import vit_models  # noqa: F401

@@ -4,7 +4,8 @@
 The port's parameter names are the reference's torch names, the ones
 ``openvivqa_tpu.models.modules.torch_conversion``'s converters read
 (``convert_mmf_m4c``, ``convert_mmf_regional_m4c``, ``convert_mmf_iterative_m4c``,
-``convert_mmf_language_adaptive``, ``convert_iterative_mcan``), so those
+``convert_mmf_language_adaptive``, ``convert_iterative_mcan``,
+``convert_joint_transformer``), so those
 converters are this bridge's inverses and the port also loads the reference's own
 checkpoints; the ViT and T5 backbones carry HF's names, which
 ``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
@@ -184,14 +185,19 @@ def _layers(tree: Mapping[str, Any]):
     return ((i, tree[f"layer_{i}"]) for i in range(count))
 
 
+def _encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """The self-attention ``Encoder``: its LayerNorm and layers."""
+    _layer_norm(out, f"{name}.layer_norm", tree["layer_norm"])
+    for i, layer in _layers(tree):
+        _multi_head_attention(out, f"{name}.layers.{i}.mhatt", layer["mhatt"])
+        _positionwise_ffn(out, f"{name}.layers.{i}.pwff", layer["pwff"])
+
+
 def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
     out: StateDict = {}
     _linear(out, "vision_embedding.proj", tree["vision_embedding"]["Dense_0"])
     _text_embedding(out, "text_embedding", tree["text_embedding"])
-    _layer_norm(out, "self_encoder.layer_norm", tree["self_encoder"]["layer_norm"])
-    for i, layer in _layers(tree["self_encoder"]):
-        _multi_head_attention(out, f"self_encoder.layers.{i}.mhatt", layer["mhatt"])
-        _positionwise_ffn(out, f"self_encoder.layers.{i}.pwff", layer["pwff"])
+    _encoder(out, "self_encoder", tree["self_encoder"])
     _layer_norm(out, "guided_encoder.layer_norm", tree["guided_encoder"]["layer_norm"])
     for i, layer in _layers(tree["guided_encoder"]):
         prefix = f"guided_encoder.guided_attn_layers.{i}"
@@ -200,6 +206,19 @@ def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
         _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
     _positionwise_ffn(out, "fusion", tree["fusion"])
     _layer_norm(out, "norm", tree["norm"])
+    _decoder(out, tree["decoder"])
+    return out
+
+
+def _joint_transformer(tree: Mapping[str, Any]) -> StateDict:
+    """JointTransformer (the inverse of ``convert_joint_transformer``): the
+    streams' embeddings at the top, the ``Encoder`` and the decoder."""
+    out: StateDict = {}
+    streams = tree["streams"]
+    for name in ("region_embedding", "grid_embedding", "box_embedding"):
+        _linear(out, f"{name}.proj", streams[name]["Dense_0"])
+    _text_embedding(out, "text_embedding", streams["text_embedding"])
+    _encoder(out, "encoder", tree["encoder"])
     _decoder(out, tree["decoder"])
     return out
 
@@ -285,8 +304,8 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     """A flax ``params`` collection (numpy arrays) -> the port's state_dict as
     float32 numpy arrays, for the MMF_M4C family (MMF_M4C, MMF_REGIONAL_M4C,
     MMF_SAL, MMF_LanguageAdaptiveM4C, MMF_IterativeM4C and its multilevel
-    variant), IterativeMCAN and ViTmT5 trees, told apart by their top-level
-    keys.
+    variant), IterativeMCAN, ViTmT5 and JointTransformer trees, told apart by
+    their top-level keys.
     `config` (the MODEL node) is accepted for symmetry with the JAX converters;
     the tree alone determines the layer counts."""
     if "joint_encoder" in tree:
@@ -299,4 +318,6 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
         return _iterative_mcan(tree)
     if "vision_encoder" in tree and "text_embedding" in tree and "fusion" in tree:
         return _vit_mt5(tree)
+    if "streams" in tree and "encoder" in tree:
+        return _joint_transformer(tree)
     raise ValueError(f"no bridge for a parameter tree with keys {sorted(tree)}")

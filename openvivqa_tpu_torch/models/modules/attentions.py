@@ -9,19 +9,24 @@ geometry, memory and adaptive attention cores and the AoA gates wait for the
 models that use them (ROADMAP queue 1, slice 5); a config that asks for them
 raises at build time.
 
-Full-sequence attention runs on the raw (b, S, h * d) projections through the
-packed attention kernel (``ops/fused_attention.fused_attention_packed``, with
-its autograd function in training) whenever the bias is shared by the heads;
-there is no key-count crossover on the card.  A per-head bias, or d_k != d_v,
-takes the plain head-split attention until the flat attention kernel is ported.
+The dispatch is the JAX package's (``attentions.py:71-171``) without its
+key-count crossover, which the card does not have.  ``ScaledDotProductAttention``
+runs on the raw (b, S, h * d) projections through the packed attention kernel
+(``ops/fused_attention.fused_attention_packed``, with its autograd function in
+training) when d_k == d_v and the bias is shared by the heads, through the
+streamed kernel (``fused_attention_packed_streamed``) past the packed kernel's
+reach (``packed_attention_viable``: a key-count rule on the card), and through
+``attend`` otherwise.  ``attend`` is the flat attention kernel
+(``fused_attention``) over head-split views of the packed projections, for
+every 4-D bias form (b|1, h|1, Sq|1, Sk) and any d_k, d_v.
 
 Decode (one token per row): the stateful self-attention keeps a ring cache of
 projected keys and values (``_DecodeKVCache``), the cross-attention the encoder
 projections computed once per generate (``_StaticEncKVCache``).  Each has two
 routes, chosen by the caller from ``ops/decode_step.decode_kernel_parts()``: the
-stage kernel (A or B; `weights` given), or the plain module route (projections
-as ``nn.Linear``, the packed attention on the ring).  The whole-layer route
-lives in ``decoders.DecoderLayer``.
+stage kernel (A or B; `weights` given), or the module route (projections as
+``nn.Linear``, ``attend``'s flat attention on the ring or the encoder cache).
+The whole-layer route lives in ``decoders.DecoderLayer``.
 """
 
 from __future__ import annotations
@@ -53,6 +58,23 @@ def _bias_4d(attention_bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     )
 
 
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, S, h * d) -> the (b, h, S, d) view (no copy for float32 x)."""
+    b, s, _ = x.shape
+    return x.float().reshape(b, s, heads, -1).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(b, h, S, d) -> (b, S, h * d): a view of the flat kernel's output."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _packed(*projections):
+    """The packed kernels' operands: contiguous float32."""
+    return (x.float().contiguous() for x in projections)
+
+
 class _ProjectionMixin:
     """The q/k/v/o projections every attention core shares."""
 
@@ -69,23 +91,12 @@ class _ProjectionMixin:
 
     def attend(self, q, k, v, attention_bias=None) -> torch.Tensor:
         """softmax(q k^T / sqrt(d_k) + bias) v on packed projections q (b, Sq,
-        h * d_k), k (b, Sk, h * d_k), v (b, Sk, h * d_v); returns (b, Sq, h * d_v)
-        before the out projection."""
-        bias = _bias_4d(attention_bias)
-        if self.d_k == self.d_v and (bias is None or bias.shape[1] == 1):
-            return _attn.fused_attention_packed(
-                q.float().contiguous(), k.float().contiguous(), v.float().contiguous(),
-                bias, self.scale, self.h,
-            )
-        b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
-        qh = q.view(b, sq, self.h, self.d_k)
-        kh = k.view(b, sk, self.h, self.d_k)
-        vh = v.view(b, sk, self.h, self.d_v)
-        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * self.scale
-        if bias is not None:
-            logits = logits + bias
-        weights = torch.softmax(logits, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(b, sq, self.h * self.d_v)
+        h * d_k), k (b, Sk, h * d_k), v (b, Sk, h * d_v) through the flat
+        attention, which reads their head-split views as they are; returns (b,
+        Sq, h * d_v) before the out projection."""
+        out = _attn.fused_attention(_split_heads(q, self.h), _split_heads(k, self.h),
+                                    _split_heads(v, self.h), _bias_4d(attention_bias), self.scale)
+        return _merge_heads(out)
 
 
 @META_ATTENTION.register()
@@ -97,8 +108,18 @@ class ScaledDotProductAttention(nn.Module, _ProjectionMixin):
         self._build_projections(config)
 
     def forward(self, queries, keys, values, attention_bias=None) -> torch.Tensor:
-        out = self.attend(self.fc_q(queries), self.fc_k(keys), self.fc_v(values), attention_bias)
-        return self.fc_o(out)
+        q, k, v = self.fc_q(queries), self.fc_k(keys), self.fc_v(values)
+        if self.d_k == self.d_v and (
+            attention_bias is None or (attention_bias.ndim == 4 and attention_bias.shape[1] == 1)
+        ):
+            sq, sk, hd = q.shape[1], k.shape[1], self.h * self.d_k
+            if _attn.packed_attention_viable(sq, sk, hd, self.h):
+                return self.fc_o(_attn.fused_attention_packed(
+                    *_packed(q, k, v), attention_bias, self.scale, self.h))
+            if _attn.streamed_attention_viable(sq, sk, hd, self.h):
+                return self.fc_o(_attn.fused_attention_packed_streamed(
+                    *_packed(q, k, v), attention_bias, self.scale, self.h))
+        return self.fc_o(self.attend(q, k, v, attention_bias))
 
 
 class _DecodeKVCache:
@@ -210,7 +231,7 @@ class MultiHeadAttention(nn.Module):
         its key and value join the ring at slot min(t, T - 1) with the token's
         padding bias step_bias (rows,), and it attends over the slots up to
         there.  With `weights` (``fused_weights()``) the whole sublayer is kernel
-        A; without, the plain module route."""
+        A; without, the module route (the flat attention on the ring)."""
         if weights is not None:
             y, _, _, _ = _ds.fused_self_attention_step(
                 queries[:, 0].float().contiguous(), weights, step_bias, t,
@@ -226,7 +247,7 @@ class MultiHeadAttention(nn.Module):
     def cross_decode_step(self, queries, enc_cache: _StaticEncKVCache, enc_bias,
                           weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """One token (rows, 1, d_model) against the cached encoder projections
-        under enc_bias (rows, Sk): kernel B with `weights`, else the plain
+        under enc_bias (rows, Sk): kernel B with `weights`, else the
         module route."""
         if weights is not None:
             y = _ds.fused_cross_attention_step(

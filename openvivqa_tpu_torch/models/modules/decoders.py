@@ -22,7 +22,8 @@ never by catching a failure:
   * staged: kernel A for the self-attention ('self'), kernel B for the
     cross-attention ('cross'), kernel C for the FFN ('ffn'), each where its
     part is chosen and its module supports it;
-  * plain: the modules' own projections and the packed attention on the ring.
+  * module: the modules' own projections and the flat attention kernel
+    (``attend``) on the ring and the encoder cache.
 On CPU tensors every kernel wrapper runs its plain version.
 """
 

@@ -51,6 +51,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_decoder_layer_step": 0,
     "fused_cross_attention_streamed": 0,
     "fused_attention_packed_2bias": 0,
+    "fused_attention_packed_streamed": 0,
+    "fused_attention": 0,
 }
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
@@ -67,6 +69,8 @@ _SIGNATURES = {
     "ovq_decoder_layer_step_forward": "p" * 33 + "i" * 13 + "ff",
     "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 7 + "ff",
     "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
+    "ovq_streamed_attention_forward": "pppp" "li" "p" "iiiii" "f",
+    "ovq_flat_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
 }
 _CTYPES = {
     "p": ctypes.c_void_p, "i": ctypes.c_int,

@@ -1,15 +1,20 @@
 """Packed attention, softmax(scale * Q K^T + bias) V on the raw (b, S, h * d)
-projections, with and without in-kernel dropout on the attention weights, and
-with a second, per-head bias, each beside its plain PyTorch version.
+projections, with and without in-kernel dropout on the attention weights, with
+a second, per-head bias, and streamed over long key streams; and the flat
+attention on split-head (b, h, S, d) operands; each beside its plain PyTorch
+version.
 
-Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``
-and ``fused_attention_packed_2bias`` in ``openvivqa_tpu/ops/fused_attention.py``;
-the CUDA sources are ``csrc/fused_attention.cu``, ``csrc/fused_attention_dropout.cu``
-and ``csrc/fused_attention_2bias.cu``.  The bias is
+Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``,
+``fused_attention_packed_2bias``, ``fused_attention_packed_streamed`` and
+``fused_attention`` in ``openvivqa_tpu/ops/fused_attention.py``; the CUDA
+sources are ``csrc/fused_attention.cu``, ``csrc/fused_attention_dropout.cu``,
+``csrc/fused_attention_2bias.cu``, ``csrc/fused_attention_streamed.cu`` and
+``csrc/fused_attention_flat.cu``.  The packed kernels' bias is
 head-shared, ``(bb, 1, bq, Sk)`` with ``bb`` in {1, b} and ``bq`` in {1, Sq}, and
 is never broadcast in memory.  It is a mask constant: neither gradient flows to
 it (the JAX package returns zeros for it under dropout and never uses the
-packed one's).
+packed one's).  The flat attention's bias is any (b|1, h|1, Sq|1, Sk|1) form,
+read through strides of 0 over its broadcast axes, and gets its gradient.
 
 Dot operands and softmax weights are rounded to ``op_dtype`` (bf16 on the card,
 as in the TPU kernels; float32 on the CPU unless asked otherwise); the softmax
@@ -19,8 +24,12 @@ The two-bias attention is forward only on the card: the backbones that call it
 (T5, DeBERTa) run frozen, under ``torch.no_grad()``.
 
 Gradients:
-  * ``fused_attention_packed``: the analytic formula of the JAX package's
-    ``_packed_bwd`` in plain PyTorch, in float32, as XLA computes it there;
+  * ``fused_attention_packed`` and ``fused_attention_packed_streamed``: the
+    analytic formula of the JAX package's ``_packed_bwd`` in plain PyTorch, in
+    float32, as XLA computes it there (the JAX package pairs its streamed
+    forward with the same backward);
+  * ``fused_attention``: ``_bwd``'s formula in plain PyTorch, float32, with
+    the bias gradient summed over the bias's broadcast axes;
   * ``fused_attention_packed_dropout``: a CUDA kernel pair on the card, the
     plain version of the TPU backward kernel on the CPU.  The mask is
     regenerated, never stored: Philox4x32-10 keyed by the per-call seed,
@@ -31,7 +40,7 @@ Gradients:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -115,28 +124,36 @@ def _bias_strides(bias3):
     return 0 if bb == 1 else bq * sk, 0 if bq == 1 else sk
 
 
-def _packed_kernel(q, k, v, bias, scale: float, num_heads: int):
-    b, sq, sk, hd = _check_packed(q, k, v, num_heads, "fused_attention_packed")
+def _packed_kernel(q, k, v, bias, scale: float, num_heads: int, streamed: bool = False):
+    """The packed attention's kernel, or with `streamed` the streamed one's
+    (its own entry and launch counter over the same device code)."""
+    name = "fused_attention_packed_streamed" if streamed else "fused_attention_packed"
+    b, sq, sk, hd = _check_packed(q, k, v, num_heads, name)
     bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
     out = torch.empty_like(q)
     p = _cuda.ptr
     _cuda.launch(
-        "ovq_packed_attention_forward", p(q), p(k), p(v), p(bias3), *_bias_strides(bias3),
-        p(out), b, sq, sk, hd, num_heads, scale,
+        "ovq_streamed_attention_forward" if streamed else "ovq_packed_attention_forward",
+        p(q), p(k), p(v), p(bias3), *_bias_strides(bias3), p(out), b, sq, sk, hd, num_heads,
+        scale,
     )
-    _cuda.count("fused_attention_packed")
+    _cuda.count(name)
     return out
 
 
 class PackedAttention(torch.autograd.Function):
-    """The packed attention with the analytic backward in plain PyTorch."""
+    """The packed (or, with `streamed`, the streamed) attention with the
+    analytic backward in plain PyTorch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale: float, num_heads: int, use_kernel: bool):
+    def forward(ctx, q, k, v, bias, scale: float, num_heads: int, use_kernel: bool,
+                streamed: bool = False):
         ctx.save_for_backward(q, k, v, bias)
         ctx.scale, ctx.num_heads = scale, num_heads
         if use_kernel:
-            return _packed_kernel(q, k, v, bias, scale, num_heads)
+            return _packed_kernel(q, k, v, bias, scale, num_heads, streamed)
+        if streamed:
+            return fused_attention_packed_streamed_plain(q, k, v, bias, scale, num_heads)
         return fused_attention_packed_plain(q, k, v, bias, scale, num_heads)
 
     @staticmethod
@@ -145,7 +162,7 @@ class PackedAttention(torch.autograd.Function):
         dq, dk, dv = fused_attention_packed_backward_plain(
             q, k, v, bias, g, ctx.scale, ctx.num_heads
         )
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def fused_attention_packed(q, k, v, bias, scale: float, num_heads: int):
@@ -153,6 +170,80 @@ def fused_attention_packed(q, k, v, bias, scale: float, num_heads: int):
     Returns (b, Sq, h*d) float32, the layout the out projection consumes."""
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
     return PackedAttention.apply(q, k, v, bias, scale, num_heads, _cuda.uses_kernel(*tensors))
+
+
+# -- the streamed attention: the packed contract over long key streams -------------
+# The JAX package's VMEM budget, kept as a number so both packages route the same
+# shapes: on the card it is a rule on the key count (and widths), not a memory limit.
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def plan_q_block(sq: int, sk: int, hd: int, full_bias: bool) -> Optional[int]:
+    """The JAX package's ``plan_q_block``: the largest q-block (the whole Sq
+    first) whose TPU blocks fit its VMEM budget, or None."""
+    candidates = [sq] + [blk for blk in (512, 384, 256, 128, 64, 32, 16, 8) if sq % blk == 0]
+    for qblk in candidates:
+        kv_bytes = 2 * sk * hd * 4 * 2
+        q_bytes = 2 * qblk * hd * 4 * 2
+        bias_bytes = (qblk if full_bias else 1) * sk * 4 * 2
+        logits_bytes = 2 * qblk * sk * 4
+        if kv_bytes + q_bytes + bias_bytes + logits_bytes <= _VMEM_BUDGET:
+            return qblk
+    return None
+
+
+def packed_attention_viable(sq: int, sk: int, hd: int, num_heads: int) -> bool:
+    """Whether the JAX package takes the packed kernel for these shapes.  On
+    the card the packed kernel streams keys in 64-key chunks and takes any key
+    count; this copy of the TPU's VMEM rule only decides where the port hands
+    over to the streamed kernel, so both packages send the same shapes to
+    counterpart kernels (from 1536 keys at hd 512, from 1024 at hd 768)."""
+    return hd % num_heads == 0 and plan_q_block(sq, sk, hd, full_bias=True) is not None
+
+
+def plan_streamed_blocks(sq: int, sk: int, hd: int, h: int) -> Optional[Tuple[int, int]]:
+    """The JAX package's ``plan_streamed_blocks``: (q_block, k_block) of the
+    TPU's streamed kernel, whose key blocks divide Sk, or None.  On the card
+    it is a rule on the key count: the streamed kernel walks 64-key chunks
+    with a count for the ragged end and needs no plan."""
+    for qblk in [blk for blk in (256, 128, 64, 32, 16, 8) if sq % blk == 0] or [sq]:
+        for kblk in (512, 384, 256, 128, 64):
+            if sk % kblk or sk <= kblk:
+                continue
+            kv_bytes = 2 * kblk * hd * 4 * 2
+            q_bytes = 2 * qblk * hd * 4 * 2
+            bias_bytes = qblk * kblk * 4 * 2
+            scratch = (2 * h * qblk + qblk * hd + 2 * qblk * kblk) * 4
+            if kv_bytes + q_bytes + bias_bytes + scratch <= _VMEM_BUDGET:
+                return qblk, kblk
+    return None
+
+
+def streamed_attention_viable(sq: int, sk: int, hd: int, h: int) -> bool:
+    """Whether the JAX package takes the streamed kernel where the packed one
+    is not viable (a key-count rule on the card, see plan_streamed_blocks)."""
+    return hd % h == 0 and plan_streamed_blocks(sq, sk, hd, h) is not None
+
+
+def fused_attention_packed_streamed_plain(
+    q, k, v, bias, scale: float, num_heads: int, op_dtype: Optional[torch.dtype] = None
+):
+    """The streamed kernel's arithmetic, which is the packed one's: the
+    weights are normalised before they are rounded to op_dtype.  (The TPU's
+    streamed kernel rounds each key block's unnormalised weights and divides
+    at the end, one bf16 rounding of a weight apart.)"""
+    return fused_attention_packed_plain(q, k, v, bias, scale, num_heads, op_dtype)
+
+
+def fused_attention_packed_streamed(q, k, v, bias, scale: float, num_heads: int):
+    """The packed attention's contract for key streams past the packed
+    kernel's reach (``packed_attention_viable``): q (b, Sq, h*d), k/v (b, Sk,
+    h*d) float32, bias (bb, 1, bq, Sk) or None; returns (b, Sq, h*d).  Keys
+    stream through the kernel in 64-key chunks under an online softmax, any
+    key count.  Its backward is the packed attention's."""
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    return PackedAttention.apply(q, k, v, bias, scale, num_heads, _cuda.uses_kernel(*tensors),
+                                 True)
 
 
 # -- dropout on the attention weights ----------------------------------------------
@@ -399,3 +490,127 @@ def fused_attention_packed_2bias(q, k, v, bias, head_bias, scale: float, num_hea
             "inputs or under torch.no_grad()"
         )
     return _packed_2bias_kernel(q, k, v, bias, head_bias, scale, num_heads)
+
+
+# -- the flat attention: split-head (b, h, S, d) operands ------------------------------
+def _check_flat(q, k, v, bias):
+    """Raise ValueError unless q is (b, h, Sq, d_k), k (b, h, Sk, d_k), v (b,
+    h, Sk, d_v) and bias, if given, broadcasts as (b|1, h|1, Sq|1, Sk|1)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("fused_attention: q, k and v must be (b, h, S, d)")
+    b, h, sq, dk = q.shape
+    sk = k.shape[2]
+    if tuple(k.shape) != (b, h, sk, dk) or tuple(v.shape[:3]) != (b, h, sk):
+        raise ValueError(f"fused_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} are not (b, h, Sq, d_k), (b, h, Sk, d_k), "
+                         "(b, h, Sk, d_v)")
+    if bias is not None and (bias.ndim != 4 or any(
+            n not in (1, full) for n, full in zip(bias.shape, (b, h, sq, sk)))):
+        raise ValueError(f"fused_attention: bias {tuple(bias.shape)} does not broadcast to "
+                         f"({b}, {h}, {sq}, {sk}) with each axis 1 or full")
+
+
+def fused_attention_plain(q, k, v, bias, scale: float, op_dtype: Optional[torch.dtype] = None):
+    """The flat kernel's arithmetic (the TPU's ``_flat_kernel``): logits
+    scale * q k^T + bias in float32 on op_dtype-rounded operands, the softmax
+    weights rounded to op_dtype before the product with v.  Returns (b, h, Sq,
+    d_v) float32."""
+    op_dtype = op_dtype or _cuda.kernel_dtype(q.device)
+    qh, kh, vh = (x.to(op_dtype).float() for x in (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    weights = torch.softmax(logits, dim=-1).to(op_dtype).float()
+    return torch.einsum("bhqk,bhkd->bhqd", weights, vh)
+
+
+def fused_attention_backward_plain(q, k, v, bias, g, scale: float):
+    """(dq, dk, dv, dbias) of the flat attention: the JAX package's ``_bwd``
+    in float32 (no operand rounding, as XLA computes it); dbias is summed over
+    the axes the bias broadcasts along, or None without a bias."""
+    f32 = torch.float32
+    q, k, v, g = (x.to(f32) for x in (q, k, v, g))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        logits = logits + bias.to(f32)
+    weights = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", weights, g)
+    dw = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    dlogits = weights * (dw - (dw * weights).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", dlogits, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dlogits, q) * scale
+    dbias = None
+    if bias is not None:
+        axes = [axis for axis, (n, full) in enumerate(zip(bias.shape, dlogits.shape))
+                if n == 1 and full != 1]
+        dbias = (dlogits.sum(dim=axes, keepdim=True) if axes else dlogits).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+def _flat_strides(x, name: str):
+    """(batch, head, row) element strides of a float32 operand the flat
+    kernel reads or writes: unit stride on the last axis, the others
+    multiples of 4 and a 16-byte aligned start (16-byte loads and stores)."""
+    strides = [0 if n == 1 else s for n, s in zip(x.shape, x.stride())]
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_attention: {name} must be float32, got {x.dtype}")
+    if strides[3] not in (0, 1) or any(s % 4 for s in strides[:3]) or x.data_ptr() % 16:
+        raise ValueError(f"fused_attention: {name} with strides {tuple(x.stride())} needs a unit "
+                         "stride on its last axis, the other strides multiples of 4 and a "
+                         "16-byte aligned start")
+    return strides[:3]
+
+
+def _flat_kernel(q, k, v, bias, scale: float):
+    """The flat kernel on operands that passed ``_check_flat``."""
+    b, h, sq, dk = q.shape
+    sk, dv = v.shape[2], v.shape[3]
+    if dk % 4 or dv % 4 or not (0 < dk <= 128 and 0 < dv <= 128):
+        raise ValueError(f"fused_attention: head dims d_k {dk}, d_v {dv}: the kernel takes "
+                         "multiples of 4 up to 128")
+    if bias is None:
+        bias = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=q.device)
+    elif bias.dtype != torch.float32 or (bias.shape[3] > 1 and bias.stride(3) != 1):
+        bias = bias.float().contiguous()
+    bias_strides = [0 if n == 1 else s for n, s in zip(bias.shape, bias.stride())]
+    out = torch.empty((b, sq, h, dv), dtype=torch.float32, device=q.device).transpose(1, 2)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_flat_attention_forward",
+        p(q), *_flat_strides(q, "q"), p(k), *_flat_strides(k, "k"), p(v), *_flat_strides(v, "v"),
+        p(bias), *bias_strides, p(out), *_flat_strides(out, "out"),
+        b, h, sq, sk, dk, dv, scale,
+    )
+    _cuda.count("fused_attention")
+    return out
+
+
+class FlatAttention(torch.autograd.Function):
+    """The flat attention with ``_bwd``'s analytic backward in plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale: float, use_kernel: bool):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if use_kernel:
+            return _flat_kernel(q, k, v, bias, scale)
+        return fused_attention_plain(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_attention_backward_plain(q, k, v, bias, g, ctx.scale)
+        return dq, dk, dv, dbias if ctx.needs_input_grad[3] else None, None, None
+
+
+def fused_attention(q, k, v, bias, scale: float):
+    """softmax(q k^T * scale + bias) v on split-head operands: q (b, h, Sq,
+    d_k), k (b, h, Sk, d_k), v (b, h, Sk, d_v) float32, read through their
+    strides (head-split views of packed projections pass without a copy);
+    bias (b|1, h|1, Sq|1, Sk|1) or None: a constant, per-sample, per-head or
+    key-padding bias, never broadcast in memory.  Returns (b, h, Sq, d_v),
+    laid out as (b, Sq, h, d_v) on the card so that merging the heads is a
+    view.  d_k may differ from d_v (the TPU kernel takes v at q's width only)."""
+    _check_flat(q, k, v, bias)
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    return FlatAttention.apply(q, k, v, bias, scale, _cuda.uses_kernel(*tensors))

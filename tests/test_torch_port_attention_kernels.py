@@ -1,0 +1,289 @@
+"""The port's flat and streamed attention (openvivqa_tpu_torch.ops.fused_attention)
+against the JAX package, on the CPU.
+
+Each wrapper runs its kernel's plain version here.  The flat attention's plain
+version is held against the JAX Pallas kernel in interpret mode (both round
+their dot operands and softmax weights to bf16, on bf16-representable inputs),
+against the JAX XLA ``attend`` through the port's ``attend`` (float32 on both
+sides, d_k != d_v too), and its backward against ``jax.vjp`` of the JAX
+function (the analytic XLA backward, bias gradient included).  The streamed
+attention's plain version is held against the streamed Pallas kernel in
+interpret mode, and the port's copies of the dispatch rules against the JAX
+functions.  Float32 comparisons: atol 1e-5 / rtol 1e-4 (the frameworks sum in
+other orders).
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from openvivqa_tpu.config import ConfigNode as JaxConfigNode
+from openvivqa_tpu.models.modules.attentions import (
+    ScaledDotProductAttention as JaxScaledDotProductAttention,
+)
+from openvivqa_tpu.ops import fused_attention as jattn
+from openvivqa_tpu_torch.config import ConfigNode
+from openvivqa_tpu_torch.models.modules.attentions import ScaledDotProductAttention
+from openvivqa_tpu_torch.ops import fused_attention
+
+ATOL, RTOL = 1e-5, 1e-4
+MASK = -10e4
+B, H, SQ, SK, D = 2, 3, 5, 7, 16
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
+
+
+def _bf16(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _masked(rng, shape, share=0.25):
+    bias = np.where(rng.random(shape) < share, MASK, 0.0).astype(np.float32)
+    bias[..., 0] = 0.0
+    return bias
+
+
+# the flat kernel's bias forms: constant, per sample (key padding or full),
+# per head, and a sample with every key masked
+_FLAT_BIASES = {
+    "none": None,
+    "constant": (1, 1, SQ, SK),
+    "per-sample keys": (B, 1, 1, SK),
+    "per-sample full": (B, 1, SQ, SK),
+    "per-head": (B, H, SQ, SK),
+    "fully masked sample": (B, 1, 1, SK),
+}
+
+
+def _flat_inputs(seed, bias_kind, dv=D):
+    rng = np.random.default_rng(seed)
+    q, k = (_bf16(rng.normal(size=(B, H, s, D)).astype(np.float32)) for s in (SQ, SK))
+    v = _bf16(rng.normal(size=(B, H, SK, dv)).astype(np.float32))
+    shape = _FLAT_BIASES[bias_kind]
+    bias = None if shape is None else _masked(rng, shape)
+    if bias_kind == "fully masked sample":
+        bias[0] = MASK
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("bias_kind", list(_FLAT_BIASES))
+def test_flat_plain_matches_jax_kernel_interpret(bias_kind):
+    """fused_attention_plain at op_dtype bf16 against the Pallas flat kernel in
+    interpret mode; a fully masked sample averages its values, finite."""
+    q, k, v, bias = _flat_inputs(1, bias_kind)
+    scale = 1.0 / np.sqrt(D)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     None if bias is None else jnp.asarray(bias), scale)
+    got = fused_attention.fused_attention_plain(
+        _t(q), _t(k), _t(v), None if bias is None else _t(bias), scale, op_dtype=torch.bfloat16)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want)
+
+
+def _attention_pair(dk, dv, d_model=24):
+    """A flax ScaledDotProductAttention, its params, and the port's module
+    with those weights."""
+    cfg = {"HEAD": H, "D_KEY": dk, "D_VALUE": dv, "D_MODEL": d_model}
+    flax_module = JaxScaledDotProductAttention(JaxConfigNode(cfg))
+    x = jnp.zeros((1, 2, d_model), jnp.float32)
+    params = flax_module.init(jax.random.PRNGKey(dk + dv), x, x, x)["params"]
+    port = ScaledDotProductAttention(ConfigNode(cfg))
+    with torch.no_grad():
+        for name in ("fc_q", "fc_k", "fc_v", "fc_o"):
+            getattr(port, name).weight.copy_(_t(params[name]["kernel"]).T)
+            getattr(port, name).bias.copy_(_t(params[name]["bias"]))
+    return flax_module, params, port
+
+
+def _merge(x):
+    b, h, s, d = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+@pytest.mark.parametrize("case", ["per-head, d_k 16 / d_v 8", "2-D key padding",
+                                  "fully masked sample"])
+def test_attend_matches_jax_xla_attend(case):
+    """The port's attend (the flat attention over head-split views of packed
+    projections) and out projection against the JAX module's attend, whose
+    CPU route is XLA: a per-head bias at d_k != d_v, a (b, Sk) key-padding
+    bias, a (b, 1, 1, Sk) bias masking every key of sample 0."""
+    rng = np.random.default_rng(2)
+    dk, dv = (16, 8) if case.startswith("per-head") else (D, D)
+    q = rng.normal(size=(B, H, SQ, dk)).astype(np.float32)
+    k = rng.normal(size=(B, H, SK, dk)).astype(np.float32)
+    v = rng.normal(size=(B, H, SK, dv)).astype(np.float32)
+    if case.startswith("per-head"):
+        bias = _masked(rng, (B, H, SQ, SK))
+    elif case == "2-D key padding":
+        bias = _masked(rng, (B, SK))
+    else:
+        bias = _masked(rng, (B, 1, 1, SK))
+        bias[0] = MASK
+    flax_module, params, port = _attention_pair(dk, dv)
+    want = flax_module.apply({"params": params}, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(bias), method=lambda m, *a: m.attend(*a))
+    with torch.no_grad():
+        got = port.fc_o(port.attend(_t(_merge(q)), _t(_merge(k)), _t(_merge(v)), _t(bias)))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "constant", "per-sample keys", "per-head"])
+def test_flat_backward_matches_jax_vjp(bias_kind):
+    """dq, dk, dv and the bias gradient (summed over the bias's broadcast
+    axes) of the port's autograd function against jax.vjp of the JAX
+    fused_attention, whose backward is the analytic XLA one."""
+    q, k, v, bias = _flat_inputs(3, bias_kind)
+    g = np.random.default_rng(4).normal(size=(B, H, SQ, D)).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    operands = [jnp.asarray(x) for x in (q, k, v)] + ([] if bias is None else [jnp.asarray(bias)])
+
+    def fn(*args):
+        return jattn.fused_attention(*args[:3], args[3] if len(args) > 3 else None, scale)
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(fn, *operands)
+        want = vjp(jnp.asarray(g))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)] + (
+        [] if bias is None else [_t(bias).requires_grad_()])
+    out = fused_attention.fused_attention(*leaves[:3], leaves[3] if bias is not None else None,
+                                          scale)
+    out.backward(_t(g))
+    for leaf, expected in zip(leaves, want):
+        _close(leaf.grad, expected)
+
+
+def test_flat_checks_raise_value_error():
+    q = torch.zeros(B, H, SQ, D)
+    k = torch.zeros(B, H, SK, D)
+    bad = [
+        ((q[0], k, k, None), "must be"),
+        ((q, k[:, :, :, :8], k, None), "are not"),
+        ((q, k, k[:, :, :4], None), "are not"),
+        ((q, k, k, torch.zeros(B, 2, SQ, SK)), "does not broadcast"),
+        ((q, k, k, torch.zeros(B, 1, SK)), "does not broadcast"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            fused_attention.fused_attention(*args, 0.25)
+
+
+# -- the streamed attention ------------------------------------------------------------
+S_HD, S_HEADS = 32, 2
+
+
+def test_streamed_plain_matches_jax_kernel_interpret():
+    """At 16 queries x 128 keys (plan_streamed_blocks: q-blocks of 16, two key
+    blocks of 64) with a per-sample padding bias.  The TPU kernel rounds each
+    key block's unnormalised weights to bf16 and divides at the end; the
+    port's (the packed kernel's arithmetic) rounds the normalised weights.
+    Each rounding is within 2^-8 of its weight, so the outputs differ by at
+    most 2^-7 * sum_j w_j |v_j| <= 2^-7 max |v|."""
+    rng = np.random.default_rng(5)
+    b, sq, sk = 2, 16, 128
+    assert jattn.plan_streamed_blocks(sq, sk, S_HD, S_HEADS) == (16, 64)
+    q, k, v = (_bf16(rng.normal(size=(b, s, S_HD)).astype(np.float32)) for s in (sq, sk, sk))
+    bias = _masked(rng, (b, 1, 1, sk))
+    scale = 1.0 / np.sqrt(S_HD // S_HEADS)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.fused_attention_packed_streamed(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), scale, S_HEADS)
+    got = fused_attention.fused_attention_packed_streamed_plain(
+        _t(q), _t(k), _t(v), _t(bias), scale, S_HEADS, op_dtype=torch.bfloat16)
+    _close(got, want, atol=2.0 ** -7 * float(np.abs(v).max()), rtol=0)
+
+
+def test_streamed_wrapper_is_the_packed_contract_with_its_backward():
+    """On the CPU the streamed wrapper computes the packed attention, forward
+    and gradients."""
+    rng = np.random.default_rng(6)
+    q, k, v = (_t(rng.normal(size=(2, s, S_HD)).astype(np.float32)) for s in (9, 70, 70))
+    bias = _t(_masked(rng, (2, 1, 9, 70)))
+    grads = []
+    for fn in (fused_attention.fused_attention_packed_streamed,
+               fused_attention.fused_attention_packed):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, bias, 0.25, S_HEADS)
+        out.sum().backward()
+        grads.append([out.detach()] + [leaf.grad for leaf in leaves])
+    for got, want in zip(*grads):
+        _close(got, want.numpy(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("hd,h", [(256, 4), (512, 8), (768, 12)])
+def test_dispatch_rules_match_the_jax_package(hd, h):
+    """The port's copies of plan_q_block, packed_attention_viable,
+    plan_streamed_blocks and streamed_attention_viable give the JAX
+    functions' answers over a grid of query and key counts."""
+    lengths = (1, 26, 100, 324, 512, 640, 1024, 1536, 1600, 2048)
+    for sq, sk in itertools.product(lengths, lengths):
+        assert fused_attention.plan_q_block(sq, sk, hd, True) == \
+            jattn.plan_q_block(sq, sk, hd, True)
+        assert fused_attention.packed_attention_viable(sq, sk, hd, h) == \
+            jattn.packed_attention_viable(sq, sk, hd, h), (sq, sk)
+        assert fused_attention.plan_streamed_blocks(sq, sk, hd, h) == \
+            jattn.plan_streamed_blocks(sq, sk, hd, h), (sq, sk)
+        assert fused_attention.streamed_attention_viable(sq, sk, hd, h) == \
+            jattn.streamed_attention_viable(sq, sk, hd, h), (sq, sk)
+
+
+def _spy(monkeypatch, names):
+    calls = []
+    for name in names:
+        original = getattr(fused_attention, name)
+
+        def spy(*args, _name=name, _original=original):
+            calls.append(_name)
+            return _original(*args)
+
+        monkeypatch.setattr(fused_attention, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("case,want", [
+    ("short stream", "fused_attention_packed"),
+    ("long stream", "fused_attention_packed_streamed"),
+    ("per-head bias", "fused_attention"),
+    ("d_k != d_v", "fused_attention"),
+])
+def test_scaled_dot_product_attention_routes_as_the_jax_package(monkeypatch, case, want):
+    """ScaledDotProductAttention takes the packed attention, past its reach
+    (1536 keys at hd 512) the streamed one, and attend's flat attention for a
+    per-head bias or d_k != d_v; the output matches the flax module's, whose
+    CPU route is XLA."""
+    rng = np.random.default_rng(7)
+    heads, d_model = 8, 64
+    length = 1536 if case == "long stream" else 20
+    dk, dv = (64, 32) if case == "d_k != d_v" else (64, 64)
+    cfg = {"HEAD": heads, "D_KEY": dk, "D_VALUE": dv, "D_MODEL": d_model}
+    flax_module = JaxScaledDotProductAttention(JaxConfigNode(cfg))
+    x = rng.normal(size=(1, length, d_model)).astype(np.float32)
+    shape = (1, heads, length, length) if case == "per-head bias" else (1, 1, 1, length)
+    bias = _masked(rng, shape)
+    params = flax_module.init(jax.random.PRNGKey(0), jnp.asarray(x[:, :2]), jnp.asarray(x[:, :2]),
+                              jnp.asarray(x[:, :2]))["params"]
+    port = ScaledDotProductAttention(ConfigNode(cfg))
+    with torch.no_grad():
+        for name in ("fc_q", "fc_k", "fc_v", "fc_o"):
+            getattr(port, name).weight.copy_(_t(params[name]["kernel"]).T)
+            getattr(port, name).bias.copy_(_t(params[name]["bias"]))
+    calls = _spy(monkeypatch, ["fused_attention_packed", "fused_attention_packed_streamed",
+                               "fused_attention"])
+    with torch.no_grad():
+        got = port(_t(x), _t(x), _t(x), _t(bias))
+    assert calls == [want]
+    want_out = flax_module.apply({"params": params}, jnp.asarray(x), jnp.asarray(x),
+                                 jnp.asarray(x), jnp.asarray(bias))
+    _close(got, want_out, atol=1e-4)

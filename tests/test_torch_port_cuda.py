@@ -455,3 +455,93 @@ def test_two_bias_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         fused_attention.fused_attention_packed_2bias(q, q, q, None, table.cpu(), 1.0, T5_HEADS)
     assert _cuda.launch_counts() == counts
+
+
+# -- the flat attention ---------------------------------------------------------------------
+FLAT_B, FLAT_H = 3, 4
+
+
+@pytest.mark.parametrize("sq,sk,dk,dv,bias_shape", [
+    (1, 324, 64, 64, (FLAT_B, 1, 1, 324)),  # a decode step over the joint stream
+    (1, 6, 64, 64, (FLAT_B, 1, 1, 6)),  # a decode step over a ring of 6 slots
+    (40, 45, 64, 64, None),
+    (40, 45, 64, 64, (1, 1, 1, 1)),  # constant
+    (40, 45, 32, 32, (1, 1, 40, 45)),
+    (40, 45, 64, 64, (FLAT_B, 1, 40, 45)),  # per sample
+    (70, 130, 64, 64, (FLAT_B, FLAT_H, 70, 130)),  # per head, ragged key chunk
+    (70, 130, 64, 32, (FLAT_B, FLAT_H, 1, 130)),  # d_k != d_v
+    (17, 100, 16, 128, (FLAT_B, 1, 17, 100)),
+    (5, 333, 128, 48, (1, FLAT_H, 5, 333)),
+])
+def test_flat_attention_kernel_matches_plain(dev, sq, sk, dk, dv, bias_shape):
+    """Split-head views of packed projections (read through their strides)
+    against the plain version on the same tensors; sample 0 of a per-sample
+    bias has every key masked and must average its values, finite."""
+    gen = torch.Generator(device=dev).manual_seed(sq + sk + dk + dv)
+
+    def heads(s, d):
+        return _randn(gen, FLAT_B, s, FLAT_H * d).view(FLAT_B, s, FLAT_H, d).transpose(1, 2)
+
+    q, k, v = heads(sq, dk), heads(sk, dk), heads(sk, dv)
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
+        if bias_shape[0] == FLAT_B and bias_shape[1] == 1:
+            bias[0] = MASK
+    scale = dk ** -0.5
+    before = _cuda.launch_counts()["fused_attention"]
+    got = fused_attention.fused_attention(q, k, v, bias, scale)
+    assert _cuda.launch_counts()["fused_attention"] == before + 1
+    assert tuple(got.shape) == (FLAT_B, FLAT_H, sq, dv) and bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_plain(q, k, v, bias, scale)) <= ATTN_TOL
+
+
+def test_flat_attention_contiguous_operands_and_gradients(dev):
+    """Contiguous (b, h, S, d) operands (the JAX layout) and the autograd
+    function: the kernel's forward, the plain analytic backward with the
+    bias gradient."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (_randn(gen, 2, 3, s, 32) for s in (9, 70, 70))
+    bias = _randn(gen, 2, 3, 9, 70)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    out = fused_attention.fused_attention(*leaves, 0.2)
+    assert _err(out.detach(), fused_attention.fused_attention_plain(q, k, v, bias, 0.2)) <= ATTN_TOL
+    g = _randn(gen, 2, 3, 9, 32)
+    out.backward(g)
+    for leaf, want in zip(leaves, fused_attention.fused_attention_backward_plain(
+            q, k, v, bias, g, 0.2)):
+        assert _err(leaf.grad, want) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
+def test_flat_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(2, 3, 4, 64, device=dev)
+    k = torch.zeros(2, 3, 8, 64, device=dev)
+    for args, match in (
+        ((q, k, torch.zeros(2, 3, 8, 130, device=dev)), "head dims"),
+        ((q[..., :6], k[..., :6], k[..., :6]), "head dims"),
+        ((q.double(), k.double(), k.double()), "float32"),
+        ((torch.zeros(2, 3, 4, 128, device=dev)[..., ::2],) * 3, "unit stride"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fused_attention.fused_attention(*args, None, 0.125)
+
+
+# -- the streamed attention -------------------------------------------------------------------
+@pytest.mark.parametrize("sq,sk,bias_shape", [
+    (64, 1536, (2, 1, 1, 1536)),
+    (40, 1601, (2, 1, 40, 1601)),  # a ragged 64-key chunk
+    (33, 45, None),
+])
+def test_streamed_attention_kernel_matches_plain(dev, sq, sk, bias_shape):
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    hd, heads = 512, 8
+    q, k, v = _randn(gen, 2, sq, hd), _randn(gen, 2, sk, hd), _randn(gen, 2, sk, hd)
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    scale = (hd // heads) ** -0.5
+    before = _cuda.launch_counts()["fused_attention_packed_streamed"]
+    got = fused_attention.fused_attention_packed_streamed(q, k, v, bias, scale, heads)
+    assert _cuda.launch_counts()["fused_attention_packed_streamed"] == before + 1
+    want = fused_attention.fused_attention_packed_streamed_plain(q, k, v, bias, scale, heads)
+    assert _err(got, want) <= ATTN_TOL
