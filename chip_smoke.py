@@ -20,12 +20,20 @@ Phases, each fatal on failure:
      row), with a per-head bias and at d_k != d_v, and the streamed attention
      at 64 x 1536 x 1536 (hd 512, 8 heads; beside the packed kernel at that
      shape) and at a ragged 1601 keys, with the max |kernel - plain| beside its
-     tolerance, median CUDA-event times of the kernel, of its plain version
-     and, for the attention kernels, of one torch.nn.functional.
+     tolerance, median CUDA-event times of the kernel's call, of its plain
+     version and, for the attention kernels, of one torch.nn.functional.
      scaled_dot_product_attention call on the same inputs (timed here only,
-     never called by the port), and each kernel's bound: the least time the
+     never called by the port), the device time of the kernel and of that
+     library call (torch.profiler over 20 calls, ``device_ms``; the call time
+     less it is the host's share), and each kernel's bound: the least time the
      card could take, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), each
-     input read once and each output written once;
+     input read once and each output written once.  Beside the packed row,
+     common.cu's attention block at the same shape through the streamed entry
+     (the block the packed entry ran before its own); at each cut-over of
+     ``ops/fused_attention.py::attention_block`` both blocks forced at the same
+     shape (the flat attention at the cross step's geometry and the packed one
+     at the MMT geometry with 1, 2, 4, 8 and 16 query rows; the packed block
+     resident and streaming at 400 and 401 keys, hd 512 over 8 heads);
   4. ``configs/mmf_m4c.yaml`` at its full widths (random weights from the seed,
      with TEXT_BERT.LOAD_PRETRAINED false and no word embeddings, whose files
      are not in the repository) on synthetic data with 100 regions and 100 OCR
@@ -212,6 +220,33 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20):
+    """(ms, timer): the device time of one call of `fn`.  torch.profiler over
+    `reps` calls, the sum of the device activity (kernels, memsets) divided by
+    `reps` ("profiler"); where the profiler shows no device time, CUDA events
+    around 100 back-to-back calls ("events x100")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us > 0:
+        return total_us / reps / 1e3, "profiler"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(100):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 100, "events x100"
+
+
 def tensor_bytes(*items) -> int:
     """Bytes of every tensor in `items` (nested in tuples, lists and dicts)."""
     import torch
@@ -319,27 +354,58 @@ def max_err(a, b) -> float:
 
 
 def make_recorder(results, failures):
-    """record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms):
-    log one case of a kernel against its plain version; `results` keeps, per
-    kernel, the first case's times and bound (the kernel's main shape) and the
-    largest error over all cases, for the JSON line."""
+    """record(name, what, err, tol, kernel, plain, flops, nbytes, library): log
+    one case of a kernel against its plain version, with the call times
+    (CUDA-event medians) of `kernel`, `plain` and `library` (callables; one
+    library call or None) and the device times of `kernel` and `library`;
+    `results` keeps, per kernel, the first case's times and bound (the
+    kernel's main shape) and the largest error over all cases, for the JSON
+    line."""
 
-    def record(name, what, err, tol, ms, plain_ms, flops, nbytes, library_ms=None):
+    def record(name, what, err, tol, kernel, plain, flops, nbytes, library=None):
+        ms, plain_ms = median_ms(kernel), median_ms(plain)
+        dev_ms, timer = device_ms(kernel)
+        library_ms = library_dev_ms = None
+        lib = ""
+        if library is not None:
+            library_ms, library_dev_ms = median_ms(library), device_ms(library)[0]
+            lib = f", one library call {library_ms:.4f} ms (device {library_dev_ms:.4f} ms)"
         bound_ms, bound_by = bound(flops, nbytes)
-        lib = "" if library_ms is None else f", one library call {library_ms:.4f} ms"
         log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms by {timer}, host share "
+            f"{ms - dev_ms:.4f} ms), plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
             f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
-            f"kernel at {100 * bound_ms / ms:.1f} % of it")
+            f"kernel at {100 * bound_ms / ms:.1f} % of it ({100 * bound_ms / dev_ms:.1f} % "
+            "by device time)")
         if not err <= tol:
             failures.append(f"{name} [{what}]: max err {err} > {tol}")
         entry = results.setdefault(name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": library_dev_ms, "device_timer": timer,
         })
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
     return record
+
+
+# query rows at which each single-query cut-over is timed from both sides
+CUT_OVER_ROWS = (1, 2, 4, 8, 16)
+
+
+def compare_blocks(label, run, blocks, want, chosen, failures):
+    """Both sides of a cut-over at one shape: `run(block)` forced to each of
+    `blocks`, its call and device time, each output within ATTN_TOL of the
+    plain version's `want`; `chosen` is what attention_block picks there."""
+    parts = []
+    for block in blocks:
+        fn = lambda b=block: run(b)  # noqa: E731
+        err = max_err(fn(), want)
+        if not err <= ATTN_TOL:
+            failures.append(f"{label} on block {block}: max err {err} > {ATTN_TOL}")
+        parts.append(f"{block} call {median_ms(fn):.4f} ms, device {device_ms(fn)[0]:.4f} ms "
+                     f"(max|kernel-plain| {err:.1e})")
+    log(f"  cut-over [{label}]: " + "; ".join(parts) + f"; attention_block picks {chosen}")
 
 
 def check_kernels(task, shapes, seed, failures, generative, iterative, joint_task):
@@ -390,8 +456,8 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         out = decode_step.fused_ffn_step(*args)
         err = max_err(out, decode_step.fused_ffn_step_plain(*args))
         record("fused_ffn_step", what, err, LN_TOL,
-               median_ms(lambda: decode_step.fused_ffn_step(*args)),
-               median_ms(lambda: decode_step.fused_ffn_step_plain(*args)),
+               lambda: decode_step.fused_ffn_step(*args),
+               lambda: decode_step.fused_ffn_step_plain(*args),
                4.0 * rows * hd * d_ff, tensor_bytes(args[:7], out))
 
     # kernel F: the MMT context encode, then the TextBert question encode
@@ -404,8 +470,8 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         err = max_err(out, encoder_layer.fused_encoder_self_attention_plain(*args))
         rows = BATCH * s
         record("fused_encoder_self_attention", what, err, LN_TOL,
-               median_ms(lambda: encoder_layer.fused_encoder_self_attention(*args)),
-               median_ms(lambda: encoder_layer.fused_encoder_self_attention_plain(*args)),
+               lambda: encoder_layer.fused_encoder_self_attention(*args),
+               lambda: encoder_layer.fused_encoder_self_attention_plain(*args),
                2.0 * rows * hd * 4 * hd + 4.0 * BATCH * s * s * hd, tensor_bytes(args[:3], out))
 
     def sdpa_args(q, k, v, bias, grad=False):
@@ -417,7 +483,8 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         (q0, qh), (k0, kh), (v0, vh) = split(q), split(k), split(v)
         return (q0, k0, v0), (qh, kh, vh), bias
 
-    def sdpa_ms(q, k, v, bias, dropout_p=0.0, backward=False):
+    def sdpa_call(q, k, v, bias, dropout_p=0.0, backward=False):
+        """One library call on the head-split views, as a callable to time."""
         leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward)
         g = torch.ones((q.shape[0], heads, q.shape[1], hd // heads), device=dev)
 
@@ -427,7 +494,7 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
             if backward:
                 out.backward(g)
 
-        return median_ms(call)
+        return call
 
     # packed: the MMT joint encode under its per-sample prefix-LM bias, then a
     # batch-shared bias
@@ -444,10 +511,27 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
             out = fused_attention.fused_attention_packed(*args)
             err = max_err(out, fused_attention.fused_attention_packed_plain(*args))
             record("fused_attention_packed", what, err, ATTN_TOL,
-                   median_ms(lambda: fused_attention.fused_attention_packed(*args)),
-                   median_ms(lambda: fused_attention.fused_attention_packed_plain(*args)),
+                   lambda: fused_attention.fused_attention_packed(*args),
+                   lambda: fused_attention.fused_attention_packed_plain(*args),
                    4.0 * BATCH * joint * joint * hd, tensor_bytes(q, k, v, bias, out),
-                   sdpa_ms(q, k, v, bias))
+                   sdpa_call(q, k, v, bias))
+            # the control: common.cu's block at the same shape, through the streamed entry
+            old = lambda: fused_attention._packed_kernel(*args, streamed=True)  # noqa: E731
+            log(f"    common.cu's attention block at this shape (streamed entry): call "
+                f"{median_ms(old):.4f} ms, device {device_ms(old)[0]:.4f} ms, "
+                f"max|old-plain| {max_err(old(), fused_attention.fused_attention_packed_plain(*args)):.3e}")
+        # both sides of the single-query cut-over at the MMT geometry (Sq query rows
+        # over the joint keys under a per-sample bias)
+        for sq in CUT_OVER_ROWS:
+            rows_q, rows_bias = q[:, :sq].contiguous(), full[:, :, :sq].contiguous()
+            args = (rows_q, k, v, rows_bias, scale, heads)
+            compare_blocks(
+                f"packed {BATCH} x {sq} x {joint}, {heads} heads of {hd // heads}",
+                lambda block, a=args: fused_attention._packed_kernel(*a, block=block),
+                ("single", "resident"),
+                fused_attention.fused_attention_packed_plain(*args),
+                fused_attention.attention_block("packed", sq, joint, hd // heads, hd // heads),
+                failures)
 
     # the dropout attention, forward and backward, at the MMT training shape
     # (joint sequence, per-sample bias) and the TextBert one (key-only bias)
@@ -464,10 +548,10 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         err = max_err(out, fused_attention.fused_attention_packed_dropout_plain(*fwd_args))
         s_q, s_k = q_.shape[1], k_.shape[1]
         record("fused_attention_packed_dropout", what, err, ATTN_TOL,
-               median_ms(lambda: fused_attention._dropout_forward_kernel(*fwd_args)),
-               median_ms(lambda: fused_attention.fused_attention_packed_dropout_plain(*fwd_args)),
+               lambda: fused_attention._dropout_forward_kernel(*fwd_args),
+               lambda: fused_attention.fused_attention_packed_dropout_plain(*fwd_args),
                4.0 * BATCH * s_q * s_k * hd, tensor_bytes(q_, k_, v_, bias, seed_t, out, stats),
-               sdpa_ms(q_, k_, v_, bias, dropout_p=DROPOUT_RATE))
+               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE))
         grads = fused_attention._dropout_backward_kernel(
             q_, k_, v_, bias, seed_t, stats, g, scale, heads, DROPOUT_RATE)
         plain = fused_attention.fused_attention_packed_dropout_backward_plain(
@@ -482,12 +566,11 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         plain_args = (q_, k_, v_, bias, seed_t, g, scale, heads, DROPOUT_RATE)
         record("fused_attention_packed_dropout_backward", what + " (library: forward + backward)",
                max(errs), math.inf,
-               median_ms(lambda: fused_attention._dropout_backward_kernel(*bwd_args)),
-               median_ms(lambda: fused_attention.fused_attention_packed_dropout_backward_plain(
-                   *plain_args)),
+               lambda: fused_attention._dropout_backward_kernel(*bwd_args),
+               lambda: fused_attention.fused_attention_packed_dropout_backward_plain(*plain_args),
                10.0 * BATCH * s_q * s_k * hd,
                tensor_bytes(q_, k_, v_, g, bias, seed_t, stats, grads),
-               sdpa_ms(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True))
+               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True))
 
     # kernel D: every decode step of one sequence, kernel and plain on their own
     # slot caches; then the time of one step
@@ -513,8 +596,8 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
     step_args = (x, w, ctx, *slots["kernel"], t_len - 1, cb, scale, heads, LN_EPS)
     keys = c_len + t_len
     record("fused_bert_self_step", f"step {BATCH} x ctx {c_len} + {t_len} slots", y_err, LN_TOL,
-           median_ms(lambda: decode_step.fused_bert_self_step(*step_args)),
-           median_ms(lambda: decode_step.fused_bert_self_step_plain(*step_args)),
+           lambda: decode_step.fused_bert_self_step(*step_args),
+           lambda: decode_step.fused_bert_self_step_plain(*step_args),
            2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
     check_step_kernels(generative, gen, record, failures)
@@ -554,8 +637,8 @@ def check_streamed_cross(task, gen, record):
     record("fused_cross_attention_streamed",
            f"{rows} rows, hd {hd}, S {sk}, bf16 encoder K/V, eps {LN_EPS:.0e} (library: none)",
            max_err(y, decode_step.fused_cross_attention_streamed_plain(*args)), LN_TOL,
-           median_ms(lambda: decode_step.fused_cross_attention_streamed(*args)),
-           median_ms(lambda: decode_step.fused_cross_attention_streamed_plain(*args)),
+           lambda: decode_step.fused_cross_attention_streamed(*args),
+           lambda: decode_step.fused_cross_attention_streamed_plain(*args),
            2.0 * rows * hd * 2 * hd + 4.0 * rows * sk * hd, tensor_bytes(x, w, kv, bias, y))
 
 
@@ -660,8 +743,8 @@ def check_step_kernels(task, gen, record, failures):
     a_flops = 2.0 * rows * hd * 4 * hd + attn_flops(t_len)
     a_bytes = tensor_bytes(x, self_w, sb, rings["A f32"], yk) + 2 * rows * hd * 4 + rows * 4
     record("fused_self_attention_step", where + ", f32 ring (library: none)", errs["A f32"][0],
-           LN_TOL, median_ms(lambda: decode_step.fused_self_attention_step(*a_args)),
-           median_ms(lambda: decode_step.fused_self_attention_step_plain(*a_args)),
+           LN_TOL, lambda: decode_step.fused_self_attention_step(*a_args),
+           lambda: decode_step.fused_self_attention_step_plain(*a_args),
            a_flops, a_bytes)
 
     b_args = (x, cross_w, enc_k, enc_v, enc_bias, scale, heads)
@@ -670,16 +753,16 @@ def check_step_kernels(task, gen, record, failures):
     b_bytes = tensor_bytes(x, cross_w, enc_k, enc_v, enc_bias, yb)
     record("fused_cross_attention_step", where + ", bf16 encoder K/V (library: none)",
            max_err(yb, decode_step.fused_cross_attention_step_plain(*b_args)), LN_TOL,
-           median_ms(lambda: decode_step.fused_cross_attention_step(*b_args)),
-           median_ms(lambda: decode_step.fused_cross_attention_step_plain(*b_args)),
+           lambda: decode_step.fused_cross_attention_step(*b_args),
+           lambda: decode_step.fused_cross_attention_step_plain(*b_args),
            b_flops, b_bytes)
 
     l_args = (x, self_w, cross_w, f, sb, last, *rings["layer"], enc_k, enc_v, enc_bias, scale,
               heads)
     record("fused_decoder_layer_step", where + f", d_ff {d_ff} (library: none)",
            errs["layer"][0], LAYER_TOL,
-           median_ms(lambda: decode_step.fused_decoder_layer_step(*l_args)),
-           median_ms(lambda: decode_step.fused_decoder_layer_step_plain(*l_args)),
+           lambda: decode_step.fused_decoder_layer_step(*l_args),
+           lambda: decode_step.fused_decoder_layer_step_plain(*l_args),
            a_flops + b_flops + 4.0 * rows * hd * d_ff,
            a_bytes + b_bytes + tensor_bytes(f) - 2 * tensor_bytes(x))
     staged_ms = median_ms(lambda: ffn(decode_step.fused_cross_attention_step(
@@ -1292,8 +1375,9 @@ def check_two_bias(task, gen, record, failures):
         summed = (table + padding).contiguous()
         q, k, v = (torch.randn((b, n, hd), generator=gen, device=dev) for _ in range(3))
         split = [x.view(b, n, heads, d).transpose(1, 2) for x in (q, k, v)]
-        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            *split, attn_mask=summed, scale=1.0))
+        def library():
+            return F.scaled_dot_product_attention(*split, attn_mask=summed, scale=1.0)
+
         for form, bias, head_bias in (("padding + shared table", padding, table),
                                       ("(b, h, L, L) head bias", None, summed)):
             args = (q, k, v, bias, head_bias, 1.0, heads)
@@ -1304,10 +1388,10 @@ def check_two_bias(task, gen, record, failures):
                    f"mT5 {what} {b} x {n}, hd {hd} over {heads} heads, {form}, sample 0 "
                    "fully masked", max_err(out, fused_attention.fused_attention_packed_2bias_plain(
                        *args)), ATTN_TOL,
-                   median_ms(lambda: fused_attention.fused_attention_packed_2bias(*args)),
-                   median_ms(lambda: fused_attention.fused_attention_packed_2bias_plain(*args)),
+                   lambda: fused_attention.fused_attention_packed_2bias(*args),
+                   lambda: fused_attention.fused_attention_packed_2bias_plain(*args),
                    4.0 * b * heads * n * n * d, tensor_bytes(q, k, v, bias, head_bias, out),
-                   library_ms)
+                   library)
 
 
 def run_vit_mt5(config, seed, failures):
@@ -1589,11 +1673,33 @@ def check_flat_and_streamed(task, gen, record, failures):
             failures.append(f"fused_attention [{what}]: non-finite output")
         record("fused_attention", what,
                max_err(out, fused_attention.fused_attention_plain(*args)), ATTN_TOL,
-               median_ms(lambda: fused_attention.fused_attention(*args)),
-               median_ms(lambda: fused_attention.fused_attention_plain(*args)),
+               lambda: fused_attention.fused_attention(*args),
+               lambda: fused_attention.fused_attention_plain(*args),
                2.0 * b * heads * sq * sk * (dk + dv), tensor_bytes(q, k, v, bias, out),
-               median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                                scale=scale)))
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale))
+
+    with torch.no_grad():
+        k, v, bias = split(rows, sk, d), split(rows, sk, d), padding(rows, sk)
+        for sq in CUT_OVER_ROWS:
+            q = split(rows, sq, d)
+            compare_blocks(
+                f"flat {rows} rows x {heads} heads x {sq} x {sk} keys, d {d}",
+                lambda block, a=(q, k, v, bias, d ** -0.5): fused_attention._flat_kernel(
+                    *a, block=block),
+                ("single", "tile"), fused_attention.fused_attention_plain(q, k, v, bias, d ** -0.5),
+                fused_attention.attention_block("flat", sq, sk, d, d), failures)
+        # the packed block's key cut-over at hd 512 over 8 heads (d 64): resident
+        # in shared memory up to 400 keys, streamed through its ring from 401
+        hd, heads = STREAMED_WIDTH
+        for n in (400, 401):
+            q, k, v = randn(64, n, hd), randn(64, n, hd), randn(64, n, hd)
+            args = (q, k, v, padding(64, n), (hd // heads) ** -0.5, heads)
+            compare_blocks(
+                f"packed 64 x {n} x {n}, {heads} heads of {hd // heads}",
+                lambda block, a=args: fused_attention._packed_kernel(*a, block=block),
+                ("resident", "ring"), fused_attention.fused_attention_packed_plain(*args),
+                fused_attention.attention_block("packed", n, n, hd // heads, hd // heads),
+                failures)
 
     hd, heads = STREAMED_WIDTH
     scale = (hd // heads) ** -0.5
@@ -1604,18 +1710,19 @@ def check_flat_and_streamed(task, gen, record, failures):
                            MASK_VALUE)[:, None, None, :].contiguous()
         args = (q, k, v, bias, scale, heads)
         out = fused_attention.fused_attention_packed_streamed(*args)
-        ms = median_ms(lambda: fused_attention.fused_attention_packed_streamed(*args))
-        packed_ms = median_ms(lambda: fused_attention.fused_attention_packed(*args))
+        packed = lambda: fused_attention.fused_attention_packed(*args)  # noqa: E731
+        block = fused_attention.attention_block("packed", n, n, hd // heads, hd // heads)
         split_heads = [x.view(b, n, heads, hd // heads).transpose(1, 2) for x in (q, k, v)]
         record("fused_attention_packed_streamed",
                f"{b} x {n} x {n}, hd {hd} over {heads} heads, per-sample padding (the packed "
-               f"kernel at this shape: {packed_ms:.4f} ms)",
+               f"entry's block B ({block}) at this shape: call {median_ms(packed):.4f} ms, "
+               f"device {device_ms(packed)[0]:.4f} ms)",
                max_err(out, fused_attention.fused_attention_packed_streamed_plain(*args)),
-               ATTN_TOL, ms,
-               median_ms(lambda: fused_attention.fused_attention_packed_streamed_plain(*args)),
+               ATTN_TOL, lambda: fused_attention.fused_attention_packed_streamed(*args),
+               lambda: fused_attention.fused_attention_packed_streamed_plain(*args),
                4.0 * b * n * n * hd, tensor_bytes(q, k, v, bias, out),
-               median_ms(lambda: F.scaled_dot_product_attention(*split_heads, attn_mask=bias,
-                                                                scale=scale)))
+               lambda: F.scaled_dot_product_attention(*split_heads, attn_mask=bias,
+                                                      scale=scale))
         del q, k, v, out, split_heads
         torch.cuda.empty_cache()
 

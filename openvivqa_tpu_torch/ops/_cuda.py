@@ -60,7 +60,7 @@ LAUNCHES: Dict[str, int] = {
 _SIGNATURES = {
     "ovq_ffn_forward": "p" * 10 + "i" * 5 + "f",
     "ovq_encoder_attention_forward": "p" * 12 + "i" * 6 + "ff",
-    "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f",
+    "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f" "i",
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
     "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "pp" "iiiii" "f",
     "ovq_packed_dropout_backward": "ppppp" "li" "p" "if" "pp" "ppp" "iiiii" "f",
@@ -71,6 +71,7 @@ _SIGNATURES = {
     "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
     "ovq_streamed_attention_forward": "pppp" "li" "p" "iiiii" "f",
     "ovq_flat_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
+    "ovq_single_query_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
 }
 _CTYPES = {
     "p": ctypes.c_void_p, "i": ctypes.c_int,

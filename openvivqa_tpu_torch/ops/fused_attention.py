@@ -9,7 +9,9 @@ Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``,
 ``fused_attention`` in ``openvivqa_tpu/ops/fused_attention.py``; the CUDA
 sources are ``csrc/fused_attention.cu``, ``csrc/fused_attention_dropout.cu``,
 ``csrc/fused_attention_2bias.cu``, ``csrc/fused_attention_streamed.cu`` and
-``csrc/fused_attention_flat.cu``.  The packed kernels' bias is
+``csrc/fused_attention_flat.cu``.  Which device block serves a call of the
+packed or the flat entry is a function of its shapes alone
+(:func:`attention_block`).  The packed kernels' bias is
 head-shared, ``(bb, 1, bq, Sk)`` with ``bb`` in {1, b} and ``bq`` in {1, Sq}, and
 is never broadcast in memory.  It is a mask constant: neither gradient flows to
 it (the JAX package returns zeros for it under dropout and never uses the
@@ -124,21 +126,88 @@ def _bias_strides(bias3):
     return 0 if bb == 1 else bq * sk, 0 if bq == 1 else sk
 
 
-def _packed_kernel(q, k, v, bias, scale: float, num_heads: int, streamed: bool = False):
-    """The packed attention's kernel, or with `streamed` the streamed one's
-    (its own entry and launch counter over the same device code)."""
+# -- which device block serves a call ------------------------------------------------
+# Block A, the single-query block (csrc/fused_attention_flat.cu), serves each
+# entry up to this many query rows: above it the flat entry's 64-row tile block
+# and the packed entry's block B are faster (chip_smoke.py times both sides at
+# 1, 2, 4, 8 and 16 rows; on the H100 block A leads the tile block through 4 rows
+# at the 324-key cross step, and block B from 2 rows at the 215-key MMT shape).
+SINGLE_QUERY_MAX_ROWS = {"flat": 4, "packed": 1}
+# dynamic shared memory one block may take on the H100
+MAX_SMEM_BYTES = 232448
+# block A keeps one row of Sk float32 logits in shared memory beside its 8 warps'
+# partial outputs of up to 128 floats and 16 floats of scratch
+# (fused_attention_flat.cu::single_query_smem_bytes): up to 57072 keys
+SINGLE_QUERY_MAX_KEYS = (MAX_SMEM_BYTES // 4 - 8 * 128 - 16) // 4 * 4
+# block B (csrc/fused_attention.cu) keeps its head's K and V as bf16 in shared
+# memory while they take at most this much, so that two blocks share an SM (from
+# 401 keys at d 64, 273 at d 96, 209 at d 128); past it K and V stream through a
+# two-slot ring
+RESIDENT_KV_BYTES = MAX_SMEM_BYTES // 2
+
+
+def attention_block(entry: str, sq: int, sk: int, dk: int, dv: int) -> str:
+    """The device block that serves one call, from its shapes alone: the
+    ``flat`` entry takes ``single`` (block A) or ``tile``; the ``packed`` entry
+    ``single``, ``resident`` or ``ring`` (block B); the ``streamed`` entry
+    always ``streamed`` (common.cu's attention block)."""
+    if entry == "streamed":
+        return "streamed"
+    if entry not in ("flat", "packed"):
+        raise ValueError(f"attention_block: unknown entry {entry!r}")
+    if sq <= SINGLE_QUERY_MAX_ROWS[entry] and sk <= SINGLE_QUERY_MAX_KEYS:
+        return "single"
+    if entry == "flat":
+        return "tile"
+    return "resident" if 4 * (-(-sk // 16) * 16) * (dk + 8) <= RESIDENT_KV_BYTES else "ring"
+
+
+def _packed_bias(bias, b: int, sq: int, sk: int, device):
+    """(bias3 or None, batch stride, row stride) of a packed call's bias."""
+    if bias is None:
+        return None, 0, 0
+    bias3 = _bias_3d(bias, b, sq, sk, device).contiguous()
+    return (bias3, *_bias_strides(bias3))
+
+
+def _packed_kernel(q, k, v, bias, scale: float, num_heads: int, streamed: bool = False,
+                   block: Optional[str] = None):
+    """The packed attention's kernel (block A or B, as `attention_block` or
+    `block` says), or with `streamed` the streamed one's (its own entry and
+    launch counter over common.cu's block)."""
     name = "fused_attention_packed_streamed" if streamed else "fused_attention_packed"
     b, sq, sk, hd = _check_packed(q, k, v, num_heads, name)
-    bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
-    out = torch.empty_like(q)
+    d = hd // num_heads
     p = _cuda.ptr
-    _cuda.launch(
-        "ovq_streamed_attention_forward" if streamed else "ovq_packed_attention_forward",
-        p(q), p(k), p(v), p(bias3), *_bias_strides(bias3), p(out), b, sq, sk, hd, num_heads,
-        scale,
-    )
+    out = torch.empty_like(q)
+    if streamed:
+        bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+        _cuda.launch("ovq_streamed_attention_forward", p(q), p(k), p(v), p(bias3),
+                     *_bias_strides(bias3), p(out), b, sq, sk, hd, num_heads, scale)
+        _cuda.count(name)
+        return out
+    block = block or attention_block("packed", sq, sk, d, d)
+    bias3, bias_bs, bias_qs = _packed_bias(bias, b, sq, sk, q.device)
+    if block == "single":
+        # packed (b, S, h * d) rows as flat operands: head stride d, row stride h * d
+        _cuda.launch(
+            "ovq_single_query_attention_forward",
+            p(q), sq * hd, d, hd, p(k), sk * hd, d, hd, p(v), sk * hd, d, hd,
+            p(bias3), bias_bs, 0, bias_qs, 1, p(out), sq * hd, d, hd,
+            b, num_heads, sq, sk, d, d, scale,
+        )
+    elif block in ("resident", "ring"):
+        _cuda.launch("ovq_packed_attention_forward", p(q), p(k), p(v), p(bias3), bias_bs,
+                     bias_qs, p(out), b, sq, sk, hd, num_heads, scale, int(block == "resident"))
+    else:
+        raise ValueError(f"fused_attention_packed: no block {block!r}")
     _cuda.count(name)
     return out
+
+
+def _needs_grad(tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class PackedAttention(torch.autograd.Function):
@@ -169,7 +238,10 @@ def fused_attention_packed(q, k, v, bias, scale: float, num_heads: int):
     """q (b, Sq, h*d), k/v (b, Sk, h*d) float32; bias (bb, 1, bq, Sk) or None.
     Returns (b, Sq, h*d) float32, the layout the out projection consumes."""
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
-    return PackedAttention.apply(q, k, v, bias, scale, num_heads, _cuda.uses_kernel(*tensors))
+    use_kernel = _cuda.uses_kernel(*tensors)
+    if use_kernel and not _needs_grad(tensors):
+        return _packed_kernel(q, k, v, bias, scale, num_heads)  # no graph to record
+    return PackedAttention.apply(q, k, v, bias, scale, num_heads, use_kernel)
 
 
 # -- the streamed attention: the packed contract over long key streams -------------
@@ -242,8 +314,10 @@ def fused_attention_packed_streamed(q, k, v, bias, scale: float, num_heads: int)
     stream through the kernel in 64-key chunks under an online softmax, any
     key count.  Its backward is the packed attention's."""
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
-    return PackedAttention.apply(q, k, v, bias, scale, num_heads, _cuda.uses_kernel(*tensors),
-                                 True)
+    use_kernel = _cuda.uses_kernel(*tensors)
+    if use_kernel and not _needs_grad(tensors):
+        return _packed_kernel(q, k, v, bias, scale, num_heads, True)  # no graph to record
+    return PackedAttention.apply(q, k, v, bias, scale, num_heads, use_kernel, True)
 
 
 # -- dropout on the attention weights ----------------------------------------------
@@ -551,34 +625,42 @@ def _flat_strides(x, name: str):
     """(batch, head, row) element strides of a float32 operand the flat
     kernel reads or writes: unit stride on the last axis, the others
     multiples of 4 and a 16-byte aligned start (16-byte loads and stores)."""
-    strides = [0 if n == 1 else s for n, s in zip(x.shape, x.stride())]
     if x.dtype != torch.float32:
         raise ValueError(f"fused_attention: {name} must be float32, got {x.dtype}")
-    if strides[3] not in (0, 1) or any(s % 4 for s in strides[:3]) or x.data_ptr() % 16:
+    s = x.stride()
+    if s[3] == 1 and not (s[0] | s[1] | s[2]) % 4 and not x.data_ptr() % 16:
+        return s[:3]
+    # a size-1 axis may carry any stride: the kernel never steps along it
+    s = [0 if n == 1 else st for n, st in zip(x.shape, s)]
+    if s[3] not in (0, 1) or any(st % 4 for st in s[:3]) or x.data_ptr() % 16:
         raise ValueError(f"fused_attention: {name} with strides {tuple(x.stride())} needs a unit "
                          "stride on its last axis, the other strides multiples of 4 and a "
                          "16-byte aligned start")
-    return strides[:3]
+    return s[:3]
 
 
-def _flat_kernel(q, k, v, bias, scale: float):
-    """The flat kernel on operands that passed ``_check_flat``."""
+def _flat_kernel(q, k, v, bias, scale: float, block: Optional[str] = None):
+    """The flat kernel (block A or the tile block, as `attention_block` or
+    `block` says) on operands that passed ``_check_flat``."""
     b, h, sq, dk = q.shape
     sk, dv = v.shape[2], v.shape[3]
     if dk % 4 or dv % 4 or not (0 < dk <= 128 and 0 < dv <= 128):
         raise ValueError(f"fused_attention: head dims d_k {dk}, d_v {dv}: the kernel takes "
                          "multiples of 4 up to 128")
-    if bias is None:
-        bias = torch.zeros((1, 1, 1, 1), dtype=torch.float32, device=q.device)
-    elif bias.dtype != torch.float32 or (bias.shape[3] > 1 and bias.stride(3) != 1):
+    block = block or attention_block("flat", sq, sk, dk, dv)
+    if block not in ("single", "tile"):
+        raise ValueError(f"fused_attention: no block {block!r}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or (bias.shape[3] > 1 and bias.stride(3) != 1)):
         bias = bias.float().contiguous()
-    bias_strides = [0 if n == 1 else s for n, s in zip(bias.shape, bias.stride())]
+    # broadcast axes read through a stride of 0
+    bias_strides = (0, 0, 0, 0) if bias is None else bias.expand(b, h, sq, sk).stride()
     out = torch.empty((b, sq, h, dv), dtype=torch.float32, device=q.device).transpose(1, 2)
     p = _cuda.ptr
     _cuda.launch(
-        "ovq_flat_attention_forward",
+        "ovq_single_query_attention_forward" if block == "single" else "ovq_flat_attention_forward",
         p(q), *_flat_strides(q, "q"), p(k), *_flat_strides(k, "k"), p(v), *_flat_strides(v, "v"),
-        p(bias), *bias_strides, p(out), *_flat_strides(out, "out"),
+        p(bias), *bias_strides, p(out), sq * h * dv, dv, h * dv,
         b, h, sq, sk, dk, dv, scale,
     )
     _cuda.count("fused_attention")
@@ -613,4 +695,7 @@ def fused_attention(q, k, v, bias, scale: float):
     view.  d_k may differ from d_v (the TPU kernel takes v at q's width only)."""
     _check_flat(q, k, v, bias)
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
-    return FlatAttention.apply(q, k, v, bias, scale, _cuda.uses_kernel(*tensors))
+    use_kernel = _cuda.uses_kernel(*tensors)
+    if use_kernel and not _needs_grad(tensors):
+        return _flat_kernel(q, k, v, bias, scale)  # no graph to record
+    return FlatAttention.apply(q, k, v, bias, scale, use_kernel)

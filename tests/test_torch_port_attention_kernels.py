@@ -9,10 +9,13 @@ sides, d_k != d_v too), and its backward against ``jax.vjp`` of the JAX
 function (the analytic XLA backward, bias gradient included).  The streamed
 attention's plain version is held against the streamed Pallas kernel in
 interpret mode, and the port's copies of the dispatch rules against the JAX
-functions.  Float32 comparisons: atol 1e-5 / rtol 1e-4 (the frameworks sum in
-other orders).
+functions.  The choice of device block (``attention_block``) is checked at
+every cut-over, and the wrappers' calls of each block's C entry are run
+through an emulation of that entry's addressing on CPU memory.  Float32
+comparisons: atol 1e-5 / rtol 1e-4 (the frameworks sum in other orders).
 """
 
+import ctypes
 import itertools
 
 import jax
@@ -287,3 +290,157 @@ def test_scaled_dot_product_attention_routes_as_the_jax_package(monkeypatch, cas
     want_out = flax_module.apply({"params": params}, jnp.asarray(x), jnp.asarray(x),
                                  jnp.asarray(x), jnp.asarray(bias))
     _close(got, want_out, atol=1e-4)
+
+
+# -- the choice of device block ---------------------------------------------------------------
+_ALLOWED_BLOCKS = {"flat": {"single", "tile"}, "packed": {"single", "resident", "ring"},
+                   "streamed": {"streamed"}}
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+@pytest.mark.parametrize("entry", ["flat", "packed", "streamed"])
+def test_attention_block_choice_at_every_cut_over(entry):
+    """Every shape an entry accepts maps to exactly one of its blocks, every
+    one of them is reached, and each cut-over falls where its rule says: the
+    single-query block up to the entry's SINGLE_QUERY_MAX_ROWS rows and
+    SINGLE_QUERY_MAX_KEYS keys, the packed block resident while four bytes per
+    key row of width d + 8 (bf16 K and V) fit RESIDENT_KV_BYTES."""
+    rows = fused_attention.SINGLE_QUERY_MAX_ROWS.get(entry, 1)
+    keys = fused_attention.SINGLE_QUERY_MAX_KEYS
+    budget = fused_attention.RESIDENT_KV_BYTES
+
+    def pick(sq, sk, dk, dv=None):
+        return fused_attention.attention_block(entry, sq, sk, dk, dk if dv is None else dv)
+
+    dims = [(d, d) for d in (16, 64, 96, 128)]
+    if entry == "flat":
+        dims += [(4, 4), (64, 32), (32, 128)]
+    seen = set()
+    for sq, sk, (dk, dv) in itertools.product(
+            (1, 2, rows, rows + 1, 16, 64, 215, 1536),
+            (1, 8, 63, 64, 65, 215, 272, 273, 324, 400, 401, 1535, 1601, keys, keys + 1), dims):
+        block = pick(sq, sk, dk, dv)
+        assert block in _ALLOWED_BLOCKS[entry], (sq, sk, dk, dv, block)
+        seen.add(block)
+    assert seen == _ALLOWED_BLOCKS[entry]
+    if entry == "streamed":
+        return
+    assert pick(1, 324, 64) == "single" and pick(rows, 324, 64) == "single"
+    assert pick(rows + 1, 324, 64) != "single" and pick(1, keys + 1, 64) != "single"
+    assert pick(1, keys, 64) == "single"
+    if entry == "flat":
+        assert pick(rows + 1, 324, 64) == "tile" and pick(1, keys + 1, 64, 32) == "tile"
+        return
+    for d, last in ((64, 400), (96, 272), (128, 208)):
+        assert 4 * _round16(last) * (d + 8) <= budget < 4 * _round16(last + 1) * (d + 8)
+        assert pick(rows + 1, last, d) == "resident" and pick(rows + 1, last + 1, d) == "ring"
+    assert pick(215, 215, 96) == "resident" and pick(64, 1535, 64) == "ring"
+    with pytest.raises(ValueError, match="unknown entry"):
+        fused_attention.attention_block("two-bias", 1, 8, 64, 64)
+
+
+def _strided(ptr, shape, strides):
+    """A writable numpy float32 view of CPU memory at `ptr` with element
+    strides (0 broadcasts), as a kernel addresses it."""
+    n = 1 + sum((size - 1) * stride for size, stride in zip(shape, strides))
+    flat = np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+    return np.lib.stride_tricks.as_strided(flat, shape, [4 * stride for stride in strides])
+
+
+def _emulated_attention(q, k, v, bias, scale):
+    """The kernels' arithmetic on (b, h, S, d) numpy operands: bf16 operands,
+    float32 softmax, bf16 weights."""
+    rt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16).float()  # noqa: E731
+    logits = torch.einsum("bhqd,bhkd->bhqk", rt(q), rt(k)) * scale
+    if bias is not None:
+        logits = logits + torch.from_numpy(np.ascontiguousarray(bias))
+    weights = torch.softmax(logits, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bhkd->bhqd", weights, rt(v)).numpy()
+
+
+def _emulate_launch(entry, *args):
+    """Run a block's C entry on CPU memory, reading every operand through the
+    pointers and strides the wrapper passes."""
+    if entry in ("ovq_single_query_attention_forward", "ovq_flat_attention_forward"):
+        (q, q_bs, q_hs, q_rs, k, k_bs, k_hs, k_rs, v, v_bs, v_hs, v_rs, bias, bias_bs, bias_hs,
+         bias_qs, bias_ks, out, out_bs, out_hs, out_rs, b, h, sq, sk, dk, dv, scale) = args
+        qv = _strided(q, (b, h, sq, dk), (q_bs, q_hs, q_rs, 1))
+        kv = _strided(k, (b, h, sk, dk), (k_bs, k_hs, k_rs, 1))
+        vv = _strided(v, (b, h, sk, dv), (v_bs, v_hs, v_rs, 1))
+        bv = None if bias is None else _strided(bias, (b, h, sq, sk),
+                                                (bias_bs, bias_hs, bias_qs, bias_ks))
+        _strided(out, (b, h, sq, dv), (out_bs, out_hs, out_rs, 1))[...] = \
+            _emulated_attention(qv, kv, vv, bv, scale)
+        return
+    assert entry == "ovq_packed_attention_forward"
+    q, k, v, bias, bias_bs, bias_qs, out, b, sq, sk, hd, heads, scale, resident = args
+    assert resident in (0, 1)
+    d = hd // heads
+
+    def heads_of(ptr, s):
+        return _strided(ptr, (b, heads, s, d), (s * hd, d, hd, 1))
+
+    bv = None if bias is None else _strided(bias, (b, heads, sq, sk), (bias_bs, 0, bias_qs, 1))
+    heads_of(out, sq)[...] = _emulated_attention(heads_of(q, sq), heads_of(k, sk),
+                                                 heads_of(v, sk), bv, scale)
+
+
+@pytest.mark.parametrize("entry,sq,sk,dk,dv,bias_shape,block", [
+    ("flat", 1, 65, 64, 64, (3, 1, 1, 65), "single"),
+    ("flat", 1, 9, 64, 32, None, "single"),
+    ("flat", fused_attention.SINGLE_QUERY_MAX_ROWS["flat"], 30, 32, 32, (1, 4, 1, 30), "single"),
+    ("flat", fused_attention.SINGLE_QUERY_MAX_ROWS["flat"] + 1, 30, 32, 32, (3, 4, 5, 30), "tile"),
+    ("flat", 7, 20, 16, 16, None, "tile"),
+    # head-shared (1, h, Sq, Sk) and per-sample, per-head key biases on both blocks
+    ("flat", 2, 30, 32, 16, (1, 4, 2, 30), "single"),
+    ("flat", 1, 30, 64, 32, (3, 4, 1, 30), "single"),
+    ("flat", 5, 33, 48, 16, (1, 4, 5, 33), "tile"),
+    ("flat", 70, 30, 64, 32, (3, 4, 1, 30), "tile"),
+    ("packed", 1, 63, 16, 16, (3, 1, 1, 63), "single"),
+    ("packed", fused_attention.SINGLE_QUERY_MAX_ROWS["packed"], 40, 16, 16, None, "single"),
+    ("packed", fused_attention.SINGLE_QUERY_MAX_ROWS["packed"] + 1, 40, 16, 16, (3, 1, 1, 40),
+     "resident"),
+    ("packed", 5, 40, 16, 16, (3, 1, 5, 40), "resident"),
+    ("packed", 20, 401, 64, 64, (1, 1, 20, 401), "ring"),
+    ("packed", 20, 400, 64, 64, (1, 1, 1, 400), "resident"),
+])
+def test_wrappers_launch_the_chosen_block(monkeypatch, entry, sq, sk, dk, dv, bias_shape, block):
+    """Each wrapper launches the C entry of the block `attention_block` names,
+    with pointers and strides that address its operands: an emulation of the
+    entry on CPU memory (head-split views of packed projections for the flat
+    entry) gives the plain version's output, and the launch is counted."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    heads = 4
+    launched = []
+
+    def launch(name, *args):
+        launched.append(name if name != "ovq_packed_attention_forward" else (name, args[-1]))
+        _emulate_launch(name, *args)
+
+    monkeypatch.setattr(fused_attention._cuda, "launch", launch)
+    assert fused_attention.attention_block(entry, sq, sk, dk, dv) == block
+    bias = None if bias_shape is None else _t(_masked(rng, bias_shape))
+    counter = "fused_attention" if entry == "flat" else "fused_attention_packed"
+    before = fused_attention._cuda.launch_counts()[counter]
+    if entry == "flat":
+        def split(s, d):
+            x = _t(rng.normal(size=(3, s, heads * d)).astype(np.float32))
+            return x.view(3, s, heads, d).transpose(1, 2)
+
+        q, k, v = split(sq, dk), split(sk, dk), split(sk, dv)
+        got = fused_attention._flat_kernel(q, k, v, bias, 0.3)
+        want = fused_attention.fused_attention_plain(q, k, v, bias, 0.3, op_dtype=torch.bfloat16)
+    else:
+        q, k, v = (_t(rng.normal(size=(3, s, heads * dk)).astype(np.float32)) for s in (sq, sk, sk))
+        got = fused_attention._packed_kernel(q, k, v, bias, 0.3, heads)
+        want = fused_attention.fused_attention_packed_plain(q, k, v, bias, 0.3, heads,
+                                                            op_dtype=torch.bfloat16)
+    entries = {"single": "ovq_single_query_attention_forward", "tile": "ovq_flat_attention_forward",
+               "resident": ("ovq_packed_attention_forward", 1),
+               "ring": ("ovq_packed_attention_forward", 0)}
+    assert launched == [entries[block]]
+    assert fused_attention._cuda.launch_counts()[counter] == before + 1
+    _close(got, want.numpy(), atol=1e-5)

@@ -14,6 +14,8 @@ The dropout attention's kernels and plain versions draw the same Philox mask
 from the same seed, so they are compared at rates above 0 too.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -85,19 +87,71 @@ def test_encoder_attention_kernel_matches_plain(dev, seq):
     assert _err(got, encoder_layer.fused_encoder_self_attention_plain(*args)) <= TOL
 
 
-@pytest.mark.parametrize("sk,bias_shape", [
-    (45, None), (45, (1, 1, 40, 45)), (45, (3, 1, 40, 45)), (45, (3, 1, 1, 45)),
-    (300, (3, 1, 40, 300)),  # several 64-key chunks
-])
-def test_packed_attention_kernel_matches_plain(dev, sk, bias_shape):
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = _randn(gen, 3, 40, HD), _randn(gen, 3, sk, HD), _randn(gen, 3, sk, HD)
-    bias = None
-    if bias_shape is not None:
-        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
-    args = (q, k, v, bias, 0.125, HEADS)
+# the packed entry's cases: the old shapes (40 rows, head dim 128), then every block
+# at each side of its cut-over: the single-query block up to SINGLE_QUERY_MAX_ROWS
+# rows, block B resident in shared memory up to the key cut-over (400 keys at d 64,
+# 272 at d 96) and streaming past it, 1535 keys at hd 512 over 8 heads; each with a
+# bias form (sample 0 of a per-sample bias has every key masked)
+_CUT = fused_attention.SINGLE_QUERY_MAX_ROWS["packed"]
+_PACKED_BIASES = ("none", "shared keys", "shared full", "per-sample keys", "per-sample full")
+_PACKED_CASES = [
+    (40, 45, 128, "none"), (40, 45, 128, "shared full"), (40, 45, 128, "per-sample full"),
+    (40, 45, 128, "per-sample keys"), (40, 300, 128, "per-sample full"),
+] + [
+    (sq, sk, d, _PACKED_BIASES[n % len(_PACKED_BIASES)])
+    for n, (sq, sk, d) in enumerate(itertools.product(
+        (1, _CUT, _CUT + 1), (1, 8, 63, 64, 65, 215, 324, 1601), (64, 96)))
+] + [
+    (_CUT + 1, 400, 64, "per-sample full"), (_CUT + 1, 401, 64, "per-sample keys"),
+    (37, 272, 96, "shared full"), (37, 273, 96, "per-sample full"),
+    (64, 1535, 64, "per-sample keys"), (1, 1535, 64, "per-sample keys"),
+]
+
+
+def _bias_of_form(gen, form, bs, sq, sk, heads=1):
+    """A bias of the named form; a per-sample one masks every key of sample 0."""
+    shapes = {"none": None, "constant": (1, 1, 1, 1), "shared keys": (1, 1, 1, sk),
+              "shared full": (1, 1, sq, sk), "per-sample keys": (bs, 1, 1, sk),
+              "per-sample full": (bs, 1, sq, sk), "per-head": (bs, heads, sq, sk),
+              "per-head keys": (bs, heads, 1, sk), "head keys": (1, heads, 1, sk),
+              "head full": (1, heads, sq, sk)}
+    shape = shapes[form]
+    if shape is None:
+        return None
+    bias = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.2, MASK, 0.0)
+    if form.startswith("per-sample"):
+        bias[0] = MASK
+    return bias
+
+
+@pytest.mark.parametrize("sq,sk,d,bias_form", _PACKED_CASES)
+def test_packed_attention_kernel_matches_plain(dev, sq, sk, d, bias_form):
+    """The packed entry's blocks against the plain version: 1535 keys at hd 512
+    over 8 heads, else 2 heads of d; finite, one launch counted."""
+    gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    heads = 8 if sk == 1535 else 2
+    hd = heads * d
+    q, k, v = _randn(gen, 3, sq, hd), _randn(gen, 3, sk, hd), _randn(gen, 3, sk, hd)
+    bias = _bias_of_form(gen, bias_form, 3, sq, sk)
+    args = (q, k, v, bias, d ** -0.5, heads)
+    before = _cuda.launch_counts()["fused_attention_packed"]
     got = fused_attention.fused_attention_packed(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["fused_attention_packed"] == before + 1
+    assert bool(torch.isfinite(got).all())
     assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("block", ["single", "resident", "ring"])
+def test_packed_attention_blocks_agree_at_one_shape(dev, block):
+    """Every packed block, forced, at one shape each can take (4 rows, 215
+    keys, d 96): the choice changes the time, not the result."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = _randn(gen, 3, 4, 192), _randn(gen, 3, 215, 192), _randn(gen, 3, 215, 192)
+    bias = _bias_of_form(gen, "per-sample full", 3, 4, 215)
+    got = fused_attention._packed_kernel(q, k, v, bias, 0.1, 2, block=block)
+    want = fused_attention.fused_attention_packed_plain(q, k, v, bias, 0.1, 2)
+    assert _err(got, want) <= ATTN_TOL
 
 
 @pytest.mark.parametrize("sq,sk,bias_shape,rate", [
@@ -162,14 +216,28 @@ def test_dropout_attention_kernels_at_decoder_shapes(dev, case):
         assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
 
 
-def test_dropout_attention_at_rate0_is_the_packed_kernel(dev):
+def _rate0_case(dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v = (_randn(gen, 3, 40, HD) for _ in range(3))
     bias = torch.where(torch.rand(3, 1, 40, 40, generator=gen, device=dev) < 0.2, MASK, 0.0)
     seed = torch.zeros(1, dtype=torch.int64, device=dev)
     got = fused_attention.fused_attention_packed_dropout(q, k, v, bias, seed, 0.125, HEADS, 0.0)
-    want = fused_attention.fused_attention_packed(q, k, v, bias, 0.125, HEADS)
-    assert torch.equal(got, want)
+    return got, (q, k, v, bias, 0.125, HEADS)
+
+
+def test_dropout_attention_at_rate0_is_the_packed_kernel(dev):
+    """At rate 0 the dropout forward agrees with the packed entry.  The packed
+    entry runs its own block B, which sums in another order than the dropout
+    forward's common.cu block, so they agree within ATTN_TOL, not bit for bit."""
+    got, args = _rate0_case(dev)
+    assert _err(got, fused_attention.fused_attention_packed(*args)) <= ATTN_TOL
+
+
+def test_dropout_attention_at_rate0_is_common_block(dev):
+    """At rate 0 the dropout forward is common.cu's attention block without a
+    mask, bit for bit: the block the streamed entry runs at any shape."""
+    got, args = _rate0_case(dev)
+    assert torch.equal(got, fused_attention.fused_attention_packed_streamed(*args))
 
 
 def test_bert_self_step_kernel_matches_plain(dev):
@@ -461,19 +529,35 @@ def test_two_bias_wrapper_refuses_what_the_kernel_does_not_take(dev):
 FLAT_B, FLAT_H = 3, 4
 
 
-@pytest.mark.parametrize("sq,sk,dk,dv,bias_shape", [
-    (1, 324, 64, 64, (FLAT_B, 1, 1, 324)),  # a decode step over the joint stream
-    (1, 6, 64, 64, (FLAT_B, 1, 1, 6)),  # a decode step over a ring of 6 slots
-    (40, 45, 64, 64, None),
-    (40, 45, 64, 64, (1, 1, 1, 1)),  # constant
-    (40, 45, 32, 32, (1, 1, 40, 45)),
-    (40, 45, 64, 64, (FLAT_B, 1, 40, 45)),  # per sample
-    (70, 130, 64, 64, (FLAT_B, FLAT_H, 70, 130)),  # per head, ragged key chunk
-    (70, 130, 64, 32, (FLAT_B, FLAT_H, 1, 130)),  # d_k != d_v
-    (17, 100, 16, 128, (FLAT_B, 1, 17, 100)),
-    (5, 333, 128, 48, (1, FLAT_H, 5, 333)),
-])
-def test_flat_attention_kernel_matches_plain(dev, sq, sk, dk, dv, bias_shape):
+_FLAT_CUT = fused_attention.SINGLE_QUERY_MAX_ROWS["flat"]
+_FLAT_BIASES = ("per-sample keys", "none", "constant", "per-head", "per-sample full",
+                 "head keys", "shared full", "per-head keys", "head full")
+_FLAT_CASES = [
+    (1, 324, 64, 64, "per-sample keys"),  # a decode step over the joint stream
+    (1, 6, 64, 64, "per-sample keys"),  # a decode step over a ring of 6 slots
+    (40, 45, 64, 64, "none"),
+    (40, 45, 64, 64, "constant"),
+    (40, 45, 32, 32, "shared full"),
+    (40, 45, 64, 64, "per-sample full"),
+    (70, 130, 64, 64, "per-head"),  # ragged key chunk
+    (70, 130, 64, 32, "per-head keys"),  # d_k != d_v
+    (17, 100, 16, 128, "per-sample full"),
+    (5, 333, 128, 48, "head full"),
+    # each side of the single-query block's key limit
+    (1, fused_attention.SINGLE_QUERY_MAX_KEYS, 64, 64, "per-sample keys"),
+    (1, fused_attention.SINGLE_QUERY_MAX_KEYS + 1, 64, 64, "per-sample keys"),
+] + [
+    # each side of the single-query cut-over, every key count and head dims, the
+    # bias forms in turn
+    (sq, sk, dk, dv, _FLAT_BIASES[n % len(_FLAT_BIASES)])
+    for n, (sq, sk, (dk, dv)) in enumerate(itertools.product(
+        (1, _FLAT_CUT, _FLAT_CUT + 1), (1, 8, 63, 64, 65, 215, 324, 1601),
+        ((64, 64), (96, 96), (64, 32))))
+]
+
+
+@pytest.mark.parametrize("sq,sk,dk,dv,bias_form", _FLAT_CASES)
+def test_flat_attention_kernel_matches_plain(dev, sq, sk, dk, dv, bias_form):
     """Split-head views of packed projections (read through their strides)
     against the plain version on the same tensors; sample 0 of a per-sample
     bias has every key masked and must average its values, finite."""
@@ -483,17 +567,24 @@ def test_flat_attention_kernel_matches_plain(dev, sq, sk, dk, dv, bias_shape):
         return _randn(gen, FLAT_B, s, FLAT_H * d).view(FLAT_B, s, FLAT_H, d).transpose(1, 2)
 
     q, k, v = heads(sq, dk), heads(sk, dk), heads(sk, dv)
-    bias = None
-    if bias_shape is not None:
-        bias = torch.where(torch.rand(bias_shape, generator=gen, device=dev) < 0.2, MASK, 0.0)
-        if bias_shape[0] == FLAT_B and bias_shape[1] == 1:
-            bias[0] = MASK
+    bias = _bias_of_form(gen, bias_form, FLAT_B, sq, sk, FLAT_H)
     scale = dk ** -0.5
     before = _cuda.launch_counts()["fused_attention"]
     got = fused_attention.fused_attention(q, k, v, bias, scale)
+    torch.cuda.synchronize()
     assert _cuda.launch_counts()["fused_attention"] == before + 1
     assert tuple(got.shape) == (FLAT_B, FLAT_H, sq, dv) and bool(torch.isfinite(got).all())
     assert _err(got, fused_attention.fused_attention_plain(q, k, v, bias, scale)) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("block", ["single", "tile"])
+def test_flat_attention_blocks_agree_at_one_shape(dev, block):
+    """Both flat blocks, forced, at the cross step's geometry with 2 rows."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (_randn(gen, 6, 8, s, 64) for s in (2, 324, 324))
+    bias = _bias_of_form(gen, "per-sample keys", 6, 2, 324)
+    got = fused_attention._flat_kernel(q, k, v, bias, 0.125, block=block)
+    assert _err(got, fused_attention.fused_attention_plain(q, k, v, bias, 0.125)) <= ATTN_TOL
 
 
 def test_flat_attention_contiguous_operands_and_gradients(dev):
