@@ -9,7 +9,11 @@ Phases, each fatal on failure:
   3. each kernel of the MMF_M4C eval and training paths against its plain
      PyTorch version on the same inputs at the paths' shapes (batch 64, hidden
      768, FFN 3072; the dropout attention at rate 0.1 under one seed, so both
-     draw the same Philox mask), and each decode-step kernel of the
+     draw the same Philox mask, the forward's keep bits bit for bit against
+     ``dropout_mask_bits``, also at MMF_IterativeM4C's encoder and decoder
+     cross-attention training shapes, with the backward's two kernels timed
+     apart and SDPA's backward alone beside SDPA's forward + backward), and
+     each decode-step kernel of the
      IterativeMCAN beam path (kernels A, B and the decoder-layer step at 63
      rows, hidden 512, FFN 2048, over T + 1 steps with the ring reordered
      between steps as beam search does; the layer step also bit for bit
@@ -109,6 +113,8 @@ Phases, each fatal on failure:
      stream with a padding bias (3 streamed launches per forward, in eval and
      in training with a backward; within 2^-5 of the plain route relative to
      its largest output).
+Phase 2 prints the registers and spill bytes of every instance of block B and
+of the dropout backward kernels from nvcc's ptxas report.
 Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8 and 9: each eval route, start() and
 get_predictions(); 9: each long-stream forward) and read just after it.  The
@@ -125,6 +131,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -175,7 +182,7 @@ SOURCES = {
     "fused_attention_packed": ("fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:215"),
     "fused_bert_self_step": ("bert_self_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
     "fused_attention_packed_dropout": (
-        "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1012"),
+        "fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:1012"),
     "fused_attention_packed_dropout_backward": (
         "fused_attention_dropout.cu", "openvivqa_tpu/ops/fused_attention.py:1057"),
     "fused_self_attention_step": (
@@ -203,6 +210,29 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+# the kernels whose registers and spills phase 2 prints from nvcc's ptxas report
+PTXAS_KERNELS = ("packed_block_kernel", "dropout_dq_kernel", "dropout_dkdv_kernel")
+
+
+def ptxas_report(report: Path) -> None:
+    """Registers and spill bytes (stores / loads) of every template instance of
+    PTXAS_KERNELS, from the -Xptxas -v output kept beside the library."""
+    entry = re.compile(r"Compiling entry function '(\S+)' for \S+\n"
+                       r"ptxas info\s*: Function properties for \S+\n"
+                       r"\s*\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
+                       r"ptxas info\s*: Used (\d+) registers")
+    found = {}
+    for name, stores, loads, registers in entry.findall(report.read_text()):
+        for kernel in PTXAS_KERNELS:
+            match = re.search(kernel + r"I((?:L[ib]\d+E)+)", name)
+            if match:
+                args = ",".join(re.findall(r"L[ib](\d+)E", match.group(1)))
+                found.setdefault(kernel, []).append(f"<{args}> {registers}/{stores}/{loads}")
+    for kernel in PTXAS_KERNELS:
+        log(f"  ptxas {kernel} <DF,RES[,DROP]> registers/spill stores/spill loads: "
+            + "; ".join(sorted(found.get(kernel, ["not in the report"]))))
+
+
 def median_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -220,11 +250,11 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20):
-    """(ms, timer): the device time of one call of `fn`.  torch.profiler over
-    `reps` calls, the sum of the device activity (kernels, memsets) divided by
-    `reps` ("profiler"); where the profiler shows no device time, CUDA events
-    around 100 back-to-back calls ("events x100")."""
+def device_us_by_kernel(fn, reps: int = 20) -> dict:
+    """torch.profiler over `reps` calls of `fn` (after one warm-up call): the
+    device activity (kernels, memsets) of one call by kernel name, in
+    microseconds, summed and divided by `reps`.  A kernel's name is the first
+    identifier followed by its template or argument list."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -234,10 +264,25 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            match = re.search(r"(\w+)\s*[<(]", event.name.replace("(anonymous namespace)", ""))
+            name = match.group(1) if match else event.name
+            by_name[name] = by_name.get(name, 0.0) + event.time_range.elapsed_us() / reps
+    return by_name
+
+
+def device_ms(fn, reps: int = 20):
+    """(ms, timer): the device time of one call of `fn`.  torch.profiler over
+    `reps` calls, the sum of the device activity (kernels, memsets) divided by
+    `reps` ("profiler"); where the profiler shows no device time, CUDA events
+    around 100 back-to-back calls ("events x100")."""
+    import torch
+
+    total_us = sum(device_us_by_kernel(fn, reps).values())
     if total_us > 0:
-        return total_us / reps / 1e3, "profiler"
+        return total_us / 1e3, "profiler"
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(100):
@@ -474,27 +519,37 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                lambda: encoder_layer.fused_encoder_self_attention_plain(*args),
                2.0 * rows * hd * 4 * hd + 4.0 * BATCH * s * s * hd, tensor_bytes(args[:3], out))
 
-    def sdpa_args(q, k, v, bias, grad=False):
+    def sdpa_args(q, k, v, bias, grad=False, n_heads=heads):
         """Head-split views of the packed projections, for the library call."""
         def split(x):
             x = x.detach().requires_grad_(grad)
-            return x, x.view(x.shape[0], x.shape[1], heads, hd // heads).transpose(1, 2)
+            return x, x.view(x.shape[0], x.shape[1], n_heads, -1).transpose(1, 2)
 
         (q0, qh), (k0, kh), (v0, vh) = split(q), split(k), split(v)
         return (q0, k0, v0), (qh, kh, vh), bias
 
-    def sdpa_call(q, k, v, bias, dropout_p=0.0, backward=False):
+    def sdpa_call(q, k, v, bias, dropout_p=0.0, backward=False, n_heads=heads, sc=scale):
         """One library call on the head-split views, as a callable to time."""
-        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward)
-        g = torch.ones((q.shape[0], heads, q.shape[1], hd // heads), device=dev)
+        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward, n_heads=n_heads)
+        g = torch.ones_like(qh)
 
         def call():
             out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
-                                                 scale=scale)
+                                                 scale=sc)
             if backward:
                 out.backward(g)
 
         return call
+
+    def sdpa_backward_call(q, k, v, bias, dropout_p, n_heads=heads, sc=scale):
+        """SDPA's backward alone: the graph is built once, outside the timed
+        callable, and each call runs its backward again (the gradients of the
+        head-split views, returned, not accumulated into leaves)."""
+        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=True, n_heads=n_heads)
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
+                                             scale=sc)
+        g = torch.ones_like(out)
+        return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
 
     # packed: the MMT joint encode under its per-sample prefix-LM bias, then a
     # batch-shared bias
@@ -533,44 +588,72 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                 fused_attention.attention_block("packed", sq, joint, hd // heads, hd // heads),
                 failures)
 
-    # the dropout attention, forward and backward, at the MMT training shape
-    # (joint sequence, per-sample bias) and the TextBert one (key-only bias)
+    # the dropout attention, forward and backward, at the training shapes: MMF_M4C's
+    # MMT (joint sequence, per-sample bias) and TextBert (key-only bias), 8 heads of
+    # 96; MMF_IterativeM4C's joint encoder and its decoder's cross-attention (5
+    # queries), 8 heads of 64 (key-only biases)
     seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int64, device=dev)
     question_bias = lengths_bias(BATCH, q_len, zero_first=False)[:, None, None, :].contiguous()
     qs, ks, vs = randn(BATCH, q_len, hd), randn(BATCH, q_len, hd), randn(BATCH, q_len, hd)
-    for what, (q_, k_, v_, bias) in (
-            (f"MMT train {BATCH}x{joint} per-sample bias, rate {DROPOUT_RATE}", (q, k, v, full)),
-            (f"TextBert train {BATCH}x{q_len} key-only bias, rate {DROPOUT_RATE}",
-             (qs, ks, vs, question_bias))):
+    it_hd, it_heads = iterative.model.hidden_size, iterative.model.num_heads
+    it_keys = lengths_bias(BATCH, c_len, zero_first=False)[:, None, None, :].contiguous()
+    it_q, it_k, it_v = (randn(BATCH, c_len, it_hd) for _ in range(3))
+    it_dec = randn(BATCH, t_len, it_hd)
+    dropout_cases = (
+        (f"MMT train {BATCH}x{joint} per-sample bias", (q, k, v, full), heads),
+        (f"TextBert train {BATCH}x{q_len} key-only bias", (qs, ks, vs, question_bias), heads),
+        (f"Iterative M4C encoder train {BATCH}x{c_len}, {it_heads} heads of "
+         f"{it_hd // it_heads}, key-only bias", (it_q, it_k, it_v, it_keys), it_heads),
+        (f"Iterative M4C decoder cross-attention train {BATCH}x{t_len}x{c_len}, {it_heads} "
+         f"heads of {it_hd // it_heads}, key-only bias", (it_dec, it_k, it_v, it_keys),
+         it_heads),
+    )
+    for what, (q_, k_, v_, bias), n_heads in dropout_cases:
+        what = f"{what}, rate {DROPOUT_RATE}"
+        width = q_.shape[2]
+        sc = 1.0 / float(width // n_heads) ** 0.5
         g = randn(*q_.shape)
-        fwd_args = (q_, k_, v_, bias, seed_t, scale, heads, DROPOUT_RATE)
-        out, stats = fused_attention._dropout_forward_kernel(*fwd_args)
+        fwd_args = (q_, k_, v_, bias, seed_t, sc, n_heads, DROPOUT_RATE)
+        out, stats, bits = fused_attention._dropout_forward_kernel(*fwd_args)
         err = max_err(out, fused_attention.fused_attention_packed_dropout_plain(*fwd_args))
         s_q, s_k = q_.shape[1], k_.shape[1]
+        # the mask the backward reads is the plain version's, bit for bit
+        want_bits = fused_attention.dropout_mask_bits(seed_t, BATCH, n_heads, s_q, s_k, DROPOUT_RATE)
+        if not torch.equal(bits, want_bits):
+            failures.append(f"dropout forward [{what}]: keep bits differ from dropout_mask_bits")
         record("fused_attention_packed_dropout", what, err, ATTN_TOL,
                lambda: fused_attention._dropout_forward_kernel(*fwd_args),
                lambda: fused_attention.fused_attention_packed_dropout_plain(*fwd_args),
-               4.0 * BATCH * s_q * s_k * hd, tensor_bytes(q_, k_, v_, bias, seed_t, out, stats),
-               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE))
+               # the function's own traffic: the stats and keep bits the forward
+               # hands the backward are this design's, not the function's
+               4.0 * BATCH * s_q * s_k * width, tensor_bytes(q_, k_, v_, bias, seed_t, out),
+               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, n_heads=n_heads, sc=sc))
         grads = fused_attention._dropout_backward_kernel(
-            q_, k_, v_, bias, seed_t, stats, g, scale, heads, DROPOUT_RATE)
+            q_, k_, v_, bias, stats, bits, g, sc, n_heads, DROPOUT_RATE)
         plain = fused_attention.fused_attention_packed_dropout_backward_plain(
-            q_, k_, v_, bias, seed_t, g, scale, heads, DROPOUT_RATE)
+            q_, k_, v_, bias, seed_t, g, sc, n_heads, DROPOUT_RATE)
         errs = [max_err(a, b) for a, b in zip(grads, plain)]
         rel = max(e / float(b.abs().max()) for e, b in zip(errs, plain))
         log(f"  fused_attention_packed_dropout_backward [{what}]: max|kernel-plain| / max|plain| "
             f"over dq, dk, dv {rel:.3e} (tol {GRAD_RTOL:.0e})")
         if not rel <= GRAD_RTOL:
             failures.append(f"dropout backward [{what}]: relative err {rel} > {GRAD_RTOL}")
-        bwd_args = (q_, k_, v_, bias, seed_t, stats, g, scale, heads, DROPOUT_RATE)
-        plain_args = (q_, k_, v_, bias, seed_t, g, scale, heads, DROPOUT_RATE)
-        record("fused_attention_packed_dropout_backward", what + " (library: forward + backward)",
-               max(errs), math.inf,
-               lambda: fused_attention._dropout_backward_kernel(*bwd_args),
+        bwd_args = (q_, k_, v_, bias, stats, bits, g, sc, n_heads, DROPOUT_RATE)
+        plain_args = (q_, k_, v_, bias, seed_t, g, sc, n_heads, DROPOUT_RATE)
+        backward = lambda: fused_attention._dropout_backward_kernel(*bwd_args)  # noqa: E731
+        record("fused_attention_packed_dropout_backward", what + " (library: SDPA's backward alone)",
+               max(errs), math.inf, backward,
                lambda: fused_attention.fused_attention_packed_dropout_backward_plain(*plain_args),
-               10.0 * BATCH * s_q * s_k * hd,
-               tensor_bytes(q_, k_, v_, g, bias, seed_t, stats, grads),
-               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True))
+               10.0 * BATCH * s_q * s_k * width,
+               tensor_bytes(q_, k_, v_, g, bias, grads),
+               sdpa_backward_call(q_, k_, v_, bias, DROPOUT_RATE, n_heads=n_heads, sc=sc))
+        split = device_us_by_kernel(backward)
+        both = sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True, n_heads=n_heads,
+                         sc=sc)
+        log(f"    backward by kernel, device ms: "
+            + ", ".join(f"{name} {us / 1e3:.4f}" for name, us in split.items())
+            + f"; one SDPA forward + backward at this shape: call {median_ms(both):.4f} ms, "
+            f"device {device_ms(both)[0]:.4f} ms")
 
     # kernel D: every decode step of one sequence, kernel and plain on their own
     # slot caches; then the time of one step
@@ -1972,6 +2055,7 @@ def main() -> int:
     _cuda.lib()
     log(f"kernels: {library.relative_to(ROOT)} ready in {time.perf_counter() - start:.1f} s "
         f"(nvcc {_cuda.build_seconds:.1f} s; ptxas report in {library.name}.log)")
+    ptxas_report(library.with_name(f"{library.name}.log"))
 
     # 4's inputs first: phase 3 takes its shapes and weights from the task
     populate()

@@ -428,9 +428,7 @@ template cudaError_t launch_gemm_residual_ln<float>(const float*, int, const bf1
 // second recomputes S = Q K^T on the tensor cores, writes the normalised weights
 // rounded to bf16 over the scores in place and accumulates O = P V in fragments.
 // Normalising before rounding keeps the TPU kernel's (and the plain version's)
-// numerics; the price is computing Q K^T twice.  With DROP, the second pass
-// multiplies each weight by its Philox keep factor (0 or 1 / (1 - rate)) before
-// the rounding, and the rows' (max, denominator) go to drop.stats.  With HB, each
+// numerics; the price is computing Q K^T twice.  With HB, each
 // logit also takes its element of the per-head bias, read from global memory
 // like the head-shared one (strides of 0 where it is shared).
 // ---------------------------------------------------------------------------
@@ -442,13 +440,13 @@ static long long attention_smem_bytes(int sk, int d) {
          + kAttnWarps * 256 * 4LL;                                 // per-warp output staging
 }
 
-template <typename TI, typename TO, int DF, bool DROP, bool HB>
+template <typename TI, typename TO, int DF, bool HB>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_kernel(const TI* __restrict__ q, long long q_bs, int q_rs,
                      const TI* __restrict__ k, const TI* __restrict__ v, long long kv_bs,
                      int kv_rs, const float* __restrict__ bias, long long bias_bs, int bias_qs,
                      TO* __restrict__ out, long long out_bs, int out_rs, int sq, int sk,
-                     float scale, Dropout drop, HeadBias hb) {
+                     float scale, HeadBias hb) {
   constexpr int d = 16 * DF;
   constexpr int ldq = d + 8;
   constexpr int lds = kAttnKeyChunk + 4;  // f32 score row stride
@@ -485,7 +483,6 @@ __global__ void __launch_bounds__(kAttnThreads)
   const float* hrow =
       HB ? hb.p + b * hb.bs + h * hb.hs + (long long)(row_ok ? si : 0) * hb.qs : nullptr;
   float row_max = -INFINITY, row_sum = 0.0f;
-  const unsigned long long seed = DROP ? (unsigned long long)*drop.seed : 0ull;
 
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
@@ -542,15 +539,6 @@ __global__ void __launch_bounds__(kAttnThreads)
       }
 #pragma unroll
       for (int u = 0; u < 32; ++u) vals[u] = row_ok ? expf(vals[u] - row_max) / row_sum : 0.0f;
-      if (DROP) {
-#pragma unroll
-        for (int u = 0; u < 32; u += 4) {
-          float factors[4];
-          dropout_factors(drop, seed, (j0 + half * 32 + u) / 4, si, h, b, factors);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) vals[u + t] *= factors[t];
-        }
-      }
       __syncwarp();  // the row pair has read its scores before the weights overwrite them
       bf16* prow = reinterpret_cast<bf16*>(srow);
 #pragma unroll
@@ -572,11 +560,6 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
   }
   if (!active) return;
-  if (DROP && row_ok && half == 0) {
-    float* st = drop.stats + (((long long)b * gridDim.y + h) * sq + si) * 2;
-    st[0] = row_max;
-    st[1] = row_sum;
-  }
 
   const int r = lane / 2, c8 = (lane % 2) * 8;
   const int i = i0 + w0 + r;
@@ -590,20 +573,20 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <typename TI, typename TO, int DF, bool DROP, bool HB>
+template <typename TI, typename TO, int DF, bool HB>
 static cudaError_t launch_attention_df(const TI* q, long long q_bs, int q_rs, const TI* k,
                                        const TI* v, long long kv_bs, int kv_rs,
                                        const float* bias, long long bias_bs, int bias_qs, TO* out,
                                        long long out_bs, int out_rs, int batch, int heads,
                                        int sq, int sk, float scale, long long smem,
-                                       cudaStream_t stream, Dropout drop, HeadBias hb) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF, DROP, HB>,
+                                       cudaStream_t stream, HeadBias hb) {
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<TI, TO, DF, HB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kAttnQTile - 1) / kAttnQTile, heads, batch);
-  attention_kernel<TI, TO, DF, DROP, HB><<<grid, kAttnThreads, smem, stream>>>(
+  attention_kernel<TI, TO, DF, HB><<<grid, kAttnThreads, smem, stream>>>(
       q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs, sq, sk,
-      scale, drop, hb);
+      scale, hb);
   return cudaGetLastError();
 }
 
@@ -612,29 +595,23 @@ cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
                              int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
-                             Dropout drop, HeadBias head_bias) {
+                             HeadBias head_bias) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   const long long smem = attention_smem_bytes(sk, d);
   if (smem < 0 || q_rs % 4 || kv_rs % 4 || out_rs % 8 || q_bs % 4 || kv_bs % 4 || out_bs % 8)
     return cudaErrorInvalidValue;
-  // only the float instantiation carries the dropout and the head-bias variants,
-  // and no launch takes both
+  // only the float instantiation carries the head-bias variant
   constexpr bool kFloatIO = std::is_same<TI, float>::value && std::is_same<TO, float>::value;
-  if (drop.seed != nullptr && (!kFloatIO || drop.stats == nullptr)) return cudaErrorInvalidValue;
-  if (head_bias.p != nullptr && (!kFloatIO || drop.seed != nullptr)) return cudaErrorInvalidValue;
+  if (head_bias.p != nullptr && !kFloatIO) return cudaErrorInvalidValue;
 #define OVQ_ATTN_CASE(df)                                                                      \
   case df:                                                                                     \
-    if (kFloatIO && drop.seed != nullptr)                                                      \
-      return launch_attention_df<TI, TO, df, kFloatIO, false>(                                 \
-          q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs,      \
-          batch, heads, sq, sk, scale, smem, stream, drop, head_bias);                         \
     if (kFloatIO && head_bias.p != nullptr)                                                    \
-      return launch_attention_df<TI, TO, df, false, kFloatIO>(                                 \
+      return launch_attention_df<TI, TO, df, kFloatIO>(                                        \
           q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs,      \
-          batch, heads, sq, sk, scale, smem, stream, drop, head_bias);                         \
-    return launch_attention_df<TI, TO, df, false, false>(                                      \
+          batch, heads, sq, sk, scale, smem, stream, head_bias);                               \
+    return launch_attention_df<TI, TO, df, false>(                                             \
         q, q_bs, q_rs, k, v, kv_bs, kv_rs, bias, bias_bs, bias_qs, out, out_bs, out_rs, batch, \
-        heads, sq, sk, scale, smem, stream, drop, head_bias);
+        heads, sq, sk, scale, smem, stream, head_bias);
   switch (d / 16) {
     OVQ_ATTN_CASE(1)
     OVQ_ATTN_CASE(2)
@@ -653,12 +630,12 @@ template cudaError_t launch_attention<bf16, bf16>(const bf16*, long long, int, c
                                                   const bf16*, long long, int, const float*,
                                                   long long, int, bf16*, long long, int, int,
                                                   int, int, int, int, float, cudaStream_t,
-                                                  Dropout, HeadBias);
+                                                  HeadBias);
 template cudaError_t launch_attention<float, float>(const float*, long long, int, const float*,
                                                     const float*, long long, int, const float*,
                                                     long long, int, float*, long long, int, int,
                                                     int, int, int, int, float, cudaStream_t,
-                                                    Dropout, HeadBias);
+                                                    HeadBias);
 
 }  // namespace ovq
 

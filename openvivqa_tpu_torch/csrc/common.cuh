@@ -8,6 +8,9 @@
 //                              so the LayerNorm runs in the GEMM's epilogue;
 //   * launch_attention:        softmax(scale * Q K^T + bias [+ head_bias]) V per (sample,
 //                              head, q-tile) on packed (rows, heads * head_dim) layouts.
+// The mma.sync pieces below (ldmatrix operands, m16n8k16 products, bf16 packing)
+// build block B (fused_attention.cu) and the dropout backward pair
+// (fused_attention_dropout.cu).
 // Every launcher returns cudaGetLastError() after its launch.
 #pragma once
 
@@ -144,7 +147,9 @@ __device__ __forceinline__ void fold_keys(const TK* keys, const TK* values, Bias
 // curand's Philox4_32_10): four 32-bit words from a 128-bit counter and a
 // 64-bit key.  The attention dropout keys it with the per-call seed and counts
 // (key column / 4, query row, head, sample), taking word (key column % 4), so a
-// mask element depends on its absolute position only, never on the tiling.
+// mask element depends on its absolute position only, never on the tiling.  It
+// keeps an element iff (word >> 9) >= threshold, threshold = min(int(rate *
+// 2^23), 2^23 - 1) (the JAX package's _dropout_threshold).
 // fused_attention.py::philox4x32_10 is the same function in PyTorch.
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
 #pragma unroll
@@ -158,18 +163,136 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
   return c;
 }
 
-// In-kernel dropout on the attention weights: keep an element iff
-// (bits >> 9) >= threshold, threshold = min(int(rate * 2^23), 2^23 - 1) (the
-// JAX package's _dropout_threshold), and scale what is kept by keep_scale =
-// 1 / (1 - rate).  `seed` points at one int64 on the device, so drawing it
-// never waits for the host.  stats, when not null, receives each query row's
-// softmax (max, denominator) as (b, heads, sq, 2) f32 for the backward.
-struct Dropout {
-  const long long* seed;
-  unsigned threshold;
-  float keep_scale;
-  float* stats;
-};
+// the keep bits of the four key columns of one Philox call: bit u for word u
+__device__ __forceinline__ unsigned keep_bits4(uint4 w, unsigned threshold) {
+  return ((w.x >> 9) >= threshold) | ((w.y >> 9) >= threshold) << 1 |
+         ((w.z >> 9) >= threshold) << 2 | ((w.w >> 9) >= threshold) << 3;
+}
+
+// -- mma.sync building blocks ------------------------------------------------------
+// One warp's m16n8k16 bf16 product with f32 accumulators.  Lane (g = lane / 4,
+// t = lane % 4) holds accumulator elements (row g, columns 2t, 2t + 1) in c[0],
+// c[1] and (row g + 8, the same columns) in c[2], c[3]; two such tiles side by
+// side are, packed to bf16, the A operand of the next product (FlashAttention-2's
+// accumulator-to-operand identity).
+constexpr int kMmaThreads = 256;  // blocks of 8 warps, 16 rows each
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take on the H100
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+// two 16 x 8 accumulator tiles (16 x 16) as the bf16 A operand of a product
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&s)[2][4]) {
+  a[0] = pack_bf16(s[0][0], s[0][1]);
+  a[1] = pack_bf16(s[0][2], s[0][3]);
+  a[2] = pack_bf16(s[1][0], s[1][1]);
+  a[3] = pack_bf16(s[1][2], s[1][3]);
+}
+
+// e^x for x <= 0 as exp2(x * log2 e); callers subtract the row max first, since
+// near -1e5 (a masked row) a logit scaled by log2 e before it would lose the bits
+// that tell its keys apart
+__device__ __forceinline__ float ex2(float x) { return exp2f(x * kLog2e); }
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// The A fragments of rows r0 and r1 = r0 + 8 of a f32 matrix (row stride ld,
+// this head's d = 16 * DF columns from `base`), rounded to bf16; zero for rows
+// at or past `rows` and when !active.
+template <int DF>
+__device__ __forceinline__ void load_a_rows(unsigned (&a)[DF][4], const float* base, int r0,
+                                            int rows, long long ld, int t, bool active) {
+  const int r1 = r0 + 8;
+  const float* p0 = base + (long long)(r0 < rows ? r0 : 0) * ld + 2 * t;
+  const float* p1 = base + (long long)(r1 < rows ? r1 : 0) * ld + 2 * t;
+  const bool ok0 = active && r0 < rows, ok1 = active && r1 < rows;
+#pragma unroll
+  for (int kk = 0; kk < DF; ++kk) {
+    const float2 z = make_float2(0.f, 0.f);
+    const float2 a0 = ok0 ? *reinterpret_cast<const float2*>(p0 + 16 * kk) : z;
+    const float2 a1 = ok1 ? *reinterpret_cast<const float2*>(p1 + 16 * kk) : z;
+    const float2 a2 = ok0 ? *reinterpret_cast<const float2*>(p0 + 16 * kk + 8) : z;
+    const float2 a3 = ok1 ? *reinterpret_cast<const float2*>(p1 + 16 * kk + 8) : z;
+    a[kk][0] = pack_bf16(a0.x, a0.y);
+    a[kk][1] = pack_bf16(a1.x, a1.y);
+    a[kk][2] = pack_bf16(a2.x, a2.y);
+    a[kk][3] = pack_bf16(a3.x, a3.y);
+  }
+}
+
+// s (16 rows x 16 columns, two n-tiles) = A (16 x d fragments) times 16 rows of
+// a bf16 shared-memory matrix from row `row` (stride LD), transposed: the scores
+// of 16 keys, q . k, from K's rows
+template <int DF, int LD>
+__device__ __forceinline__ void times_rows_t(float (&s)[2][4], const unsigned (&a)[DF][4],
+                                             const bf16* rows, int row, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DF; ++kk) {
+    unsigned f[4];
+    ldmatrix_x4(f, rows + (row + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + 16 * kk +
+                       ((lane >> 3) & 1) * 8);
+    mma_bf16(s[0], a[kk], f[0], f[1]);
+    mma_bf16(s[1], a[kk], f[2], f[3]);
+  }
+}
+
+// o (16 x d) += A (16 x 16) times 16 rows of a bf16 shared-memory matrix from row
+// `row` (stride LD): P V over 16 keys
+template <int DF, int LD>
+__device__ __forceinline__ void add_times_rows(float (&o)[2 * DF][4], const unsigned (&a)[4],
+                                               const bf16* rows, int row, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2 * DF; n += 2) {
+    unsigned f[4];
+    ldmatrix_x4_trans(f, rows + (row + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + 8 * n +
+                             ((lane >> 4) & 1) * 8);
+    mma_bf16(o[n], a, f[0], f[1]);
+    mma_bf16(o[n + 1], a, f[2], f[3]);
+  }
+}
+
+// 16 rows x d of accumulators times `factor` to f32 rows r0 (row g) and r0 + 8 of
+// `base` (row stride ld), rows at or past `rows` skipped
+template <int DF>
+__device__ __forceinline__ void store_acc_rows(const float (&o)[2 * DF][4], float* base, int r0,
+                                               int rows, long long ld, int t, float factor) {
+  float* o0 = base + (long long)r0 * ld + 2 * t;
+  float* o1 = base + (long long)(r0 + 8) * ld + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 2 * DF; ++n) {
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(o[n][0] * factor, o[n][1] * factor);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(o[n][2] * factor, o[n][3] * factor);
+  }
+}
 
 // A second additive bias with a head axis (T5's relative positions, DeBERTa's
 // disentangled terms), added after the head-shared one: element (b, h, i, j)
@@ -181,26 +304,6 @@ struct HeadBias {
   long long hs;
   int qs;
 };
-
-// the four keep-scale factors of key columns col4 * 4 .. col4 * 4 + 3
-__device__ __forceinline__ void dropout_factors(const Dropout& drop, unsigned long long seed,
-                                                int col4, int row, int head, int sample,
-                                                float* factors) {
-  const uint4 r = philox4x32_10(make_uint4(col4, row, head, sample), (unsigned)seed,
-                                (unsigned)(seed >> 32));
-  const unsigned words[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int t = 0; t < 4; ++t) factors[t] = (words[t] >> 9) >= drop.threshold ? drop.keep_scale : 0.0f;
-}
-
-// the keep-scale factor of one key column
-__device__ __forceinline__ float dropout_factor(const Dropout& drop, unsigned long long seed,
-                                                int col, int row, int head, int sample) {
-  const uint4 r = philox4x32_10(make_uint4(col / 4, row, head, sample), (unsigned)seed,
-                                (unsigned)(seed >> 32));
-  const unsigned word = (col & 2) ? ((col & 1) ? r.w : r.z) : ((col & 1) ? r.y : r.x);
-  return (word >> 9) >= drop.threshold ? drop.keep_scale : 0.0f;
-}
 
 // Y[M, N] (row stride ldy) = epi(A[M, K] (row stride lda) @ W[K, N] + bias[N]).
 // A is rounded to bf16 as it is staged; W is bf16 (K, N) row-major.  K must be a
@@ -226,15 +329,13 @@ cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const f
 // multiples of 4 (of 8 for out).
 // q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
 // the bias as bias + b * bias_bs + i * bias_qs + j (strides of 0 broadcast).
-// With drop.seed set, w_ij is the dropped weight bf16(keep_ij * softmax_ij *
-// keep_scale) (float in and out only).  With head_bias.p set (float in and out,
-// no dropout), the logit is scale * q_i . k_j + bias[b, i, j] + head_bias[b, h, i, j].
+// With head_bias.p set (float in and out), the logit is scale * q_i . k_j +
+// bias[b, i, j] + head_bias[b, h, i, j].
 template <typename TI, typename TO>
 cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
                              int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
-                             Dropout drop = Dropout{nullptr, 0u, 1.0f, nullptr},
                              HeadBias head_bias = HeadBias{nullptr, 0, 0, 0});
 
 }  // namespace ovq

@@ -1,7 +1,9 @@
 // Packed attention: softmax(scale * Q K^T + bias) V on the raw (b, S, heads * d)
-// projections, all heads of a sample in one launch, forward only.
+// projections, all heads of a sample in one launch, forward only; and its
+// dropout instance, (keep * softmax / (1 - rate)) V.
 //
-// Replaces the Pallas kernel `_packed_kernel` / `fused_attention_packed`
+// Replaces the Pallas kernels `_packed_kernel` / `fused_attention_packed` and
+// `_packed_dropout_kernel` / `fused_attention_packed_dropout`'s forward
 // (openvivqa_tpu/ops/fused_attention.py).  As there, the dot operands are rounded
 // to bf16, the logits and the row softmax are f32, each row's max and denominator
 // are taken over all its keys before its weights are rounded to bf16, and P V is
@@ -11,8 +13,9 @@
 //
 // This file holds the packed entry's block for more query rows than
 // ops/fused_attention.py's single-query cut-over (fewer go to the flat
-// attention's single-query block, which takes packed operands through strides).
-// The dropout, two-bias and streamed entries keep common.cu's attention block.
+// attention's single-query block, which takes packed operands through strides),
+// and the dropout entry's block at every shape.  The two-bias and streamed entries
+// keep common.cu's attention block.
 //
 // What bounds it.  At the MMT joint encode (64 samples x 8 heads x 215 x 215,
 // d 96, per-sample bias) the work is 9.1 GFLOP against 181 MB of f32 q, k, v,
@@ -45,43 +48,6 @@
 namespace ovq {
 namespace {
 
-constexpr int kPbThreads = 256;
-constexpr int kPbWarps = kPbThreads / 32;
-constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may take on the H100
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// e^x for x <= 0 as exp2(x * log2 e)
-__device__ __forceinline__ float ex2(float x) { return exp2f(x * kLog2e); }
-
-__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
-
 // keys of one copy step: as many as the registers that carry the copy allow
 // beside the accumulators without spilling (ptxas -v), halved in the ring, whose
 // second walk copies K and V together
@@ -94,17 +60,37 @@ long long packed_block_smem_bytes(int sk, int df, bool resident) {
   return 2LL * rows * (16 * df + 8) * 2;
 }
 
-template <int DF, bool RES>
-__global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
+// The dropout instance (DROP): the counterpart of `_packed_dropout_kernel`.  Each
+// row's (max, 1 / denominator) goes to `stats` (b, heads, sq) as the backward
+// reads it, and in the second walk each normalised weight is multiplied by its
+// keep factor (0 or keep_scale) in registers before it is rounded to bf16.  The
+// Philox mask is counted by (key / 4, row, head, sample): of a 16 x 16 tile, lane
+// (g, t) holds keys key0 + 2t, +1 and key0 + 8 + 2t, +1 of rows r0 and r1, the
+// groups key0 / 4 + t / 2 and that + 2 of both rows, which lane t ^ 1 needs too.
+// So each lane draws the two groups of one row (r0 for even t, r1 for odd t),
+// one Philox call per four weights, and two shuffles over the row's four lanes
+// give every lane both rows' 16 keep bits.  Those bits are also written out, 32
+// keys to an int32 word (`bits`, (b, heads, sq, ceil(sk / 32)), keys past sk
+// dropped), for the backward kernels, which then draw no Philox at all.
+struct DropArgs {
+  const long long* seed;
+  unsigned threshold;
+  float keep_scale;
+  float2* stats;
+  unsigned* bits;
+};
+
+template <int DF, bool RES, bool DROP>
+__global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
     packed_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
                         long long bias_bs, int bias_qs, float* __restrict__ out, int sq, int sk,
-                        int hd, float scale) {
+                        int hd, float scale, DropArgs drop) {
   constexpr int d = 16 * DF;
   constexpr int LD = d + 8;            // bf16 row stride in shared memory: ldmatrix without conflicts
   constexpr int KC = chunk_keys(DF, RES);
   constexpr int kQuads = KC * d / 4;   // float4s of one K or V chunk
-  constexpr int PT = (kQuads + kPbThreads - 1) / kPbThreads;
+  constexpr int PT = (kQuads + kMmaThreads - 1) / kMmaThreads;
   constexpr int NP = RES ? PT : 2 * PT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int skp = round16(sk);
@@ -120,7 +106,11 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
   const int nc = (sk + KC - 1) / KC;
   const int steps = 2 * nc;  // first walk: K chunks; second walk: V (and, in the ring, K) chunks
   const int n_tiles = (sq + 15) / 16;
-  const int rounds = (n_tiles + kPbWarps - 1) / kPbWarps;
+  const int rounds = (n_tiles + kMmaWarps - 1) / kMmaWarps;
+  // the dropout's Philox key and this (sample, head)'s first row of stats and bits
+  const unsigned long long seed = DROP ? (unsigned long long)*drop.seed : 0ull;
+  const long long row_base = ((long long)b * gridDim.y + h) * sq;
+  const int n_words = (sk + 31) / 32;
 
   // copy step s: global f32 -> registers (`load`), registers -> bf16 shared (`store`)
   float4 pre[NP];
@@ -129,7 +119,7 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
     const bool both = !RES && s >= nc;
 #pragma unroll
     for (int u = 0; u < NP; ++u) {
-      const int idx = tid + (u % PT) * kPbThreads;
+      const int idx = tid + (u % PT) * kMmaThreads;
       const int r = idx / (d / 4), c4 = idx % (d / 4), key = c * KC + r;
       const bool from_v = RES ? s >= nc : (both && u >= PT);
       const bool valid = idx < kQuads && key < sk && (u < PT || both);
@@ -142,7 +132,7 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
     const bool both = !RES && s >= nc;
 #pragma unroll
     for (int u = 0; u < NP; ++u) {
-      const int idx = tid + (u % PT) * kPbThreads;
+      const int idx = tid + (u % PT) * kMmaThreads;
       const int r = idx / (d / 4), c4 = idx % (d / 4);
       const int row = RES ? c * KC + r : (s % 2) * KC + r;
       const bool from_v = RES ? s >= nc : (both && u >= PT);
@@ -156,27 +146,11 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
   bool filled = false;
 #pragma unroll 1
   for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
-    const int tile = round * kPbWarps + warp;
+    const int tile = round * kMmaWarps + warp;
     const bool active = tile < n_tiles;
     const int r0 = tile * 16 + g, r1 = r0 + 8;  // this lane's two rows
-    // Q fragments (A operand, bf16), zero past the last row
-    unsigned qa[DF][4];
-    {
-      const float* q0 = q + ((long long)b * sq + (r0 < sq ? r0 : 0)) * hd + h * d + 2 * t;
-      const float* q1 = q + ((long long)b * sq + (r1 < sq ? r1 : 0)) * hd + h * d + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < DF; ++kk) {
-        const float2 z = make_float2(0.f, 0.f);
-        const float2 a0 = active && r0 < sq ? *reinterpret_cast<const float2*>(q0 + 16 * kk) : z;
-        const float2 a1 = active && r1 < sq ? *reinterpret_cast<const float2*>(q1 + 16 * kk) : z;
-        const float2 a2 = active && r0 < sq ? *reinterpret_cast<const float2*>(q0 + 16 * kk + 8) : z;
-        const float2 a3 = active && r1 < sq ? *reinterpret_cast<const float2*>(q1 + 16 * kk + 8) : z;
-        qa[kk][0] = pack_bf16(a0.x, a0.y);
-        qa[kk][1] = pack_bf16(a1.x, a1.y);
-        qa[kk][2] = pack_bf16(a2.x, a2.y);
-        qa[kk][3] = pack_bf16(a3.x, a3.y);
-      }
-    }
+    unsigned qa[DF][4];  // Q fragments (A operand, bf16), zero past the last row
+    load_a_rows<DF>(qa, q + (long long)b * sq * hd + h * d, tile * 16 + g, sq, hd, t, active);
     const float* b0 = bb == nullptr ? nullptr : bb + (long long)(r0 < sq ? r0 : sq - 1) * bias_qs;
     const float* b1 = bb == nullptr ? nullptr : bb + (long long)(r1 < sq ? r1 : sq - 1) * bias_qs;
     // per lane: running (max, sum) of its keys of rows r0 and r1
@@ -184,24 +158,13 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
     float o[2 * DF][4];
 #pragma unroll
     for (int n = 0; n < 2 * DF; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+    unsigned word0 = 0u, word1 = 0u;  // DROP: the keep bits of rows r0, r1 gathered for `bits`
 
     // the logits of 16 keys from shared-memory row `srow` (key `key0`): tile
     // s[0] keys key0 + 2t, +1 and s[1] keys key0 + 8 + 2t, +1, rows r0 (0, 1)
-    // and r1 (2, 3), as scale * q . k + bias; -inf past sk.  Exponents are taken
-    // as exp2((logit - max) * log2 e), the difference first: near -1e5 (a masked
-    // row) a logit scaled by log2 e before it would lose the bits that tell its
-    // keys apart.
+    // and r1 (2, 3), as scale * q . k + bias; -inf past sk
     auto scores = [&](float (&s)[2][4], int srow, int key0) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DF; ++kk) {
-        unsigned kf[4];
-        ldmatrix_x4(kf, Ks + (srow + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + 16 * kk +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[0], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[1], qa[kk], kf[2], kf[3]);
-      }
+      times_rows_t<DF, LD>(s, qa, Ks, srow, lane);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -247,21 +210,54 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
             m1 = n1;
             continue;
           }
-          // normalised weights, rounded to bf16, as the A operand of P V
-          unsigned pa[4];
-          pa[0] = pack_bf16(ex2(sc[0][0] - m0) * l0, ex2(sc[0][1] - m0) * l0);
-          pa[1] = pack_bf16(ex2(sc[0][2] - m1) * l1, ex2(sc[0][3] - m1) * l1);
-          pa[2] = pack_bf16(ex2(sc[1][0] - m0) * l0, ex2(sc[1][1] - m0) * l0);
-          pa[3] = pack_bf16(ex2(sc[1][2] - m1) * l1, ex2(sc[1][3] - m1) * l1);
-          const int vrow = key0 + slot_row;
+          // normalised weights (DROP: times their keep factors), rounded to
+          // bf16, as the A operand of P V
+          float w[2][4];
 #pragma unroll
-          for (int n = 0; n < 2 * DF; n += 2) {
-            unsigned vf[4];
-            ldmatrix_x4_trans(vf, Vs + (vrow + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + 8 * n +
-                                      ((lane >> 4) & 1) * 8);
-            mma_bf16(o[n], pa, vf[0], vf[1]);
-            mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              w[n][e] = ex2(sc[n][e] - m0) * l0;
+              w[n][2 + e] = ex2(sc[n][2 + e] - m1) * l1;
+            }
           }
+          if (DROP) {
+            const int half = t >> 1;
+            const unsigned row = (t & 1) ? r1 : r0;
+            const unsigned group = key0 / 4 + half;
+            const uint4 lo = philox4x32_10(make_uint4(group, row, h, b), (unsigned)seed,
+                                           (unsigned)(seed >> 32));
+            const uint4 hi = philox4x32_10(make_uint4(group + 2, row, h, b), (unsigned)seed,
+                                           (unsigned)(seed >> 32));
+            // bit j of the low half: key key0 + j of row r0; of the high half: of row r1
+            unsigned keep = (keep_bits4(lo, drop.threshold) << (4 * half) |
+                             keep_bits4(hi, drop.threshold) << (8 + 4 * half))
+                            << (16 * (t & 1));
+            keep |= __shfl_xor_sync(0xffffffffu, keep, 1);
+            keep |= __shfl_xor_sync(0xffffffffu, keep, 2);
+            const unsigned valid = sk - key0 >= 16 ? 0xffffu : (1u << (sk - key0)) - 1u;
+            keep &= valid | valid << 16;
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int bit = 8 * n + 2 * t + e;
+                w[n][e] *= (keep >> bit) & 1u ? drop.keep_scale : 0.0f;
+                w[n][2 + e] *= (keep >> (16 + bit)) & 1u ? drop.keep_scale : 0.0f;
+              }
+            }
+            word0 |= (keep & 0xffffu) << (key0 & 16);
+            word1 |= (keep >> 16) << (key0 & 16);
+            if ((key0 & 16) || key0 + 16 >= sk) {  // a word's last 16 keys, or the row's
+              const long long word = key0 / 32;
+              if (t == 0 && r0 < sq) drop.bits[(row_base + r0) * n_words + word] = word0;
+              if (t == 1 && r1 < sq) drop.bits[(row_base + r1) * n_words + word] = word1;
+              word0 = word1 = 0u;
+            }
+          }
+          unsigned pa[4];
+          pack_a(pa, w);
+          add_times_rows<DF, LD>(o, pa, Vs, key0 + slot_row, lane);
         }
       }
       if (s == nc - 1) {
@@ -282,6 +278,10 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
         }
         l0 = 1.0f / l0;
         l1 = 1.0f / l1;
+        if (DROP && active) {
+          if (t == 0 && r0 < sq) drop.stats[row_base + r0] = make_float2(m0, l0);
+          if (t == 1 && r1 < sq) drop.stats[row_base + r1] = make_float2(m1, l1);
+        }
       }
       if (stream) {
         if (s + 1 < steps) store(s + 1);
@@ -302,36 +302,33 @@ __global__ void __launch_bounds__(kPbThreads, DF <= 6 ? 2 : 1)
   }
 }
 
-template <int DF, bool RES>
+template <int DF, bool RES, bool DROP>
 cudaError_t launch_packed_block(const float* q, const float* k, const float* v, const float* bias,
                                 long long bias_bs, int bias_qs, float* out, int batch, int heads,
-                                int sq, int sk, int hd, float scale, cudaStream_t stream) {
+                                int sq, int sk, int hd, float scale, DropArgs drop,
+                                cudaStream_t stream) {
   // the attribute is a ceiling, set once per instance; each launch asks for its own size
   static const cudaError_t attribute = cudaFuncSetAttribute(
-      packed_block_kernel<DF, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      packed_block_kernel<DF, RES, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attribute != cudaSuccess) return attribute;
   const long long smem = packed_block_smem_bytes(sk, DF, RES);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const int rounds = ((sq + 15) / 16 + kPbWarps - 1) / kPbWarps;
+  const int rounds = ((sq + 15) / 16 + kMmaWarps - 1) / kMmaWarps;
   // resident: one block per (sample, head) walks every round, unless too few
   // (sample, head) pairs would fill two blocks on each of the 132 SMs
   const int pairs = batch * heads;
   const int split = RES ? (2 * 132 + pairs - 1) / pairs : rounds;
   const dim3 grid(rounds < split ? rounds : split, heads, batch);
-  packed_block_kernel<DF, RES><<<grid, kPbThreads, smem, stream>>>(q, k, v, bias, bias_bs,
-                                                                   bias_qs, out, sq, sk, hd, scale);
+  packed_block_kernel<DF, RES, DROP><<<grid, kMmaThreads, smem, stream>>>(
+      q, k, v, bias, bias_bs, bias_qs, out, sq, sk, hd, scale, drop);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace ovq
-
-extern "C" int ovq_packed_attention_forward(const float* q, const float* k, const float* v,
-                                            const float* bias, long long bias_bs, int bias_qs,
-                                            float* out, int batch, int sq, int sk, int hd,
-                                            int heads, float scale, int resident,
-                                            cudaStream_t stream) {
-  using namespace ovq;
+template <bool DROP>
+cudaError_t launch_packed(const float* q, const float* k, const float* v, const float* bias,
+                          long long bias_bs, int bias_qs, float* out, int batch, int sq, int sk,
+                          int hd, int heads, float scale, int resident, DropArgs drop,
+                          cudaStream_t stream) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   if (heads <= 0 || hd % heads || sk <= 0 || heads > 65535 || batch > 65535 || hd % 4)
     return cudaErrorInvalidValue;
@@ -342,10 +339,12 @@ extern "C" int ovq_packed_attention_forward(const float* q, const float* k, cons
     return cudaErrorInvalidValue;
 #define OVQ_PB_CASE(df)                                                                        \
   case df:                                                                                     \
-    return resident ? launch_packed_block<df, true>(q, k, v, bias, bias_bs, bias_qs, out,      \
-                                                     batch, heads, sq, sk, hd, scale, stream)  \
-                    : launch_packed_block<df, false>(q, k, v, bias, bias_bs, bias_qs, out,     \
-                                                      batch, heads, sq, sk, hd, scale, stream);
+    return resident ? launch_packed_block<df, true, DROP>(q, k, v, bias, bias_bs, bias_qs, out, \
+                                                           batch, heads, sq, sk, hd, scale,    \
+                                                           drop, stream)                       \
+                    : launch_packed_block<df, false, DROP>(q, k, v, bias, bias_bs, bias_qs,    \
+                                                            out, batch, heads, sq, sk, hd,     \
+                                                            scale, drop, stream);
   switch (d / 16) {
     OVQ_PB_CASE(1)
     OVQ_PB_CASE(2)
@@ -359,4 +358,34 @@ extern "C" int ovq_packed_attention_forward(const float* q, const float* k, cons
       return cudaErrorInvalidValue;
   }
 #undef OVQ_PB_CASE
+}
+
+}  // namespace
+}  // namespace ovq
+
+extern "C" int ovq_packed_attention_forward(const float* q, const float* k, const float* v,
+                                            const float* bias, long long bias_bs, int bias_qs,
+                                            float* out, int batch, int sq, int sk, int hd,
+                                            int heads, float scale, int resident,
+                                            cudaStream_t stream) {
+  return ovq::launch_packed<false>(q, k, v, bias, bias_bs, bias_qs, out, batch, sq, sk, hd, heads,
+                                   scale, resident, ovq::DropArgs{}, stream);
+}
+
+// The dropout forward (block B's DROP instance): out, the rows' (max, 1 /
+// denominator) as (b, heads, sq) float2 `stats` and the keep bits as (b, heads,
+// sq, ceil(sk / 32)) int32 words; `seed` points at one int64 on the device, so
+// drawing it never waits for the host.
+extern "C" int ovq_packed_dropout_forward(const float* q, const float* k, const float* v,
+                                          const float* bias, long long bias_bs, int bias_qs,
+                                          const long long* seed, int threshold, float keep_scale,
+                                          float* stats, int* bits, float* out, int batch, int sq,
+                                          int sk, int hd, int heads, float scale, int resident,
+                                          cudaStream_t stream) {
+  if (seed == nullptr || stats == nullptr || bits == nullptr || threshold < 0)
+    return cudaErrorInvalidValue;
+  const ovq::DropArgs drop{seed, (unsigned)threshold, keep_scale,
+                           reinterpret_cast<float2*>(stats), reinterpret_cast<unsigned*>(bits)};
+  return ovq::launch_packed<true>(q, k, v, bias, bias_bs, bias_qs, out, batch, sq, sk, hd, heads,
+                                  scale, resident, drop, stream);
 }

@@ -33,6 +33,5 @@ extern "C" int ovq_packed_2bias_attention_forward(const float* q, const float* k
   return ovq::launch_attention<float, float>(
       q, (long long)sq * hd, hd, k, v, (long long)sk * hd, hd, bias, bias_bs, bias_qs, out,
       (long long)sq * hd, hd, batch, heads, sq, sk, d, scale, stream,
-      ovq::Dropout{nullptr, 0u, 1.0f, nullptr},
       ovq::HeadBias{head_bias, head_bias_bs, (long long)sq * sk, sk});
 }

@@ -57,7 +57,6 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take on the H100
 __device__ const float kZeroBias = 0.0f;  // the tile block's bias where there is none
 
 struct FlatIn {
@@ -259,7 +258,6 @@ constexpr int kSqGroup = 8;                        // lanes reading one key row
 constexpr int kSqGroups = kSqThreads / kSqGroup;   // key rows per sweep of the block
 constexpr int kSqUnroll = 4;                       // key rows in flight per lane group
 constexpr int kSqMaxDim = 128;
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

@@ -62,8 +62,8 @@ _SIGNATURES = {
     "ovq_encoder_attention_forward": "p" * 12 + "i" * 6 + "ff",
     "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f" "i",
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
-    "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "pp" "iiiii" "f",
-    "ovq_packed_dropout_backward": "ppppp" "li" "p" "if" "pp" "ppp" "iiiii" "f",
+    "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "ppp" "iiiii" "f" "i",
+    "ovq_packed_dropout_backward": "ppppp" "li" "f" "ppp" "ppp" "iiiii" "f" "ii",
     "ovq_self_attention_step_forward": "p" * 15 + "i" * 8 + "ff",
     "ovq_cross_attention_step_forward": "p" * 14 + "i" * 7 + "ff",
     "ovq_decoder_layer_step_forward": "p" * 33 + "i" * 13 + "ff",

@@ -7,10 +7,11 @@ version.
 Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``,
 ``fused_attention_packed_2bias``, ``fused_attention_packed_streamed`` and
 ``fused_attention`` in ``openvivqa_tpu/ops/fused_attention.py``; the CUDA
-sources are ``csrc/fused_attention.cu``, ``csrc/fused_attention_dropout.cu``,
+sources are ``csrc/fused_attention.cu`` (block B: the packed entry and the
+dropout forward), ``csrc/fused_attention_dropout.cu`` (the dropout backward),
 ``csrc/fused_attention_2bias.cu``, ``csrc/fused_attention_streamed.cu`` and
 ``csrc/fused_attention_flat.cu``.  Which device block serves a call of the
-packed or the flat entry is a function of its shapes alone
+packed, the dropout or the flat entry is a function of its shapes alone
 (:func:`attention_block`).  The packed kernels' bias is
 head-shared, ``(bb, 1, bq, Sk)`` with ``bb`` in {1, b} and ``bq`` in {1, Sq}, and
 is never broadcast in memory.  It is a mask constant: neither gradient flows to
@@ -32,12 +33,15 @@ Gradients:
     forward with the same backward);
   * ``fused_attention``: ``_bwd``'s formula in plain PyTorch, float32, with
     the bias gradient summed over the bias's broadcast axes;
-  * ``fused_attention_packed_dropout``: a CUDA kernel pair on the card, the
-    plain version of the TPU backward kernel on the CPU.  The mask is
-    regenerated, never stored: Philox4x32-10 keyed by the per-call seed,
+  * ``fused_attention_packed_dropout``: two CUDA kernels on the card (dq and
+    the row terms D, then dk and dv), the plain version of the TPU backward
+    kernel on the CPU.  The mask is Philox4x32-10 keyed by the per-call seed,
     counted by (key column // 4, query row, head, sample), word key column % 4
-    (``philox4x32_10``, the same function as ``csrc/common.cuh``'s).  Kernel and
-    plain version draw identical masks.
+    (``philox4x32_10``, the same function as ``csrc/common.cuh``'s).  The
+    forward kernel draws it and leaves it as bits (``dropout_mask_bits``'s
+    layout) beside each row's (max, 1 / denominator), and the backward kernels
+    read both; the plain versions regenerate it.  Kernel and plain version use
+    identical masks.
 """
 
 from __future__ import annotations
@@ -149,13 +153,16 @@ RESIDENT_KV_BYTES = MAX_SMEM_BYTES // 2
 def attention_block(entry: str, sq: int, sk: int, dk: int, dv: int) -> str:
     """The device block that serves one call, from its shapes alone: the
     ``flat`` entry takes ``single`` (block A) or ``tile``; the ``packed`` entry
-    ``single``, ``resident`` or ``ring`` (block B); the ``streamed`` entry
-    always ``streamed`` (common.cu's attention block)."""
+    ``single``, ``resident`` or ``ring`` (block B); the ``dropout`` entry
+    ``resident`` or ``ring`` (block B's dropout instance, at any row count);
+    the ``streamed`` entry always ``streamed`` (common.cu's attention block).
+    The dropout backward keeps K and V resident by this rule on (sq, sk), and
+    Q and G by it on (sk, sq)."""
     if entry == "streamed":
         return "streamed"
-    if entry not in ("flat", "packed"):
+    if entry not in ("flat", "packed", "dropout"):
         raise ValueError(f"attention_block: unknown entry {entry!r}")
-    if sq <= SINGLE_QUERY_MAX_ROWS[entry] and sk <= SINGLE_QUERY_MAX_KEYS:
+    if entry != "dropout" and sq <= SINGLE_QUERY_MAX_ROWS[entry] and sk <= SINGLE_QUERY_MAX_KEYS:
         return "single"
     if entry == "flat":
         return "tile"
@@ -349,9 +356,8 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_factors(seed: torch.Tensor, b: int, heads: int, sq: int, sk: int, rate: float):
-    """(b, heads, Sq, Sk) float32: 1 / (1 - rate) where the Philox mask keeps
-    the weight, 0 where it drops it."""
+def _philox_words(seed: torch.Tensor, b: int, heads: int, sq: int, sk: int):
+    """(b, heads, Sq, Sk) int64: the Philox word of each attention weight."""
     device = seed.device
 
     def axis(n, dim):
@@ -364,10 +370,28 @@ def dropout_factors(seed: torch.Tensor, b: int, heads: int, sq: int, sk: int, ra
         axis(-(-sk // 4), 3), axis(sq, 2), axis(heads, 1), axis(b, 0),
         seed & _MASK32, (seed >> 32) & _MASK32,
     )
-    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, heads, sq, -1)[..., :sk]
-    keep = (bits >> 9) >= dropout_threshold(rate)
+    return torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, heads, sq, -1)[..., :sk]
+
+
+def dropout_factors(seed: torch.Tensor, b: int, heads: int, sq: int, sk: int, rate: float):
+    """(b, heads, Sq, Sk) float32: 1 / (1 - rate) where the Philox mask keeps
+    the weight, 0 where it drops it."""
+    keep = (_philox_words(seed, b, heads, sq, sk) >> 9) >= dropout_threshold(rate)
+    device = seed.device
     return torch.where(keep, torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device),
                        torch.tensor(0.0, dtype=torch.float32, device=device))
+
+
+def dropout_mask_bits(seed: torch.Tensor, b: int, heads: int, sq: int, sk: int, rate: float):
+    """(b, heads, Sq, ceil(Sk / 32)) int32: the Philox mask as the forward
+    kernel writes it, bit j % 32 of word j // 32 set where key j is kept (bits
+    past Sk clear)."""
+    keep = ((_philox_words(seed, b, heads, sq, sk) >> 9) >= dropout_threshold(rate)).to(torch.int64)
+    n_words = -(-sk // 32)
+    keep = torch.nn.functional.pad(keep, (0, 32 * n_words - sk)).reshape(b, heads, sq, n_words, 32)
+    place = torch.arange(32, dtype=torch.int64, device=seed.device)
+    words = (keep << place).sum(dim=-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def fused_attention_packed_dropout_plain(
@@ -411,37 +435,52 @@ def _check_seed(seed):
     _cuda.require(seed, "seed", torch.int64, (1,))
 
 
-def _dropout_forward_kernel(q, k, v, bias, seed, scale: float, num_heads: int, rate: float):
-    """out and the rows' softmax (max, denominator) as (b, h, Sq, 2)."""
+def _dropout_forward_kernel(q, k, v, bias, seed, scale: float, num_heads: int, rate: float,
+                            block: Optional[str] = None):
+    """Block B's dropout instance (resident or ring, as `attention_block` or
+    `block` says): out, the rows' (max, 1 / denominator) as (b, h, Sq, 2)
+    float32 and the keep mask as (b, h, Sq, ceil(Sk / 32)) int32 bits
+    (``dropout_mask_bits``), both for the backward kernels."""
     b, sq, sk, hd = _check_packed(q, k, v, num_heads, "fused_attention_packed_dropout")
     _check_seed(seed)
-    bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+    d = hd // num_heads
+    block = block or attention_block("dropout", sq, sk, d, d)
+    if block not in ("resident", "ring"):
+        raise ValueError(f"fused_attention_packed_dropout: no block {block!r}")
+    bias3, bias_bs, bias_qs = _packed_bias(bias, b, sq, sk, q.device)
     out = torch.empty_like(q)
     stats = torch.empty((b, num_heads, sq, 2), dtype=torch.float32, device=q.device)
+    bits = torch.empty((b, num_heads, sq, -(-sk // 32)), dtype=torch.int32, device=q.device)
     p = _cuda.ptr
     _cuda.launch(
-        "ovq_packed_dropout_forward", p(q), p(k), p(v), p(bias3), *_bias_strides(bias3),
-        p(seed), dropout_threshold(rate), 1.0 / (1.0 - rate), p(stats), p(out),
-        b, sq, sk, hd, num_heads, scale,
+        "ovq_packed_dropout_forward", p(q), p(k), p(v), p(bias3), bias_bs, bias_qs,
+        p(seed), dropout_threshold(rate), 1.0 / (1.0 - rate), p(stats), p(bits), p(out),
+        b, sq, sk, hd, num_heads, scale, int(block == "resident"),
     )
     _cuda.count("fused_attention_packed_dropout")
-    return out, stats
+    return out, stats, bits
 
 
-def _dropout_backward_kernel(q, k, v, bias, seed, stats, g, scale: float, num_heads: int,
+def _dropout_backward_kernel(q, k, v, bias, stats, bits, g, scale: float, num_heads: int,
                              rate: float):
+    """(dq, dk, dv) from the forward kernel's stats and mask bits: kernel 1
+    (dq, D) with K and V resident or in a ring, kernel 2 (dk, dv) with Q and G
+    resident or in a ring, each by `attention_block`'s rule."""
     b, sq, sk, hd = _check_packed(q, k, v, num_heads, "fused_attention_packed_dropout backward")
-    _check_seed(seed)
     _cuda.require(g, "g", torch.float32, (b, sq, hd))
     _cuda.require(stats, "stats", torch.float32, (b, num_heads, sq, 2))
-    bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+    _cuda.require(bits, "bits", torch.int32, (b, num_heads, sq, -(-sk // 32)))
+    d = hd // num_heads
+    kv_block = attention_block("dropout", sq, sk, d, d)
+    qg_block = attention_block("dropout", sk, sq, d, d)
+    bias3, bias_bs, bias_qs = _packed_bias(bias, b, sq, sk, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
     p = _cuda.ptr
     _cuda.launch(
-        "ovq_packed_dropout_backward", p(q), p(k), p(v), p(g), p(bias3), *_bias_strides(bias3),
-        p(seed), dropout_threshold(rate), 1.0 / (1.0 - rate), p(stats), p(delta),
-        p(dq), p(dk), p(dv), b, sq, sk, hd, num_heads, scale,
+        "ovq_packed_dropout_backward", p(q), p(k), p(v), p(g), p(bias3), bias_bs, bias_qs,
+        1.0 / (1.0 - rate), p(stats), p(bits), p(delta), p(dq), p(dk), p(dv),
+        b, sq, sk, hd, num_heads, scale, int(kv_block == "resident"), int(qg_block == "resident"),
     )
     _cuda.count("fused_attention_packed_dropout_backward")
     return dq, dk, dv
@@ -454,22 +493,22 @@ class PackedDropoutAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale: float, num_heads: int, rate: float,
                 use_kernel: bool):
-        stats = None
+        stats = bits = None
         if use_kernel:
-            out, stats = _dropout_forward_kernel(q, k, v, bias, seed, scale, num_heads, rate)
+            out, stats, bits = _dropout_forward_kernel(q, k, v, bias, seed, scale, num_heads, rate)
         else:
             out = fused_attention_packed_dropout_plain(q, k, v, bias, seed, scale, num_heads, rate)
-        ctx.save_for_backward(q, k, v, bias, seed, stats)
+        ctx.save_for_backward(q, k, v, bias, seed, stats, bits)
         ctx.args = (scale, num_heads, rate, use_kernel)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, seed, stats = ctx.saved_tensors
+        q, k, v, bias, seed, stats, bits = ctx.saved_tensors
         scale, num_heads, rate, use_kernel = ctx.args
         g = g.float().contiguous()
         if use_kernel:
-            grads = _dropout_backward_kernel(q, k, v, bias, seed, stats, g, scale, num_heads, rate)
+            grads = _dropout_backward_kernel(q, k, v, bias, stats, bits, g, scale, num_heads, rate)
         else:
             grads = fused_attention_packed_dropout_backward_plain(
                 q, k, v, bias, seed, g, scale, num_heads, rate

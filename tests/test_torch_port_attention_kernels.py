@@ -10,8 +10,9 @@ function (the analytic XLA backward, bias gradient included).  The streamed
 attention's plain version is held against the streamed Pallas kernel in
 interpret mode, and the port's copies of the dispatch rules against the JAX
 functions.  The choice of device block (``attention_block``) is checked at
-every cut-over, and the wrappers' calls of each block's C entry are run
-through an emulation of that entry's addressing on CPU memory.  Float32
+every cut-over, and the wrappers' calls of each block's C entry (the dropout
+forward and backward entries too) are run through an emulation of that entry's
+addressing on CPU memory.  Float32
 comparisons: atol 1e-5 / rtol 1e-4 (the frameworks sum in other orders).
 """
 
@@ -294,20 +295,21 @@ def test_scaled_dot_product_attention_routes_as_the_jax_package(monkeypatch, cas
 
 # -- the choice of device block ---------------------------------------------------------------
 _ALLOWED_BLOCKS = {"flat": {"single", "tile"}, "packed": {"single", "resident", "ring"},
-                   "streamed": {"streamed"}}
+                   "dropout": {"resident", "ring"}, "streamed": {"streamed"}}
 
 
 def _round16(n):
     return -(-n // 16) * 16
 
 
-@pytest.mark.parametrize("entry", ["flat", "packed", "streamed"])
+@pytest.mark.parametrize("entry", ["flat", "packed", "dropout", "streamed"])
 def test_attention_block_choice_at_every_cut_over(entry):
     """Every shape an entry accepts maps to exactly one of its blocks, every
     one of them is reached, and each cut-over falls where its rule says: the
     single-query block up to the entry's SINGLE_QUERY_MAX_ROWS rows and
-    SINGLE_QUERY_MAX_KEYS keys, the packed block resident while four bytes per
-    key row of width d + 8 (bf16 K and V) fit RESIDENT_KV_BYTES."""
+    SINGLE_QUERY_MAX_KEYS keys (never for the dropout entry), the packed and
+    dropout blocks resident while four bytes per key row of width d + 8 (bf16
+    K and V) fit RESIDENT_KV_BYTES."""
     rows = fused_attention.SINGLE_QUERY_MAX_ROWS.get(entry, 1)
     keys = fused_attention.SINGLE_QUERY_MAX_KEYS
     budget = fused_attention.RESIDENT_KV_BYTES
@@ -328,26 +330,34 @@ def test_attention_block_choice_at_every_cut_over(entry):
     assert seen == _ALLOWED_BLOCKS[entry]
     if entry == "streamed":
         return
-    assert pick(1, 324, 64) == "single" and pick(rows, 324, 64) == "single"
-    assert pick(rows + 1, 324, 64) != "single" and pick(1, keys + 1, 64) != "single"
-    assert pick(1, keys, 64) == "single"
+    if entry == "dropout":
+        # the Iterative M4C decoder trains 5 query rows: block B, never block A
+        assert pick(1, 324, 64) == "resident" and pick(5, 210, 64) == "resident"
+        assert pick(1, keys + 1, 64) == "ring"
+    else:
+        assert pick(1, 324, 64) == "single" and pick(rows, 324, 64) == "single"
+        assert pick(rows + 1, 324, 64) != "single" and pick(1, keys + 1, 64) != "single"
+        assert pick(1, keys, 64) == "single"
     if entry == "flat":
         assert pick(rows + 1, 324, 64) == "tile" and pick(1, keys + 1, 64, 32) == "tile"
         return
     for d, last in ((64, 400), (96, 272), (128, 208)):
         assert 4 * _round16(last) * (d + 8) <= budget < 4 * _round16(last + 1) * (d + 8)
         assert pick(rows + 1, last, d) == "resident" and pick(rows + 1, last + 1, d) == "ring"
+        if entry == "dropout":
+            assert pick(1, last, d) == "resident" and pick(1, last + 1, d) == "ring"
     assert pick(215, 215, 96) == "resident" and pick(64, 1535, 64) == "ring"
     with pytest.raises(ValueError, match="unknown entry"):
         fused_attention.attention_block("two-bias", 1, 8, 64, 64)
 
 
-def _strided(ptr, shape, strides):
-    """A writable numpy float32 view of CPU memory at `ptr` with element
-    strides (0 broadcasts), as a kernel addresses it."""
+def _strided(ptr, shape, strides, ctype=ctypes.c_float):
+    """A writable numpy view (float32, or `ctype`) of CPU memory at `ptr` with
+    element strides (0 broadcasts), as a kernel addresses it."""
     n = 1 + sum((size - 1) * stride for size, stride in zip(shape, strides))
-    flat = np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
-    return np.lib.stride_tricks.as_strided(flat, shape, [4 * stride for stride in strides])
+    flat = np.ctypeslib.as_array((ctype * n).from_address(ptr))
+    size = ctypes.sizeof(ctype)
+    return np.lib.stride_tricks.as_strided(flat, shape, [size * stride for stride in strides])
 
 
 def _emulated_attention(q, k, v, bias, scale):
@@ -444,3 +454,121 @@ def test_wrappers_launch_the_chosen_block(monkeypatch, entry, sq, sk, dk, dv, bi
     assert launched == [entries[block]]
     assert fused_attention._cuda.launch_counts()[counter] == before + 1
     _close(got, want.numpy(), atol=1e-5)
+
+
+# -- the dropout entries: block B's dropout instance and the backward pair -------------------
+def _rt(x):
+    """bf16-rounded float32 torch tensor of a numpy view."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16).float()
+
+
+def _emulate_dropout_launch(entry, *args):
+    """Run a dropout C entry on CPU memory through the pointers, strides and
+    scalars the wrapper passes: the forward draws the Philox mask from the
+    seed it finds at its pointer and the threshold it is given, and writes
+    out, stats (max, 1 / denominator) and the keep bits; the backward reads
+    stats and bits, not the seed, and writes D, dq, dk and dv."""
+    if entry == "ovq_packed_dropout_forward":
+        (q, k, v, bias, bias_bs, bias_qs, seed, threshold, keep_scale, stats, bits, out,
+         b, sq, sk, hd, heads, scale, resident) = args
+    else:
+        (q, k, v, g, bias, bias_bs, bias_qs, keep_scale, stats, bits, delta, dq, dk, dv,
+         b, sq, sk, hd, heads, scale, kv_resident, qg_resident) = args
+    d, n_words = hd // heads, -(-sk // 32)
+
+    def heads_of(ptr, s):
+        return _strided(ptr, (b, heads, s, d), (s * hd, d, hd, 1))
+
+    logits = torch.einsum("bhqd,bhkd->bhqk", _rt(heads_of(q, sq)), _rt(heads_of(k, sk))) * scale
+    if bias is not None:
+        logits = logits + torch.from_numpy(np.ascontiguousarray(
+            _strided(bias, (b, heads, sq, sk), (bias_bs, 0, bias_qs, 1))))
+    stats_v = _strided(stats, (b, heads, sq, 2), (heads * sq * 2, sq * 2, 2, 1))
+    bits_v = _strided(bits, (b, heads, sq, n_words), (heads * sq * n_words, sq * n_words, n_words, 1),
+                      ctypes.c_int32)
+    if entry == "ovq_packed_dropout_forward":
+        seed_t = torch.from_numpy(_strided(seed, (1,), (1,), ctypes.c_int64).copy())
+        keep = (fused_attention._philox_words(seed_t, b, heads, sq, sk) >> 9) >= threshold
+        weights = torch.softmax(logits, dim=-1)
+        dropped = (weights * keep * np.float32(keep_scale)).to(torch.bfloat16).float()
+        _strided(out, (b, heads, sq, d), (sq * hd, d, hd, 1))[...] = torch.einsum(
+            "bhqk,bhkd->bhqd", dropped, _rt(heads_of(v, sk))).numpy()
+        row_max = logits.max(dim=-1).values
+        stats_v[..., 0] = row_max.numpy()
+        stats_v[..., 1] = (1.0 / torch.exp(logits - row_max[..., None]).sum(dim=-1)).numpy()
+        padded = torch.nn.functional.pad(keep.to(torch.int64), (0, 32 * n_words - sk))
+        words = (padded.reshape(b, heads, sq, n_words, 32) << torch.arange(32)).sum(dim=-1)
+        bits_v[...] = words.numpy().astype(np.uint32).view(np.int32)
+        return
+    word = torch.from_numpy(bits_v.astype(np.int64) & 0xFFFFFFFF)
+    keep = ((word[..., None] >> torch.arange(32)) & 1).reshape(b, heads, sq, 32 * n_words)[..., :sk]
+    factors = keep.float() * np.float32(keep_scale)
+    weights = torch.exp(logits - torch.from_numpy(stats_v[..., :1].copy())) * \
+        torch.from_numpy(stats_v[..., 1:].copy())
+    gh, vh, qh, kh = _rt(heads_of(g, sq)), _rt(heads_of(v, sk)), _rt(heads_of(q, sq)), \
+        _rt(heads_of(k, sk))
+    dp = torch.einsum("bhqd,bhkd->bhqk", gh, vh)
+    row_d = (weights * factors * dp).sum(dim=-1)
+    ds = (weights * (factors * dp - row_d[..., None])).to(torch.bfloat16).float()
+    _strided(delta, (b, heads, sq), (heads * sq, sq, 1))[...] = row_d.numpy()
+    heads_of(dq, sq)[...] = (torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale).numpy()
+    heads_of(dk, sk)[...] = (torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale).numpy()
+    dropped = (weights * factors).to(torch.bfloat16).float()
+    heads_of(dv, sk)[...] = torch.einsum("bhqk,bhqd->bhkd", dropped, gh).numpy()
+
+
+@pytest.mark.parametrize("sq,sk,d,bias_shape", [
+    (1, 9, 16, None),                # one query row: block B, never the single-query block
+    (5, 40, 16, (3, 1, 1, 40)),      # the Iterative M4C decoder's 5 rows, key-only bias
+    (7, 33, 32, (3, 1, 7, 33)),      # a per-sample bias, keys not a multiple of 32
+    (20, 401, 64, (1, 1, 20, 401)),  # K and V past the resident limit: ring forward, kernel 1 ring
+    (401, 20, 64, (1, 1, 1, 20)),    # Q and G past it: kernel 2 ring
+])
+def test_dropout_wrappers_launch_block_b_and_the_backward_pair(monkeypatch, sq, sk, d, bias_shape):
+    """The dropout wrappers launch block B's dropout entry in the form
+    `attention_block("dropout", ...)` names and the backward entry with each
+    kernel's form from the same rule (K, V by (sq, sk); Q, G by (sk, sq)),
+    with pointers, strides and scalars that address their operands: an
+    emulation of the entries on CPU memory gives the plain versions' output
+    (atol 1e-5: the same arithmetic) and gradients (within 1e-2 of their
+    largest magnitude, as on the card: the backward takes p as exp(x - max) /
+    sum from the forward's stats, one float32 rounding from the softmax, which
+    can move a bf16-rounded dS by one ulp).  The stats are (b, h, Sq, 2)
+    float32 (max, 1 / denominator) and the bits (b, h, Sq, ceil(Sk / 32))
+    int32, equal to ``dropout_mask_bits``; one launch of each is counted."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    heads, rate = 4, 0.25
+    launched = []
+
+    def launch(name, *args):
+        launched.append((name, *args[-2:]) if name.endswith("backward") else (name, args[-1]))
+        _emulate_dropout_launch(name, *args)
+
+    monkeypatch.setattr(fused_attention._cuda, "launch", launch)
+    q, g = (_t(rng.normal(size=(3, sq, heads * d)).astype(np.float32)) for _ in range(2))
+    k, v = (_t(rng.normal(size=(3, sk, heads * d)).astype(np.float32)) for _ in range(2))
+    bias = None if bias_shape is None else _t(_masked(rng, bias_shape))
+    seed = torch.tensor([20260 + sq], dtype=torch.int64)
+    before = fused_attention._cuda.launch_counts()
+    out, stats, bits = fused_attention._dropout_forward_kernel(q, k, v, bias, seed, 0.3, heads, rate)
+    grads = fused_attention._dropout_backward_kernel(q, k, v, bias, stats, bits, g, 0.3, heads, rate)
+    after = fused_attention._cuda.launch_counts()
+    block = fused_attention.attention_block("dropout", sq, sk, d, d)
+    resident = {"resident": 1, "ring": 0}
+    assert launched == [
+        ("ovq_packed_dropout_forward", resident[block]),
+        ("ovq_packed_dropout_backward", resident[block],
+         resident[fused_attention.attention_block("dropout", sk, sq, d, d)]),
+    ]
+    for name in ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward"):
+        assert after[name] == before[name] + 1, name
+    assert stats.dtype == torch.float32 and tuple(stats.shape) == (3, heads, sq, 2)
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (3, heads, sq, -(-sk // 32))
+    assert torch.equal(bits, fused_attention.dropout_mask_bits(seed, 3, heads, sq, sk, rate))
+    plain_args = (q, k, v, bias, seed, 0.3, heads, rate)
+    want = fused_attention.fused_attention_packed_dropout_plain(*plain_args, op_dtype=torch.bfloat16)
+    _close(out, want.numpy(), atol=1e-5)
+    want_grads = fused_attention.fused_attention_packed_dropout_backward_plain(
+        q, k, v, bias, seed, g, 0.3, heads, rate, op_dtype=torch.bfloat16)
+    for got, want in zip(grads, want_grads):
+        _close(got, want.numpy(), atol=1e-2 * float(want.abs().max()), rtol=0)

@@ -11,7 +11,8 @@ atol 2e-3 on LayerNorm outputs.  The packed attention has no LayerNorm after
 it: a bf16-rounded softmax weight one ulp (2^-8 relative) apart moves its
 output by up to 2^-8 * weight * |v|, hence atol 1e-2 there with N(0, 1) inputs.
 The dropout attention's kernels and plain versions draw the same Philox mask
-from the same seed, so they are compared at rates above 0 too.
+from the same seed, so they are compared at rates above 0 too; the forward
+leaves the mask as bits for the backward, held against ``dropout_mask_bits``.
 """
 
 import itertools
@@ -226,18 +227,83 @@ def _rate0_case(dev):
 
 
 def test_dropout_attention_at_rate0_is_the_packed_kernel(dev):
-    """At rate 0 the dropout forward agrees with the packed entry.  The packed
-    entry runs its own block B, which sums in another order than the dropout
-    forward's common.cu block, so they agree within ATTN_TOL, not bit for bit."""
+    """At rate 0 the dropout forward agrees with the packed entry through their
+    public wrappers, within ATTN_TOL (both run block B here, and
+    test_dropout_attention_at_rate0_is_block_b holds each form bit for bit)."""
     got, args = _rate0_case(dev)
     assert _err(got, fused_attention.fused_attention_packed(*args)) <= ATTN_TOL
 
 
-def test_dropout_attention_at_rate0_is_common_block(dev):
-    """At rate 0 the dropout forward is common.cu's attention block without a
-    mask, bit for bit: the block the streamed entry runs at any shape."""
-    got, args = _rate0_case(dev)
-    assert torch.equal(got, fused_attention.fused_attention_packed_streamed(*args))
+@pytest.mark.parametrize("block", ["resident", "ring"])
+def test_dropout_attention_at_rate0_is_block_b(dev, block):
+    """At rate 0 the dropout forward is block B without a mask, bit for bit,
+    in either form: every keep factor is 1, and a weight times 1 is itself."""
+    _, (q, k, v, bias, scale, heads) = _rate0_case(dev)
+    seed = torch.zeros(1, dtype=torch.int64, device=dev)
+    got, _, bits = fused_attention._dropout_forward_kernel(q, k, v, bias, seed, scale, heads, 0.0,
+                                                          block=block)
+    assert torch.equal(got, fused_attention._packed_kernel(q, k, v, bias, scale, heads, block=block))
+    assert torch.equal(bits, fused_attention.dropout_mask_bits(seed, 3, heads, 40, 40, 0.0))
+
+
+# the dropout entries on each side of attention_block's resident limit, at d 96
+# (272 keys resident, 273 in the ring) and d 64 (400 / 401), with Q and G past it
+# for kernel 2 (273 query rows at d 96), the decoder's 5 rows and one row; sample
+# 0 of a per-sample bias masks every key, so its rows are fully masked
+_DROPOUT_CASES = [
+    (37, 272, 96, "per-sample full"), (37, 273, 96, "per-sample full"),
+    (20, 400, 64, "shared keys"), (20, 401, 64, "per-sample keys"),
+    (273, 30, 96, "shared full"), (5, 210, 64, "per-sample keys"), (1, 8, 64, "none"),
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,bias_form", _DROPOUT_CASES)
+def test_dropout_attention_kernels_on_both_sides_of_the_cut_over(dev, sq, sk, d, bias_form):
+    """Forward (resident or ring) and backward (each kernel resident or in the
+    ring) against the plain versions under one seed, 2 heads of d; finite;
+    tolerances as in test_dropout_attention_kernels_match_plain."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk + d)
+    heads = 2
+    q, g = _randn(gen, 3, sq, heads * d), _randn(gen, 3, sq, heads * d)
+    k, v = _randn(gen, 3, sk, heads * d), _randn(gen, 3, sk, heads * d)
+    bias = _bias_of_form(gen, bias_form, 3, sq, sk)
+    seed = torch.tensor([777 + sk], dtype=torch.int64, device=dev)
+    scale = d ** -0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fused_attention.fused_attention_packed_dropout(*leaves, bias, seed, scale, heads, 0.1)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    plain = fused_attention.fused_attention_packed_dropout_plain(q, k, v, bias, seed, scale, heads, 0.1)
+    assert _err(out.detach(), plain) <= ATTN_TOL
+    grads = fused_attention.fused_attention_packed_dropout_backward_plain(
+        q, k, v, bias, seed, g, scale, heads, 0.1)
+    for leaf, want in zip(leaves, grads):
+        assert bool(torch.isfinite(leaf.grad).all())
+        assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("block", ["resident", "ring"])
+def test_dropout_forward_mask_bits_match_plain(dev, block):
+    """The forward's keep bits and stats: bits equal to dropout_mask_bits (215
+    keys, not a multiple of 32, at rate 0.1); stats each row's max and 1 /
+    denominator of its logits within 1e-4 of their largest magnitude (the
+    logits are float32 sums in another order; a batch-shared bias without a
+    fully masked row, where a logit near -1e5 keeps only 2^-7 of precision)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, sq, sk, heads, d = 3, 50, 215, 2, 96
+    q, k, v = _randn(gen, b, sq, heads * d), _randn(gen, b, sk, heads * d), _randn(gen, b, sk, heads * d)
+    bias = _bias_of_form(gen, "shared full", b, sq, sk)
+    seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64, device=dev)
+    _, stats, bits = fused_attention._dropout_forward_kernel(q, k, v, bias, seed, 0.1, heads, 0.1,
+                                                            block=block)
+    assert torch.equal(bits, fused_attention.dropout_mask_bits(seed, b, heads, sq, sk, 0.1))
+    rt = lambda x, s: x.to(torch.bfloat16).float().view(b, s, heads, d)  # noqa: E731
+    logits = torch.einsum("bqhd,bkhd->bhqk", rt(q, sq), rt(k, sk)) * 0.1 + bias
+    row_max = logits.max(dim=-1).values
+    inv_sum = 1.0 / torch.exp(logits - row_max[..., None]).sum(dim=-1)
+    assert _err(stats[..., 0], row_max) <= 1e-4 * float(row_max.abs().max())
+    assert _err(stats[..., 1], inv_sum) <= 1e-4 * float(inv_sum.abs().max())
 
 
 def test_bert_self_step_kernel_matches_plain(dev):

@@ -142,6 +142,25 @@ def test_dropout_mask_does_not_depend_on_the_row_tiling():
         assert torch.equal(tile, whole[:, :, row0:row0 + rows] > 0)
 
 
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 40 + 3])
+@pytest.mark.parametrize("sk", [1, 31, 33, 215])
+def test_dropout_mask_bits_hold_dropout_factors(seed, sk):
+    """dropout_mask_bits, the layout in which the forward kernel leaves the
+    mask for the backward kernels, against dropout_factors: bit j % 32 of word
+    j // 32 is set exactly where key j is kept, and the bits past Sk (keys
+    not a multiple of 32) are clear."""
+    seed_t = torch.tensor([seed], dtype=torch.int64)
+    b, heads, sq = 2, 3, 9
+    bits = fa.dropout_mask_bits(seed_t, b, heads, sq, sk, 0.1)
+    n_words = -(-sk // 32)
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (b, heads, sq, n_words)
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    unpacked = ((words[..., None] >> torch.arange(32)) & 1).reshape(b, heads, sq, 32 * n_words)
+    keep = fa.dropout_factors(seed_t, b, heads, sq, sk, 0.1) > 0
+    assert torch.equal(unpacked[..., :sk].bool(), keep)
+    assert not bool(unpacked[..., sk:].any())
+
+
 def test_dropout_mask_follows_the_seed():
     draw = lambda s: fa.dropout_factors(torch.tensor([s], dtype=torch.int64), 2, 2, 9, 13, 0.1)  # noqa: E731
     assert torch.equal(draw(5), draw(5))
