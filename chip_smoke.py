@@ -8,7 +8,10 @@ Phases, each fatal on failure:
   2. the build of every kernel from ``openvivqa_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel of the MMF_M4C eval and training paths against its plain
      PyTorch version on the same inputs at the paths' shapes (batch 64, hidden
-     768, FFN 3072; the dropout attention at rate 0.1 under one seed, so both
+     768, FFN 3072; kernel C at the encode, decode and TextBert rows and kernel F
+     at the MMT context and TextBert encodes, each with its launch plans, its
+     device time by launch and cuBLAS bf16 on the same two products alone;
+     the dropout attention at rate 0.1 under one seed, so both
      draw the same Philox mask, the forward's keep bits bit for bit against
      ``dropout_mask_bits``, also at MMF_IterativeM4C's encoder and decoder
      cross-attention training shapes, with the backward's two kernels timed
@@ -113,11 +116,12 @@ Phases, each fatal on failure:
      stream with a padding bias (3 streamed launches per forward, in eval and
      in training with a backward; within 2^-5 of the plain route relative to
      its largest output).
-Phase 2 prints the registers and spill bytes of every instance of block B and
-of the dropout backward kernels from nvcc's ptxas report.
-Launch counts are reset just before each main-path run (4 and 7: each decode
+Phase 2 prints the registers and spill bytes of every instance of block B, of
+the dropout backward kernels and of gemm_sm90.cu's kernels from nvcc's ptxas
+report.  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8 and 9: each eval route, start() and
-get_predictions(); 9: each long-stream forward) and read just after it.  The
+get_predictions(); 9: each long-stream forward) and read just after it, kernel
+C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -211,26 +215,44 @@ def log(*parts) -> None:
 
 
 # the kernels whose registers and spills phase 2 prints from nvcc's ptxas report
-PTXAS_KERNELS = ("packed_block_kernel", "dropout_dq_kernel", "dropout_dkdv_kernel")
+PTXAS_KERNELS = ("packed_block_kernel", "dropout_dq_kernel", "dropout_dkdv_kernel",
+                 "gemm_bias_sm90_kernel", "gemm_partial_sm90_kernel", "gemm_ln_sm90_kernel",
+                 "rows_reduce_bias_kernel", "cast_bf16_kernel")
+
+
+def template_args(kernel: str, mangled: str):
+    """The template arguments of `kernel` in a mangled name ("" for a plain
+    kernel, None when the name is another kernel's): integers and bools as
+    numbers, float as f32, __nv_bfloat16 as bf16."""
+    match = re.search(kernel + r"(?:I((?:L[ib]\d+E|13__nv_bfloat16|S\d*_|f)+)E|E)", mangled)
+    if match is None:
+        return None
+    args = match.group(1) or ""
+    names = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|S\d*_)|(f)", args)
+    return ",".join(number or ("bf16" if bf else "f32") for number, bf, f32 in names)
 
 
 def ptxas_report(report: Path) -> None:
     """Registers and spill bytes (stores / loads) of every template instance of
-    PTXAS_KERNELS, from the -Xptxas -v output kept beside the library."""
+    PTXAS_KERNELS, from the -Xptxas -v output kept beside the library; and any
+    line where ptxas says it ignored a setmaxnreg."""
+    text = report.read_text()
     entry = re.compile(r"Compiling entry function '(\S+)' for \S+\n"
                        r"ptxas info\s*: Function properties for \S+\n"
                        r"\s*\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
                        r"ptxas info\s*: Used (\d+) registers")
     found = {}
-    for name, stores, loads, registers in entry.findall(report.read_text()):
+    for name, stores, loads, registers in entry.findall(text):
         for kernel in PTXAS_KERNELS:
-            match = re.search(kernel + r"I((?:L[ib]\d+E)+)", name)
-            if match:
-                args = ",".join(re.findall(r"L[ib](\d+)E", match.group(1)))
+            args = template_args(kernel, name)
+            if args is not None:
                 found.setdefault(kernel, []).append(f"<{args}> {registers}/{stores}/{loads}")
     for kernel in PTXAS_KERNELS:
-        log(f"  ptxas {kernel} <DF,RES[,DROP]> registers/spill stores/spill loads: "
+        log(f"  ptxas {kernel} <template args> registers/spill stores/spill loads: "
             + "; ".join(sorted(found.get(kernel, ["not in the report"]))))
+    for line in text.splitlines():
+        if "setmaxnreg" in line:
+            log(f"  ptxas: {line.strip()}")
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -394,6 +416,27 @@ def count_plain_calls(calls: dict):
             setattr(module, name, original)
 
 
+# kernel C's and F's launches by row count at the last counts_now()
+LAST_BY_ROWS = {}
+
+
+def counts_now() -> dict:
+    """The launch counts of the run since the last reset, and (kept for
+    rows_text) kernel C's and F's launches by row count."""
+    from openvivqa_tpu_torch.ops import _cuda
+
+    LAST_BY_ROWS.clear()
+    LAST_BY_ROWS.update(_cuda.launch_counts_by_rows())
+    return _cuda.launch_counts()
+
+
+def rows_text() -> str:
+    """Kernel C's and F's launches of the last counts_now() by row count (their
+    totals are in the counts beside it)."""
+    parts = [f"{name} {json.dumps(by_rows)}" for name, by_rows in LAST_BY_ROWS.items() if by_rows]
+    return "; by rows: " + ", ".join(parts) if parts else ""
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -432,6 +475,20 @@ def make_recorder(results, failures):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
     return record
+
+
+def launch_split(fn) -> str:
+    """One call's device time by launch (kernel name), for the kernels that chain
+    several (kernels C and F: the cast, the products, block B, reduce passes)."""
+    split = device_us_by_kernel(fn)
+    return "device ms by launch: " + ", ".join(f"{name} {us / 1e3:.4f}" for name, us in split.items())
+
+
+def cublas_reference(products) -> None:
+    """A yardstick, timed here and never called by the port: cuBLAS (torch.matmul)
+    on the same two bf16 products alone, without their epilogues."""
+    log(f"    cuBLAS bf16, the two products alone: call {median_ms(products):.4f} ms, "
+        f"device {device_ms(products)[0]:.4f} ms")
 
 
 # query rows at which each single-query cut-over is timed from both sides
@@ -492,18 +549,26 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
     results = {}
     record = make_recorder(results, failures)
 
-    # kernel C: the MMT context-encode rows, then the decode-step rows
+    # kernel C: the MMT context-encode rows, the decode-step rows, the TextBert rows;
+    # each with its device time by launch and cuBLAS on the same two products
     f = mmt_w["ffn"]
     d_ff = f["w1"].shape[1]
-    for what, rows in ((f"encode rows {BATCH}x{c_len}", BATCH * c_len), (f"decode rows {BATCH}", BATCH)):
+    for what, rows, w in ((f"encode rows {BATCH}x{c_len}", BATCH * c_len, f),
+                          (f"decode rows {BATCH}", BATCH, f),
+                          (f"TextBert rows {BATCH}x{q_len}", BATCH * q_len, text_w["ffn"])):
         x = randn(rows, hd)
-        args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"], LN_EPS)
+        args = (x, w["w1"], w["b1"], w["w2"], w["b2"], w["ln_scale"], w["ln_bias"], LN_EPS)
         out = decode_step.fused_ffn_step(*args)
         err = max_err(out, decode_step.fused_ffn_step_plain(*args))
         record("fused_ffn_step", what, err, LN_TOL,
                lambda: decode_step.fused_ffn_step(*args),
                lambda: decode_step.fused_ffn_step_plain(*args),
                4.0 * rows * hd * d_ff, tensor_bytes(args[:7], out))
+        plans = decode_step.ffn_plans(rows, hd, d_ff)
+        log(f"    plans {plans[0]}, {plans[1]}; "
+            + launch_split(lambda: decode_step.fused_ffn_step(*args)))
+        hidden = randn(rows, d_ff, dtype=bf16)
+        cublas_reference(lambda: (x.to(bf16) @ w["w1"], hidden @ w["w2"]))
 
     # kernel F: the MMT context encode, then the TextBert question encode
     for what, w, s in ((f"MMT context {BATCH}x{c_len}", mmt_w, c_len),
@@ -518,6 +583,13 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                lambda: encoder_layer.fused_encoder_self_attention(*args),
                lambda: encoder_layer.fused_encoder_self_attention_plain(*args),
                2.0 * rows * hd * 4 * hd + 4.0 * BATCH * s * s * hd, tensor_bytes(args[:3], out))
+        plans = encoder_layer.encoder_attention_plans(rows, hd)
+        log(f"    plans {plans[0]}, {plans[1]}, block B "
+            f"{fused_attention.attention_block('encoder', s, s, hd // heads, hd // heads)}; "
+            + launch_split(lambda: encoder_layer.fused_encoder_self_attention(*args)))
+        a = w["attention"]
+        context = randn(rows, hd, dtype=bf16)
+        cublas_reference(lambda: (x.view(rows, hd).to(bf16) @ a["wqkv"], context @ a["wo"]))
 
     def sdpa_args(q, k, v, bias, grad=False, n_heads=heads):
         """Head-split views of the packed projections, for the library call."""
@@ -918,9 +990,10 @@ def run_mode(task, mode, failures, expected, exact=None):
     with count_plain_calls(plain_calls):
         _cuda.reset_launch_counts()
         scores, seconds = timed_eval()
-        counts = _cuda.launch_counts()
+        counts = counts_now()
     log(f"  [{mode}] scores: {json.dumps(scores, default=float)}")
-    log(f"  [{mode}] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}")
+    log(f"  [{mode}] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}"
+        f"{rows_text()}")
     for name in expected:
         if counts[name] <= 0:
             failures.append(f"[{mode}] {name} was not launched by the main path")
@@ -1004,7 +1077,7 @@ def run_training(task, failures, label="train", check_grads=False):
     scores = task.get_predictions()
     torch.cuda.synchronize()
     predict_seconds = time.perf_counter() - start
-    counts = _cuda.launch_counts()
+    counts = counts_now()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
@@ -1016,7 +1089,8 @@ def run_training(task, failures, label="train", check_grads=False):
         f"{json.dumps({k: v for k, v in validation[-1].items() if k not in ('time',)})}")
     log(f"  [{label}] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
         f"test scores {json.dumps(scores, default=float)}")
-    log(f"  [{label}] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    log(f"  [{label}] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB"
+        f"{rows_text()}")
     n_train = len(task.train_dataset)
     want_steps = -(-n_train // BATCH)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
@@ -1142,14 +1216,14 @@ def run_generative(task, failures):
         with decode_parts(parts), count_plain_calls(plain_calls):
             _cuda.reset_launch_counts()
             scores, seconds[route] = timed_eval()
-            counts = _cuda.launch_counts()
+            counts = counts_now()
         for name, n in counts.items():
             launches[name] += n
         log(f"  [beam, {route}] {n_valid} samples in {n_batches} batches of {rows} rows x {steps} "
             f"steps: {seconds[route]:.3f} s ({n_valid / seconds[route]:.2f} samples/s by the host "
             f"clock); scores {json.dumps(scores, default=float)}")
         log(f"  [beam, {route}] launches: {json.dumps(counts)}; plain calls: "
-            f"{json.dumps(plain_calls)}")
+            f"{json.dumps(plain_calls)}{rows_text()}")
         for name, n in want[route].items():
             if counts[name] != n:
                 failures.append(f"[beam, {route}] {name}: {counts[name]} launches, want {n}")
@@ -1215,7 +1289,7 @@ def run_generative_training(task, failures):
     scores = task.get_predictions()
     torch.cuda.synchronize()
     predict_seconds = time.perf_counter() - start
-    counts = _cuda.launch_counts()
+    counts = counts_now()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
@@ -1224,7 +1298,7 @@ def run_generative_training(task, failures):
     log(f"  [xe] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
     log(f"  [xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
         f"test scores {json.dumps(scores, default=float)}")
-    log(f"  [xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    log(f"  [xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB{rows_text()}")
     want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
         failures.append(f"[xe] losses {losses}: want {want_steps} finite values")
@@ -1279,14 +1353,14 @@ def one_greedy_batch(task, label, failures, want):
         _cuda.reset_launch_counts()
         scores = model.greedy_decode(batch)["scores"]
         torch.cuda.synchronize()
-        counts = _cuda.launch_counts()
+        counts = counts_now()
     ms = median_ms(lambda: model.greedy_decode(batch), reps=5)
     rows = batch["question_tokens"].shape[0]
     shape = (rows, task.vocab.max_answer_length, len(task.vocab) + batch["ocr_boxes"].shape[1])
     log(f"  [{label}] {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters; greedy "
         f"decode of one batch of {rows}: {ms:.3f} ms (CUDA-event median of 5); launches "
         f"{json.dumps({k: v for k, v in counts.items() if v})}; plain calls "
-        f"{json.dumps(plain_calls)}")
+        f"{json.dumps(plain_calls)}{rows_text()}")
     if tuple(scores.shape) != shape or not bool(torch.isfinite(scores).all()):
         failures.append(f"[{label}] scores {tuple(scores.shape)} (want {shape}) or non-finite")
     for name, n in want.items():
@@ -1552,12 +1626,13 @@ def run_vit_mt5(config, seed, failures):
         scores = task.evaluate_metrics(task.dev_dict_dataloader)
         torch.cuda.synchronize()
         eval_seconds = time.perf_counter() - eval_start
-        counts = _cuda.launch_counts()
+        counts = counts_now()
     launches = dict(counts)
     log(f"  [vit_mt5 beam] {n_valid} samples in {n_batches} batches of {first['question_tokens'].shape[0]}"
         f" x beam {beam} rows x {steps} steps: {eval_seconds:.3f} s ({n_valid / eval_seconds:.2f} "
         f"samples/s by the host clock); scores {json.dumps(scores, default=float)}")
-    log(f"  [vit_mt5 beam] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}")
+    log(f"  [vit_mt5 beam] launches: {json.dumps(counts)}; plain calls: {json.dumps(plain_calls)}"
+        f"{rows_text()}")
     want = {"fused_attention_packed_2bias": n_t5 * n_batches,
             "fused_attention_packed": n_vit * n_batches,
             "fused_decoder_layer_step": steps * n_dec * n_batches}
@@ -1616,7 +1691,7 @@ def run_vit_mt5(config, seed, failures):
     test_scores = task.get_predictions()
     torch.cuda.synchronize()
     predict_seconds = time.perf_counter() - predict_start
-    counts = _cuda.launch_counts()
+    counts = counts_now()
     for name, n in counts.items():
         launches[name] += n
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1626,7 +1701,8 @@ def run_vit_mt5(config, seed, failures):
     log(f"  [vit_mt5 xe] start(): {train_seconds:.2f} s, per-step losses {json.dumps(losses)}")
     log(f"  [vit_mt5 xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
         f"scores {json.dumps(test_scores, default=float)}")
-    log(f"  [vit_mt5 xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB")
+    log(f"  [vit_mt5 xe] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB"
+        f"{rows_text()}")
     want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
         failures.append(f"[vit_mt5 xe] losses {losses}: want {want_steps} finite values")
@@ -1857,7 +1933,7 @@ def run_joint_transformer(task, seed, failures):
             scores = task.evaluate_metrics(task.dev_dict_dataloader)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - start
-            counts = _cuda.launch_counts()
+            counts = counts_now()
         for name, n in counts.items():
             launches[name] += n
         log(f"  [joint beam, {route}] {n_valid} samples in {n_batches} batches: {seconds:.3f} s "
@@ -1865,7 +1941,7 @@ def run_joint_transformer(task, seed, failures):
             f"{json.dumps(scores, default=float)}")
         used = {k: v for k, v in counts.items() if v}
         log(f"  [joint beam, {route}] launches: {json.dumps(used)}; plain calls: "
-            f"{json.dumps(plain_calls)}")
+            f"{json.dumps(plain_calls)}{rows_text()}")
         for name, n in want[route].items():
             if counts[name] != n:
                 failures.append(f"[joint beam, {route}] {name}: {counts[name]} launches, want {n}")
@@ -1920,7 +1996,7 @@ def run_joint_transformer(task, seed, failures):
     test_scores = task.get_predictions()
     torch.cuda.synchronize()
     predict_seconds = time.perf_counter() - start
-    counts = _cuda.launch_counts()
+    counts = counts_now()
     for name, n in counts.items():
         launches[name] += n
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1931,7 +2007,7 @@ def run_joint_transformer(task, seed, failures):
     log(f"  [joint xe] get_predictions() from best_model.pth: {predict_seconds:.2f} s, "
         f"scores {json.dumps(test_scores, default=float)}")
     log(f"  [joint xe] launches: {json.dumps({k: v for k, v in counts.items() if v})}; peak "
-        f"device memory {peak_gb:.2f} GB")
+        f"device memory {peak_gb:.2f} GB{rows_text()}")
     want_steps = -(-len(task.train_dataset) // task.train_dataloader.batch_size)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
         failures.append(f"[joint xe] losses {losses}: want {want_steps} finite values")

@@ -73,8 +73,8 @@ extern "C" int ovq_bert_self_step_forward(
     int hd, int heads, int splits, int k_per_split, float scale, float eps, cudaStream_t stream) {
   const int d = hd / heads;
   if (d > ovq::kStepMaxHeadDim) return cudaErrorInvalidValue;
-  cudaError_t err = ovq::launch_gemm_bias<float, float, ovq::kNone>(x, hd, wqkv, bqkv, qkv,
-                                                                   3 * hd, bs, 3 * hd, hd, stream);
+  cudaError_t err =
+      ovq::launch_gemm_bias<float, float>(x, hd, wqkv, bqkv, qkv, 3 * hd, bs, 3 * hd, hd, stream);
   if (err != cudaSuccess) return err;
   ovq::bert_self_step_attn_kernel<<<dim3(heads, bs), ovq::kStepThreads, 0, stream>>>(
       qkv, ctx_k, ctx_v, ctx_bias, slot_k, slot_v, ctx, ctx_len, n_slots, t, hd, d, scale);

@@ -1,8 +1,10 @@
-// The building blocks of the port's kernels: a bf16 tensor-core GEMM with a bias
-// (and optional GELU) epilogue, a GEMM whose blocks own whole rows so that the
-// residual add and the LayerNorm run in its epilogue (split over K when there are
-// too few rows to fill the card), and a tensor-core softmax attention over packed
-// (rows, heads * head_dim) layouts.  See common.cuh for the contracts.
+// The first building blocks of the port's kernels, on f32 activations (kernels D,
+// A, B and E, and the two-bias and streamed attention entries): a bf16 tensor-core
+// GEMM with a bias epilogue, a GEMM whose blocks own whole rows so that the residual
+// add and the LayerNorm run in its epilogue (split over K when there are too few
+// rows to fill the card), and a tensor-core softmax attention over packed (rows,
+// heads * head_dim) layouts.  See common.cuh for the contracts.  Kernels C and F
+// run on gemm_sm90.cu's wgmma + TMA core and block B instead.
 //
 // These are first versions: nvcuda::wmma 16x16x16 bf16 fragments with f32
 // accumulators (mma.sync, not Hopper's wgmma), weight tiles brought into shared
@@ -35,11 +37,11 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // ---------------------------------------------------------------------------
-// GEMM + bias (+ GELU): BM x 128 output tiles, 8 warps as 2 x 4, each warp a
+// GEMM + bias: BM x 128 output tiles, 8 warps as 2 x 4, each warp a
 // (BM / 2) x 32 tile; epilogue fragment by fragment through a per-warp 16x16
 // staging tile, eight columns per lane
 // ---------------------------------------------------------------------------
-template <typename TA, typename TO, int EPI, int BM>
+template <typename TA, typename TO, int BM>
 __global__ void __launch_bounds__(kThreads)
     gemm_bias_kernel(const TA* __restrict__ A, int lda, const bf16* __restrict__ W,
                      const float* __restrict__ bias, TO* __restrict__ Y, int ldy, int M, int N,
@@ -136,17 +138,14 @@ __global__ void __launch_bounds__(kThreads)
       if (gr < M && gc < N) {  // N % 8 == 0: the eight columns are all in or all out
         float v[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          v[u] = stage[r * 16 + c + u] + bias[gc + u];
-          if (EPI == kGelu) v[u] = gelu_erf(v[u]);
-        }
+        for (int u = 0; u < 8; ++u) v[u] = stage[r * 16 + c + u] + bias[gc + u];
         store_eight(Y + (size_t)gr * ldy + gc, v);
       }
       __syncwarp();
     }
 }
 
-template <typename TA, typename TO, int EPI>
+template <typename TA, typename TO>
 cudaError_t launch_gemm_bias(const TA* A, int lda, const bf16* W, const float* bias, TO* Y,
                              int ldy, int M, int N, int K, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
@@ -154,24 +153,17 @@ cudaError_t launch_gemm_bias(const TA* A, int lda, const bf16* W, const float* b
   const int tiles_n = (N + 127) / 128;
   // 128-row tiles once they fill the card, else 64-row tiles for more blocks
   if ((long long)((M + 127) / 128) * tiles_n >= 132) {
-    gemm_bias_kernel<TA, TO, EPI, 128><<<dim3(tiles_n, (M + 127) / 128), kThreads, 0, stream>>>(
+    gemm_bias_kernel<TA, TO, 128><<<dim3(tiles_n, (M + 127) / 128), kThreads, 0, stream>>>(
         A, lda, W, bias, Y, ldy, M, N, K);
   } else {
-    gemm_bias_kernel<TA, TO, EPI, 64><<<dim3(tiles_n, (M + 63) / 64), kThreads, 0, stream>>>(
+    gemm_bias_kernel<TA, TO, 64><<<dim3(tiles_n, (M + 63) / 64), kThreads, 0, stream>>>(
         A, lda, W, bias, Y, ldy, M, N, K);
   }
   return cudaGetLastError();
 }
 
-template cudaError_t launch_gemm_bias<float, bf16, kGelu>(const float*, int, const bf16*,
-                                                          const float*, bf16*, int, int, int,
-                                                          int, cudaStream_t);
-template cudaError_t launch_gemm_bias<float, bf16, kNone>(const float*, int, const bf16*,
-                                                          const float*, bf16*, int, int, int,
-                                                          int, cudaStream_t);
-template cudaError_t launch_gemm_bias<float, float, kNone>(const float*, int, const bf16*,
-                                                           const float*, float*, int, int, int,
-                                                           int, cudaStream_t);
+template cudaError_t launch_gemm_bias<float, float>(const float*, int, const bf16*, const float*,
+                                                    float*, int, int, int, int, cudaStream_t);
 
 // ---------------------------------------------------------------------------
 // GEMM + bias + residual + LayerNorm: 32 whole rows per block, 8 warps; warp w
@@ -364,6 +356,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float* bias,
+                                  const float* R, const float* gamma, const float* beta, float* Y,
+                                  int M, int N, float eps, cudaStream_t stream) {
+  if (M <= 0) return cudaSuccess;
+  if (N <= 0 || N > 4 * kThreads || splits < 1) return cudaErrorInvalidValue;
+  rows_reduce_ln_kernel<<<M, kThreads, 0, stream>>>(partial, splits, bias, R, gamma, beta, Y, M, N,
+                                                    eps);
+  return cudaGetLastError();
+}
+
 template <typename TA, int NF>
 static cudaError_t launch_rows(const TA* A, int lda, const bf16* W, const float* bias,
                                const float* R, const float* gamma, const float* beta, float* Y,
@@ -377,9 +379,7 @@ static cudaError_t launch_rows(const TA* A, int lda, const bf16* W, const float*
       A, lda, W, bias, R, gamma, beta, Y, partial, M, K, k_per_split, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  rows_reduce_ln_kernel<<<M, kThreads, 0, stream>>>(partial, splits, bias, R, gamma, beta, Y, M,
-                                                    128 * NF, eps);
-  return cudaGetLastError();
+  return launch_rows_reduce_ln(partial, splits, bias, R, gamma, beta, Y, M, 128 * NF, eps, stream);
 }
 
 template <typename TA>
@@ -410,10 +410,6 @@ cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const f
 #undef OVQ_ROWS_CASE
 }
 
-template cudaError_t launch_gemm_residual_ln<bf16>(const bf16*, int, const bf16*, const float*,
-                                                   const float*, const float*, const float*,
-                                                   float*, float*, int, int, int, int, int,
-                                                   float, cudaStream_t);
 template cudaError_t launch_gemm_residual_ln<float>(const float*, int, const bf16*, const float*,
                                                     const float*, const float*, const float*,
                                                     float*, float*, int, int, int, int, int,
@@ -626,11 +622,6 @@ cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k,
 #undef OVQ_ATTN_CASE
 }
 
-template cudaError_t launch_attention<bf16, bf16>(const bf16*, long long, int, const bf16*,
-                                                  const bf16*, long long, int, const float*,
-                                                  long long, int, bf16*, long long, int, int,
-                                                  int, int, int, int, float, cudaStream_t,
-                                                  HeadBias);
 template cudaError_t launch_attention<float, float>(const float*, long long, int, const float*,
                                                     const float*, long long, int, const float*,
                                                     long long, int, float*, long long, int, int,

@@ -1,28 +1,35 @@
 // Shared pieces of the port's hand-written Hopper kernels (built for sm_90a).
 //
-// Device helpers are inline here; the three building blocks the kernels are
-// assembled from live in common.cu and are reached through the launchers
+// Device helpers are inline here; the building blocks the kernels are assembled
+// from live in common.cu and gemm_sm90.cu and are reached through the launchers
 // declared below:
-//   * launch_gemm_bias:        Y = epi(A @ W + bias), bf16 wmma tiles, f32 accumulators;
-//   * launch_gemm_residual_ln: Y = LayerNorm(R + A @ W + bias), one block owns whole rows
-//                              so the LayerNorm runs in the GEMM's epilogue;
+//   * launch_gemm_bias:        Y = A @ W + bias on f32 rows, bf16 wmma tiles, f32
+//                              accumulators (kernels D, A, B, E);
+//   * launch_gemm_residual_ln: Y = LayerNorm(R + A @ W + bias) on f32 rows, one block
+//                              owns whole rows so the LayerNorm runs in the GEMM's
+//                              epilogue (kernels D, A, B, E);
 //   * launch_attention:        softmax(scale * Q K^T + bias [+ head_bias]) V per (sample,
-//                              head, q-tile) on packed (rows, heads * head_dim) layouts.
+//                              head, q-tile) on packed f32 (rows, heads * head_dim)
+//                              layouts (the two-bias and streamed entries);
+//   * sm90_gemm_bias, sm90_gemm_ln (gemm_sm90.cu): the wgmma + TMA GEMM core of
+//                              kernels C and F on bf16 rows, with the bias [+ GELU]
+//                              epilogue to bf16 or the residual + LayerNorm one to f32.
 // The mma.sync pieces below (ldmatrix operands, m16n8k16 products, bf16 packing)
 // build block B (fused_attention.cu) and the dropout backward pair
-// (fused_attention_dropout.cu).
+// (fused_attention_dropout.cu); the wgmma, mbarrier, TMA, setmaxnreg and cluster
+// pieces build gemm_sm90.cu.
 // Every launcher returns cudaGetLastError() after its launch.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace ovq {
 
 using bf16 = __nv_bfloat16;
-
-enum Epilogue { kNone = 0, kGelu = 1 };
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
@@ -34,27 +41,18 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-// four consecutive values as four bf16 in a uint2 (zeros when !valid)
+// four consecutive f32 values as four bf16 in a uint2 (zeros when !valid)
 __device__ __forceinline__ uint2 load_quad(const float* p, bool valid) {
   const float4 v = valid ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
   __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
   return make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
 }
-__device__ __forceinline__ uint2 load_quad(const bf16* p, bool valid) {
-  return valid ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
-}
 
-// eight consecutive outputs from f32 values
+// eight consecutive f32 outputs
 __device__ __forceinline__ void store_eight(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store_eight(bf16* p, const float* v) {
-  __nv_bfloat162 h[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) h[u] = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<uint4*>(h);
 }
 
 // the attention blocks: 64-row tiles, 64-row key chunks, 4 warps of 16 rows
@@ -294,6 +292,222 @@ __device__ __forceinline__ void store_acc_rows(const float (&o)[2 * DF][4], floa
   }
 }
 
+// -- Hopper pieces (sm_90a): wgmma, mbarrier, TMA, setmaxnreg, clusters -----------
+// A shared-memory matrix descriptor of a tile stored with the 128-byte swizzle
+// (rows of 128 bytes, the XOR pattern repeating every 8 rows = 1024 bytes, as a
+// TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes it; tile bases 1024-aligned):
+// start address, leading and stride byte offsets in 16-byte units, layout 1 =
+// SWIZZLE_128B in bits 62-63.  K-major A (rows of K): the stride offset is the
+// 1024 bytes between 8-row groups, the leading one unused; a k16 step within the
+// 128-byte row advances the start by 32 bytes.  MN-major B ((K, N) row-major
+// weight, 64-column boxes stacked): the leading offset is the bytes between two
+// 64-column boxes, the stride offset the 1024 bytes between 8-row K groups; a k16
+// step advances the start by 16 rows = 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, unsigned lead_bytes,
+                                               unsigned stride_bytes) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFFull) >> 4) | (uint64_t)((lead_bytes >> 4) & 0x3FFFu) << 16 |
+         (uint64_t)((stride_bytes >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across the asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32 accumulators,
+// B transposed (MN-major).  Thread (warp w of the warpgroup, lane g * 4 + t)
+// holds rows 16w + g (d[4j], d[4j + 1]) and 16w + g + 8 (d[4j + 2], d[4j + 3]) of
+// columns 8j + 2t and 8j + 2t + 1.
+// acc (64 x 64, this thread's 32 floats) += A (64 x 16, K-major) * B (16 x 64, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// acc (64 x 128, this thread's 64 floats) += A (64 x 16, K-major) * B (16 x 128, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// acc (64 x 256, this thread's 128 floats) += A (64 x 16, K-major) * B (16 x 256, MN-major)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// mbarriers in shared memory
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA tile load of a 2-D tensor map (coordinates innermost first) into this
+// CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one TMA tile store from this CTA's shared memory to a 2-D tensor map (the map
+// clips what lies outside the matrix), in the thread's current bulk group; the
+// shared-memory writes it reads must be fenced to the async proxy first
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups have finished reading shared memory (READ) or completed
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_all() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier over the first `threads` threads of the CTA (named barrier `id` >= 1)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// register budgets of a producer / consumer warpgroup split (whole warpgroups)
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// thread-block clusters: split arrive / wait barriers over every thread of the
+// cluster, and a float read from a peer CTA's shared memory
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ float ld_peer(const float* local, unsigned rank) {
+  unsigned remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(local)),
+               "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // A second additive bias with a head axis (T5's relative positions, DeBERTa's
 // disentangled terms), added after the head-shared one: element (b, h, i, j)
 // at p + b * bs + h * hs + i * qs + j.  A stride of 0 shares it, so a table
@@ -305,37 +519,83 @@ struct HeadBias {
   int qs;
 };
 
-// Y[M, N] (row stride ldy) = epi(A[M, K] (row stride lda) @ W[K, N] + bias[N]).
-// A is rounded to bf16 as it is staged; W is bf16 (K, N) row-major.  K must be a
-// multiple of 32, N, ldy multiples of 8 and lda a multiple of 4.
-template <typename TA, typename TO, int EPI>
+// Y[M, N] (row stride ldy) = A[M, K] (row stride lda) @ W[K, N] + bias[N] on f32
+// rows (kernels D, A, B, E).  A is rounded to bf16 as it is staged; W is bf16 (K,
+// N) row-major.  K must be a multiple of 32, N, ldy multiples of 8 and lda a
+// multiple of 4.
+template <typename TA, typename TO>
 cudaError_t launch_gemm_bias(const TA* A, int lda, const bf16* W, const float* bias, TO* Y,
                              int ldy, int M, int N, int K, cudaStream_t stream);
 
-// Y[M, N] = LayerNorm(R[M, N] + A[M, K] @ W[K, N] + bias[N]) * gamma + beta, with N a
-// multiple of 128 up to 1024.  R and Y are f32 with row stride N.  With splits > 1
-// the K range is cut into slices of k_per_split (a multiple of 32), each block
-// writes its partial rows to `partial` (splits * M * N f32) and a second launch
-// sums them and runs the epilogue.
+// Y[M, N] = LayerNorm(R[M, N] + A[M, K] @ W[K, N] + bias[N]) * gamma + beta on f32 A,
+// with N a multiple of 128 up to 1024.  R and Y are f32 with row stride N.  With
+// splits > 1 the K range is cut into slices of k_per_split (a multiple of 32), each
+// block writes its partial rows to `partial` (splits * M * N f32) and a second
+// launch sums them and runs the epilogue.
 template <typename TA>
 cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const float* bias,
                                     const float* R, const float* gamma, const float* beta,
                                     float* Y, float* partial, int splits, int k_per_split,
                                     int M, int N, int K, float eps, cudaStream_t stream);
 
+// rows_reduce_ln_kernel's launch: Y[M, N] = LayerNorm(bias + R + sum of the `splits`
+// (M, N) f32 slices of `partial`) * gamma + beta, N up to 1024
+cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float* bias,
+                                  const float* R, const float* gamma, const float* beta, float* Y,
+                                  int M, int N, float eps, cudaStream_t stream);
+
 // out[b, i, h*d + c] = sum_j w_ij v[b, j, h*d + c] with
-// w_ij = bf16(softmax_j(scale * q_i . k_j + bias[b, i, j])); q, k, v rounded to bf16.
+// w_ij = bf16(softmax_j(scale * q_i . k_j + bias[b, i, j])); q, k, v rounded to bf16
+// (f32 in and out: the two-bias and streamed entries).
 // sk must be positive and d a multiple of 16 up to 128; row and batch strides
 // multiples of 4 (of 8 for out).
 // q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
 // the bias as bias + b * bias_bs + i * bias_qs + j (strides of 0 broadcast).
-// With head_bias.p set (float in and out), the logit is scale * q_i . k_j +
-// bias[b, i, j] + head_bias[b, h, i, j].
+// With head_bias.p set, the logit is scale * q_i . k_j + bias[b, i, j] +
+// head_bias[b, h, i, j].
 template <typename TI, typename TO>
 cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
                              long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
                              int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
                              int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
                              HeadBias head_bias = HeadBias{nullptr, 0, 0, 0});
+
+// -- the wgmma + TMA GEMM core of kernels C and F (gemm_sm90.cu) --------------------
+// How one product is cut over the card; ops/_cuda.py::gemm_plan chooses it.
+//   bm x bn:  the output tile of one CTA (bm 64 or 128 rows: one or two consumer
+//             warpgroups; bn 64, 128 or 256 columns);
+//   splits:   CTAs along K, each over k_slice of it (a multiple of 64);
+//   cluster:  0: each CTA writes its raw f32 partial tile (64 x 64 only) to
+//             `partial` (splits * M * N floats) and a second pass sums the slices
+//             and runs the epilogue;
+//             >= 1: the epilogue runs in the GEMM (splits 1), for the LayerNorm over
+//             a cluster of `cluster` CTAs along N (N == cluster * bn) that trade
+//             their rows' partial sums through distributed shared memory.
+struct GemmPlan {
+  int bm, bn, splits, k_slice, cluster;
+};
+
+// Y[M, N] (bf16, row stride N) = epi(A[M, K] @ W[K, N] + bias[N]), epi the identity
+// or exact-erf GELU; A bf16 rows of stride K, W bf16 (K, N) row-major; N and K
+// multiples of 8.
+cudaError_t sm90_gemm_bias(const bf16* A, const bf16* W, const float* bias, bf16* Y,
+                           float* partial, int M, int N, int K, bool gelu, GemmPlan plan,
+                           cudaStream_t stream);
+
+// Y[M, N] (f32) = LayerNorm(R[M, N] + A[M, K] @ W[K, N] + bias[N]) * gamma + beta, R f32
+// rows of stride N, N a multiple of 128 up to 1024.
+cudaError_t sm90_gemm_ln(const bf16* A, const bf16* W, const float* bias, const float* R,
+                         const float* gamma, const float* beta, float* Y, float* partial, int M,
+                         int N, int K, float eps, GemmPlan plan, cudaStream_t stream);
+
+// y[n] = bf16(x[n]): the f32 activation as the GEMMs' A operand (TMA copies bytes)
+cudaError_t cast_to_bf16(const float* x, bf16* y, long long n, cudaStream_t stream);
+
+// Block B's bf16 instance (fused_attention.cu): the packed (b, S, 3 * hd) q|k|v
+// projection in, the bf16 context (b, S, hd) out, under a (b, S) key bias; K and V
+// resident in shared memory or in a two-slot ring
+cudaError_t packed_attention_qkv(const bf16* qkv, const float* key_bias, bf16* out, int batch,
+                                 int seq, int hd, int heads, float scale, int resident,
+                                 cudaStream_t stream);
 
 }  // namespace ovq

@@ -49,15 +49,19 @@
 //      not split;
 //   B: q GEMM, attention over the encoder K/V, out projection + residual +
 //      LayerNorm: 4 (3) device launches;
-//   layer: A + B + C's 3 (2) = 11 device launches a call, 8 when no K is split.
+//   layer: A + B + C's (the bf16 cast of B's rows and gemm_sm90.cu's two products,
+//      with a split-K reduce pass each at these row counts) = 13 device launches a
+//      call, 11 when A's and B's K is not split.
 // One cooperative or cluster-wide launch, and a CUDA graph over the step, are
 // left for later work.
 #include "common.cuh"
 
 extern "C" int ovq_ffn_forward(const float* x, const ovq::bf16* w1, const float* b1,
                                const ovq::bf16* w2, const float* b2, const float* gamma,
-                               const float* beta, ovq::bf16* hidden, float* partial, float* y,
-                               int rows, int hd, int d_ff, int splits, int k_per_split, float eps,
+                               const float* beta, ovq::bf16* xb, ovq::bf16* hidden,
+                               float* partial, float* y, int rows, int hd, int d_ff, int bm1,
+                               int bn1, int splits1, int k_slice1, int cluster1, int bm2, int bn2,
+                               int splits2, int k_slice2, int cluster2, float eps,
                                cudaStream_t stream);
 
 namespace ovq {
@@ -165,8 +169,8 @@ static cudaError_t self_step(const float* x, const AttentionWeights& w, const fl
                              int hd, int heads, float scale, float eps, cudaStream_t stream) {
   if (!step_shape_ok(rows, max_len, hd, heads) || t < 0 || t >= max_len)
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_gemm_bias<float, float, kNone>(x, hd, w.w_in, w.b_in, ws.qkv, 3 * hd,
-                                                          rows, 3 * hd, hd, stream);
+  cudaError_t err = launch_gemm_bias<float, float>(x, hd, w.w_in, w.b_in, ws.qkv, 3 * hd, rows,
+                                                   3 * hd, hd, stream);
   if (err != cudaSuccess) return err;
   self_step_attn_kernel<TK><<<dim3(heads, rows), kStepThreads, 0, stream>>>(
       ws.qkv, step_bias, static_cast<TK*>(cache_k), static_cast<TK*>(cache_v), cache_bias,
@@ -184,8 +188,8 @@ static cudaError_t cross_step(const float* x, const AttentionWeights& w, const v
                               float* y, int rows, int sk, int hd, int heads, float scale,
                               float eps, cudaStream_t stream) {
   if (!step_shape_ok(rows, sk, hd, heads)) return cudaErrorInvalidValue;
-  cudaError_t err = launch_gemm_bias<float, float, kNone>(x, hd, w.w_in, w.b_in, ws.qkv, hd,
-                                                          rows, hd, hd, stream);
+  cudaError_t err = launch_gemm_bias<float, float>(x, hd, w.w_in, w.b_in, ws.qkv, hd, rows, hd,
+                                                   hd, stream);
   if (err != cudaSuccess) return err;
   cross_step_attn_kernel<TK><<<dim3(heads, rows), kStepThreads, 0, stream>>>(
       ws.qkv, static_cast<const TK*>(enc_k), static_cast<const TK*>(enc_v), enc_bias, ws.ctx, sk,
@@ -241,8 +245,9 @@ extern "C" int ovq_cross_attention_streamed_forward(
                                           splits, k_per_split, scale, eps, stream);
 }
 
-// y1 and y2 (rows, hd) carry the rows between the sublayers; hidden (rows, d_ff)
-// bf16 is kernel C's; partial holds max(splits, ffn_splits) * rows * hd floats
+// y1 and y2 (rows, hd) carry the rows between the sublayers; xb (rows, hd) and
+// hidden (rows, d_ff) bf16 are kernel C's, and (bm1 ... cluster2) its two plans;
+// partial holds the most floats any of A's, B's and C's products asks for
 extern "C" int ovq_decoder_layer_step_forward(
     const float* x, const ovq::bf16* s_wqkv, const float* s_bqkv, const ovq::bf16* s_wo,
     const float* s_bo, const float* s_gamma, const float* s_beta, const ovq::bf16* c_wq,
@@ -251,9 +256,10 @@ extern "C" int ovq_decoder_layer_step_forward(
     const float* f_b2, const float* f_gamma, const float* f_beta, const float* step_bias,
     void* cache_k, void* cache_v, float* cache_bias, const void* enc_k, const void* enc_v,
     const float* enc_bias, float* qkv, float* ctx, float* partial, float* y1, float* y2,
-    ovq::bf16* hidden, float* y, int rows, int max_len, int t, int sk, int hd, int heads,
-    int d_ff, int cache_bf16, int enc_bf16, int splits, int k_per_split, int ffn_splits,
-    int ffn_k_per_split, float scale, float eps, cudaStream_t stream) {
+    ovq::bf16* xb, ovq::bf16* hidden, float* y, int rows, int max_len, int t, int sk, int hd,
+    int heads, int d_ff, int cache_bf16, int enc_bf16, int splits, int k_per_split, int bm1,
+    int bn1, int splits1, int k_slice1, int cluster1, int bm2, int bn2, int splits2, int k_slice2,
+    int cluster2, float scale, float eps, cudaStream_t stream) {
   int err = ovq_self_attention_step_forward(
       x, s_wqkv, s_bqkv, s_wo, s_bo, s_gamma, s_beta, step_bias, cache_k, cache_v, cache_bias,
       qkv, ctx, partial, y1, rows, max_len, t, hd, heads, cache_bf16, splits, k_per_split, scale,
@@ -263,6 +269,7 @@ extern "C" int ovq_decoder_layer_step_forward(
                                          enc_v, enc_bias, qkv, ctx, partial, y2, rows, sk, hd,
                                          heads, enc_bf16, splits, k_per_split, scale, eps, stream);
   if (err != cudaSuccess) return err;
-  return ovq_ffn_forward(y2, f_w1, f_b1, f_w2, f_b2, f_gamma, f_beta, hidden, partial, y, rows,
-                         hd, d_ff, ffn_splits, ffn_k_per_split, eps, stream);
+  return ovq_ffn_forward(y2, f_w1, f_b1, f_w2, f_b2, f_gamma, f_beta, xb, hidden, partial, y,
+                         rows, hd, d_ff, bm1, bn1, splits1, k_slice1, cluster1, bm2, bn2, splits2,
+                         k_slice2, cluster2, eps, stream);
 }

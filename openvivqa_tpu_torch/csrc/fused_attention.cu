@@ -14,8 +14,11 @@
 // This file holds the packed entry's block for more query rows than
 // ops/fused_attention.py's single-query cut-over (fewer go to the flat
 // attention's single-query block, which takes packed operands through strides),
-// and the dropout entry's block at every shape.  The two-bias and streamed entries
-// keep common.cu's attention block.
+// the dropout entry's block at every shape, and kernel F's attention at every
+// shape: a bf16 instance that reads q, k and v from the packed (rows, 3 * hd) q|k|v
+// projection through a row stride and writes the bf16 context (TI = TO = bf16;
+// the f32 instances compile as before).  The two-bias and streamed entries keep
+// common.cu's attention block.
 //
 // What bounds it.  At the MMT joint encode (64 samples x 8 heads x 215 x 215,
 // d 96, per-sample bias) the work is 9.1 GFLOP against 181 MB of f32 q, k, v,
@@ -42,6 +45,8 @@
 // identity).  The first walk takes each row's max and denominator, the second
 // recomputes the scores from shared memory and accumulates P V.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -80,12 +85,51 @@ struct DropArgs {
   unsigned* bits;
 };
 
-template <int DF, bool RES, bool DROP>
+// The A fragments of rows r0 and r1 = r0 + 8 of a bf16 matrix (row stride ld,
+// this head's columns from `base`): load_a_rows' layout, read as it is stored
+using ::ovq::load_a_rows;  // the f32 rows' version (common.cuh)
+template <int DF>
+__device__ __forceinline__ void load_a_rows(unsigned (&a)[DF][4], const bf16* base, int r0,
+                                            int rows, long long ld, int t, bool active) {
+  const int r1 = r0 + 8;
+  const bf16* p0 = base + (long long)(r0 < rows ? r0 : 0) * ld + 2 * t;
+  const bf16* p1 = base + (long long)(r1 < rows ? r1 : 0) * ld + 2 * t;
+  const bool ok0 = active && r0 < rows, ok1 = active && r1 < rows;
+#pragma unroll
+  for (int kk = 0; kk < DF; ++kk) {
+    a[kk][0] = ok0 ? *reinterpret_cast<const unsigned*>(p0 + 16 * kk) : 0u;
+    a[kk][1] = ok1 ? *reinterpret_cast<const unsigned*>(p1 + 16 * kk) : 0u;
+    a[kk][2] = ok0 ? *reinterpret_cast<const unsigned*>(p0 + 16 * kk + 8) : 0u;
+    a[kk][3] = ok1 ? *reinterpret_cast<const unsigned*>(p1 + 16 * kk + 8) : 0u;
+  }
+}
+
+// four consecutive K or V values as the copy carries them: f32 (converted when
+// stored) or bf16 (stored as they are); zeros when !valid
+__device__ __forceinline__ float4 load_four(const float* p, bool valid) {
+  return valid ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ uint2 load_four(const bf16* p, bool valid) {
+  return valid ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+}
+__device__ __forceinline__ uint2 four_bf16(float4 v) {
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ uint2 four_bf16(uint2 v) { return v; }
+
+// TI, TO: float (q, k, v and out rows of stride hd) or bf16 (kernel F: q at
+// column h * d, k at hd + h * d and v at 2 * hd + h * d of rows of stride in_rs,
+// the context out in rows of stride out_rs; in_rs and out_rs are read only then)
+template <int DF, bool RES, bool DROP, typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
-    packed_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ bias,
-                        long long bias_bs, int bias_qs, float* __restrict__ out, int sq, int sk,
-                        int hd, float scale, DropArgs drop) {
+    packed_block_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                        const TI* __restrict__ v, const float* __restrict__ bias,
+                        long long bias_bs, int bias_qs, TO* __restrict__ out, int sq, int sk,
+                        int hd, float scale, DropArgs drop, int in_rs, int out_rs) {
+  constexpr bool kBf16 = std::is_same<TI, bf16>::value;
+  static_assert(kBf16 == std::is_same<TO, bf16>::value && (!kBf16 || !DROP),
+                "bf16 in and out together, without dropout");
+  const int rs = kBf16 ? in_rs : hd;
   constexpr int d = 16 * DF;
   constexpr int LD = d + 8;            // bf16 row stride in shared memory: ldmatrix without conflicts
   constexpr int KC = chunk_keys(DF, RES);
@@ -100,8 +144,8 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
   const int b = blockIdx.z, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const float* kb = k + (long long)b * sk * hd + h * d;
-  const float* vb = v + (long long)b * sk * hd + h * d;
+  const TI* kb = k + (long long)b * sk * rs + h * d;
+  const TI* vb = v + (long long)b * sk * rs + h * d;
   const float* bb = bias == nullptr ? nullptr : bias + b * bias_bs;
   const int nc = (sk + KC - 1) / KC;
   const int steps = 2 * nc;  // first walk: K chunks; second walk: V (and, in the ring, K) chunks
@@ -113,7 +157,8 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
   const int n_words = (sk + 31) / 32;
 
   // copy step s: global f32 -> registers (`load`), registers -> bf16 shared (`store`)
-  float4 pre[NP];
+  // (bf16 rows are copied as they are)
+  std::conditional_t<kBf16, uint2, float4> pre[NP];
   auto load = [&](int s) {
     const int c = s < nc ? s : s - nc;
     const bool both = !RES && s >= nc;
@@ -123,8 +168,8 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
       const int r = idx / (d / 4), c4 = idx % (d / 4), key = c * KC + r;
       const bool from_v = RES ? s >= nc : (both && u >= PT);
       const bool valid = idx < kQuads && key < sk && (u < PT || both);
-      const float* src = (from_v ? vb : kb) + (long long)(valid ? key : 0) * hd + 4 * c4;
-      pre[u] = valid ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const TI* src = (from_v ? vb : kb) + (long long)(valid ? key : 0) * rs + 4 * c4;
+      pre[u] = load_four(src, valid);
     }
   };
   auto store = [&](int s) {
@@ -137,8 +182,7 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
       const int row = RES ? c * KC + r : (s % 2) * KC + r;
       const bool from_v = RES ? s >= nc : (both && u >= PT);
       if (idx < kQuads && (u < PT || both) && (!RES || row < skp)) {
-        const uint2 packed = make_uint2(pack_bf16(pre[u].x, pre[u].y), pack_bf16(pre[u].z, pre[u].w));
-        *reinterpret_cast<uint2*>((from_v ? Vs : Ks) + row * LD + 4 * c4) = packed;
+        *reinterpret_cast<uint2*>((from_v ? Vs : Ks) + row * LD + 4 * c4) = four_bf16(pre[u]);
       }
     }
   };
@@ -150,7 +194,7 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
     const bool active = tile < n_tiles;
     const int r0 = tile * 16 + g, r1 = r0 + 8;  // this lane's two rows
     unsigned qa[DF][4];  // Q fragments (A operand, bf16), zero past the last row
-    load_a_rows<DF>(qa, q + (long long)b * sq * hd + h * d, tile * 16 + g, sq, hd, t, active);
+    load_a_rows<DF>(qa, q + (long long)b * sq * rs + h * d, tile * 16 + g, sq, rs, t, active);
     const float* b0 = bb == nullptr ? nullptr : bb + (long long)(r0 < sq ? r0 : sq - 1) * bias_qs;
     const float* b1 = bb == nullptr ? nullptr : bb + (long long)(r1 < sq ? r1 : sq - 1) * bias_qs;
     // per lane: running (max, sum) of its keys of rows r0 and r1
@@ -290,7 +334,17 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
     }
     filled = true;
 
-    if (active) {
+    if constexpr (kBf16) {
+      if (active) {
+        TO* o0 = out + ((long long)b * sq + r0) * out_rs + h * d + 2 * t;
+        TO* o1 = out + ((long long)b * sq + r1) * out_rs + h * d + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 2 * DF; ++n) {
+          if (r0 < sq) *reinterpret_cast<unsigned*>(o0 + 8 * n) = pack_bf16(o[n][0], o[n][1]);
+          if (r1 < sq) *reinterpret_cast<unsigned*>(o1 + 8 * n) = pack_bf16(o[n][2], o[n][3]);
+        }
+      }
+    } else if (active) {
       float* o0 = out + ((long long)b * sq + r0) * hd + h * d + 2 * t;
       float* o1 = out + ((long long)b * sq + r1) * hd + h * d + 2 * t;
 #pragma unroll
@@ -302,14 +356,15 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
   }
 }
 
-template <int DF, bool RES, bool DROP>
-cudaError_t launch_packed_block(const float* q, const float* k, const float* v, const float* bias,
-                                long long bias_bs, int bias_qs, float* out, int batch, int heads,
-                                int sq, int sk, int hd, float scale, DropArgs drop,
-                                cudaStream_t stream) {
+template <int DF, bool RES, bool DROP, typename TI, typename TO>
+cudaError_t launch_packed_block(const TI* q, const TI* k, const TI* v, const float* bias,
+                                long long bias_bs, int bias_qs, TO* out, int batch, int heads,
+                                int sq, int sk, int hd, float scale, DropArgs drop, int in_rs,
+                                int out_rs, cudaStream_t stream) {
   // the attribute is a ceiling, set once per instance; each launch asks for its own size
-  static const cudaError_t attribute = cudaFuncSetAttribute(
-      packed_block_kernel<DF, RES, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  static const cudaError_t attribute =
+      cudaFuncSetAttribute(packed_block_kernel<DF, RES, DROP, TI, TO>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attribute != cudaSuccess) return attribute;
   const long long smem = packed_block_smem_bytes(sk, DF, RES);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -319,16 +374,17 @@ cudaError_t launch_packed_block(const float* q, const float* k, const float* v, 
   const int pairs = batch * heads;
   const int split = RES ? (2 * 132 + pairs - 1) / pairs : rounds;
   const dim3 grid(rounds < split ? rounds : split, heads, batch);
-  packed_block_kernel<DF, RES, DROP><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, v, bias, bias_bs, bias_qs, out, sq, sk, hd, scale, drop);
+  packed_block_kernel<DF, RES, DROP, TI, TO><<<grid, kMmaThreads, smem, stream>>>(
+      q, k, v, bias, bias_bs, bias_qs, out, sq, sk, hd, scale, drop, in_rs, out_rs);
   return cudaGetLastError();
 }
 
-template <bool DROP>
-cudaError_t launch_packed(const float* q, const float* k, const float* v, const float* bias,
-                          long long bias_bs, int bias_qs, float* out, int batch, int sq, int sk,
+// in_rs, out_rs: the bf16 instance's row strides (elements; ignored for f32)
+template <bool DROP, typename TI = float, typename TO = float>
+cudaError_t launch_packed(const TI* q, const TI* k, const TI* v, const float* bias,
+                          long long bias_bs, int bias_qs, TO* out, int batch, int sq, int sk,
                           int hd, int heads, float scale, int resident, DropArgs drop,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int in_rs = 0, int out_rs = 0) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   if (heads <= 0 || hd % heads || sk <= 0 || heads > 65535 || batch > 65535 || hd % 4)
     return cudaErrorInvalidValue;
@@ -341,10 +397,10 @@ cudaError_t launch_packed(const float* q, const float* k, const float* v, const 
   case df:                                                                                     \
     return resident ? launch_packed_block<df, true, DROP>(q, k, v, bias, bias_bs, bias_qs, out, \
                                                            batch, heads, sq, sk, hd, scale,    \
-                                                           drop, stream)                       \
+                                                           drop, in_rs, out_rs, stream)        \
                     : launch_packed_block<df, false, DROP>(q, k, v, bias, bias_bs, bias_qs,    \
                                                             out, batch, heads, sq, sk, hd,     \
-                                                            scale, drop, stream);
+                                                            scale, drop, in_rs, out_rs, stream);
   switch (d / 16) {
     OVQ_PB_CASE(1)
     OVQ_PB_CASE(2)
@@ -361,6 +417,15 @@ cudaError_t launch_packed(const float* q, const float* k, const float* v, const 
 }
 
 }  // namespace
+
+cudaError_t packed_attention_qkv(const bf16* qkv, const float* key_bias, bf16* out, int batch,
+                                 int seq, int hd, int heads, float scale, int resident,
+                                 cudaStream_t stream) {
+  if (hd % 8) return cudaErrorInvalidValue;  // 16-byte aligned k and v column blocks
+  return launch_packed<false>(qkv, qkv + hd, qkv + 2 * hd, key_bias, seq, 0, out, batch, seq, seq,
+                              hd, heads, scale, resident, DropArgs{}, stream, 3 * hd, hd);
+}
+
 }  // namespace ovq
 
 extern "C" int ovq_packed_attention_forward(const float* q, const float* k, const float* v,

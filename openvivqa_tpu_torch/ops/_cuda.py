@@ -14,12 +14,18 @@ kernel, anything else raises.  There is no fallback from a CUDA tensor to the
 plain version.
 
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches its
-kernel and nowhere else, so a run can show that it went through the kernels.
+kernel and nowhere else, so a run can show that it went through the kernels;
+kernels C and F also tally their launches by row count (:data:`LAUNCHES_BY_ROWS`).
+
+:func:`gemm_plan` cuts each product of kernels C and F over the card (tile,
+K split, cluster): the launch plan lives here, where the CPU tests reach it, and
+the C entries take it as arguments.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +33,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,19 +60,25 @@ LAUNCHES: Dict[str, int] = {
     "fused_attention_packed_streamed": 0,
     "fused_attention": 0,
 }
+# wrapper name -> {rows of the call: launches}, for the kernels whose launches
+# fall at very different row counts (encodes, TextBert, decode steps)
+LAUNCHES_BY_ROWS: Dict[str, Dict[int, int]] = {
+    "fused_ffn_step": {},
+    "fused_encoder_self_attention": {},
+}
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
 # trailing stream argument is added by `launch`)
 _SIGNATURES = {
-    "ovq_ffn_forward": "p" * 10 + "i" * 5 + "f",
-    "ovq_encoder_attention_forward": "p" * 12 + "i" * 6 + "ff",
+    "ovq_ffn_forward": "p" * 11 + "i" * 13 + "f",
+    "ovq_encoder_attention_forward": "p" * 13 + "i" * 15 + "ff",
     "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f" "i",
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
     "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "ppp" "iiiii" "f" "i",
     "ovq_packed_dropout_backward": "ppppp" "li" "f" "ppp" "ppp" "iiiii" "f" "ii",
     "ovq_self_attention_step_forward": "p" * 15 + "i" * 8 + "ff",
     "ovq_cross_attention_step_forward": "p" * 14 + "i" * 7 + "ff",
-    "ovq_decoder_layer_step_forward": "p" * 33 + "i" * 13 + "ff",
+    "ovq_decoder_layer_step_forward": "p" * 34 + "i" * 21 + "ff",
     "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 7 + "ff",
     "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
     "ovq_streamed_attention_forward": "pppp" "li" "p" "iiiii" "f",
@@ -171,17 +183,26 @@ def ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:
     return None if tensor is None else tensor.data_ptr()
 
 
-def count(name: str) -> None:
+def count(name: str, rows: Optional[int] = None) -> None:
     LAUNCHES[name] += 1
+    if rows is not None:
+        by_rows = LAUNCHES_BY_ROWS[name]
+        by_rows[rows] = by_rows.get(rows, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for by_rows in LAUNCHES_BY_ROWS.values():
+        by_rows.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launch_counts_by_rows() -> Dict[str, Dict[int, int]]:
+    return {name: dict(sorted(by_rows.items())) for name, by_rows in LAUNCHES_BY_ROWS.items()}
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:
@@ -215,8 +236,8 @@ def require(tensor: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 
 def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
-    """The attention block (common.cu) takes at least one key and a head dim
-    that is a multiple of 16 up to 128."""
+    """Block B (fused_attention.cu) and common.cu's attention block take at
+    least one key and a head dim that is a multiple of 16 up to 128."""
     d = hd // heads if heads > 0 else 0
     if keys <= 0 or heads <= 0 or hd % heads or d % 16 or not 0 < d <= 128:
         raise ValueError(
@@ -226,7 +247,8 @@ def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
 
 
 def row_splits(rows: int, k: int) -> Tuple[int, int]:
-    """(splits, k_per_split) of the row-owning GEMM + LayerNorm (common.cu): K
+    """(splits, k_per_split) of the row-owning GEMM + LayerNorm on f32 rows
+    (common.cu; kernels D, A, B and E): K
     is split only while the 32-row blocks alone cannot fill the H100's 132
     SMs, into slices of at least 128 (multiples of 32), so that the partial
     rows written stay small next to the weights read."""
@@ -253,3 +275,87 @@ def require_width(hd: int, what: str) -> None:
         raise ValueError(
             f"{what}: hidden width {hd} is not a multiple of 128 in [128, 1024]"
         )
+
+
+# -- the launch plan of gemm_sm90.cu (kernels C and F) --------------------------------
+SM_COUNT = 132  # streaming multiprocessors of the H100 SXM
+GEMM_BK = 64  # K per pipeline stage
+# (rows, columns) of the CTA tiles with the bias epilogue in the GEMM, largest first
+GEMM_BIAS_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))
+# the tile of the split (partial f32) route at few rows
+GEMM_SPLIT_TILE = (64, 64)
+# the split route's f32 partial tiles (written once, read once by the reduce
+# pass) as a share of the weight's bf16 bytes, at most
+GEMM_PARTIAL_SHARE = 0.5
+
+
+class GemmPlan(NamedTuple):
+    """One product's cut over the card (common.cuh's GemmPlan): a bm x bn tile
+    per CTA, `splits` CTAs along K over `k_slice` each, and `cluster` 0 for raw
+    f32 partial tiles summed by a second pass that runs the epilogue, or >= 1
+    for the epilogue in the GEMM (the LayerNorm over `cluster` CTAs along N).
+    The fields are in the C entries' argument order."""
+
+    bm: int
+    bn: int
+    splits: int
+    k_slice: int
+    cluster: int
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        """CTAs along N, M and K."""
+        return -(-n // self.bn), -(-m // self.bm), self.splits
+
+    def ctas(self, m: int, n: int) -> int:
+        x, y, z = self.grid(m, n)
+        return x * y * z
+
+    def partial_floats(self, m: int, n: int) -> int:
+        """f32 workspace of the split route (0 when the epilogue runs in the GEMM)."""
+        return 0 if self.cluster else self.splits * m * n
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, n: int, k: int, epilogue: str) -> GemmPlan:
+    """The plan of one (m, n, k) product of gemm_sm90.cu, `epilogue` "bias" (to
+    bf16, maybe with GELU) or "ln" (residual + LayerNorm over rows of n).
+
+    The bias epilogue takes the largest tile that still puts a CTA on every SM;
+    the LayerNorm epilogue a cluster of n / bn CTAs of 128 x bn (bn 256, or 128
+    where 256 does not divide n) per row block while those fill the card.
+    Otherwise (few rows: the decode and TextBert shapes, where the weights'
+    bytes bound the product) 64 x 64 tiles with K split into whole 64-deep
+    slices until at least SM_COUNT CTAs stream disjoint slices of the weight,
+    unless the f32 partial tiles would outgrow GEMM_PARTIAL_SHARE of the
+    weight's bytes (splits * m * n * 4 against k * n * 2): past that K is split
+    no further, and a small weight is streamed by fewer CTAs.  A second pass sums
+    the slices and runs the epilogue; a bias product that is not split runs its
+    epilogue in the GEMM instead."""
+    if epilogue not in ("bias", "ln"):
+        raise ValueError(f"gemm_plan: unknown epilogue {epilogue!r}")
+    if m <= 0 or n <= 0 or k <= 0 or n % 8 or k % 8:
+        raise ValueError(
+            f"gemm_plan: ({m} x {k}) @ ({k} x {n}) needs positive sizes and N, K "
+            "multiples of 8 (16-byte TMA strides)"
+        )
+    if epilogue == "ln":
+        if n % 128 or n > 1024:
+            raise ValueError(f"gemm_plan: the LayerNorm epilogue takes N a multiple of 128 up to 1024, got {n}")
+        bn = 256 if n % 256 == 0 else 128
+        plan = GemmPlan(128, bn, 1, -(-k // GEMM_BK) * GEMM_BK, n // bn)
+        if plan.ctas(m, n) >= SM_COUNT:
+            return plan
+    else:
+        for bm, bn in GEMM_BIAS_TILES:
+            plan = GemmPlan(bm, bn, 1, -(-k // GEMM_BK) * GEMM_BK, 1)
+            if plan.ctas(m, n) >= SM_COUNT:
+                return plan
+    bm, bn = GEMM_SPLIT_TILE
+    tiles = GemmPlan(bm, bn, 1, k, 0).ctas(m, n)
+    blocks = -(-k // GEMM_BK)
+    most = max(1, int(GEMM_PARTIAL_SHARE * k * 2 // (m * 4)))  # splits the partials allow
+    per_slice = max(1, blocks // -(-SM_COUNT // tiles), -(-blocks // most))
+    splits = -(-blocks // per_slice)
+    if splits == 1 and epilogue == "bias":
+        return GemmPlan(bm, bn, 1, blocks * GEMM_BK, 1)
+    return GemmPlan(bm, bn, splits, per_slice * GEMM_BK, 0)

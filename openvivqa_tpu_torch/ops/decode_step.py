@@ -21,6 +21,8 @@ queries against keys and values as their cache stores them.  The GELU is the
 exact erf one everywhere (the TPU FFN kernel's A&S 7.1.26 erf is a Mosaic
 workaround, not carried over).
 
+Kernel C's two products run on gemm_sm90.cu's wgmma + TMA core under the plans
+of ``_cuda.gemm_plan`` (``ffn_plans``), in its own entry and inside the layer step.
 The ring caches and slot caches are written IN PLACE; the wrappers return the
 tensors they were given.
 """
@@ -95,6 +97,8 @@ def _require_rows(x, what: str) -> Tuple[int, int]:
 
 def _require_ffn_weights(w1, b1, w2, b2, ln_scale, ln_bias, hd: int) -> int:
     d_ff = w1.shape[-1]
+    if d_ff % 8:
+        raise ValueError(f"d_ff {d_ff} is not a multiple of 8 (16-byte TMA strides)")
     _cuda.require(w1, "w1", torch.bfloat16, (hd, d_ff))
     _cuda.require(w2, "w2", torch.bfloat16, (d_ff, hd))
     for name, vec, n in (("b1", b1, d_ff), ("b2", b2, hd),
@@ -136,22 +140,45 @@ def fused_ffn_step_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = _LN_
     return F.layer_norm(x + out, (x.shape[-1],), ln_scale, ln_bias, eps)
 
 
+def ffn_plans(rows: int, hd: int, d_ff: int) -> Tuple[_cuda.GemmPlan, _cuda.GemmPlan]:
+    """Kernel C's two products: x @ w1 with the GELU epilogue, hidden @ w2 with
+    the residual + LayerNorm one."""
+    return _cuda.gemm_plan(rows, d_ff, hd, "bias"), _cuda.gemm_plan(rows, hd, d_ff, "ln")
+
+
+def _ffn_workspace(rows: int, hd: int, d_ff: int, plans, device):
+    """Kernel C's bf16 x, bf16 hidden and the split route's f32 partial tiles
+    (a 1-element placeholder when no product splits)."""
+    floats = max(plans[0].partial_floats(rows, d_ff), plans[1].partial_floats(rows, hd), 1)
+    return (torch.empty((rows, hd), dtype=torch.bfloat16, device=device),
+            torch.empty((rows, d_ff), dtype=torch.bfloat16, device=device),
+            torch.empty(floats, dtype=torch.float32, device=device))
+
+
+def _ffn_launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float):
+    """Kernel C's launch on checked operands, under ffn_plans."""
+    rows, hd = x.shape
+    d_ff = w1.shape[1]
+    plans = ffn_plans(rows, hd, d_ff)
+    xb, hidden, partial = _ffn_workspace(rows, hd, d_ff, plans, x.device)
+    y = torch.empty_like(x)
+    p = _cuda.ptr
+    _cuda.launch(
+        "ovq_ffn_forward", p(x), p(w1), p(b1), p(w2), p(b2), p(ln_scale), p(ln_bias), p(xb),
+        p(hidden), p(partial), p(y), rows, hd, d_ff, *plans[0], *plans[1], eps,
+    )
+    return y
+
+
 def fused_ffn_step(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = _LN_EPS):
     """LayerNorm(x + GELU(x @ w1 + b1) @ w2 + b2) on (rows, hd) float32 rows.
     On the card w1 (hd, d_ff) and w2 (d_ff, hd) are bf16, the rest float32."""
     if not _cuda.uses_kernel(x, w1, b1, w2, b2, ln_scale, ln_bias):
         return fused_ffn_step_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, eps)
     rows, hd = _require_rows(x, "fused_ffn_step")
-    d_ff = _require_ffn_weights(w1, b1, w2, b2, ln_scale, ln_bias, hd)
-    hidden = torch.empty((rows, d_ff), dtype=torch.bfloat16, device=x.device)
-    partial, splits, k_per_split = _cuda.row_partials(rows, d_ff, hd, x.device)
-    y = torch.empty_like(x)
-    p = _cuda.ptr
-    _cuda.launch(
-        "ovq_ffn_forward", p(x), p(w1), p(b1), p(w2), p(b2), p(ln_scale),
-        p(ln_bias), p(hidden), p(partial), p(y), rows, hd, d_ff, splits, k_per_split, eps,
-    )
-    _cuda.count("fused_ffn_step")
+    _require_ffn_weights(w1, b1, w2, b2, ln_scale, ln_bias, hd)
+    y = _ffn_launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps)
+    _cuda.count("fused_ffn_step", rows)
     return y
 
 
@@ -420,19 +447,19 @@ def fused_decoder_layer_step(
         return torch.empty((rows, width), dtype=dtype, device=x.device)
 
     qkv, context, y1, y2, y = rows_of(3 * hd), rows_of(hd), rows_of(hd), rows_of(hd), rows_of(hd)
-    hidden = rows_of(d_ff, torch.bfloat16)
     splits, k_per_split = _cuda.row_splits(rows, hd)
-    ffn_splits, ffn_k_per_split = _cuda.row_splits(rows, d_ff)
-    partial = torch.empty((max(splits, ffn_splits), rows, hd), dtype=torch.float32,
-                          device=x.device)
+    plans = ffn_plans(rows, hd, d_ff)
+    xb, hidden, partial = _ffn_workspace(rows, hd, d_ff, plans, x.device)
+    if partial.numel() < splits * rows * hd:
+        partial = torch.empty(splits * rows * hd, dtype=torch.float32, device=x.device)
     p = _cuda.ptr
     _cuda.launch(
         "ovq_decoder_layer_step_forward", p(x), *_attention_pointers(self_w, "wqkv"),
         *_attention_pointers(cross_w, "wq"), p(f["w1"]), p(f["b1"]), p(f["w2"]), p(f["b2"]),
         p(f["ln_scale"]), p(f["ln_bias"]), p(step_bias), p(cache_k), p(cache_v), p(cache_bias),
         p(enc_k), p(enc_v), p(enc_bias), p(qkv), p(context), p(partial), p(y1), p(y2),
-        p(hidden), p(y), rows, max_len, _slot(step, max_len), sk, hd, h, d_ff, cache_bf16,
-        enc_bf16, splits, k_per_split, ffn_splits, ffn_k_per_split, scale, _LN_EPS,
+        p(xb), p(hidden), p(y), rows, max_len, _slot(step, max_len), sk, hd, h, d_ff, cache_bf16,
+        enc_bf16, splits, k_per_split, *plans[0], *plans[1], scale, _LN_EPS,
     )
     _cuda.count("fused_decoder_layer_step")
     return y, cache_k, cache_v, cache_bias

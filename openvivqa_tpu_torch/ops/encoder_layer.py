@@ -9,18 +9,22 @@ package's XLA path does (its Pallas kernel packs samples block-diagonally and
 lets such a sample see other samples' values).
 
 The attention's dot operands are rounded to the weights' dtype (bf16 on the
-card, float32 on the CPU); softmax, LayerNorm and accumulators are float32.
+card, float32 on the CPU); softmax, LayerNorm and accumulators are float32.  On
+the card the two projections run on gemm_sm90.cu's wgmma + TMA core under
+``_cuda.gemm_plan``'s plans and the attention on block B's bf16 instance,
+resident or ring by ``fused_attention.attention_block("encoder", ...)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
 from .decode_step import _dot
+from .fused_attention import attention_block
 
 
 def fused_encoder_self_attention_plain(
@@ -59,15 +63,39 @@ def fused_encoder_self_attention(
     _cuda.require(w["wo"], "wo", torch.bfloat16, (hd, hd))
     for name in ("bo", "ln_scale", "ln_bias"):
         _cuda.require(w[name], name, torch.float32, (hd,))
-    qkv = torch.empty((b * s, 3 * hd), dtype=torch.bfloat16, device=x.device)
-    context = torch.empty((b * s, hd), dtype=torch.bfloat16, device=x.device)
-    partial, splits, k_per_split = _cuda.row_partials(b * s, hd, hd, x.device)
+    if b > 65535:
+        raise ValueError(f"fused_encoder_self_attention: {b} samples, at most 65535")
+    y = _encoder_attention_launch(x, w, key_bias, scale, h, eps)
+    _cuda.count("fused_encoder_self_attention", b * s)
+    return y
+
+
+def encoder_attention_plans(rows: int, hd: int) -> Tuple[_cuda.GemmPlan, _cuda.GemmPlan]:
+    """Kernel F's two products: the q|k|v projection with the bias epilogue,
+    the out projection with the residual + LayerNorm one."""
+    return _cuda.gemm_plan(rows, 3 * hd, hd, "bias"), _cuda.gemm_plan(rows, hd, hd, "ln")
+
+
+def _encoder_attention_launch(x, w, key_bias, scale: float, h: int, eps: float, block=None):
+    """Kernel F's launch on checked operands, under encoder_attention_plans and
+    block B `block` (default: attention_block's; the tests force either)."""
+    b, s, hd = x.shape
+    rows = b * s
+    plans = encoder_attention_plans(rows, hd)
+    block = block or attention_block("encoder", s, s, hd // h, hd // h)
+    floats = max(plans[0].partial_floats(rows, 3 * hd), plans[1].partial_floats(rows, hd), 1)
+
+    def bf16_rows(width):
+        return torch.empty((rows, width), dtype=torch.bfloat16, device=x.device)
+
+    xb, qkv, context = bf16_rows(hd), bf16_rows(3 * hd), bf16_rows(hd)
+    partial = torch.empty(floats, dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     p = _cuda.ptr
     _cuda.launch(
         "ovq_encoder_attention_forward", p(x), p(w["wqkv"]), p(w["bqkv"]),
         p(w["wo"]), p(w["bo"]), p(w["ln_scale"]), p(w["ln_bias"]), p(key_bias),
-        p(qkv), p(context), p(partial), p(y), b, s, hd, h, splits, k_per_split, scale, eps,
+        p(xb), p(qkv), p(context), p(partial), p(y), b, s, hd, h, int(block == "resident"),
+        *plans[0], *plans[1], scale, eps,
     )
-    _cuda.count("fused_encoder_self_attention")
     return y

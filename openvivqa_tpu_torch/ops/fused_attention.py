@@ -155,14 +155,17 @@ def attention_block(entry: str, sq: int, sk: int, dk: int, dv: int) -> str:
     ``flat`` entry takes ``single`` (block A) or ``tile``; the ``packed`` entry
     ``single``, ``resident`` or ``ring`` (block B); the ``dropout`` entry
     ``resident`` or ``ring`` (block B's dropout instance, at any row count);
+    the ``encoder`` entry (kernel F's attention, block B's bf16 instance on the
+    packed q|k|v projection) ``resident`` or ``ring`` at any row count;
     the ``streamed`` entry always ``streamed`` (common.cu's attention block).
     The dropout backward keeps K and V resident by this rule on (sq, sk), and
     Q and G by it on (sk, sq)."""
     if entry == "streamed":
         return "streamed"
-    if entry not in ("flat", "packed", "dropout"):
+    if entry not in ("flat", "packed", "dropout", "encoder"):
         raise ValueError(f"attention_block: unknown entry {entry!r}")
-    if entry != "dropout" and sq <= SINGLE_QUERY_MAX_ROWS[entry] and sk <= SINGLE_QUERY_MAX_KEYS:
+    if (entry in SINGLE_QUERY_MAX_ROWS and sq <= SINGLE_QUERY_MAX_ROWS[entry]
+            and sk <= SINGLE_QUERY_MAX_KEYS):
         return "single"
     if entry == "flat":
         return "tile"

@@ -295,21 +295,22 @@ def test_scaled_dot_product_attention_routes_as_the_jax_package(monkeypatch, cas
 
 # -- the choice of device block ---------------------------------------------------------------
 _ALLOWED_BLOCKS = {"flat": {"single", "tile"}, "packed": {"single", "resident", "ring"},
-                   "dropout": {"resident", "ring"}, "streamed": {"streamed"}}
+                   "dropout": {"resident", "ring"}, "encoder": {"resident", "ring"},
+                   "streamed": {"streamed"}}
 
 
 def _round16(n):
     return -(-n // 16) * 16
 
 
-@pytest.mark.parametrize("entry", ["flat", "packed", "dropout", "streamed"])
+@pytest.mark.parametrize("entry", ["flat", "packed", "dropout", "encoder", "streamed"])
 def test_attention_block_choice_at_every_cut_over(entry):
     """Every shape an entry accepts maps to exactly one of its blocks, every
     one of them is reached, and each cut-over falls where its rule says: the
     single-query block up to the entry's SINGLE_QUERY_MAX_ROWS rows and
-    SINGLE_QUERY_MAX_KEYS keys (never for the dropout entry), the packed and
-    dropout blocks resident while four bytes per key row of width d + 8 (bf16
-    K and V) fit RESIDENT_KV_BYTES."""
+    SINGLE_QUERY_MAX_KEYS keys (never for the dropout and encoder entries),
+    the packed, dropout and encoder blocks resident while four bytes per key
+    row of width d + 8 (bf16 K and V) fit RESIDENT_KV_BYTES."""
     rows = fused_attention.SINGLE_QUERY_MAX_ROWS.get(entry, 1)
     keys = fused_attention.SINGLE_QUERY_MAX_KEYS
     budget = fused_attention.RESIDENT_KV_BYTES
@@ -330,8 +331,9 @@ def test_attention_block_choice_at_every_cut_over(entry):
     assert seen == _ALLOWED_BLOCKS[entry]
     if entry == "streamed":
         return
-    if entry == "dropout":
-        # the Iterative M4C decoder trains 5 query rows: block B, never block A
+    if entry in ("dropout", "encoder"):
+        # the Iterative M4C decoder trains 5 query rows, and kernel F encodes
+        # one-token samples: block B, never block A
         assert pick(1, 324, 64) == "resident" and pick(5, 210, 64) == "resident"
         assert pick(1, keys + 1, 64) == "ring"
     else:
@@ -344,7 +346,7 @@ def test_attention_block_choice_at_every_cut_over(entry):
     for d, last in ((64, 400), (96, 272), (128, 208)):
         assert 4 * _round16(last) * (d + 8) <= budget < 4 * _round16(last + 1) * (d + 8)
         assert pick(rows + 1, last, d) == "resident" and pick(rows + 1, last + 1, d) == "ring"
-        if entry == "dropout":
+        if entry in ("dropout", "encoder"):
             assert pick(1, last, d) == "resident" and pick(1, last + 1, d) == "ring"
     assert pick(215, 215, 96) == "resident" and pick(64, 1535, 64) == "ring"
     with pytest.raises(ValueError, match="unknown entry"):

@@ -88,6 +88,179 @@ def test_encoder_attention_kernel_matches_plain(dev, seq):
     assert _err(got, encoder_layer.fused_encoder_self_attention_plain(*args)) <= TOL
 
 
+# kernel C on gemm_sm90.cu at the main path's widths: each row count of the paths
+# (decode steps 1-65, TextBert 640, the MMT encode 64 x 215), so every route of
+# the launch plan runs (split K with a reduce pass, tiles with the epilogue in the
+# GEMM, the LayerNorm over a cluster).  At these widths the weights take the
+# models' own scale, BERT's initializer range of 0.02; at 0.05 kernel and plain
+# version lie further apart than TOL, each about as far from float64 as the
+# other (test_kernels_at_weight_scale_0_05_lie_as_close_to_float64_as_plain)
+_WIDTHS = ((768, 3072), (512, 2048))
+_INIT = 0.02
+
+
+def _ffn_args(gen, rows, hd, d_ff):
+    return (
+        _randn(gen, rows, hd), _randn(gen, hd, d_ff, scale=_INIT, dtype=torch.bfloat16),
+        _randn(gen, d_ff, scale=0.1), _randn(gen, d_ff, hd, scale=_INIT, dtype=torch.bfloat16),
+        _randn(gen, hd, scale=0.1), 1 + _randn(gen, hd, scale=0.1), _randn(gen, hd, scale=0.1),
+    )
+
+
+@pytest.mark.parametrize("rows,hd,d_ff", [
+    (rows, hd, d_ff) for rows in (1, 37, 63, 64, 65, 300, 640, 13760) for hd, d_ff in _WIDTHS])
+def test_ffn_kernel_matches_plain_at_path_widths(dev, rows, hd, d_ff):
+    gen = torch.Generator(device=dev).manual_seed(rows + hd)
+    args = _ffn_args(gen, rows, hd, d_ff)
+    before = _cuda.launch_counts_by_rows()["fused_ffn_step"].get(rows, 0)
+    got = decode_step.fused_ffn_step(*args, eps=EPS)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts_by_rows()["fused_ffn_step"][rows] == before + 1
+    assert _err(got, decode_step.fused_ffn_step_plain(*args, eps=EPS)) <= TOL
+
+
+# (rows, hd, d_ff) at which ffn_plans takes each route of gemm_plan, and the
+# plans it takes there: every GEMM instance the plan reaches, each product's
+# epilogue in the GEMM or after a split
+_ROUTES = {
+    "128x256-cluster3": ((13759, 768, 3072), ((128, 256, 1, 768, 1), (128, 256, 1, 3072, 3))),
+    "128x256-cluster3x128": ((5600, 384, 1536), ((128, 256, 1, 384, 1), (128, 128, 1, 1536, 3))),
+    "128x128-unsplit-partial": ((1001, 768, 3072), ((128, 128, 1, 768, 1), (64, 64, 1, 3072, 0))),
+    "64x128-unsplit-partial": ((640, 768, 3072), ((64, 128, 1, 768, 1), (64, 64, 1, 3072, 0))),
+    "64x64-split2": ((300, 768, 3072), ((64, 64, 1, 768, 1), (64, 64, 2, 1536, 0))),
+    "split3-split12": ((64, 768, 3072), ((64, 64, 3, 256, 0), (64, 64, 12, 256, 0))),
+}
+
+
+@pytest.mark.parametrize("route", list(_ROUTES))
+def test_ffn_kernel_under_every_route_matches_plain(dev, route):
+    """Every GEMM instance and route that the launch plan reaches, each at a
+    ragged shape where it reaches it: the plan changes the time, not the
+    result."""
+    (rows, hd, d_ff), plans = _ROUTES[route]
+    assert tuple(map(tuple, decode_step.ffn_plans(rows, hd, d_ff))) == plans
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = _ffn_args(gen, rows, hd, d_ff)
+    got = decode_step.fused_ffn_step(*args, eps=EPS)
+    assert _err(got, decode_step.fused_ffn_step_plain(*args, eps=EPS)) <= TOL
+
+
+def _attention_weights_at(gen, hd, scale):
+    return {
+        "wqkv": _randn(gen, hd, 3 * hd, scale=scale, dtype=torch.bfloat16),
+        "bqkv": _randn(gen, 3 * hd, scale=0.1),
+        "wo": _randn(gen, hd, hd, scale=scale, dtype=torch.bfloat16),
+        "bo": _randn(gen, hd, scale=0.1),
+        "ln_scale": 1 + _randn(gen, hd, scale=0.1),
+        "ln_bias": _randn(gen, hd, scale=0.1),
+    }
+
+
+def _f_weights(gen, hd):
+    return _attention_weights_at(gen, hd, _INIT)
+
+
+# kernel F at the paths' geometries: 8 heads of 96 (MMF_M4C's MMT), 12 of 64
+# (TextBert), 8 of 64 (the 512-wide models); 64 samples, the first with every key
+# masked
+@pytest.mark.parametrize("seq,heads,d", [
+    (seq, heads, d) for seq in (1, 10, 13, 70, 210, 215) for heads, d in ((8, 96), (12, 64), (8, 64))])
+def test_encoder_attention_kernel_matches_plain_at_path_widths(dev, seq, heads, d):
+    gen = torch.Generator(device=dev).manual_seed(seq * 100 + d)
+    hd = heads * d
+    w = _f_weights(gen, hd)
+    x, kb = _randn(gen, 64, seq, hd), _key_bias(gen, 64, seq)
+    args = (x, w, kb, d ** -0.5, heads, EPS)
+    before = _cuda.launch_counts_by_rows()["fused_encoder_self_attention"].get(64 * seq, 0)
+    got = encoder_layer.fused_encoder_self_attention(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts_by_rows()["fused_encoder_self_attention"][64 * seq] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, encoder_layer.fused_encoder_self_attention_plain(*args)) <= TOL
+
+
+@pytest.mark.parametrize("seq,d,block", [
+    (13, 64, "resident"), (215, 96, "resident"), (215, 96, "ring"), (273, 96, "ring"),
+    (401, 64, "ring"), (1, 128, "resident"), (70, 128, "ring")])
+def test_block_b_bf16_instance_matches_plain(dev, seq, d, block):
+    """Block B's bf16 instance (kernel F's attention), forced resident or ring,
+    inside kernel F under a key bias whose first sample masks every key, against
+    F's plain version."""
+    gen = torch.Generator(device=dev).manual_seed(seq + d)
+    heads = 4
+    hd = heads * d
+    w = _f_weights(gen, hd)
+    x, kb = _randn(gen, 5, seq, hd), _key_bias(gen, 5, seq)
+    args = (x, w, kb, d ** -0.5, heads, EPS)
+    got = encoder_layer._encoder_attention_launch(*args, block=block)
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, encoder_layer.fused_encoder_self_attention_plain(*args)) <= TOL
+
+
+# kernels C and F at the older cases' weight scale, 0.05, at the MMF_M4C widths,
+# where kernel and plain version lie further apart than TOL; both are held against
+# a float64 evaluation of the same function with the same bf16 operand roundings
+# (x, the hidden or q|k|v, the softmax weights, the context), in which only the
+# sums are exact.  The errors print with -s.
+def _ffn_float64(x, w1, b1, w2, b2, gamma, beta, eps):
+    def r(t):
+        return t.to(torch.bfloat16).double()
+
+    x64 = x.double()
+    hidden = r(torch.nn.functional.gelu(r(x64) @ w1.double() + b1.double()))
+    out = hidden @ w2.double() + b2.double()
+    return torch.nn.functional.layer_norm(x64 + out, (x.shape[-1],), gamma.double(),
+                                          beta.double(), eps)
+
+
+def _encoder_float64(x, w, kb, scale, heads, eps):
+    def r(t):
+        return t.to(torch.bfloat16).double()
+
+    b, s, hd = x.shape
+    x64 = x.double()
+    qkv = r(r(x64) @ w["wqkv"].double() + w["bqkv"].double())
+    q, k, v = (part.reshape(b, s, heads, hd // heads) for part in qkv.split(hd, dim=-1))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + kb.double()[:, None, None, :]
+    weights = r(torch.softmax(logits, dim=-1))
+    context = r(torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, s, hd))
+    out = context @ w["wo"].double() + w["bo"].double()
+    return torch.nn.functional.layer_norm(x64 + out, (hd,), w["ln_scale"].double(),
+                                          w["ln_bias"].double(), eps)
+
+
+@pytest.mark.parametrize("kernel", ["C", "F"])
+def test_kernels_at_weight_scale_0_05_lie_as_close_to_float64_as_plain(dev, kernel):
+    """At weight scale 0.05 the bf16 roundings of the operands flip at other
+    values under another summation order, and the out projection (768 terms)
+    carries a flip into every output column: the kernel is no further from the
+    float64 evaluation than the plain version is, to within TOL."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if kernel == "C":
+        hd, d_ff, rows = 768, 3072, 64 * 210
+        args = (
+            _randn(gen, rows, hd), _randn(gen, hd, d_ff, scale=0.05, dtype=torch.bfloat16),
+            _randn(gen, d_ff, scale=0.1), _randn(gen, d_ff, hd, scale=0.05, dtype=torch.bfloat16),
+            _randn(gen, hd, scale=0.1), 1 + _randn(gen, hd, scale=0.1), _randn(gen, hd, scale=0.1),
+        )
+        got = decode_step.fused_ffn_step(*args, eps=EPS)
+        plain = decode_step.fused_ffn_step_plain(*args, eps=EPS)
+        exact = _ffn_float64(*args, EPS)
+    else:
+        heads, d, seq = 8, 96, 210
+        hd = heads * d
+        w = _attention_weights_at(gen, hd, 0.05)
+        x, kb = _randn(gen, 64, seq, hd), _key_bias(gen, 64, seq)
+        args = (x, w, kb, d ** -0.5, heads, EPS)
+        got = encoder_layer.fused_encoder_self_attention(*args)
+        plain = encoder_layer.fused_encoder_self_attention_plain(*args)
+        exact = _encoder_float64(*args)
+    errs = {"kernel-plain": _err(got, plain), "kernel-float64": _err(got.double(), exact),
+            "plain-float64": _err(plain.double(), exact)}
+    print(f"{kernel} at weight scale 0.05: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert errs["kernel-float64"] <= errs["plain-float64"] + TOL
+
+
 # the packed entry's cases: the old shapes (40 rows, head dim 128), then every block
 # at each side of its cut-over: the single-query block up to SINGLE_QUERY_MAX_ROWS
 # rows, block B resident in shared memory up to the key cut-over (400 keys at d 64,
