@@ -34,9 +34,11 @@ Phases, each fatal on failure:
      library call (torch.profiler over 20 calls, ``device_ms``; the call time
      less it is the host's share), and each kernel's bound: the least time the
      card could take, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), each
-     input read once and each output written once.  Beside the packed row,
-     common.cu's attention block at the same shape through the streamed entry
-     (the block the packed entry ran before its own); at each cut-over of
+     input read once and each output written once; the device time by
+     launch of kernels C and F, of kernels A, B, E, the decoder-layer step
+     (also at JointTransformer's beam step, 60 rows over 324 bf16 keys) and
+     the streamed attention (A, B, E and the layer step each one launch a
+     call); at each cut-over of
      ``ops/fused_attention.py::attention_block`` both blocks forced at the same
      shape (the flat attention at the cross step's geometry and the packed one
      at the MMT geometry with 1, 2, 4, 8 and 16 query rows; the packed block
@@ -117,8 +119,11 @@ Phases, each fatal on failure:
      in training with a backward; within 2^-5 of the plain route relative to
      its largest output).
 Phase 2 prints the registers and spill bytes of every instance of block B, of
-the dropout backward kernels and of gemm_sm90.cu's kernels from nvcc's ptxas
-report.  Launch counts are reset just before each main-path run (4 and 7: each decode
+the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
+decoder-step kernel and of the streamed attention's two from nvcc's ptxas
+report, and checks in the library's SASS (cuobjdump) that no wgmma kernel
+writes an operand of a product after its fence, or touches it before the wait
+(``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8 and 9: each eval route, start() and
 get_predictions(); 9: each long-stream forward) and read just after it, kernel
 C's and F's also by row count.  The
@@ -217,7 +222,8 @@ def log(*parts) -> None:
 # the kernels whose registers and spills phase 2 prints from nvcc's ptxas report
 PTXAS_KERNELS = ("packed_block_kernel", "dropout_dq_kernel", "dropout_dkdv_kernel",
                  "gemm_bias_sm90_kernel", "gemm_partial_sm90_kernel", "gemm_ln_sm90_kernel",
-                 "rows_reduce_bias_kernel", "cast_bf16_kernel")
+                 "rows_reduce_bias_kernel", "cast_bf16_kernel", "decoder_step_kernel",
+                 "streamed_attention_kernel", "stream_cast_kernel")
 
 
 def template_args(kernel: str, mangled: str):
@@ -255,6 +261,97 @@ def ptxas_report(report: Path) -> None:
             log(f"  ptxas: {line.strip()}")
 
 
+_SASS = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Za-z0-9_.]*)\s*([^;]*);")
+_NO_DEST = ("ST", "RED", "SYNCS", "UTMA", "UBLKCP", "WARPGROUP", "BAR", "BRA")
+
+
+def _registers(operand: str, width: int = 1) -> set:
+    """The general registers an operand names, `width` from each (a 64- or
+    128-bit operand), none from an address in brackets."""
+    found = set()
+    for reg in re.findall(r"\bR(\d+)\b", re.sub(r"\[[^\]]*\]", "", operand)):
+        found.update(range(int(reg), int(reg) + width))
+    return found
+
+
+def wgmma_hazards(sass: str) -> dict:
+    """Per function of a `cuobjdump -sass` listing that issues HGMMA (wgmma), the
+    instructions that break the register contract of wgmma.mma_async: a write to
+    an A fragment or accumulator register of an HGMMA after the WARPGROUP.ARRIVE
+    (wgmma.fence) before it, or a read or write of them between the HGMMA and the
+    WARPGROUP.DEPBAR that waits for every product (wgmma.wait_group 0).  A linear
+    walk of each function's listing; the hazard list is empty where ptxas kept
+    the contract."""
+    hazards, name, lines = {}, None, []
+
+    def walk(lines):
+        found, armed, written = [], {}, set()  # armed: register in flight -> "a" or "acc"
+        for op, args in lines:
+            operands = [a.strip() for a in args.split(",")]
+            width = 4 if ".128" in op or ".X4" in op.upper() else (
+                2 if ".64" in op or "WIDE" in op or ".X2" in op.upper() else 1)
+            if op.startswith("WARPGROUP.ARRIVE"):
+                written = set()
+                continue
+            if op.startswith("WARPGROUP.DEPBAR"):
+                if operands[-1] in ("0x0", "0"):
+                    armed = {}
+                continue
+            if op.startswith("HGMMA"):
+                n = int(re.search(r"64x(\d+)x", op).group(1))
+                acc = set(range(int(operands[0][1:]), int(operands[0][1:]) + n // 2))
+                a_regs = set()
+                if re.fullmatch(r"R\d+", operands[1]):
+                    a_regs = set(range(int(operands[1][1:]), int(operands[1][1:]) + 4))
+                for reg in sorted((acc | a_regs) & written):
+                    found.append(f"R{reg} written after the fence, read by {op} {args.strip()}")
+                armed.update({reg: "a" for reg in a_regs})
+                armed.update({reg: "acc" for reg in acc})
+                continue
+            dest = set()
+            if re.fullmatch(r"R\d+(\.reuse)?", operands[0]) and not op.startswith(_NO_DEST):
+                dest = _registers(operands[0], width)
+                sources = set().union(*(_registers(o) for o in operands[1:]))
+            else:
+                sources = set().union(*(_registers(o, width) for o in operands))
+            written |= dest
+            for reg in sorted(dest & armed.keys()):
+                found.append(f"{op} {args.strip()} writes R{reg}, an operand of an HGMMA in flight")
+            for reg in sorted(sources & {r for r, what in armed.items() if what == "acc"}):
+                found.append(f"{op} {args.strip()} reads R{reg}, an accumulator of an HGMMA in flight")
+        return found
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if name and any(op.startswith("HGMMA") for op, _ in lines):
+                hazards[name] = walk(lines)
+            name, lines = line.split("Function :")[1].strip(), []
+            continue
+        match = _SASS.search(line)
+        if match and name:
+            lines.append((match.group(1), match.group(2)))
+    if name and any(op.startswith("HGMMA") for op, _ in lines):
+        hazards[name] = walk(lines)
+    return hazards
+
+
+def sass_report(library: Path) -> list:
+    """wgmma_hazards over the library's SASS (cuobjdump), per HGMMA kernel; the
+    phase's failures: a kernel that breaks the contract, or no HGMMA kernel."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    hazards = wgmma_hazards(sass)
+    for name, found in sorted(hazards.items()):
+        demangled = re.sub(r"_GLOBAL__N__\w+?_", "", name)
+        log(f"  SASS wgmma operands {demangled[:90]}: {len(found)} hazard(s)"
+            + "".join(f"\n    {h}" for h in found[:8]))
+    if not hazards:
+        return ["SASS: no HGMMA kernel in the library"]
+    return [f"SASS: {name} touches a wgmma operand while the product runs"
+            for name, found in sorted(hazards.items()) if found]
+
+
 def median_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -272,11 +369,14 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_us_by_kernel(fn, reps: int = 20) -> dict:
+def device_by_kernel(fn, reps: int = 20) -> dict:
     """torch.profiler over `reps` calls of `fn` (after one warm-up call): the
-    device activity (kernels, memsets) of one call by kernel name, in
-    microseconds, summed and divided by `reps`.  A kernel's name is the first
-    identifier followed by its template or argument list."""
+    device activity (kernels, memsets) of one call by kernel name, as
+    [microseconds, launches].  The launches are the events seen over `reps`;
+    the profiler now and then loses one (it never adds one), so a kernel's time
+    a call is its mean time a launch times its launches a call rounded to a
+    whole number.  A kernel's name is the first identifier followed by its
+    template or argument list."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -291,8 +391,10 @@ def device_us_by_kernel(fn, reps: int = 20) -> dict:
         if event.device_type == torch.autograd.DeviceType.CUDA:
             match = re.search(r"(\w+)\s*[<(]", event.name.replace("(anonymous namespace)", ""))
             name = match.group(1) if match else event.name
-            by_name[name] = by_name.get(name, 0.0) + event.time_range.elapsed_us() / reps
-    return by_name
+            entry = by_name.setdefault(name, [0.0, 0])
+            entry[0] += event.time_range.elapsed_us()
+            entry[1] += 1
+    return {name: [us / n * max(1, round(n / reps)), n / reps] for name, (us, n) in by_name.items()}
 
 
 def device_ms(fn, reps: int = 20):
@@ -302,7 +404,7 @@ def device_ms(fn, reps: int = 20):
     around 100 back-to-back calls ("events x100")."""
     import torch
 
-    total_us = sum(device_us_by_kernel(fn, reps).values())
+    total_us = sum(us for us, _ in device_by_kernel(fn, reps).values())
     if total_us > 0:
         return total_us / 1e3, "profiler"
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -478,10 +580,11 @@ def make_recorder(results, failures):
 
 
 def launch_split(fn) -> str:
-    """One call's device time by launch (kernel name), for the kernels that chain
-    several (kernels C and F: the cast, the products, block B, reduce passes)."""
-    split = device_us_by_kernel(fn)
-    return "device ms by launch: " + ", ".join(f"{name} {us / 1e3:.4f}" for name, us in split.items())
+    """One call's device time by launch (kernel name) and the launches of each,
+    for the entries whose calls make several or should make one."""
+    split = device_by_kernel(fn)
+    return "device ms by launch: " + ", ".join(
+        f"{name} {us / 1e3:.4f} (x{n:g})" for name, (us, n) in split.items())
 
 
 def cublas_reference(products) -> None:
@@ -642,11 +745,6 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                    lambda: fused_attention.fused_attention_packed_plain(*args),
                    4.0 * BATCH * joint * joint * hd, tensor_bytes(q, k, v, bias, out),
                    sdpa_call(q, k, v, bias))
-            # the control: common.cu's block at the same shape, through the streamed entry
-            old = lambda: fused_attention._packed_kernel(*args, streamed=True)  # noqa: E731
-            log(f"    common.cu's attention block at this shape (streamed entry): call "
-                f"{median_ms(old):.4f} ms, device {device_ms(old)[0]:.4f} ms, "
-                f"max|old-plain| {max_err(old(), fused_attention.fused_attention_packed_plain(*args)):.3e}")
         # both sides of the single-query cut-over at the MMT geometry (Sq query rows
         # over the joint keys under a per-sample bias)
         for sq in CUT_OVER_ROWS:
@@ -719,11 +817,11 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                10.0 * BATCH * s_q * s_k * width,
                tensor_bytes(q_, k_, v_, g, bias, grads),
                sdpa_backward_call(q_, k_, v_, bias, DROPOUT_RATE, n_heads=n_heads, sc=sc))
-        split = device_us_by_kernel(backward)
+        split = device_by_kernel(backward)
         both = sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True, n_heads=n_heads,
                          sc=sc)
         log(f"    backward by kernel, device ms: "
-            + ", ".join(f"{name} {us / 1e3:.4f}" for name, us in split.items())
+            + ", ".join(f"{name} {us / 1e3:.4f}" for name, (us, _) in split.items())
             + f"; one SDPA forward + backward at this shape: call {median_ms(both):.4f} ms, "
             f"device {device_ms(both)[0]:.4f} ms")
 
@@ -756,12 +854,13 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
            2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
     check_step_kernels(generative, gen, record, failures)
-    check_streamed_cross(iterative, gen, record)
+    check_layer_step_at(joint_task, gen, record, failures)
+    check_streamed_cross(iterative, gen, record, failures)
     check_flat_and_streamed(joint_task, gen, record, failures)
     return results
 
 
-def check_streamed_cross(task, gen, record):
+def check_streamed_cross(task, gen, record, failures):
     """Kernel E at the Iterative M4C decode step's shapes: the dev batch's rows,
     the joint encoder's keys (question + regions + OCR tokens), the decoder's
     first layer's weights, bf16 encoder K/V, some keys masked, eps 1e-12.  It
@@ -795,6 +894,8 @@ def check_streamed_cross(task, gen, record):
            lambda: decode_step.fused_cross_attention_streamed(*args),
            lambda: decode_step.fused_cross_attention_streamed_plain(*args),
            2.0 * rows * hd * 2 * hd + 4.0 * rows * sk * hd, tensor_bytes(x, w, kv, bias, y))
+    by_launch(failures, (("fused_cross_attention_streamed",
+                          lambda: decode_step.fused_cross_attention_streamed(*args)),))
 
 
 def check_step_kernels(task, gen, record, failures):
@@ -918,11 +1019,90 @@ def check_step_kernels(task, gen, record, failures):
            errs["layer"][0], LAYER_TOL,
            lambda: decode_step.fused_decoder_layer_step(*l_args),
            lambda: decode_step.fused_decoder_layer_step_plain(*l_args),
-           a_flops + b_flops + 4.0 * rows * hd * d_ff,
-           a_bytes + b_bytes + tensor_bytes(f) - 2 * tensor_bytes(x))
+           *layer_step_work(l_args))
     staged_ms = median_ms(lambda: ffn(decode_step.fused_cross_attention_step(
         decode_step.fused_self_attention_step(*a_args)[0], *b_args[1:])))
     log(f"  kernels A, B, C chained from Python at the same shapes: {staged_ms:.4f} ms")
+    by_launch(failures, (
+        ("fused_self_attention_step", lambda: decode_step.fused_self_attention_step(*a_args)),
+        ("fused_cross_attention_step", lambda: decode_step.fused_cross_attention_step(*b_args)),
+        ("fused_decoder_layer_step", lambda: decode_step.fused_decoder_layer_step(*l_args))))
+
+
+def layer_step_work(l_args):
+    """(FLOPs, bytes) of one decoder-layer step on these arguments: nine
+    products, the two attentions over the ring's T slots and the Sk encoder
+    keys; every weight, the ring, the encoder K/V and the biases read once,
+    x read and y written once, the ring's slot t written."""
+    x, self_w, cross_w, f, sb, _, cache_k, cache_v, cache_bias, enc_k, enc_v, enc_bias = l_args[:12]
+    rows, hd = x.shape
+    t_len, sk, d_ff = cache_k.shape[1], enc_k.shape[1], f["w1"].shape[1]
+    flops = (2.0 * rows * hd * 4 * hd + 4.0 * rows * t_len * hd + 2.0 * rows * hd * 2 * hd
+             + 4.0 * rows * sk * hd + 4.0 * rows * hd * d_ff)
+    nbytes = (tensor_bytes(x, self_w, cross_w, f, sb, cache_k, cache_v, cache_bias, enc_k, enc_v,
+                           enc_bias, x) + 2 * rows * hd * cache_k.element_size() + rows * 4)
+    return flops, nbytes
+
+
+def by_launch(failures, calls) -> None:
+    """Each (name, call)'s device time by launch; every one of them must be one
+    device launch a call: one kernel, seen at most once a call (a lost profiler
+    event shows as less)."""
+    for name, fn in calls:
+        split = device_by_kernel(fn)
+        log(f"    {name}: device ms by launch: " + ", ".join(
+            f"{kernel} {us / 1e3:.4f} (x{n:g})" for kernel, (us, n) in split.items()))
+        if len(split) != 1 or not 0 < next(iter(split.values()))[1] <= 1:
+            failures.append(f"{name}: {sum(n for _, n in split.values()):g} device launches "
+                            f"a call over {len(split)} kernels, not 1")
+
+
+def check_layer_step_at(task, gen, record, failures):
+    """The decoder-layer step at JointTransformer's beam-eval step: the dev
+    loader's samples x beams rows, the joint stream's keys (bf16 encoder K/V),
+    the decoder's first layer's weights, a float32 ring filled by T steps; the
+    last step against the plain version from the same ring."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.ops import decode_step
+
+    dev, bf16 = task.device, torch.bfloat16
+    layer = task.model.decoder.layers[0]
+    core = layer.self_attn.attention
+    hd, heads, scale = core.d_model, core.h, core.scale
+    self_w, cross_w = layer.self_attn.fused_weights(bf16), layer.enc_attn.fused_weights(bf16)
+    f = layer.pwff.fused_weights(bf16)
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    rows = first["question_tokens"].shape[0] * task.evaluating_beam_size
+    t_len = task.vocab.max_answer_length
+    with torch.no_grad():
+        sk = task.model.streams(first)[1].shape[-1]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    enc_k, enc_v = randn(rows, sk, hd, dtype=bf16), randn(rows, sk, hd, dtype=bf16)
+    enc_bias = torch.where(torch.rand((rows, sk), generator=gen, device=dev) < 0.2, MASK_VALUE,
+                           0.0).float().contiguous()
+    ring = [torch.zeros(rows, t_len, hd, device=dev), torch.zeros(rows, t_len, hd, device=dev),
+            torch.zeros(rows, t_len, device=dev)]
+    sb = torch.zeros(rows, device=dev)
+    for step in range(t_len - 1):
+        decode_step.fused_decoder_layer_step(randn(rows, hd), self_w, cross_w, f, sb, step, *ring,
+                                             enc_k, enc_v, enc_bias, scale, heads)
+    l_args = (randn(rows, hd), self_w, cross_w, f, sb, t_len - 1, *ring, enc_k, enc_v, enc_bias,
+              scale, heads)
+    plain_ring = [r.clone() for r in ring]
+    y = decode_step.fused_decoder_layer_step(*l_args)[0]
+    want = decode_step.fused_decoder_layer_step_plain(*l_args[:6], *plain_ring, *l_args[9:])[0]
+    record("fused_decoder_layer_step",
+           f"JointTransformer's step: {rows} rows, hd {hd}, T {t_len}, Sk {sk}, bf16 encoder "
+           f"K/V, d_ff {f['w1'].shape[1]} (library: none)", max_err(y, want), LAYER_TOL,
+           lambda: decode_step.fused_decoder_layer_step(*l_args),
+           lambda: decode_step.fused_decoder_layer_step_plain(*l_args), *layer_step_work(l_args))
+    by_launch(failures, (("fused_decoder_layer_step",
+                          lambda: decode_step.fused_decoder_layer_step(*l_args)),))
 
 
 def busy_us(events, device_type) -> float:
@@ -1882,6 +2062,8 @@ def check_flat_and_streamed(task, gen, record, failures):
                4.0 * b * n * n * hd, tensor_bytes(q, k, v, bias, out),
                lambda: F.scaled_dot_product_attention(*split_heads, attn_mask=bias,
                                                       scale=scale))
+        log("    fused_attention_packed_streamed: "
+            + launch_split(lambda: fused_attention.fused_attention_packed_streamed(*args)))
         del q, k, v, out, split_heads
         torch.cuda.empty_cache()
 
@@ -2132,6 +2314,7 @@ def main() -> int:
     log(f"kernels: {library.relative_to(ROOT)} ready in {time.perf_counter() - start:.1f} s "
         f"(nvcc {_cuda.build_seconds:.1f} s; ptxas report in {library.name}.log)")
     ptxas_report(library.with_name(f"{library.name}.log"))
+    failures += sass_report(library)
 
     # 4's inputs first: phase 3 takes its shapes and weights from the task
     populate()

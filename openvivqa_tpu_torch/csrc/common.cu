@@ -1,10 +1,12 @@
-// The first building blocks of the port's kernels, on f32 activations (kernels D,
-// A, B and E, and the two-bias and streamed attention entries): a bf16 tensor-core
-// GEMM with a bias epilogue, a GEMM whose blocks own whole rows so that the residual
-// add and the LayerNorm run in its epilogue (split over K when there are too few
-// rows to fill the card), and a tensor-core softmax attention over packed (rows,
-// heads * head_dim) layouts.  See common.cuh for the contracts.  Kernels C and F
-// run on gemm_sm90.cu's wgmma + TMA core and block B instead.
+// The first building blocks of the port's kernels, on f32 activations (kernel D and
+// the two-bias attention entry): a bf16 tensor-core GEMM with a bias epilogue, a
+// GEMM whose blocks own whole rows so that the residual add and the LayerNorm run
+// in its epilogue (split over K when there are too few rows to fill the card), and
+// a tensor-core softmax attention over packed (rows, heads * head_dim) layouts.
+// See common.cuh for the contracts.  Kernels C and F run on gemm_sm90.cu's wgmma +
+// TMA core and block B, kernels A, B, E and the decoder-layer step on the
+// persistent step kernel (decoder_layer_step.cu), the streamed attention on its
+// own block instead.
 //
 // These are first versions: nvcuda::wmma 16x16x16 bf16 fragments with f32
 // accumulators (mma.sync, not Hopper's wgmma), weight tiles brought into shared
@@ -24,6 +26,7 @@ using namespace nvcuda;
 constexpr int kBK = 32;          // K-slice of every GEMM stage
 constexpr int kLdAs = kBK + 8;   // bf16 row stride of an A slice (80 bytes)
 constexpr int kThreads = 256;    // 8 warps in every GEMM block
+static_assert(kThreads == kRowThreads, "rows_reduce_ln_kernel runs reduce_ln_row");
 
 // -- staging helpers ----------------------------------------------------------
 // 16-byte asynchronous copy global -> shared; src_size 0 zero-fills the chunk
@@ -308,52 +311,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // the K-split partials of each row summed, + bias + residual, then LayerNorm;
-// one block of kThreads per row, up to four columns per thread
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
-  __syncthreads();  // scratch is reused by the next call
-  return total;
-}
-
+// one block of kThreads (= kRowThreads) per row, up to four columns per thread
 __global__ void __launch_bounds__(kThreads)
     rows_reduce_ln_kernel(const float* __restrict__ partial, int splits,
                           const float* __restrict__ bias, const float* __restrict__ R,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
                           float* __restrict__ Y, int M, int N, float eps) {
   __shared__ float scratch[kThreads / 32];
-  const size_t row = blockIdx.x;
-  float v[4];
-  float sum = 0.0f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int c = threadIdx.x + u * kThreads;
-    v[u] = 0.0f;
-    if (c < N) {
-      float value = bias[c] + R[row * N + c];
-#pragma unroll 4
-      for (int s = 0; s < splits; ++s) value += partial[((size_t)s * M + row) * N + c];
-      v[u] = value;
-      sum += value;
-    }
-  }
-  const float mean = block_sum(sum, scratch) / N;
-  float sq = 0.0f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int c = threadIdx.x + u * kThreads;
-    if (c < N) sq += (v[u] - mean) * (v[u] - mean);
-  }
-  const float rstd = rsqrtf(block_sum(sq, scratch) / N + eps);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int c = threadIdx.x + u * kThreads;
-    if (c < N) Y[row * N + c] = (v[u] - mean) * rstd * gamma[c] + beta[c];
-  }
+  reduce_ln_row(partial, splits, bias, R, gamma, beta, Y, nullptr, M, N, eps, blockIdx.x,
+                scratch);
 }
 
 cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float* bias,

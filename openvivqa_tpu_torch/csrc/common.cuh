@@ -4,20 +4,21 @@
 // from live in common.cu and gemm_sm90.cu and are reached through the launchers
 // declared below:
 //   * launch_gemm_bias:        Y = A @ W + bias on f32 rows, bf16 wmma tiles, f32
-//                              accumulators (kernels D, A, B, E);
+//                              accumulators (kernel D);
 //   * launch_gemm_residual_ln: Y = LayerNorm(R + A @ W + bias) on f32 rows, one block
 //                              owns whole rows so the LayerNorm runs in the GEMM's
-//                              epilogue (kernels D, A, B, E);
+//                              epilogue (kernel D);
 //   * launch_attention:        softmax(scale * Q K^T + bias [+ head_bias]) V per (sample,
 //                              head, q-tile) on packed f32 (rows, heads * head_dim)
-//                              layouts (the two-bias and streamed entries);
+//                              layouts (the two-bias entry);
 //   * sm90_gemm_bias, sm90_gemm_ln (gemm_sm90.cu): the wgmma + TMA GEMM core of
 //                              kernels C and F on bf16 rows, with the bias [+ GELU]
 //                              epilogue to bf16 or the residual + LayerNorm one to f32.
 // The mma.sync pieces below (ldmatrix operands, m16n8k16 products, bf16 packing)
 // build block B (fused_attention.cu) and the dropout backward pair
 // (fused_attention_dropout.cu); the wgmma, mbarrier, TMA, setmaxnreg and cluster
-// pieces build gemm_sm90.cu.
+// pieces build gemm_sm90.cu, the decoder-layer step (decoder_layer_step.cu) and the
+// streamed attention (fused_attention_streamed.cu).
 // Every launcher returns cudaGetLastError() after its launch.
 #pragma once
 
@@ -83,7 +84,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const TI* src, lon
   }
 }
 
-// -- single-query attention steps (kernels A, B and D) ---------------------------
+// -- single-query attention steps (kernel D) -------------------------------------
 // One block per (head, decode row): the query's d values sit in shared memory and
 // the keys stream past in chunks of 64 under an online softmax.
 constexpr int kStepChunk = 64;
@@ -320,18 +321,29 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// keeps the compiler from moving accumulator reads across the asynchronous products
+// keeps the compiler from moving accumulator reads across the asynchronous products;
+// before a wgmma_fence, from moving the writes of an operand (accumulators, or A
+// fragments in registers) past it, where the product could read them stale; after
+// a wgmma_wait, from giving an A fragment's registers to other values while the
+// product still reads them (the asm takes them as inputs when the product starts)
 template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_operands(unsigned (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32 accumulators,
 // B transposed (MN-major).  Thread (warp w of the warpgroup, lane g * 4 + t)
 // holds rows 16w + g (d[4j], d[4j + 1]) and 16w + g + 8 (d[4j + 2], d[4j + 3]) of
 // columns 8j + 2t and 8j + 2t + 1.
-// acc (64 x 64, this thread's 32 floats) += A (64 x 16, K-major) * B (16 x 64, MN-major)
+// acc (64 x 64, this thread's 32 floats) += A (64 x 16, K-major) * B (16 x 64, MN-major;
+// TRANS_B 0: K-major, rows of K, a K^T operand)
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -340,13 +352,13 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 1;\n"
+      " %32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
 // acc (64 x 128, this thread's 64 floats) += A (64 x 16, K-major) * B (16 x 128, MN-major)
@@ -407,6 +419,54 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// the same products with A (64 x 16 bf16) from registers, in mma.sync's A fragment
+// layout per warp (warp w of the warpgroup holds rows 16w .. 16w + 15): an
+// accumulator tile packed to bf16 is the next product's A (FlashAttention-3's
+// accumulator-to-operand identity).  B MN-major (rows of N).
+// acc (64 x 64) += A (64 x 16, registers) * B (16 x 64)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// acc (64 x 128) += A (64 x 16, registers) * B (16 x 128)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const unsigned (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // mbarriers in shared memory
@@ -520,7 +580,7 @@ struct HeadBias {
 };
 
 // Y[M, N] (row stride ldy) = A[M, K] (row stride lda) @ W[K, N] + bias[N] on f32
-// rows (kernels D, A, B, E).  A is rounded to bf16 as it is staged; W is bf16 (K,
+// rows (kernel D).  A is rounded to bf16 as it is staged; W is bf16 (K,
 // N) row-major.  K must be a multiple of 32, N, ldy multiples of 8 and lda a
 // multiple of 4.
 template <typename TA, typename TO>
@@ -544,9 +604,100 @@ cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float*
                                   const float* R, const float* gamma, const float* beta, float* Y,
                                   int M, int N, float eps, cudaStream_t stream);
 
+// -- the split-K reduce passes, as device functions ---------------------------------
+// rows_reduce_ln_kernel (common.cu), rows_reduce_bias_kernel (gemm_sm90.cu) and the
+// decoder-layer step's phases (decoder_layer_step.cu) call these, so that the layer
+// step's FFN phase sums and normalises in kernel C's order, bit for bit.
+constexpr int kRowThreads = 256;  // the threads of one row's LayerNorm
+
+// the sum of one value per thread over the kRowThreads threads of the block;
+// `scratch` holds kRowThreads / 32 floats
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) total += scratch[w];
+  __syncthreads();  // scratch is reused by the next call
+  return total;
+}
+
+// row `row` of Y[M, N] = LayerNorm(bias + R + the `splits` (M, N) slices of
+// `partial`, summed in order) * gamma + beta, and the same rounded to bf16 in Yb
+// unless it is null; every thread of a kRowThreads block calls it, N <= 1024
+__device__ __forceinline__ void reduce_ln_row(const float* partial, int splits,
+                                              const float* bias, const float* R,
+                                              const float* gamma, const float* beta, float* Y,
+                                              bf16* Yb, int M, int N, float eps, size_t row,
+                                              float* scratch) {
+  float v[4];
+  float sum = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = threadIdx.x + u * kRowThreads;
+    v[u] = 0.0f;
+    if (c < N) {
+      float value = bias[c] + R[row * N + c];
+#pragma unroll 4
+      for (int s = 0; s < splits; ++s) value += partial[((size_t)s * M + row) * N + c];
+      v[u] = value;
+      sum += value;
+    }
+  }
+  const float mean = block_sum(sum, scratch) / N;
+  float sq = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = threadIdx.x + u * kRowThreads;
+    if (c < N) sq += (v[u] - mean) * (v[u] - mean);
+  }
+  const float rstd = rsqrtf(block_sum(sq, scratch) / N + eps);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = threadIdx.x + u * kRowThreads;
+    if (c < N) {
+      const float y = (v[u] - mean) * rstd * gamma[c] + beta[c];
+      Y[row * N + c] = y;
+      if (Yb != nullptr) Yb[row * N + c] = __float2bfloat16(y);
+    }
+  }
+}
+
+// elements e .. e + 3 (e a multiple of 4, N of 4) of Y[M, N] (bf16) = epi(bias + the
+// `splits` (M, N) slices of `partial`, summed in order), epi the identity or the
+// exact-erf GELU
+template <bool GELU>
+__device__ __forceinline__ void reduce_bias_quad(const float* partial, int splits,
+                                                 const float* bias, bf16* Y, long long e,
+                                                 long long slice, int N) {
+  const int c = (int)(e % N);
+  float4 v = *reinterpret_cast<const float4*>(bias + c);
+  for (int s = 0; s < splits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(partial + s * slice + e);
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  if (GELU) {
+    v.x = gelu_erf(v.x);
+    v.y = gelu_erf(v.y);
+    v.z = gelu_erf(v.z);
+    v.w = gelu_erf(v.w);
+  }
+  *reinterpret_cast<uint2*>(Y + e) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// four f32 values at x + 4q rounded to bf16 at y + 4q
+__device__ __forceinline__ void cast_quad(const float* x, bf16* y, long long q) {
+  const float4 v = reinterpret_cast<const float4*>(x)[q];
+  reinterpret_cast<uint2*>(y)[q] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
 // out[b, i, h*d + c] = sum_j w_ij v[b, j, h*d + c] with
 // w_ij = bf16(softmax_j(scale * q_i . k_j + bias[b, i, j])); q, k, v rounded to bf16
-// (f32 in and out: the two-bias and streamed entries).
+// (f32 in and out: the two-bias entry).
 // sk must be positive and d a multiple of 16 up to 128; row and batch strides
 // multiples of 4 (of 8 for out).
 // q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
@@ -590,6 +741,11 @@ cudaError_t sm90_gemm_ln(const bf16* A, const bf16* W, const float* bias, const 
 
 // y[n] = bf16(x[n]): the f32 activation as the GEMMs' A operand (TMA copies bytes)
 cudaError_t cast_to_bf16(const float* x, bf16* y, long long n, cudaStream_t stream);
+
+// The TMA map of a bf16 (rows, cols) row-major matrix read in boxes of box_rows x
+// 64 columns with the 128-byte swizzle, zero-filled outside (cached per pointer,
+// shape and box); false when cuTensorMapEncodeTiled refuses it
+bool bf16_tensor_map(CUtensorMap* out, const bf16* p, int rows, int cols, int box_rows);
 
 // Block B's bf16 instance (fused_attention.cu): the packed (b, S, 3 * hd) q|k|v
 // projection in, the bf16 context (b, S, hd) out, under a (b, S) key bias; K and V

@@ -17,8 +17,8 @@
 // the dropout entry's block at every shape, and kernel F's attention at every
 // shape: a bf16 instance that reads q, k and v from the packed (rows, 3 * hd) q|k|v
 // projection through a row stride and writes the bf16 context (TI = TO = bf16;
-// the f32 instances compile as before).  The two-bias and streamed entries keep
-// common.cu's attention block.
+// the f32 instances compile as before).  The two-bias entry keeps common.cu's
+// attention block.
 //
 // What bounds it.  At the MMT joint encode (64 samples x 8 heads x 215 x 215,
 // d 96, per-sample bias) the work is 9.1 GFLOP against 181 MB of f32 q, k, v,

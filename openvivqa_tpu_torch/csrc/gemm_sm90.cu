@@ -369,34 +369,15 @@ __global__ void __launch_bounds__(256)
                             const float* __restrict__ bias, bf16* __restrict__ Y, int M, int N) {
   const long long quads = (long long)M * N / 4, slice = (long long)M * N;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < quads;
-       q += (long long)gridDim.x * blockDim.x) {
-    const long long e = 4 * q;
-    const int c = (int)(e % N);
-    float4 v = *reinterpret_cast<const float4*>(bias + c);
-    for (int s = 0; s < splits; ++s) {
-      const float4 p = *reinterpret_cast<const float4*>(partial + s * slice + e);
-      v.x += p.x;
-      v.y += p.y;
-      v.z += p.z;
-      v.w += p.w;
-    }
-    if (GELU) {
-      v.x = gelu_erf(v.x);
-      v.y = gelu_erf(v.y);
-      v.z = gelu_erf(v.z);
-      v.w = gelu_erf(v.w);
-    }
-    *reinterpret_cast<uint2*>(Y + e) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-  }
+       q += (long long)gridDim.x * blockDim.x)
+    reduce_bias_quad<GELU>(partial, splits, bias, Y, 4 * q, slice, N);
 }
 
 __global__ void __launch_bounds__(256)
     cast_bf16_kernel(const float* __restrict__ x, bf16* __restrict__ y, long long quads) {
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < quads;
-       q += (long long)gridDim.x * blockDim.x) {
-    const float4 v = reinterpret_cast<const float4*>(x)[q];
-    reinterpret_cast<uint2*>(y)[q] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-  }
+       q += (long long)gridDim.x * blockDim.x)
+    cast_quad(x, y, q);
 }
 
 int elementwise_blocks(long long quads) {
@@ -605,6 +586,10 @@ cudaError_t sm90_gemm_ln(const bf16* A, const bf16* W, const float* bias, const 
   }
   return p.bn == 256 ? launch_gemm<2, 256, kEpiLn>(a, b, a, args, 1, p.cluster, stream)
                      : launch_gemm<2, 128, kEpiLn>(a, b, a, args, 1, p.cluster, stream);
+}
+
+bool bf16_tensor_map(CUtensorMap* out, const bf16* p, int rows, int cols, int box_rows) {
+  return tensor_map(out, p, rows, cols, box_rows);
 }
 
 cudaError_t cast_to_bf16(const float* x, bf16* y, long long n, cudaStream_t stream) {

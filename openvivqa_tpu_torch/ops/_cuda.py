@@ -76,12 +76,12 @@ _SIGNATURES = {
     "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
     "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "ppp" "iiiii" "f" "i",
     "ovq_packed_dropout_backward": "ppppp" "li" "f" "ppp" "ppp" "iiiii" "f" "ii",
-    "ovq_self_attention_step_forward": "p" * 15 + "i" * 8 + "ff",
-    "ovq_cross_attention_step_forward": "p" * 14 + "i" * 7 + "ff",
-    "ovq_decoder_layer_step_forward": "p" * 34 + "i" * 21 + "ff",
-    "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 7 + "ff",
+    "ovq_self_attention_step_forward": "p" * 15 + "i" * 10 + "ff",
+    "ovq_cross_attention_step_forward": "p" * 14 + "i" * 9 + "ff",
+    "ovq_decoder_layer_step_forward": "p" * 36 + "i" * 17 + "ff",
+    "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 9 + "ff",
     "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
-    "ovq_streamed_attention_forward": "pppp" "li" "p" "iiiii" "f",
+    "ovq_streamed_attention_forward": "pppp" "li" "pp" "iiiii" "iiiii" "f",
     "ovq_flat_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
     "ovq_single_query_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
 }
@@ -208,6 +208,12 @@ def launch_counts_by_rows() -> Dict[str, Dict[int, int]]:
 def uses_kernel(*tensors: torch.Tensor) -> bool:
     """False when every tensor lies on the CPU (the plain version runs), True
     when all lie on one CUDA device (the kernel runs); raises otherwise."""
+    # the decode steps' common case first, without building a device object a tensor
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        if all(t.is_cuda and t.get_device() == index for t in tensors):
+            return True
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return False
@@ -229,15 +235,16 @@ def require(tensor: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     """Raise ValueError unless `tensor` has this dtype, shape and is contiguous."""
     if tensor.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {tensor.dtype}")
-    if tuple(tensor.shape) != tuple(shape):
+    if tensor.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(tensor.shape)}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
 def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
-    """Block B (fused_attention.cu) and common.cu's attention block take at
-    least one key and a head dim that is a multiple of 16 up to 128."""
+    """Block B (fused_attention.cu), the streamed block and common.cu's
+    attention block take at least one key and a head dim that is a multiple
+    of 16 up to 128."""
     d = hd // heads if heads > 0 else 0
     if keys <= 0 or heads <= 0 or hd % heads or d % 16 or not 0 < d <= 128:
         raise ValueError(
@@ -246,9 +253,22 @@ def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (SM_COUNT for the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SM_COUNT
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
 def row_splits(rows: int, k: int) -> Tuple[int, int]:
     """(splits, k_per_split) of the row-owning GEMM + LayerNorm on f32 rows
-    (common.cu; kernels D, A, B and E): K
+    (common.cu; kernel D): K
     is split only while the 32-row blocks alone cannot fill the H100's 132
     SMs, into slices of at least 128 (multiples of 32), so that the partial
     rows written stay small next to the weights read."""
@@ -279,6 +299,8 @@ def require_width(hd: int, what: str) -> None:
 
 # -- the launch plan of gemm_sm90.cu (kernels C and F) --------------------------------
 SM_COUNT = 132  # streaming multiprocessors of the H100 SXM
+MAX_SMEM_BYTES = 232448  # dynamic shared memory of one CTA on the H100
+SMEM_PER_SM = 233472  # of all CTAs on one SM, 1 KB of it reserved per CTA
 GEMM_BK = 64  # K per pipeline stage
 # (rows, columns) of the CTA tiles with the bias epilogue in the GEMM, largest first
 GEMM_BIAS_TILES = ((128, 256), (128, 128), (64, 128), (64, 64))

@@ -23,6 +23,9 @@ workaround, not carried over).
 
 Kernel C's two products run on gemm_sm90.cu's wgmma + TMA core under the plans
 of ``_cuda.gemm_plan`` (``ffn_plans``), in its own entry and inside the layer step.
+Kernels A, B, E and the layer step are one persistent cooperative launch each
+(``csrc/decoder_layer_step.cu``), cut over the card by ``step_plan``: the grid,
+its shared memory, each product's K slice and the one workspace's buffers.
 The ring caches and slot caches are written IN PLACE; the wrappers return the
 tensors they were given.
 """
@@ -30,7 +33,8 @@ tensors they were given.
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -183,6 +187,126 @@ def fused_ffn_step(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = _LN_EPS):
 
 
 # ---------------------------------------------------------------------------
+# the persistent step kernel's plan (kernels A, B, E and the layer step)
+# ---------------------------------------------------------------------------
+STEP_TILE = 64  # the products' 64 x 64 output tiles and 64-deep K blocks
+STEP_RING_BYTES = 1024 + 4 * (2 * 64 * 64 * 2) + 2 * 4 * 8  # alignment, 4 stages, barriers
+STEP_ITEM_WARPS = 4  # one attention item: a warpgroup
+# A's and B's products (q|k|v or q, then the out projection) in the C entry's
+# order: their widths N in units of hd (K is hd)
+_STEP_PRODUCTS = {"self": (3, 1), "cross": (1, 1)}
+
+
+class StepPlan(NamedTuple):
+    """How one call of the step kernel is cut over the card."""
+
+    ctas: int  # the persistent grid: every CTA resident at once
+    smem: int  # dynamic shared memory of a CTA
+    k_slices: Tuple[int, ...]  # each product's K slice, in the C entry's order
+    splits: Tuple[int, ...]  # and its K splits
+    # the workspace's buffers: (name, byte offset, bytes), in the C entry's order
+    buffers: Tuple[Tuple[str, int, int], ...]
+    workspace_bytes: int
+
+
+def step_head_block(d: int) -> int:
+    """The head-dim instance of the step kernel's attention (64, 128 or 256)."""
+    return 64 if d <= 64 else (128 if d <= 128 else 256)
+
+
+def step_smem_bytes(d: int, keys: int) -> int:
+    """The step kernel's dynamic shared memory: the TMA ring, the LayerNorm's 8
+    words and two attention items' scratch (q, the logits of `keys` keys, four
+    warps' partial outputs, four words); decoder_layer_step.cu checks it."""
+    dn = step_head_block(d)
+    item = dn + -(-keys // 4) * 4 + STEP_ITEM_WARPS * dn + STEP_ITEM_WARPS
+    return STEP_RING_BYTES + 4 * 8 + 2 * 4 * item
+
+
+def step_prefetch_lines(nbytes: int, ctas: int, cta: int) -> range:
+    """The 128-byte lines of an nbytes buffer that CTA `cta` of the step
+    kernel's grid asks L2 to prefetch (decoder_layer_step.cu's
+    prefetch_share)."""
+    lines = -(-nbytes // 128)
+    per = -(-lines // ctas)
+    return range(min(cta * per, lines), min((cta + 1) * per, lines))
+
+
+def _split_slice(m: int, n: int, k: int) -> int:
+    """The K slice of one of A's or B's products (and of the layer step's FFN
+    products past kernel C's split route): gemm_plan's split where it splits,
+    else all of K in one slice (the step kernel's products always write
+    partial tiles and sum them where they are read)."""
+    plan = _cuda.gemm_plan(m, n, k, "bias")
+    return plan.k_slice if plan.cluster == 0 else -(-k // STEP_TILE) * STEP_TILE
+
+
+def _align(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+@functools.lru_cache(maxsize=None)
+def step_plan(kind: str, rows: int, hd: int, heads: int, keys: int, d_ff: int = 0,
+              sm_count: int = _cuda.SM_COUNT) -> StepPlan:
+    """The plan of one call of the step kernel: `kind` "self" (kernel A, `keys`
+    = the ring's T), "cross" (kernels B and E, `keys` = Sk) or "layer" (`keys`
+    = max(T, Sk), with kernel C's FFN of width d_ff).  A's and B's products
+    take gemm_plan's split of K.  The layer step's FFN phase takes ffn_plans
+    exactly where kernel C's route at this row count is the 64 x 64 split one
+    (or the unsplit 64 x 64 bias tile for the first product, the same sums), so
+    that it is bit-equal to kernel C there; at more rows (past 512 at hd 512,
+    320 at hd 768) its products take A's and B's rule.  Two CTAs per SM where
+    their shared memory fits, else one."""
+    _cuda.require_width(hd, "step_plan")
+    d = hd // heads
+    if kind not in ("self", "cross", "layer"):
+        raise ValueError(f"step_plan: unknown kind {kind!r}")
+    products = []  # (splits, k_slice, n) of each product
+    for sublayer in (("self", "cross") if kind == "layer" else (kind,)):
+        for n in _STEP_PRODUCTS[sublayer]:
+            k_slice = _split_slice(rows, n * hd, hd)
+            products.append((-(-hd // k_slice), k_slice, n * hd))
+    if kind == "layer":
+        # the GELU product may run its epilogue in the GEMM (cluster 1: one split,
+        # whose sum the reduce pass repeats), the LayerNorm product must split
+        plans = ffn_plans(rows, hd, d_ff)
+        if all((plan.bm, plan.bn) == (STEP_TILE, STEP_TILE) and plan.cluster <= most
+               for plan, most in zip(plans, (1, 0))):
+            products += [(plan.splits, plan.k_slice, n) for plan, n in zip(plans, (d_ff, hd))]
+        else:
+            for n, k in ((d_ff, hd), (hd, d_ff)):
+                k_slice = _split_slice(rows, n, k)
+                products.append((-(-k // k_slice), k_slice, n))
+    smem = step_smem_bytes(d, keys)
+    if smem > _cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"step_plan: {keys} keys need {smem} bytes of shared memory")
+    per_sm = 2 if smem <= _cuda.SMEM_PER_SM // 2 - 1024 else 1
+    bf16_rows, f32_rows = rows * hd * 2, rows * hd * 4
+    sizes = [("xb", bf16_rows)]
+    if kind == "layer":
+        sizes += [("ctx_s", bf16_rows), ("y1", f32_rows), ("y1b", bf16_rows),
+                  ("ctx_c", bf16_rows), ("y2", f32_rows), ("y2b", bf16_rows),
+                  ("hidden", rows * d_ff * 2)]
+    else:
+        sizes.append(("ctx", bf16_rows))
+    sizes.append(("partial", 4 * max(splits * rows * n for splits, _, n in products)))
+    buffers, offset = [], 0
+    for name, size in sizes:
+        buffers.append((name, offset, size))
+        offset += _align(size)
+    return StepPlan(per_sm * sm_count, smem, tuple(k for _, k, _ in products),
+                    tuple(s for s, _, _ in products), tuple(buffers), offset)
+
+
+def _step_workspace(plan: StepPlan, device):
+    """The one workspace tensor of a step call (the caller holds it until the
+    launch is enqueued) and its buffers' addresses."""
+    workspace = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
+    base = workspace.data_ptr()
+    return workspace, [base + offset for _, offset, _ in plan.buffers]
+
+
+# ---------------------------------------------------------------------------
 # kernel D
 # ---------------------------------------------------------------------------
 def _slot(step: int, n_slots: int) -> int:
@@ -306,15 +430,14 @@ def fused_self_attention_step(
     rows, hd = _require_rows(x, "fused_self_attention_step")
     _require_attention_weights(w, "wqkv", 3 * hd, hd, h)
     max_len, cache_bf16 = _require_ring(step_bias, cache_k, cache_v, cache_bias, rows, hd)
-    qkv = torch.empty((rows, 3 * hd), dtype=torch.float32, device=x.device)
-    context = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
-    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
+    plan = step_plan("self", rows, hd, h, max_len, 0, _cuda.sm_count(x.device))
+    workspace, buffers = _step_workspace(plan, x.device)
     y = torch.empty_like(x)
     p = _cuda.ptr
     _cuda.launch(
         "ovq_self_attention_step_forward", p(x), *_attention_pointers(w, "wqkv"), p(step_bias),
-        p(cache_k), p(cache_v), p(cache_bias), p(qkv), p(context), p(partial), p(y),
-        rows, max_len, _slot(step, max_len), hd, h, cache_bf16, splits, k_per_split, scale, eps,
+        p(cache_k), p(cache_v), p(cache_bias), *buffers, p(y), rows, max_len,
+        _slot(step, max_len), hd, h, cache_bf16, *plan.k_slices, plan.ctas, plan.smem, scale, eps,
     )
     _cuda.count("fused_self_attention_step")
     return y, cache_k, cache_v, cache_bias
@@ -339,14 +462,13 @@ def _cross_attention_kernel(entry: str, what: str, x, w, enc_k, enc_v, enc_bias,
     _require_attention_weights(w, "wq", hd, hd, h)
     sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
     _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
-    q = torch.empty((rows, hd), dtype=torch.float32, device=x.device)
-    context = torch.empty_like(q)
-    partial, splits, k_per_split = _cuda.row_partials(rows, hd, hd, x.device)
+    plan = step_plan("cross", rows, hd, h, sk, 0, _cuda.sm_count(x.device))
+    workspace, buffers = _step_workspace(plan, x.device)
     y = torch.empty_like(x)
     p = _cuda.ptr
     _cuda.launch(
-        entry, p(x), *_attention_pointers(w, "wq"), p(enc_k), p(enc_v), p(enc_bias), p(q),
-        p(context), p(partial), p(y), rows, sk, hd, h, enc_bf16, splits, k_per_split, scale, eps,
+        entry, p(x), *_attention_pointers(w, "wq"), p(enc_k), p(enc_v), p(enc_bias), *buffers,
+        p(y), rows, sk, hd, h, enc_bf16, *plan.k_slices, plan.ctas, plan.smem, scale, eps,
     )
     _cuda.count(what)
     return y
@@ -443,23 +565,16 @@ def fused_decoder_layer_step(
     sk, enc_bf16 = _require_kv(enc_k, enc_v, ("enc_k", "enc_v"), rows, hd)
     _cuda.require(enc_bias, "enc_bias", torch.float32, (rows, sk))
 
-    def rows_of(width, dtype=torch.float32):
-        return torch.empty((rows, width), dtype=dtype, device=x.device)
-
-    qkv, context, y1, y2, y = rows_of(3 * hd), rows_of(hd), rows_of(hd), rows_of(hd), rows_of(hd)
-    splits, k_per_split = _cuda.row_splits(rows, hd)
-    plans = ffn_plans(rows, hd, d_ff)
-    xb, hidden, partial = _ffn_workspace(rows, hd, d_ff, plans, x.device)
-    if partial.numel() < splits * rows * hd:
-        partial = torch.empty(splits * rows * hd, dtype=torch.float32, device=x.device)
+    plan = step_plan("layer", rows, hd, h, max(max_len, sk), d_ff, _cuda.sm_count(x.device))
+    workspace, buffers = _step_workspace(plan, x.device)
+    y = torch.empty_like(x)
     p = _cuda.ptr
     _cuda.launch(
         "ovq_decoder_layer_step_forward", p(x), *_attention_pointers(self_w, "wqkv"),
         *_attention_pointers(cross_w, "wq"), p(f["w1"]), p(f["b1"]), p(f["w2"]), p(f["b2"]),
         p(f["ln_scale"]), p(f["ln_bias"]), p(step_bias), p(cache_k), p(cache_v), p(cache_bias),
-        p(enc_k), p(enc_v), p(enc_bias), p(qkv), p(context), p(partial), p(y1), p(y2),
-        p(xb), p(hidden), p(y), rows, max_len, _slot(step, max_len), sk, hd, h, d_ff, cache_bf16,
-        enc_bf16, splits, k_per_split, *plans[0], *plans[1], scale, _LN_EPS,
+        p(enc_k), p(enc_v), p(enc_bias), *buffers, p(y), rows, max_len, _slot(step, max_len), sk,
+        hd, h, d_ff, cache_bf16, enc_bf16, *plan.k_slices, plan.ctas, plan.smem, scale, _LN_EPS,
     )
     _cuda.count("fused_decoder_layer_step")
     return y, cache_k, cache_v, cache_bias

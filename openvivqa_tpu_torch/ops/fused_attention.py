@@ -46,7 +46,7 @@ Gradients:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -157,7 +157,7 @@ def attention_block(entry: str, sq: int, sk: int, dk: int, dv: int) -> str:
     ``resident`` or ``ring`` (block B's dropout instance, at any row count);
     the ``encoder`` entry (kernel F's attention, block B's bf16 instance on the
     packed q|k|v projection) ``resident`` or ``ring`` at any row count;
-    the ``streamed`` entry always ``streamed`` (common.cu's attention block).
+    the ``streamed`` entry always ``streamed`` (its one-walk wgmma block).
     The dropout backward keeps K and V resident by this rule on (sq, sk), and
     Q and G by it on (sk, sq)."""
     if entry == "streamed":
@@ -184,7 +184,7 @@ def _packed_kernel(q, k, v, bias, scale: float, num_heads: int, streamed: bool =
                    block: Optional[str] = None):
     """The packed attention's kernel (block A or B, as `attention_block` or
     `block` says), or with `streamed` the streamed one's (its own entry and
-    launch counter over common.cu's block)."""
+    launch counter)."""
     name = "fused_attention_packed_streamed" if streamed else "fused_attention_packed"
     b, sq, sk, hd = _check_packed(q, k, v, num_heads, name)
     d = hd // num_heads
@@ -192,8 +192,11 @@ def _packed_kernel(q, k, v, bias, scale: float, num_heads: int, streamed: bool =
     out = torch.empty_like(q)
     if streamed:
         bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+        plan = streamed_plan(b, sq, sk, hd, num_heads)
+        kv = torch.empty(plan.workspace_elements, dtype=torch.bfloat16, device=q.device)
         _cuda.launch("ovq_streamed_attention_forward", p(q), p(k), p(v), p(bias3),
-                     *_bias_strides(bias3), p(out), b, sq, sk, hd, num_heads, scale)
+                     *_bias_strides(bias3), p(out), p(kv), b, sq, sk, hd, num_heads,
+                     *plan[:5], scale)
         _cuda.count(name)
         return out
     block = block or attention_block("packed", sq, sk, d, d)
@@ -307,13 +310,47 @@ def streamed_attention_viable(sq: int, sk: int, hd: int, h: int) -> bool:
     return hd % h == 0 and plan_streamed_blocks(sq, sk, hd, h) is not None
 
 
+class StreamedPlan(NamedTuple):
+    """How csrc/fused_attention_streamed.cu cuts one call: CTAs of `q_rows`
+    query rows (consumer warpgroups of 64), a ring of `stages` chunks of
+    `chunk` keys of K and V in bf16 padded to `head_block` columns, `smem`
+    bytes of shared memory a CTA (the ring and each warpgroup's bf16 Q tile),
+    and the bf16 K/V workspace the cast pass writes.  The C entry takes the first five and refuses a call whose plan
+    is not its own."""
+
+    q_rows: int
+    stages: int
+    chunk: int
+    head_block: int
+    smem: int
+    workspace_elements: int
+
+
+STREAMED_CHUNK, STREAMED_STAGES = 64, 4
+
+
+def streamed_plan(b: int, sq: int, sk: int, hd: int, num_heads: int) -> StreamedPlan:
+    """The streamed kernel's cut of one call: a head dim up to 64 padded to 64
+    columns with three consumer warpgroups a CTA, up to 128 to 128 with two;
+    one CTA per (query tile, head, sample)."""
+    _cuda.require_attention_shape(sk, hd, num_heads, "fused_attention_packed_streamed")
+    d = hd // num_heads
+    head_block = 64 if d <= 64 else 128
+    q_rows = 192 if head_block == 64 else 128
+    stage = 2 * (head_block // 64) * STREAMED_CHUNK * 128
+    q_tiles = (q_rows // 64) * (head_block // 64) * 64 * 128  # each consumer's bf16 Q
+    smem = 1024 + STREAMED_STAGES * stage + q_tiles + 2 * STREAMED_STAGES * 8
+    return StreamedPlan(q_rows, STREAMED_STAGES, STREAMED_CHUNK, head_block, smem,
+                        2 * b * num_heads * sk * head_block)
+
+
 def fused_attention_packed_streamed_plain(
     q, k, v, bias, scale: float, num_heads: int, op_dtype: Optional[torch.dtype] = None
 ):
-    """The streamed kernel's arithmetic, which is the packed one's: the
-    weights are normalised before they are rounded to op_dtype.  (The TPU's
-    streamed kernel rounds each key block's unnormalised weights and divides
-    at the end, one bf16 rounding of a weight apart.)"""
+    """The packed attention's arithmetic: the weights are normalised before
+    they are rounded to op_dtype.  (The streamed kernels, the TPU's and the
+    card's, round each key block's unnormalised weights and divide at the
+    end, one bf16 rounding of a weight apart.)"""
     return fused_attention_packed_plain(q, k, v, bias, scale, num_heads, op_dtype)
 
 
@@ -321,8 +358,9 @@ def fused_attention_packed_streamed(q, k, v, bias, scale: float, num_heads: int)
     """The packed attention's contract for key streams past the packed
     kernel's reach (``packed_attention_viable``): q (b, Sq, h*d), k/v (b, Sk,
     h*d) float32, bias (bb, 1, bq, Sk) or None; returns (b, Sq, h*d).  Keys
-    stream through the kernel in 64-key chunks under an online softmax, any
-    key count.  Its backward is the packed attention's."""
+    stream through the kernel in 64-key chunks under an online softmax, one
+    walk, any key count (``streamed_plan``).  Its backward is the packed
+    attention's."""
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
     use_kernel = _cuda.uses_kernel(*tensors)
     if use_kernel and not _needs_grad(tensors):

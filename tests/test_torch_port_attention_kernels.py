@@ -226,6 +226,108 @@ def test_streamed_wrapper_is_the_packed_contract_with_its_backward():
         _close(got, want.numpy(), atol=0, rtol=0)
 
 
+def _one_walk(q, k, v, bias, scale, chunk=64):
+    """The streamed kernel's arithmetic on (b, h, S, d) float32 tensors: bf16
+    operands; over 64-key chunks an f32 running max and sum, the unnormalised
+    weights rounded to bf16 against bf16 values, the accumulator rescaled when
+    the max moves and divided by the sum at the end."""
+    rt = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    q, k, v = rt(q), rt(k), rt(v)
+    b, h, sq, d = q.shape
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    total = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, v.shape[-1])
+    for j0 in range(0, k.shape[2], chunk):
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, j0:j0 + chunk]) * scale
+        if bias is not None:
+            logits = logits + bias[..., j0:j0 + chunk]
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(logits - m_new)
+        total = total * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", rt(p), v[:, :, j0:j0 + chunk])
+        m = m_new
+    return acc / total
+
+
+def test_one_walk_matches_the_streamed_pallas_kernel_interpret():
+    """The card's streamed kernel walks 64-key chunks as the TPU kernel walks
+    its 64-key blocks (plan_streamed_blocks at 16 x 128): the same function,
+    up to exp's last bits moving a bf16 rounding of a weight."""
+    rng = np.random.default_rng(15)
+    b, sq, sk = 2, 16, 128
+    q, k, v = (_bf16(rng.normal(size=(b, s, S_HD)).astype(np.float32)) for s in (sq, sk, sk))
+    bias = _masked(rng, (b, 1, 1, sk))
+    bias[0] = MASK  # sample 0: every key masked
+    scale = 1.0 / np.sqrt(S_HD // S_HEADS)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.fused_attention_packed_streamed(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), scale, S_HEADS)
+    split = lambda x: _t(x).view(b, x.shape[1], S_HEADS, -1).transpose(1, 2)  # noqa: E731
+    got = _one_walk(split(q), split(k), split(v), _t(bias), scale)
+    got = got.transpose(1, 2).reshape(b, sq, S_HD)
+    _close(got, want, atol=2.0 ** -9 * float(np.abs(v).max()), rtol=0)
+
+
+def _emulate_streamed(args, workspaces):
+    """The streamed C entry on CPU memory: q, k, v through the packed layout,
+    the bias through its strides, the bf16 K/V workspace of streamed_plan's
+    size; the one-walk arithmetic."""
+    q, k, v, bias, bias_bs, bias_qs, out, kv, b, sq, sk, hd, heads, *cut, scale = args
+    plan = fused_attention.streamed_plan(b, sq, sk, hd, heads)
+    assert tuple(cut) == plan[:5]
+    assert workspaces[kv].numel() == plan.workspace_elements
+    assert workspaces[kv].dtype == torch.bfloat16
+    d = hd // heads
+
+    def heads_of(ptr, s):
+        return torch.from_numpy(_strided(ptr, (b, heads, s, d), (s * hd, d, hd, 1)).copy())
+
+    bv = None if bias is None else torch.from_numpy(
+        _strided(bias, (b, heads, sq, sk), (bias_bs, 0, bias_qs, 1)).copy())
+    got = _one_walk(heads_of(q, sq), heads_of(k, sk), heads_of(v, sk), bv, scale)
+    _strided(out, (b, heads, sq, d), (sq * hd, d, hd, 1))[...] = got.numpy()
+
+
+@pytest.mark.parametrize("sq,sk,d,bias_shape", [
+    (40, 130, 32, (3, 1, 1, 130)), (130, 70, 96, (3, 1, 130, 70)), (5, 64, 128, None),
+    (33, 1601 // 8, 64, (1, 1, 1, 200)),
+])
+def test_streamed_wrapper_hands_the_entry_its_operands(monkeypatch, sq, sk, d, bias_shape):
+    """The streamed wrapper's launch, emulated: the one-walk output (sample 0
+    with every key masked, where there is a per-sample bias), within 2^-7 max
+    |v| of the plain version, one counted launch."""
+    rng = np.random.default_rng(sq + sk + d)
+    heads = 2
+    workspaces = {}
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        workspaces[t.data_ptr()] = t
+        return t
+
+    launched = []
+
+    def launch(name, *args):
+        launched.append(name)
+        _emulate_streamed(args, workspaces)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(fused_attention._cuda, "launch", launch)
+    q, k, v = (_t(rng.normal(size=(3, s, heads * d)).astype(np.float32)) for s in (sq, sk, sk))
+    bias = None if bias_shape is None else _t(_masked(rng, bias_shape))
+    if bias is not None and bias.shape[0] == 3:
+        bias[0] = MASK
+    before = fused_attention._cuda.launch_counts()["fused_attention_packed_streamed"]
+    got = fused_attention._packed_kernel(q, k, v, bias, 0.3, heads, streamed=True)
+    assert launched == ["ovq_streamed_attention_forward"]
+    assert fused_attention._cuda.launch_counts()["fused_attention_packed_streamed"] == before + 1
+    want = fused_attention.fused_attention_packed_plain(q, k, v, bias, 0.3, heads,
+                                                        op_dtype=torch.bfloat16)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want.numpy(), atol=2.0 ** -7 * float(v.abs().max()), rtol=0)
+
+
 @pytest.mark.parametrize("hd,h", [(256, 4), (512, 8), (768, 12)])
 def test_dispatch_rules_match_the_jax_package(hd, h):
     """The port's copies of plan_q_block, packed_attention_viable,

@@ -646,6 +646,154 @@ def test_decoder_layer_step_kernel_matches_its_stages_and_plain(dev):
         _reorder(rings, gen, dev)
 
 
+@pytest.mark.parametrize("rows,sk,t_len,ring_dtype", [
+    (60, 324, 8, torch.float32),  # JointTransformer's beam step
+    (64, 110, 5, torch.bfloat16),  # greedy rows over a bf16 ring
+])
+def test_decoder_layer_step_at_path_shapes_matches_its_stages(dev, rows, sk, t_len, ring_dtype):
+    """The persistent layer step at hd 512, 8 heads, d_ff 2048: bit-equal to
+    kernels A, B and C chained over T + 1 steps with the ring reordered between
+    them, within LAYER_TOL of the plain version; one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(rows + sk)
+    hd, heads, d_ff = 512, 8, 2048
+    self_w = {"wqkv": _randn(gen, hd, 3 * hd, scale=0.02, dtype=torch.bfloat16),
+              "bqkv": _randn(gen, 3 * hd, scale=0.1),
+              **_step_vectors(gen, hd)}
+    cross_w = {"wq": _randn(gen, hd, hd, scale=0.02, dtype=torch.bfloat16),
+               "bq": _randn(gen, hd, scale=0.1), **_step_vectors(gen, hd)}
+    f = {"w1": _randn(gen, hd, d_ff, scale=0.02, dtype=torch.bfloat16), "b1": _randn(gen, d_ff, scale=0.1),
+         "w2": _randn(gen, d_ff, hd, scale=0.02, dtype=torch.bfloat16), "b2": _randn(gen, hd, scale=0.1),
+         "ln_scale": 1 + _randn(gen, hd, scale=0.1), "ln_bias": _randn(gen, hd, scale=0.1)}
+    enc_k, enc_v = (_randn(gen, rows, sk, hd, dtype=torch.bfloat16) for _ in range(2))
+    eb = _key_bias(gen, rows, sk)
+    scale = (hd // heads) ** -0.5
+    ring = [torch.zeros(rows, t_len, hd, dtype=ring_dtype, device=dev),
+            torch.zeros(rows, t_len, hd, dtype=ring_dtype, device=dev),
+            torch.zeros(rows, t_len, device=dev)]
+    rings = {"kernel": ring, "staged": [x.clone() for x in ring], "plain": [x.clone() for x in ring]}
+    for step in range(t_len + 1):
+        x = _randn(gen, rows, hd)
+        sb = torch.where(torch.rand(rows, generator=gen, device=dev) < 0.2, MASK, 0.0)
+        before = _cuda.launch_counts()["fused_decoder_layer_step"]
+        got, *_ = decode_step.fused_decoder_layer_step(
+            x, self_w, cross_w, f, sb, step, *rings["kernel"], enc_k, enc_v, eb, scale, heads)
+        assert _cuda.launch_counts()["fused_decoder_layer_step"] == before + 1
+        staged, *_ = decode_step.fused_self_attention_step(
+            x, self_w, sb, step, *rings["staged"], scale, heads)
+        staged = decode_step.fused_cross_attention_step(staged, cross_w, enc_k, enc_v, eb, scale,
+                                                        heads)
+        staged = decode_step.fused_ffn_step(
+            staged, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"])
+        assert torch.equal(got, staged)
+        assert all(torch.equal(a, b) for a, b in zip(rings["kernel"], rings["staged"]))
+        want, *_ = decode_step.fused_decoder_layer_step_plain(
+            x, self_w, cross_w, f, sb, step, *rings["plain"], enc_k, enc_v, eb, scale, heads)
+        assert _err(got, want) <= LAYER_TOL
+        rings["plain"] = [x.clone() for x in rings["kernel"]]
+        perm = torch.randint(0, rows, (rows,), generator=gen, device=dev)
+        rings = {name: [x.index_select(0, perm) for x in value] for name, value in rings.items()}
+
+
+@pytest.mark.parametrize("rows,hd,heads", [(600, 512, 8), (330, 768, 12)])
+def test_decoder_layer_step_past_kernel_cs_split_route(dev, rows, hd, heads):
+    """At a row count where kernel C leaves its 64 x 64 split route (an eval or
+    SCST batch of 200 x beam 3; 330 rows at hd 768) the layer step still runs in
+    one launch: its ring equal to kernels A and B's, its output within LN_TOL of
+    A, B, C chained and within LAYER_TOL of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(rows + hd)
+    d_ff, sk, t_len = 4 * hd, 110, 5
+    self_w = {"wqkv": _randn(gen, hd, 3 * hd, scale=0.02, dtype=torch.bfloat16),
+              "bqkv": _randn(gen, 3 * hd, scale=0.1), **_step_vectors(gen, hd)}
+    cross_w = {"wq": _randn(gen, hd, hd, scale=0.02, dtype=torch.bfloat16),
+               "bq": _randn(gen, hd, scale=0.1), **_step_vectors(gen, hd)}
+    f = {"w1": _randn(gen, hd, d_ff, scale=0.02, dtype=torch.bfloat16), "b1": _randn(gen, d_ff, scale=0.1),
+         "w2": _randn(gen, d_ff, hd, scale=0.02, dtype=torch.bfloat16), "b2": _randn(gen, hd, scale=0.1),
+         "ln_scale": 1 + _randn(gen, hd, scale=0.1), "ln_bias": _randn(gen, hd, scale=0.1)}
+    enc_k, enc_v = (_randn(gen, rows, sk, hd, dtype=torch.bfloat16) for _ in range(2))
+    eb = _key_bias(gen, rows, sk)
+    scale = (hd // heads) ** -0.5
+    ring = [_randn(gen, rows, t_len, hd), _randn(gen, rows, t_len, hd),
+            torch.where(torch.rand(rows, t_len, generator=gen, device=dev) < 0.2, MASK, 0.0)]
+    rings = {"kernel": ring, "staged": [x.clone() for x in ring], "plain": [x.clone() for x in ring]}
+    x = _randn(gen, rows, hd)
+    sb = torch.where(torch.rand(rows, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    before = _cuda.launch_counts()["fused_decoder_layer_step"]
+    got, *_ = decode_step.fused_decoder_layer_step(
+        x, self_w, cross_w, f, sb, 2, *rings["kernel"], enc_k, enc_v, eb, scale, heads)
+    assert _cuda.launch_counts()["fused_decoder_layer_step"] == before + 1
+    staged, *_ = decode_step.fused_self_attention_step(
+        x, self_w, sb, 2, *rings["staged"], scale, heads)
+    staged = decode_step.fused_cross_attention_step(staged, cross_w, enc_k, enc_v, eb, scale, heads)
+    staged = decode_step.fused_ffn_step(
+        staged, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_scale"], f["ln_bias"])
+    assert all(torch.equal(a, b) for a, b in zip(rings["kernel"], rings["staged"]))
+    assert _err(got, staged) <= TOL
+    want, *_ = decode_step.fused_decoder_layer_step_plain(
+        x, self_w, cross_w, f, sb, 2, *rings["plain"], enc_k, enc_v, eb, scale, heads)
+    assert _err(got, want) <= LAYER_TOL
+    assert _ring_err({k: rings[k] for k in ("kernel", "plain")}) <= 1e-4
+
+
+@pytest.mark.parametrize("hd,heads", [(384, 32), (384, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_kernels_at_a_head_dim_off_the_16_byte_grain(dev, hd, heads, dtype):
+    """Kernels A and B at head dims 12 and 3, whose rows the attention phases
+    read element by element: within TOL of the plain version, A's ring within
+    1e-4 (f32) or 1e-2 (bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + heads)
+    rows, t_len, sk = 37, 5, 45
+    self_w = {"wqkv": _randn(gen, hd, 3 * hd, scale=0.05, dtype=torch.bfloat16),
+              "bqkv": _randn(gen, 3 * hd, scale=0.1), **_step_vectors(gen, hd)}
+    cross_w = {"wq": _randn(gen, hd, hd, scale=0.05, dtype=torch.bfloat16),
+               "bq": _randn(gen, hd, scale=0.1), **_step_vectors(gen, hd)}
+    scale = (hd // heads) ** -0.5
+    ring = [_randn(gen, rows, t_len, hd, dtype=dtype), _randn(gen, rows, t_len, hd, dtype=dtype),
+            torch.zeros(rows, t_len, device=dev)]
+    rings = {"kernel": ring, "plain": [x.clone() for x in ring]}
+    x = _randn(gen, rows, hd)
+    sb = torch.where(torch.rand(rows, generator=gen, device=dev) < 0.2, MASK, 0.0)
+    got, *_ = decode_step.fused_self_attention_step(x, self_w, sb, 3, *rings["kernel"], scale, heads)
+    want, *_ = decode_step.fused_self_attention_step_plain(
+        x, self_w, sb, 3, *rings["plain"], scale, heads)
+    assert _err(got, want) <= TOL
+    assert _ring_err(rings) <= (1e-4 if dtype == torch.float32 else 1e-2)
+    enc_k, enc_v = (_randn(gen, rows, sk, hd, dtype=dtype) for _ in range(2))
+    eb = _key_bias(gen, rows, sk)
+    got = decode_step.fused_cross_attention_step(x, cross_w, enc_k, enc_v, eb, scale, heads)
+    want = decode_step.fused_cross_attention_step_plain(x, cross_w, enc_k, enc_v, eb, scale, heads)
+    assert _err(got, want) <= TOL
+
+
+def _step_vectors(gen, hd):
+    return {"wo": _randn(gen, hd, hd, scale=0.02, dtype=torch.bfloat16),
+            "bo": _randn(gen, hd, scale=0.1), "ln_scale": 1 + _randn(gen, hd, scale=0.1),
+            "ln_bias": _randn(gen, hd, scale=0.1)}
+
+
+def test_step_kernel_refused_cooperative_launch_is_an_error(dev, monkeypatch):
+    """A grid larger than the card holds at once is refused by the cooperative
+    launch; the wrapper raises and counts no launch."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = _cross_weights(gen)
+    x = _randn(gen, STEP_ROWS, HD)
+    enc_k, enc_v = (_randn(gen, STEP_ROWS, STEP_SK, HD, dtype=torch.bfloat16) for _ in range(2))
+    eb = _key_bias(gen, STEP_ROWS, STEP_SK)
+    real_plan = decode_step.step_plan
+
+    def too_many(*args):
+        return real_plan(*args)._replace(ctas=64 * real_plan(*args).ctas)
+
+    monkeypatch.setattr(decode_step, "step_plan", too_many)
+    before = _cuda.launch_counts()["fused_cross_attention_step"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_step.fused_cross_attention_step(x, w, enc_k, enc_v, eb, 0.125, HEADS)
+    assert _cuda.launch_counts()["fused_cross_attention_step"] == before
+    monkeypatch.setattr(decode_step, "step_plan", real_plan)
+    got = decode_step.fused_cross_attention_step(x, w, enc_k, enc_v, eb, 0.125, HEADS)
+    want = decode_step.fused_cross_attention_step_plain(x, w, enc_k, enc_v, eb, 0.125, HEADS)
+    assert _err(got, want) <= TOL
+
+
 def test_step_wrappers_refuse_a_wrong_dtype_and_a_non_contiguous_tensor(dev):
     """A CUDA input to kernels A, B or the layer step launches the kernel or
     raises ValueError; nothing falls back to the plain version."""
@@ -857,6 +1005,32 @@ def test_flat_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 # -- the streamed attention -------------------------------------------------------------------
+@pytest.mark.parametrize("sq,sk,d,masked_row", [
+    (40, 300, 32, True),   # query rows not a multiple of the CTA's 128
+    (130, 300, 96, True),  # a head dim padded to 128 columns
+    (130, 70, 128, False),
+    (64, 1601, 64, True),
+])
+def test_streamed_attention_block_at_odd_rows_and_head_dims(dev, sq, sk, d, masked_row):
+    """The one-walk block at Sq not a multiple of 128, head dims 32, 96 and 128,
+    a per-query-row bias with one row whose keys are all masked (finite, as
+    the plain version), one launch counted."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + d)
+    heads = 4
+    hd = heads * d
+    q, k, v = _randn(gen, 2, sq, hd), _randn(gen, 2, sk, hd), _randn(gen, 2, sk, hd)
+    bias = torch.where(torch.rand((2, 1, sq, sk), generator=gen, device=dev) < 0.2, MASK, 0.0)
+    if masked_row:
+        bias[1, 0, sq - 1] = MASK
+    scale = d ** -0.5
+    before = _cuda.launch_counts()["fused_attention_packed_streamed"]
+    got = fused_attention.fused_attention_packed_streamed(q, k, v, bias, scale, heads)
+    assert _cuda.launch_counts()["fused_attention_packed_streamed"] == before + 1
+    want = fused_attention.fused_attention_packed_streamed_plain(q, k, v, bias, scale, heads)
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= ATTN_TOL
+
+
 @pytest.mark.parametrize("sq,sk,bias_shape", [
     (64, 1536, (2, 1, 1, 1536)),
     (40, 1601, (2, 1, 40, 1601)),  # a ragged 64-key chunk
