@@ -15,8 +15,9 @@ Phases, each fatal on failure:
      draw the same Philox mask, the forward's keep bits bit for bit against
      ``dropout_mask_bits``, also at MMF_IterativeM4C's encoder and decoder
      cross-attention training shapes, with the backward's two kernels timed
-     apart and SDPA's backward alone beside SDPA's forward + backward), and
-     each decode-step kernel of the
+     apart and SDPA's backward alone beside SDPA's forward + backward), kernel
+     D over T + 1 greedy steps of the MMT (64 rows, 8 heads of 96, the 210-key
+     context and 5 slots), and each decode-step kernel of the
      IterativeMCAN beam path (kernels A, B and the decoder-layer step at 63
      rows, hidden 512, FFN 2048, over T + 1 steps with the ring reordered
      between steps as beam search does; the layer step also bit for bit
@@ -35,10 +36,10 @@ Phases, each fatal on failure:
      less it is the host's share), and each kernel's bound: the least time the
      card could take, max(FLOPs / 989 TFLOP/s bf16, bytes / 3.35 TB/s), each
      input read once and each output written once; the device time by
-     launch of kernels C and F, of kernels A, B, E, the decoder-layer step
-     (also at JointTransformer's beam step, 60 rows over 324 bf16 keys) and
-     the streamed attention (A, B, E and the layer step each one launch a
-     call); at each cut-over of
+     launch of kernels C and F, of kernels A, B, D, E, the decoder-layer step
+     (also at JointTransformer's beam step, 60 rows over 324 bf16 keys), the
+     two-bias attention and the streamed attention (A, B, D, E, the layer step
+     and the two-bias attention each one launch a call); at each cut-over of
      ``ops/fused_attention.py::attention_block`` both blocks forced at the same
      shape (the flat attention at the cross step's geometry and the packed one
      at the MMT geometry with 1, 2, 4, 8 and 16 query rows; the packed block
@@ -184,12 +185,13 @@ GRADIENT_FREE = ("fc_k.bias", "self.key.bias")
 DROPOUT_RATE = 0.1
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PROFILE_TRIES = 3  # traces of one measurement, where torch.profiler saw no device event
 
 SOURCES = {
     "fused_ffn_step": ("ffn.cu", "openvivqa_tpu/ops/decode_step.py:675"),
     "fused_encoder_self_attention": ("encoder_layer.cu", "openvivqa_tpu/ops/encoder_layer.py:147"),
     "fused_attention_packed": ("fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:215"),
-    "fused_bert_self_step": ("bert_self_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
+    "fused_bert_self_step": ("decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:892"),
     "fused_attention_packed_dropout": (
         "fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:1012"),
     "fused_attention_packed_dropout_backward": (
@@ -203,7 +205,7 @@ SOURCES = {
     "fused_cross_attention_streamed": (
         "decoder_layer_step.cu", "openvivqa_tpu/ops/decode_step.py:1146"),
     "fused_attention_packed_2bias": (
-        "fused_attention_2bias.cu", "openvivqa_tpu/ops/fused_attention.py:661"),
+        "fused_attention.cu", "openvivqa_tpu/ops/fused_attention.py:661"),
     "fused_attention_packed_streamed": (
         "fused_attention_streamed.cu", "openvivqa_tpu/ops/fused_attention.py:483"),
     "fused_attention": ("fused_attention_flat.cu", "openvivqa_tpu/ops/fused_attention.py:1239"),
@@ -375,25 +377,31 @@ def device_by_kernel(fn, reps: int = 20) -> dict:
     [microseconds, launches].  The launches are the events seen over `reps`;
     the profiler now and then loses one (it never adds one), so a kernel's time
     a call is its mean time a launch times its launches a call rounded to a
-    whole number.  A kernel's name is the first identifier followed by its
-    template or argument list."""
+    whole number.  Now and then it loses every event of a trace: such a trace
+    is taken again, up to `PROFILE_TRIES` times in all, and an empty result
+    means that every one of them was empty.  A kernel's name is the first
+    identifier followed by its template or argument list."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            match = re.search(r"(\w+)\s*[<(]", event.name.replace("(anonymous namespace)", ""))
-            name = match.group(1) if match else event.name
-            entry = by_name.setdefault(name, [0.0, 0])
-            entry[0] += event.time_range.elapsed_us()
-            entry[1] += 1
+    for _ in range(PROFILE_TRIES):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                match = re.search(r"(\w+)\s*[<(]",
+                                  event.name.replace("(anonymous namespace)", ""))
+                name = match.group(1) if match else event.name
+                entry = by_name.setdefault(name, [0.0, 0])
+                entry[0] += event.time_range.elapsed_us()
+                entry[1] += 1
+        if by_name:
+            break
     return {name: [us / n * max(1, round(n / reps)), n / reps] for name, (us, n) in by_name.items()}
 
 
@@ -848,11 +856,14 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         failures.append(f"fused_bert_self_step slots: max err {slot_err} > {SLOT_TOL}")
     step_args = (x, w, ctx, *slots["kernel"], t_len - 1, cb, scale, heads, LN_EPS)
     keys = c_len + t_len
-    record("fused_bert_self_step", f"step {BATCH} x ctx {c_len} + {t_len} slots", y_err, LN_TOL,
+    record("fused_bert_self_step", f"step {BATCH} x ctx {c_len} + {t_len} slots, "
+           f"{heads} heads of {hd // heads} (library: none)", y_err, LN_TOL,
            lambda: decode_step.fused_bert_self_step(*step_args),
            lambda: decode_step.fused_bert_self_step_plain(*step_args),
            2.0 * BATCH * hd * 4 * hd + 4.0 * BATCH * keys * hd,
            tensor_bytes(x, w, ctx, slots["kernel"], cb, yk) + 2 * BATCH * hd * 2)
+    by_launch(failures, (("fused_bert_self_step",
+                          lambda: decode_step.fused_bert_self_step(*step_args)),))
     check_step_kernels(generative, gen, record, failures)
     check_layer_step_at(joint_task, gen, record, failures)
     check_streamed_cross(iterative, gen, record, failures)
@@ -1729,6 +1740,8 @@ def check_two_bias(task, gen, record, failures):
                    lambda: fused_attention.fused_attention_packed_2bias_plain(*args),
                    4.0 * b * heads * n * n * d, tensor_bytes(q, k, v, bias, head_bias, out),
                    library)
+            by_launch(failures, ((f"fused_attention_packed_2bias [{what}, {form}]",
+                                  lambda: fused_attention.fused_attention_packed_2bias(*args)),))
 
 
 def run_vit_mt5(config, seed, failures):

@@ -1,24 +1,16 @@
 // Shared pieces of the port's hand-written Hopper kernels (built for sm_90a).
 //
-// Device helpers are inline here; the building blocks the kernels are assembled
-// from live in common.cu and gemm_sm90.cu and are reached through the launchers
-// declared below:
-//   * launch_gemm_bias:        Y = A @ W + bias on f32 rows, bf16 wmma tiles, f32
-//                              accumulators (kernel D);
-//   * launch_gemm_residual_ln: Y = LayerNorm(R + A @ W + bias) on f32 rows, one block
-//                              owns whole rows so the LayerNorm runs in the GEMM's
-//                              epilogue (kernel D);
-//   * launch_attention:        softmax(scale * Q K^T + bias [+ head_bias]) V per (sample,
-//                              head, q-tile) on packed f32 (rows, heads * head_dim)
-//                              layouts (the two-bias entry);
+// Device helpers are inline here; the GEMM core the kernels are assembled from
+// lives in gemm_sm90.cu and is reached through the launchers declared below:
 //   * sm90_gemm_bias, sm90_gemm_ln (gemm_sm90.cu): the wgmma + TMA GEMM core of
-//                              kernels C and F on bf16 rows, with the bias [+ GELU]
-//                              epilogue to bf16 or the residual + LayerNorm one to f32.
+//     kernels C and F on bf16 rows, with the bias [+ GELU] epilogue to bf16 or the
+//     residual + LayerNorm one to f32.
 // The mma.sync pieces below (ldmatrix operands, m16n8k16 products, bf16 packing)
-// build block B (fused_attention.cu) and the dropout backward pair
-// (fused_attention_dropout.cu); the wgmma, mbarrier, TMA, setmaxnreg and cluster
-// pieces build gemm_sm90.cu, the decoder-layer step (decoder_layer_step.cu) and the
-// streamed attention (fused_attention_streamed.cu).
+// build block B (fused_attention.cu: the packed, dropout, two-bias and kernel F
+// attentions) and the dropout backward pair (fused_attention_dropout.cu); the
+// wgmma, mbarrier, TMA, setmaxnreg and cluster pieces build gemm_sm90.cu, the
+// persistent step kernel (decoder_layer_step.cu: kernels A, B, D, E and the
+// decoder-layer step) and the streamed attention (fused_attention_streamed.cu).
 // Every launcher returns cudaGetLastError() after its launch.
 #pragma once
 
@@ -50,97 +42,18 @@ __device__ __forceinline__ uint2 load_quad(const float* p, bool valid) {
   return make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
 }
 
-// eight consecutive f32 outputs
-__device__ __forceinline__ void store_eight(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// the attention blocks: 64-row tiles, 64-row key chunks, 4 warps of 16 rows
+// the flat attention's tile block (fused_attention_flat.cu): 64-row tiles, 64-row
+// key chunks, 4 warps of 16 rows
 constexpr int kAttnQTile = 64;
 constexpr int kAttnKeyChunk = 64;
 constexpr int kAttnThreads = 128;
 constexpr int kAttnWarps = kAttnThreads / 32;
 
-// 64 rows x (16 * DF) values (row stride rs) -> bf16 rows of stride ld; zero
-// rows from `valid_rows` on.  All of a thread's loads are issued before its
-// stores.
-template <int DF, typename TI>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const TI* src, long long rs,
-                                           int valid_rows) {
-  constexpr int quads = 4 * DF;
-  constexpr int per_thread = 64 * quads / kAttnThreads;
-  uint2 regs[per_thread];
-#pragma unroll
-  for (int u = 0; u < per_thread; ++u) {
-    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
-    const bool valid = r < valid_rows;
-    regs[u] = load_quad(src + (valid ? r : 0) * rs + c, valid);
-  }
-#pragma unroll
-  for (int u = 0; u < per_thread; ++u) {
-    const int idx = threadIdx.x + u * kAttnThreads, r = idx / quads, c = (idx % quads) * 4;
-    *reinterpret_cast<uint2*>(dst + (size_t)r * ld + c) = regs[u];
-  }
-}
-
-// -- single-query attention steps (kernel D) -------------------------------------
-// One block per (head, decode row): the query's d values sit in shared memory and
-// the keys stream past in chunks of 64 under an online softmax.
-constexpr int kStepChunk = 64;
-constexpr int kStepThreads = 128;
-constexpr int kStepWarps = kStepThreads / 32;
-constexpr int kStepMaxHeadDim = 2 * kStepThreads;
 constexpr float kMaskValue = -10e4f;  // models/modules/masks.py MASK_VALUE
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+// one f32 value stored as a cache holds it (the step kernel's slot writes)
 __device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_value(bf16* p, float v) { *p = __float2bfloat16(v); }
-
-// keys [0, n) of one source (float or bf16 rows of stride hd, this head's columns
-// first) folded into the block's running (max m, denominator s, accumulator acc):
-// logit_j = scale * q . k_j + bias_of(j).  Every thread of the block calls it;
-// qs holds the query's d values, ps is kStepChunk floats of scratch, and thread
-// c accumulates output columns c and c + kStepThreads.
-template <typename TK, typename BiasFn>
-__device__ __forceinline__ void fold_keys(const TK* keys, const TK* values, BiasFn bias_of, int n,
-                                          int hd, int d, float scale, const float* qs, float* ps,
-                                          float& m, float& s, float (&acc)[2]) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int j0 = 0; j0 < n; j0 += kStepChunk) {
-    const int count = min(kStepChunk, n - j0);
-    for (int jj = warp; jj < count; jj += kStepWarps) {
-      const TK* krow = keys + (size_t)(j0 + jj) * hd;
-      float part = 0.0f;
-      for (int c = lane; c < d; c += 32) part = fmaf(qs[c], to_float(krow[c]), part);
-      part = warp_sum(part);
-      if (lane == 0) ps[jj] = part * scale + bias_of(j0 + jj);
-    }
-    __syncthreads();
-    float chunk_max = -INFINITY;
-    for (int jj = 0; jj < count; ++jj) chunk_max = fmaxf(chunk_max, ps[jj]);
-    const float m_new = fmaxf(m, chunk_max);
-    const float alpha = expf(m - m_new);
-    acc[0] *= alpha;
-    acc[1] *= alpha;
-    float chunk_sum = 0.0f;
-    for (int jj = 0; jj < count; ++jj) {
-      const float p = expf(ps[jj] - m_new);
-      chunk_sum += p;
-      const TK* vrow = values + (size_t)(j0 + jj) * hd;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int c = threadIdx.x + u * kStepThreads;
-        if (c < d) acc[u] = fmaf(p, to_float(vrow[c]), acc[u]);
-      }
-    }
-    s = s * alpha + chunk_sum;
-    m = m_new;
-    __syncthreads();
-  }
-}
 
 // Counter-based Philox4x32-10 (Salmon et al., SC'11; the generator behind
 // curand's Philox4_32_10): four 32-bit words from a 128-bit counter and a
@@ -568,44 +481,8 @@ __device__ __forceinline__ float ld_peer(const float* local, unsigned rank) {
   return v;
 }
 
-// A second additive bias with a head axis (T5's relative positions, DeBERTa's
-// disentangled terms), added after the head-shared one: element (b, h, i, j)
-// at p + b * bs + h * hs + i * qs + j.  A stride of 0 shares it, so a table
-// shared by the samples (bs = 0) is read, never broadcast in device memory.
-struct HeadBias {
-  const float* p;
-  long long bs;
-  long long hs;
-  int qs;
-};
-
-// Y[M, N] (row stride ldy) = A[M, K] (row stride lda) @ W[K, N] + bias[N] on f32
-// rows (kernel D).  A is rounded to bf16 as it is staged; W is bf16 (K,
-// N) row-major.  K must be a multiple of 32, N, ldy multiples of 8 and lda a
-// multiple of 4.
-template <typename TA, typename TO>
-cudaError_t launch_gemm_bias(const TA* A, int lda, const bf16* W, const float* bias, TO* Y,
-                             int ldy, int M, int N, int K, cudaStream_t stream);
-
-// Y[M, N] = LayerNorm(R[M, N] + A[M, K] @ W[K, N] + bias[N]) * gamma + beta on f32 A,
-// with N a multiple of 128 up to 1024.  R and Y are f32 with row stride N.  With
-// splits > 1 the K range is cut into slices of k_per_split (a multiple of 32), each
-// block writes its partial rows to `partial` (splits * M * N f32) and a second
-// launch sums them and runs the epilogue.
-template <typename TA>
-cudaError_t launch_gemm_residual_ln(const TA* A, int lda, const bf16* W, const float* bias,
-                                    const float* R, const float* gamma, const float* beta,
-                                    float* Y, float* partial, int splits, int k_per_split,
-                                    int M, int N, int K, float eps, cudaStream_t stream);
-
-// rows_reduce_ln_kernel's launch: Y[M, N] = LayerNorm(bias + R + sum of the `splits`
-// (M, N) f32 slices of `partial`) * gamma + beta, N up to 1024
-cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float* bias,
-                                  const float* R, const float* gamma, const float* beta, float* Y,
-                                  int M, int N, float eps, cudaStream_t stream);
-
 // -- the split-K reduce passes, as device functions ---------------------------------
-// rows_reduce_ln_kernel (common.cu), rows_reduce_bias_kernel (gemm_sm90.cu) and the
+// rows_reduce_ln_kernel and rows_reduce_bias_kernel (gemm_sm90.cu) and the
 // decoder-layer step's phases (decoder_layer_step.cu) call these, so that the layer
 // step's FFN phase sums and normalises in kernel C's order, bit for bit.
 constexpr int kRowThreads = 256;  // the threads of one row's LayerNorm
@@ -694,22 +571,6 @@ __device__ __forceinline__ void cast_quad(const float* x, bf16* y, long long q) 
   const float4 v = reinterpret_cast<const float4*>(x)[q];
   reinterpret_cast<uint2*>(y)[q] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
-
-// out[b, i, h*d + c] = sum_j w_ij v[b, j, h*d + c] with
-// w_ij = bf16(softmax_j(scale * q_i . k_j + bias[b, i, j])); q, k, v rounded to bf16
-// (f32 in and out: the two-bias entry).
-// sk must be positive and d a multiple of 16 up to 128; row and batch strides
-// multiples of 4 (of 8 for out).
-// q/k/v/out rows are addressed as base + b * batch_stride + row * row_stride + h * d;
-// the bias as bias + b * bias_bs + i * bias_qs + j (strides of 0 broadcast).
-// With head_bias.p set, the logit is scale * q_i . k_j + bias[b, i, j] +
-// head_bias[b, h, i, j].
-template <typename TI, typename TO>
-cudaError_t launch_attention(const TI* q, long long q_bs, int q_rs, const TI* k, const TI* v,
-                             long long kv_bs, int kv_rs, const float* bias, long long bias_bs,
-                             int bias_qs, TO* out, long long out_bs, int out_rs, int batch,
-                             int heads, int sq, int sk, int d, float scale, cudaStream_t stream,
-                             HeadBias head_bias = HeadBias{nullptr, 0, 0, 0});
 
 // -- the wgmma + TMA GEMM core of kernels C and F (gemm_sm90.cu) --------------------
 // How one product is cut over the card; ops/_cuda.py::gemm_plan chooses it.

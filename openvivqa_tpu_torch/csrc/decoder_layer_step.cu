@@ -1,6 +1,6 @@
-// Kernels A, B, E and the decoder-layer step: one decode token of a post-LN
+// Kernels A, B, D, E and the decoder-layer step: one decode token of a post-LN
 // transformer decoder layer on (rows, hd) float32 rows (rows = samples x beams), all
-// four entries in ONE persistent device launch of one kernel, each with its own
+// five entries in ONE persistent device launch of one kernel, each with its own
 // sublayers as the kernel's phases.
 //
 //   A  ovq_self_attention_step_forward: the stateful self-attention sublayer
@@ -14,6 +14,15 @@
 //      cached encoder projections enc_k, enc_v (rows, Sk, hd; float32 or bf16)
 //      with a (rows, Sk) float32 bias
 //        y = LN(x + softmax(scale (x Wq + bq) . enc_k + enc_bias) enc_v Wo + bo);
+//   D  ovq_bert_self_step_forward: one M4C decode token through a BERT
+//      self-attention sublayer over [frozen context | decoded slots]
+//        q, k, v = x Wq + bq, x Wk + bk, x Wv + bv
+//        slot_k[:, t], slot_v[:, t] = k, v                              (in place)
+//        y = LN(x + softmax(scale q . [ctx_k | slot_k] + [ctx_bias | 0, future mask])
+//                 [ctx_v | slot_v] Wo + bo)
+//      A's sublayer with the (rows, C) bf16 context K/V and its (rows, C) f32 bias
+//      as a first key segment and the bf16 (rows, T) slot caches as the second, no
+//      cache bias (slots carry bias 0), eps from the caller (1e-12 for BERT);
 //   E  ovq_cross_attention_streamed_forward: B's function under the Iterative M4C
 //      family's own entry (eps 1e-12 from the caller);
 //   ovq_decoder_layer_step_forward: A, then B on A's rows, then kernel C's FFN
@@ -21,7 +30,8 @@
 //
 // They replace the Pallas kernels `_self_attn_call` (openvivqa_tpu/ops/
 // decode_step.py:230), `_layer_call` (:418, the whole layer in one TPU grid cell),
-// `_cross_attn_call` (:559) and `_streamed_cross_call` (:1146).  Weight matrices
+// `_cross_attn_call` (:559), `_bert_self_call` (:892) and `_streamed_cross_call`
+// (:1146).  Weight matrices
 // are bf16 (K, N) row-major; every product rounds its activation to bf16 and sums
 // in f32; the attentions take f32 queries against the keys and values as stored
 // and an f32 softmax; LayerNorm is f32; the FFN's GELU is the exact erff one.
@@ -33,6 +43,10 @@
 // the ring, ~23 MB against ~0.5 GFLOP: bytes, 0.0070 ms at 3.35 TB/s.  The chained
 // route it replaces made 13 dependent launches a call, each filling and draining
 // the card on a few hundred KB, with no weight streaming before its stage began.
+// D at MMF_M4C's step (64 rows, hd 768, 8 heads of 96, C 210, T 5) reads 4.7 MB
+// of bf16 weights and 41 MB of bf16 context K/V: bytes, 0.014 ms; the three
+// launches it replaces (two wmma GEMMs and a block per (head, row) folding one
+// key at a time) took ten times that.
 //
 // The design.  One cooperative launch of every CTA the card holds at once (two
 // 256-thread CTAs per SM), each walking the work items of one phase after
@@ -49,12 +63,15 @@
 //      carry over from product to product;
 //   2. the attention: one (row, head) item per warpgroup, two items per CTA at a
 //      time, on block A's scheme (fused_attention_flat.cu): the item first sums
-//      its q (and for A its k and v, written into ring slot t) from the
+//      its q (and for A and D its k and v, written into slot t) from the
 //      partials, then lane groups of 8 read key rows with 16-byte loads, several
 //      rows in flight, and dot them with the f32 query held in registers; the
 //      logits land in a shared row, the warpgroup takes their max and sum; a
 //      second walk reads the value rows the same way; the context is written as
-//      bf16, the out projection's operand;
+//      bf16, the out projection's operand.  D walks two key segments into one
+//      logits row, the frozen context then slots 0..t: a slot past t carries
+//      MASK_VALUE beside slot t's unmasked logit, so its weight is exactly 0 in
+//      f32 and the walk stops at slot t;
 //   3. the out projection's partial tiles (as 1);
 //   4. bias + residual + LayerNorm, one row per CTA (reduce_ln_row), written in
 //      f32 and, for the next sublayer's product, in bf16;
@@ -284,13 +301,31 @@ struct ItemScratch {
   float* red;   // [kItemWarps]
 };
 
-// softmax(logit_j) . values over n keys of stride hd (this head's columns first),
-// logit_j = scale * q . k_j + bias_of(j), q in s.q; the output's d columns, rounded
-// to bf16, at out.  Every thread of the warpgroup calls it.  A head dim off the
-// 16-byte grain (!ALIGNED) reads element by element, one key row at a time.
-template <typename TK, int DN, bool NC, bool ALIGNED, typename BiasFn>
-__device__ void attend_item(const TK* keys, const TK* values, BiasFn bias_of, int n, int hd,
-                            int d, float scale, const ItemScratch& s, bf16* out, int bar) {
+// The key and value rows of one attention item, of stride hd (this head's
+// columns first): keys [0, n0) from (k0, v0) and, with TWO, keys [n0, n) from
+// (k1, v1) at rows j - n0 (kernel D: the frozen context, then the slots).
+template <typename TK, bool TWO>
+struct KeyRows {
+  const TK* k0;
+  const TK* v0;
+  const TK* k1;
+  const TK* v1;
+  int n0;
+  __device__ const TK* row(const TK* first, const TK* second, int j, int hd) const {
+    if (TWO && j >= n0) return second + (size_t)(j - n0) * hd;
+    return first + (size_t)j * hd;
+  }
+  __device__ const TK* key(int j, int hd) const { return row(k0, k1, j, hd); }
+  __device__ const TK* value(int j, int hd) const { return row(v0, v1, j, hd); }
+};
+
+// softmax(logit_j) . values over n keys (`rows`), logit_j = scale * q . k_j +
+// bias_of(j), q in s.q; the output's d columns, rounded to bf16, at out.  Every
+// thread of the warpgroup calls it.  A head dim off the 16-byte grain (!ALIGNED)
+// reads element by element, one key row at a time.
+template <typename TK, int DN, bool NC, bool ALIGNED, bool TWO, typename BiasFn>
+__device__ void attend_item(const KeyRows<TK, TWO> rows, BiasFn bias_of, int n, int hd, int d,
+                            float scale, const ItemScratch& s, bf16* out, int bar) {
   using R = Rows<TK, DN>;
   // key rows in flight per group
   constexpr int kUnroll = !ALIGNED ? 1 : (DN <= 64 ? 4 : (DN <= 128 ? 2 : 1));
@@ -308,7 +343,7 @@ __device__ void attend_item(const TK* keys, const TK* values, BiasFn bias_of, in
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int key = base + group + u * kItemGroups;
-      R::template load<NC, ALIGNED>(raw[u], keys + (size_t)(key < n ? key : 0) * hd, j, d, key < n);
+      R::template load<NC, ALIGNED>(raw[u], rows.key(key < n ? key : 0, hd), j, d, key < n);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -344,7 +379,7 @@ __device__ void attend_item(const TK* keys, const TK* values, BiasFn bias_of, in
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int key = base + group + u * kItemGroups;
-      R::template load<NC, ALIGNED>(raw[u], values + (size_t)(key < n ? key : 0) * hd, j, d, key < n);
+      R::template load<NC, ALIGNED>(raw[u], rows.value(key < n ? key : 0, hd), j, d, key < n);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -411,6 +446,12 @@ struct StepParams {
   void* cache_k;
   void* cache_v;
   float* cache_bias;
+  // D: the frozen context's bf16 K/V (rows, frozen_len, hd) and its f32 bias;
+  // the slot caches are cache_k, cache_v (bf16), with no cache bias
+  const bf16* frozen_k;
+  const bf16* frozen_v;
+  const float* frozen_bias;
+  int frozen_len, bert;  // bert: launch D's instance of the kernel
   // B's encoder K/V and bias
   const void* enc_k;
   const void* enc_v;
@@ -442,27 +483,42 @@ __device__ ItemScratch item_scratch(float* base, int keys_max, int wg) {
                      b + DN + (keys_max + 3) / 4 * 4 + kItemWarps * DN};
 }
 
-// A's attention phase: per (row, head) item the projected q, k, v of the head
-// (summed from the partials), k and v into ring slot t, the step's bias into
-// cache_bias[row, t] (by head 0), then attention over the T slots
 // attend_item at the instance for this call's head dim
-template <typename TK, int DN, bool NC, typename BiasFn>
-__device__ __forceinline__ void attend(const TK* keys, const TK* values, BiasFn bias_of, int n,
+template <typename TK, int DN, bool NC, bool TWO, typename BiasFn>
+__device__ __forceinline__ void attend(const KeyRows<TK, TWO> rows, BiasFn bias_of, int n,
                                        int hd, int d, float scale, const ItemScratch& s, bf16* out,
                                        int bar) {
   if (d % Rows<TK, DN>::kPer == 0)
-    attend_item<TK, DN, NC, true>(keys, values, bias_of, n, hd, d, scale, s, out, bar);
+    attend_item<TK, DN, NC, true>(rows, bias_of, n, hd, d, scale, s, out, bar);
   else
-    attend_item<TK, DN, NC, false>(keys, values, bias_of, n, hd, d, scale, s, out, bar);
+    attend_item<TK, DN, NC, false>(rows, bias_of, n, hd, d, scale, s, out, bar);
 }
 
+// the projected q, k and v of item (row b, head column col), summed from the
+// partials; k and v stored into slot t of the (rows, T, hd) caches ck, cv
+template <typename TK>
+__device__ __forceinline__ void project_qkv(const StepParams& p, const ItemScratch& s, TK* ck,
+                                            TK* cv, int b, int col) {
+  const int hd = p.hd, n3 = 3 * hd, t = p.t;
+  const int splits = (hd + p.self.k_slice_in - 1) / p.self.k_slice_in;
+  for (int c = threadIdx.x % kItemThreads; c < p.d; c += kItemThreads) {
+    s.q[c] = projected(p.partial, splits, p.self.b_in, p.rows_n, n3, b, col + c);
+    store_value(ck + (size_t)t * hd + c,
+                projected(p.partial, splits, p.self.b_in, p.rows_n, n3, b, hd + col + c));
+    store_value(cv + (size_t)t * hd + c,
+                projected(p.partial, splits, p.self.b_in, p.rows_n, n3, b, 2 * hd + col + c));
+  }
+}
+
+// A's attention phase: per (row, head) item the projected q, k, v of the head
+// (summed from the partials), k and v into ring slot t, the step's bias into
+// cache_bias[row, t] (by head 0), then attention over the T slots
 template <typename TK, int DN>
 __device__ void self_attention_phase(const StepParams& p, float* scratch_base) {
   const int wg = threadIdx.x / kItemThreads, bar = 1 + wg;
   const ItemScratch s = item_scratch<DN>(scratch_base, p.keys_max, wg);
   const int tid = threadIdx.x % kItemThreads;
-  const int hd = p.hd, d = p.d, t = p.t, n3 = 3 * hd;
-  const int splits = (hd + p.self.k_slice_in - 1) / p.self.k_slice_in;
+  const int hd = p.hd, d = p.d, t = p.t;
   TK* ck_all = static_cast<TK*>(p.cache_k);
   TK* cv_all = static_cast<TK*>(p.cache_v);
   for (int item = blockIdx.x * 2 + wg; item < p.rows_n * p.heads; item += gridDim.x * 2) {
@@ -470,13 +526,7 @@ __device__ void self_attention_phase(const StepParams& p, float* scratch_base) {
     const int col = h * d;
     TK* ck = ck_all + (size_t)b * p.max_len * hd + col;
     TK* cv = cv_all + (size_t)b * p.max_len * hd + col;
-    for (int c = tid; c < d; c += kItemThreads) {
-      s.q[c] = projected(p.partial, splits, p.self.b_in, p.rows_n, n3, b, col + c);
-      store_value(ck + (size_t)t * hd + c, projected(p.partial, splits, p.self.b_in, p.rows_n, n3,
-                                                     b, hd + col + c));
-      store_value(cv + (size_t)t * hd + c, projected(p.partial, splits, p.self.b_in, p.rows_n, n3,
-                                                     b, 2 * hd + col + c));
-    }
+    project_qkv(p, s, ck, cv, b, col);
     const float sb = p.step_bias[b];
     float* cb = p.cache_bias + (size_t)b * p.max_len;
     if (h == 0 && tid == 0) cb[t] = sb;
@@ -484,8 +534,36 @@ __device__ void self_attention_phase(const StepParams& p, float* scratch_base) {
     // every head's item reads the row's cached biases at slots other than t;
     // head 0's item alone writes slot t, which the others take from step_bias
     attend<TK, DN, false>(
-        ck, cv, [cb, sb, t](int j) { return (j == t ? sb : cb[j]) + (j > t ? kMaskValue : 0.0f); },
+        KeyRows<TK, false>{ck, cv, nullptr, nullptr, 0},
+        [cb, sb, t](int j) { return (j == t ? sb : cb[j]) + (j > t ? kMaskValue : 0.0f); },
         p.max_len, hd, d, p.scale, s, p.ctx[0] + (size_t)b * hd + col, bar);
+  }
+}
+
+// D's attention phase: per (row, head) item the projected q, k, v (k and v into
+// slot t of the bf16 slot caches), then one softmax over the frozen context's C
+// keys under its bias and slots 0..t (bias 0).  The slots are read through the
+// coherent path: slot t is written in this phase.
+template <int DN>
+__device__ void bert_self_attention_phase(const StepParams& p, float* scratch_base) {
+  const int wg = threadIdx.x / kItemThreads, bar = 1 + wg;
+  const ItemScratch s = item_scratch<DN>(scratch_base, p.keys_max, wg);
+  const int hd = p.hd, d = p.d, c_len = p.frozen_len;
+  bf16* sk_all = static_cast<bf16*>(p.cache_k);
+  bf16* sv_all = static_cast<bf16*>(p.cache_v);
+  for (int item = blockIdx.x * 2 + wg; item < p.rows_n * p.heads; item += gridDim.x * 2) {
+    const int b = item / p.heads, h = item % p.heads;
+    const int col = h * d;
+    bf16* sk = sk_all + (size_t)b * p.max_len * hd + col;
+    bf16* sv = sv_all + (size_t)b * p.max_len * hd + col;
+    project_qkv(p, s, sk, sv, b, col);
+    named_barrier(bar, kItemThreads);  // q and slot t written
+    const size_t frozen = (size_t)b * c_len * hd + col;
+    const float* fb = p.frozen_bias + (size_t)b * c_len;
+    attend<bf16, DN, false>(
+        KeyRows<bf16, true>{p.frozen_k + frozen, p.frozen_v + frozen, sk, sv, c_len},
+        [fb, c_len](int j) { return j < c_len ? __ldg(fb + j) : 0.0f; }, c_len + p.t + 1, hd, d,
+        p.scale, s, p.ctx[0] + (size_t)b * hd + col, bar);
   }
 }
 
@@ -507,9 +585,11 @@ __device__ void cross_attention_phase(const StepParams& p, float* scratch_base) 
       s.q[c] = projected(p.partial, splits, p.cross.b_in, p.rows_n, hd, b, col + c);
     named_barrier(bar, kItemThreads);
     const float* eb = p.enc_bias + (size_t)b * p.sk;
-    attend<TK, DN, true>(ek + (size_t)b * p.sk * hd + col, ev + (size_t)b * p.sk * hd + col,
-                         [eb](int j) { return __ldg(eb + j); }, p.sk, hd, d, p.scale, s,
-                         p.ctx[1] + (size_t)b * hd + col, bar);
+    attend<TK, DN, true>(
+        KeyRows<TK, false>{ek + (size_t)b * p.sk * hd + col, ev + (size_t)b * p.sk * hd + col,
+                           nullptr, nullptr, 0},
+        [eb](int j) { return __ldg(eb + j); }, p.sk, hd, d, p.scale, s,
+        p.ctx[1] + (size_t)b * hd + col, bar);
   }
 }
 
@@ -521,7 +601,10 @@ __device__ void layer_norm_phase(const float* partial, int splits, const float* 
     reduce_ln_row(partial, splits, bias, R, gamma, beta, Y, Yb, M, N, eps, row, scratch);
 }
 
-template <int DN>
+// BERT: kernel D's instance (A's sublayer with D's attention, nothing else);
+// the others' instances carry no code of D's, so that D's phase takes none of
+// their registers
+template <int DN, bool BERT>
 __global__ void __launch_bounds__(kThreads, 2)
     decoder_step_kernel(const __grid_constant__ StepMaps maps, const __grid_constant__ StepParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -543,6 +626,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (p.run_self) {
     prefetch_share(p.self.w_in, 2LL * hd * 3 * hd);
     prefetch_share(p.self.wo, 2LL * hd * hd);
+    if constexpr (BERT) {
+      const long long frozen = 2LL * rows * p.frozen_len * hd, slots = 2LL * rows * p.max_len * hd;
+      prefetch_share(p.frozen_k, frozen);
+      prefetch_share(p.frozen_v, frozen);
+      prefetch_share(p.cache_k, slots);
+      prefetch_share(p.cache_v, slots);
+    }
   }
   if (p.run_cross) {
     prefetch_share(p.cross.w_in, 2LL * hd * hd);
@@ -569,7 +659,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Sublayer& w = p.self;
     product_phase(Product{in_map, &maps.s_w, p.partial, rows, 3 * hd, hd, w.k_slice_in}, ring);
     grid_sync();
-    if (p.cache_bf16)
+    if constexpr (BERT)
+      bert_self_attention_phase<DN>(p, items);
+    else if (p.cache_bf16)
       self_attention_phase<bf16, DN>(p, items);
     else
       self_attention_phase<float, DN>(p, items);
@@ -582,7 +674,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     in_map = &maps.c_in;
     if (p.run_cross || p.run_ffn) grid_sync();
   }
-  if (p.run_cross) {
+  if (!BERT && p.run_cross) {
     const Sublayer& w = p.cross;
     product_phase(Product{in_map, &maps.c_wq, p.partial, rows, hd, hd, w.k_slice_in}, ring);
     grid_sync();
@@ -598,7 +690,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     x_in = p.rows[1];
     if (p.run_ffn) grid_sync();
   }
-  if (p.run_ffn) {
+  if (!BERT && p.run_ffn) {
     // kernel C's split route (ffn.cu), phase for pass
     const int splits1 = (hd + p.k_slice1 - 1) / p.k_slice1;
     product_phase(Product{&maps.f_in, &maps.w1, p.partial, rows, p.d_ff, hd, p.k_slice1}, ring);
@@ -627,10 +719,10 @@ bool product_map(CUtensorMap* a, CUtensorMap* w, const bf16* rows_b, const bf16*
   return bf16_tensor_map(a, rows_b, M, K, kTile) && bf16_tensor_map(w, weight, K, N, kBK);
 }
 
-template <int DN>
+template <int DN, bool BERT>
 cudaError_t launch_step_dn(const StepMaps& maps, const StepParams& p, int ctas, int smem,
                            cudaStream_t stream) {
-  auto kernel = decoder_step_kernel<DN>;
+  auto kernel = decoder_step_kernel<DN, BERT>;
   static int smem_set = 0;  // the ceiling last set for this instance
   if (smem > smem_set) {
     const cudaError_t err =
@@ -675,6 +767,8 @@ cudaError_t launch_step(StepParams& p, int ctas, int smem, cudaStream_t stream) 
     ok = ok && bf16_tensor_map(&maps.s_w, p.self.w_in, hd, 3 * hd, kBK) &&
          product_map(&maps.s_ctx, &maps.s_wo, p.ctx[0], p.self.wo, rows, hd, hd);
     if (p.max_len <= 0 || p.t < 0 || p.t >= p.max_len) return cudaErrorInvalidValue;
+    if (p.bert && (!p.cache_bf16 || p.frozen_len < 0 || p.keys_max < p.frozen_len + p.max_len))
+      return cudaErrorInvalidValue;
   }
   if (p.run_cross) {
     ok = ok && product_map(&maps.c_in, &maps.c_wq, p.run_self ? p.rows_b[0] : p.xb, p.cross.w_in,
@@ -689,9 +783,15 @@ cudaError_t launch_step(StepParams& p, int ctas, int smem, cudaStream_t stream) 
   }
   if (!ok) return cudaErrorInvalidValue;
   switch (dn) {
-    case 64: return launch_step_dn<64>(maps, p, ctas, smem, stream);
-    case 128: return launch_step_dn<128>(maps, p, ctas, smem, stream);
-    default: return launch_step_dn<256>(maps, p, ctas, smem, stream);
+    case 64:
+      return p.bert ? launch_step_dn<64, true>(maps, p, ctas, smem, stream)
+                    : launch_step_dn<64, false>(maps, p, ctas, smem, stream);
+    case 128:
+      return p.bert ? launch_step_dn<128, true>(maps, p, ctas, smem, stream)
+                    : launch_step_dn<128, false>(maps, p, ctas, smem, stream);
+    default:
+      return p.bert ? launch_step_dn<256, true>(maps, p, ctas, smem, stream)
+                    : launch_step_dn<256, false>(maps, p, ctas, smem, stream);
   }
 }
 
@@ -727,6 +827,41 @@ extern "C" int ovq_self_attention_step_forward(
   p.t = t;
   p.keys_max = max_len;
   p.cache_bf16 = cache_bf16;
+  p.run_self = 1;
+  p.scale = scale;
+  p.eps = eps;
+  return ovq::launch_step(p, ctas, smem, stream);
+}
+
+// kernel D: A's arguments with the frozen context (ctx_k, ctx_v, ctx_bias; rows x
+// ctx_len) in place of the cache bias and step bias, bf16 slot caches of n_slots
+extern "C" int ovq_bert_self_step_forward(
+    const float* x, const bf16* wqkv, const float* bqkv, const bf16* wo, const float* bo,
+    const float* gamma, const float* beta, const bf16* ctx_k, const bf16* ctx_v,
+    const float* ctx_bias, bf16* slot_k, bf16* slot_v, bf16* xb, bf16* ctx, float* partial,
+    float* y, int rows, int ctx_len, int n_slots, int t, int hd, int heads, int k_slice_qkv,
+    int k_slice_o, int ctas, int smem, float scale, float eps, cudaStream_t stream) {
+  ovq::StepParams p = {};
+  p.x = x;
+  p.xb = xb;
+  p.ctx[0] = ctx;
+  p.rows[0] = y;
+  p.partial = partial;
+  p.self = ovq::Sublayer{wqkv, bqkv, wo, bo, gamma, beta, k_slice_qkv, k_slice_o};
+  p.frozen_k = ctx_k;
+  p.frozen_v = ctx_v;
+  p.frozen_bias = ctx_bias;
+  p.frozen_len = ctx_len;
+  p.bert = 1;
+  p.cache_k = slot_k;
+  p.cache_v = slot_v;
+  p.cache_bf16 = 1;
+  p.rows_n = rows;
+  p.hd = hd;
+  p.heads = heads;
+  p.max_len = n_slots;
+  p.t = t;
+  p.keys_max = ctx_len + n_slots;
   p.run_self = 1;
   p.scale = scale;
   p.eps = eps;

@@ -1,9 +1,11 @@
 // Packed attention: softmax(scale * Q K^T + bias) V on the raw (b, S, heads * d)
-// projections, all heads of a sample in one launch, forward only; and its
-// dropout instance, (keep * softmax / (1 - rate)) V.
+// projections, all heads of a sample in one launch, forward only; its dropout
+// instance, (keep * softmax / (1 - rate)) V; and its two-bias instance,
+// softmax(scale * Q K^T + bias + head_bias) V.
 //
-// Replaces the Pallas kernels `_packed_kernel` / `fused_attention_packed` and
-// `_packed_dropout_kernel` / `fused_attention_packed_dropout`'s forward
+// Replaces the Pallas kernels `_packed_kernel` / `fused_attention_packed`,
+// `_packed_dropout_kernel` / `fused_attention_packed_dropout`'s forward and
+// `_packed_2bias_kernel` / `fused_attention_packed_2bias`
 // (openvivqa_tpu/ops/fused_attention.py).  As there, the dot operands are rounded
 // to bf16, the logits and the row softmax are f32, each row's max and denominator
 // are taken over all its keys before its weights are rounded to bf16, and P V is
@@ -14,11 +16,11 @@
 // This file holds the packed entry's block for more query rows than
 // ops/fused_attention.py's single-query cut-over (fewer go to the flat
 // attention's single-query block, which takes packed operands through strides),
-// the dropout entry's block at every shape, and kernel F's attention at every
+// the dropout entry's block at every shape, kernel F's attention at every
 // shape: a bf16 instance that reads q, k and v from the packed (rows, 3 * hd) q|k|v
-// projection through a row stride and writes the bf16 context (TI = TO = bf16;
-// the f32 instances compile as before).  The two-bias entry keeps common.cu's
-// attention block.
+// projection through a row stride and writes the bf16 context (TI = TO = bf16),
+// and the two-bias entry's block at every shape (HB; the other instances
+// compile as before).
 //
 // What bounds it.  At the MMT joint encode (64 samples x 8 heads x 215 x 215,
 // d 96, per-sample bias) the work is 9.1 GFLOP against 181 MB of f32 q, k, v,
@@ -64,6 +66,21 @@ long long packed_block_smem_bytes(int sk, int df, bool resident) {
   const int rows = resident ? round16(sk) : 2 * chunk_keys(df, false);
   return 2LL * rows * (16 * df + 8) * 2;
 }
+
+// The two-bias instance (HB): a second additive bias with a head axis (T5's
+// relative positions, DeBERTa's disentangled terms), added after the head-shared
+// one, each lane reading it in the accumulator's layout beside that one: element
+// (b, h, i, j) at p + b * bs + h * hs + i * qs + j.  A stride of 0 shares it, so
+// T5's (1, h, L, L) table is read by every sample, never broadcast in device
+// memory.  At the mT5 encoder (60 samples x 6 heads of 64 x 26 question tokens)
+// the work is ~9 MB of f32 projections, bias and output against 0.03 GFLOP:
+// bytes, and the launch's fixed cost weighs more than either.
+struct HeadBias {
+  const float* p;
+  long long bs;
+  long long hs;
+  int qs;
+};
 
 // The dropout instance (DROP): the counterpart of `_packed_dropout_kernel`.  Each
 // row's (max, 1 / denominator) goes to `stats` (b, heads, sq) as the backward
@@ -120,12 +137,12 @@ __device__ __forceinline__ uint2 four_bf16(uint2 v) { return v; }
 // TI, TO: float (q, k, v and out rows of stride hd) or bf16 (kernel F: q at
 // column h * d, k at hd + h * d and v at 2 * hd + h * d of rows of stride in_rs,
 // the context out in rows of stride out_rs; in_rs and out_rs are read only then)
-template <int DF, bool RES, bool DROP, typename TI = float, typename TO = float>
+template <int DF, bool RES, bool DROP, bool HB, typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
     packed_block_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                         const TI* __restrict__ v, const float* __restrict__ bias,
                         long long bias_bs, int bias_qs, TO* __restrict__ out, int sq, int sk,
-                        int hd, float scale, DropArgs drop, int in_rs, int out_rs) {
+                        int hd, float scale, DropArgs drop, int in_rs, int out_rs, HeadBias hb) {
   constexpr bool kBf16 = std::is_same<TI, bf16>::value;
   static_assert(kBf16 == std::is_same<TO, bf16>::value && (!kBf16 || !DROP),
                 "bf16 in and out together, without dropout");
@@ -197,6 +214,9 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
     load_a_rows<DF>(qa, q + (long long)b * sq * rs + h * d, tile * 16 + g, sq, rs, t, active);
     const float* b0 = bb == nullptr ? nullptr : bb + (long long)(r0 < sq ? r0 : sq - 1) * bias_qs;
     const float* b1 = bb == nullptr ? nullptr : bb + (long long)(r1 < sq ? r1 : sq - 1) * bias_qs;
+    const float* hb_row = HB ? hb.p + b * hb.bs + h * hb.hs : nullptr;
+    const float* h0 = HB ? hb_row + (long long)(r0 < sq ? r0 : sq - 1) * hb.qs : nullptr;
+    const float* h1 = HB ? hb_row + (long long)(r1 < sq ? r1 : sq - 1) * hb.qs : nullptr;
     // per lane: running (max, sum) of its keys of rows r0 and r1
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
     float o[2 * DF][4];
@@ -219,6 +239,10 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
           const float c1 = b1 == nullptr || !ok ? 0.0f : __ldg(b1 + key);
           s[n][e] = ok ? s[n][e] * scale + c0 : -INFINITY;
           s[n][2 + e] = ok ? s[n][2 + e] * scale + c1 : -INFINITY;
+          if (HB && ok) {
+            s[n][e] += __ldg(h0 + key);
+            s[n][2 + e] += __ldg(h1 + key);
+          }
         }
       }
     };
@@ -356,14 +380,14 @@ __global__ void __launch_bounds__(kMmaThreads, DF <= 6 ? 2 : 1)
   }
 }
 
-template <int DF, bool RES, bool DROP, typename TI, typename TO>
+template <int DF, bool RES, bool DROP, bool HB, typename TI, typename TO>
 cudaError_t launch_packed_block(const TI* q, const TI* k, const TI* v, const float* bias,
                                 long long bias_bs, int bias_qs, TO* out, int batch, int heads,
                                 int sq, int sk, int hd, float scale, DropArgs drop, int in_rs,
-                                int out_rs, cudaStream_t stream) {
+                                int out_rs, HeadBias hb, cudaStream_t stream) {
   // the attribute is a ceiling, set once per instance; each launch asks for its own size
   static const cudaError_t attribute =
-      cudaFuncSetAttribute(packed_block_kernel<DF, RES, DROP, TI, TO>,
+      cudaFuncSetAttribute(packed_block_kernel<DF, RES, DROP, HB, TI, TO>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attribute != cudaSuccess) return attribute;
   const long long smem = packed_block_smem_bytes(sk, DF, RES);
@@ -374,17 +398,19 @@ cudaError_t launch_packed_block(const TI* q, const TI* k, const TI* v, const flo
   const int pairs = batch * heads;
   const int split = RES ? (2 * 132 + pairs - 1) / pairs : rounds;
   const dim3 grid(rounds < split ? rounds : split, heads, batch);
-  packed_block_kernel<DF, RES, DROP, TI, TO><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, v, bias, bias_bs, bias_qs, out, sq, sk, hd, scale, drop, in_rs, out_rs);
+  packed_block_kernel<DF, RES, DROP, HB, TI, TO><<<grid, kMmaThreads, smem, stream>>>(
+      q, k, v, bias, bias_bs, bias_qs, out, sq, sk, hd, scale, drop, in_rs, out_rs, hb);
   return cudaGetLastError();
 }
 
-// in_rs, out_rs: the bf16 instance's row strides (elements; ignored for f32)
-template <bool DROP, typename TI = float, typename TO = float>
+// in_rs, out_rs: the bf16 instance's row strides (elements; ignored for f32);
+// hb: HB's head bias
+template <bool DROP, bool HB = false, typename TI = float, typename TO = float>
 cudaError_t launch_packed(const TI* q, const TI* k, const TI* v, const float* bias,
                           long long bias_bs, int bias_qs, TO* out, int batch, int sq, int sk,
                           int hd, int heads, float scale, int resident, DropArgs drop,
-                          cudaStream_t stream, int in_rs = 0, int out_rs = 0) {
+                          cudaStream_t stream, int in_rs = 0, int out_rs = 0,
+                          HeadBias hb = HeadBias{}) {
   if (batch <= 0 || sq <= 0) return cudaSuccess;
   if (heads <= 0 || hd % heads || sk <= 0 || heads > 65535 || batch > 65535 || hd % 4)
     return cudaErrorInvalidValue;
@@ -395,12 +421,14 @@ cudaError_t launch_packed(const TI* q, const TI* k, const TI* v, const float* bi
     return cudaErrorInvalidValue;
 #define OVQ_PB_CASE(df)                                                                        \
   case df:                                                                                     \
-    return resident ? launch_packed_block<df, true, DROP>(q, k, v, bias, bias_bs, bias_qs, out, \
-                                                           batch, heads, sq, sk, hd, scale,    \
-                                                           drop, in_rs, out_rs, stream)        \
-                    : launch_packed_block<df, false, DROP>(q, k, v, bias, bias_bs, bias_qs,    \
-                                                            out, batch, heads, sq, sk, hd,     \
-                                                            scale, drop, in_rs, out_rs, stream);
+    return resident ? launch_packed_block<df, true, DROP, HB>(q, k, v, bias, bias_bs, bias_qs, \
+                                                               out, batch, heads, sq, sk, hd,  \
+                                                               scale, drop, in_rs, out_rs, hb, \
+                                                               stream)                         \
+                    : launch_packed_block<df, false, DROP, HB>(q, k, v, bias, bias_bs,         \
+                                                                bias_qs, out, batch, heads, sq, \
+                                                                sk, hd, scale, drop, in_rs,    \
+                                                                out_rs, hb, stream);
   switch (d / 16) {
     OVQ_PB_CASE(1)
     OVQ_PB_CASE(2)
@@ -422,8 +450,9 @@ cudaError_t packed_attention_qkv(const bf16* qkv, const float* key_bias, bf16* o
                                  int seq, int hd, int heads, float scale, int resident,
                                  cudaStream_t stream) {
   if (hd % 8) return cudaErrorInvalidValue;  // 16-byte aligned k and v column blocks
-  return launch_packed<false>(qkv, qkv + hd, qkv + 2 * hd, key_bias, seq, 0, out, batch, seq, seq,
-                              hd, heads, scale, resident, DropArgs{}, stream, 3 * hd, hd);
+  return launch_packed<false, false>(qkv, qkv + hd, qkv + 2 * hd, key_bias, seq, 0, out, batch,
+                                     seq, seq, hd, heads, scale, resident, DropArgs{}, stream,
+                                     3 * hd, hd);
 }
 
 }  // namespace ovq
@@ -435,6 +464,23 @@ extern "C" int ovq_packed_attention_forward(const float* q, const float* k, cons
                                             cudaStream_t stream) {
   return ovq::launch_packed<false>(q, k, v, bias, bias_bs, bias_qs, out, batch, sq, sk, hd, heads,
                                    scale, resident, ovq::DropArgs{}, stream);
+}
+
+// The two-bias entry (block B's HB instance): the packed entry's operands and
+// the (hb, heads, sq, sk) f32 head bias, hb in {1, batch} (head_bias_bs 0 or
+// heads * sq * sk); resident as the packed entry's flag
+extern "C" int ovq_packed_2bias_attention_forward(const float* q, const float* k,
+                                                  const float* v, const float* bias,
+                                                  long long bias_bs, int bias_qs,
+                                                  const float* head_bias, long long head_bias_bs,
+                                                  float* out, int batch, int sq, int sk, int hd,
+                                                  int heads, float scale, int resident,
+                                                  cudaStream_t stream) {
+  if (head_bias == nullptr) return cudaErrorInvalidValue;
+  return ovq::launch_packed<false, true>(
+      q, k, v, bias, bias_bs, bias_qs, out, batch, sq, sk, hd, heads, scale, resident,
+      ovq::DropArgs{}, stream, 0, 0,
+      ovq::HeadBias{head_bias, head_bias_bs, (long long)sq * sk, sk});
 }
 
 // The dropout forward (block B's DROP instance): out, the rows' (max, 1 /

@@ -38,8 +38,8 @@
 // Sq, h, d_v) order.  More query rows (up to the cut-over) loop inside the block,
 // re-reading K and V through the cache.
 //
-// The tile block (flat_attention_kernel) is the packed attention's old block
-// (common.cu) with head strides and two head dims: one block per (64-row q-tile,
+// The tile block (flat_attention_kernel) is the packed attention's first block
+// (since retired) with head strides and two head dims: one block per (64-row q-tile,
 // head, sample), 4 warps of 16 query rows, keys and values streamed through
 // shared memory in 64-key chunks (zero rows past Sk, zero columns past d_k or
 // d_v, so one template of width 16 * ceil(max(d_k, d_v) / 16) serves both), Q

@@ -16,7 +16,7 @@
 // What bounds it.  At 64 samples x 1536 queries x 1536 keys, hd 512 over 8 heads
 // (d 64): 4 b Sq Sk hd = 309 GFLOP, 0.3127 ms of bf16 tensor-core work at 989
 // TFLOP/s, against 805 MB of f32 q, k, v and output (0.240 ms at 3.35 TB/s): the
-// tensor cores.  The block it replaces (common.cu's) read K twice and V once in
+// tensor cores.  The block it replaces (the port's first wmma tile block) read K twice and V once in
 // f32 per 64-row query tile, 14.5 GB from L2 in all, and ran at 4.6 % of the bound
 // on an H100 (chip_smoke.py phase 3).
 //

@@ -6,9 +6,9 @@
 //     projection), the LayerNorm's row sums traded between the CTAs of a
 //     thread-block cluster that spans the row;
 //   * raw f32 partial 64 x 64 tiles of a K slice, summed by a second pass that
-//     runs either epilogue (rows_reduce_bias_kernel here, common.cu's
-//     rows_reduce_ln_kernel): the split-K route of few rows, and the LayerNorm's
-//     route where its clusters would not fill the card.
+//     runs either epilogue (rows_reduce_bias_kernel, rows_reduce_ln_kernel): the
+//     split-K route of few rows, and the LayerNorm's route where its clusters
+//     would not fill the card.
 // ops/_cuda.py::gemm_plan picks the tile, the K split and the route from the
 // shape (a GemmPlan, common.cuh).
 //
@@ -51,8 +51,8 @@
 // sum of squares goes the same way, then each CTA normalises and writes its
 // columns; a last barrier keeps every CTA alive until its peers have read it.
 // So no block streams the whole weight for a few rows, which is what bounded
-// common.cu's row-owning GEMM (32 rows a block, 420 blocks each reading all 4.7
-// MB of W2 at C's second product).
+// the port's first row-owning GEMM (32 rows a block, 420 blocks each reading all
+// 4.7 MB of W2 at C's second product).
 #include <stdint.h>
 
 #include <mutex>
@@ -373,6 +373,28 @@ __global__ void __launch_bounds__(256)
     reduce_bias_quad<GELU>(partial, splits, bias, Y, 4 * q, slice, N);
 }
 
+// Y (f32) = LayerNorm(bias + R + the `splits` f32 (M, N) slices of `partial`) *
+// gamma + beta; one block of kRowThreads per row, up to four columns a thread
+__global__ void __launch_bounds__(kRowThreads)
+    rows_reduce_ln_kernel(const float* __restrict__ partial, int splits,
+                          const float* __restrict__ bias, const float* __restrict__ R,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          float* __restrict__ Y, int M, int N, float eps) {
+  __shared__ float scratch[kRowThreads / 32];
+  reduce_ln_row(partial, splits, bias, R, gamma, beta, Y, nullptr, M, N, eps, blockIdx.x,
+                scratch);
+}
+
+cudaError_t launch_rows_reduce_ln(const float* partial, int splits, const float* bias,
+                                  const float* R, const float* gamma, const float* beta, float* Y,
+                                  int M, int N, float eps, cudaStream_t stream) {
+  if (M <= 0) return cudaSuccess;
+  if (N <= 0 || N > 4 * kRowThreads || splits < 1) return cudaErrorInvalidValue;
+  rows_reduce_ln_kernel<<<M, kRowThreads, 0, stream>>>(partial, splits, bias, R, gamma, beta, Y,
+                                                       M, N, eps);
+  return cudaGetLastError();
+}
+
 __global__ void __launch_bounds__(256)
     cast_bf16_kernel(const float* __restrict__ x, bf16* __restrict__ y, long long quads) {
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < quads;
@@ -600,3 +622,7 @@ cudaError_t cast_to_bf16(const float* x, bf16* y, long long n, cudaStream_t stre
 }
 
 }  // namespace ovq
+
+extern "C" const char* ovq_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

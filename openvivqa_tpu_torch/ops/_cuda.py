@@ -73,14 +73,14 @@ _SIGNATURES = {
     "ovq_ffn_forward": "p" * 11 + "i" * 13 + "f",
     "ovq_encoder_attention_forward": "p" * 13 + "i" * 15 + "ff",
     "ovq_packed_attention_forward": "pppp" "li" "p" "iiiii" "f" "i",
-    "ovq_bert_self_step_forward": "p" * 16 + "i" * 8 + "ff",
+    "ovq_bert_self_step_forward": "p" * 16 + "i" * 10 + "ff",
     "ovq_packed_dropout_forward": "pppp" "li" "p" "if" "ppp" "iiiii" "f" "i",
     "ovq_packed_dropout_backward": "ppppp" "li" "f" "ppp" "ppp" "iiiii" "f" "ii",
     "ovq_self_attention_step_forward": "p" * 15 + "i" * 10 + "ff",
     "ovq_cross_attention_step_forward": "p" * 14 + "i" * 9 + "ff",
     "ovq_decoder_layer_step_forward": "p" * 36 + "i" * 17 + "ff",
     "ovq_cross_attention_streamed_forward": "p" * 14 + "i" * 9 + "ff",
-    "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f",
+    "ovq_packed_2bias_attention_forward": "pppp" "li" "p" "l" "p" "iiiii" "f" "i",
     "ovq_streamed_attention_forward": "pppp" "li" "pp" "iiiii" "iiiii" "f",
     "ovq_flat_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
     "ovq_single_query_attention_forward": "plli" * 3 + "pllii" "plli" "iiiiii" "f",
@@ -91,6 +91,7 @@ _CTYPES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, object] = {}  # C entry -> its ctypes function, bound once
 build_seconds = 0.0
 
 
@@ -156,7 +157,8 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed; its entries are bound
+    to their argument types once, here."""
     global _lib
     if _lib is None:
         loaded = ctypes.CDLL(str(build()))
@@ -164,6 +166,7 @@ def lib() -> ctypes.CDLL:
             fn = getattr(loaded, name)
             fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            _entries[name] = fn
         loaded.ovq_error_string.argtypes = [ctypes.c_int]
         loaded.ovq_error_string.restype = ctypes.c_char_p
         _lib = loaded
@@ -171,11 +174,14 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(entry: str, *args) -> None:
-    """Call a C entry on the current stream; raise if it reports a CUDA error."""
-    library = lib()
-    err = getattr(library, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call a C entry on torch's current stream of the current device (its raw
+    handle, without building a Stream object); raise if it reports a CUDA
+    error."""
+    if _lib is None:
+        lib()
+    err = _entries[entry](*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err != 0:
-        message = library.ovq_error_string(err).decode()
+        message = _lib.ovq_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({message})")
 
 
@@ -242,9 +248,9 @@ def require(tensor: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 
 def require_attention_shape(keys: int, hd: int, heads: int, what: str) -> None:
-    """Block B (fused_attention.cu), the streamed block and common.cu's
-    attention block take at least one key and a head dim that is a multiple
-    of 16 up to 128."""
+    """Block B (fused_attention.cu: the packed, dropout and two-bias entries)
+    and the streamed block take at least one key and a head dim that is a
+    multiple of 16 up to 128."""
     d = hd // heads if heads > 0 else 0
     if keys <= 0 or heads <= 0 or hd % heads or d % 16 or not 0 < d <= 128:
         raise ValueError(
@@ -266,31 +272,10 @@ def sm_count(device) -> int:
     return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
-def row_splits(rows: int, k: int) -> Tuple[int, int]:
-    """(splits, k_per_split) of the row-owning GEMM + LayerNorm on f32 rows
-    (common.cu; kernel D): K
-    is split only while the 32-row blocks alone cannot fill the H100's 132
-    SMs, into slices of at least 128 (multiples of 32), so that the partial
-    rows written stay small next to the weights read."""
-    blocks = -(-rows // 32)
-    if blocks >= 66:
-        return 1, k
-    splits = max(1, min(k // 128, -(-132 // blocks)))
-    k_per_split = -(-(-(-k // splits)) // 32) * 32
-    return -(-k // k_per_split), k_per_split
-
-
-def row_partials(rows: int, k: int, width: int, device) -> Tuple[Optional[torch.Tensor], int, int]:
-    """(workspace or None, splits, k_per_split) for a row-owning GEMM."""
-    splits, k_per_split = row_splits(rows, k)
-    if splits == 1:
-        return None, 1, k_per_split
-    return torch.empty((splits, rows, width), dtype=torch.float32, device=device), splits, k_per_split
-
-
 def require_width(hd: int, what: str) -> None:
-    """The row-owning LayerNorm epilogue takes widths that are multiples of 128
-    up to 1024."""
+    """The LayerNorm epilogues (a row over 256 threads of four columns each,
+    or a cluster of CTAs of 128 or 256 columns) take widths that are
+    multiples of 128 up to 1024."""
     if hd % 128 or not 128 <= hd <= 1024:
         raise ValueError(
             f"{what}: hidden width {hd} is not a multiple of 128 in [128, 1024]"

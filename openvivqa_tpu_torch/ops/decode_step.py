@@ -10,8 +10,8 @@ Counterparts of ``fused_ffn_step``, ``fused_bert_self_step``,
 ``fused_self_attention_step``, ``fused_cross_attention_step``,
 ``fused_cross_attention_streamed`` and ``fused_decoder_layer_step`` in
 ``openvivqa_tpu/ops/decode_step.py``.  The CUDA
-sources are ``csrc/ffn.cu``, ``csrc/bert_self_step.cu`` and
-``csrc/decoder_layer_step.cu``; their notes say what bounds each on the H100.
+sources are ``csrc/ffn.cu`` and ``csrc/decoder_layer_step.cu``; their notes
+say what bounds each on the H100.
 
 Numerics, the same in a kernel and its plain version: activations, softmax,
 LayerNorm and accumulators are float32; every projection casts its activation
@@ -23,9 +23,9 @@ workaround, not carried over).
 
 Kernel C's two products run on gemm_sm90.cu's wgmma + TMA core under the plans
 of ``_cuda.gemm_plan`` (``ffn_plans``), in its own entry and inside the layer step.
-Kernels A, B, E and the layer step are one persistent cooperative launch each
-(``csrc/decoder_layer_step.cu``), cut over the card by ``step_plan``: the grid,
-its shared memory, each product's K slice and the one workspace's buffers.
+Kernels A, B, D, E and the layer step are one persistent cooperative launch
+each (``csrc/decoder_layer_step.cu``), cut over the card by ``step_plan``: the
+grid, its shared memory, each product's K slice and the one workspace's buffers.
 The ring caches and slot caches are written IN PLACE; the wrappers return the
 tensors they were given.
 """
@@ -187,14 +187,14 @@ def fused_ffn_step(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = _LN_EPS):
 
 
 # ---------------------------------------------------------------------------
-# the persistent step kernel's plan (kernels A, B, E and the layer step)
+# the persistent step kernel's plan (kernels A, B, D, E and the layer step)
 # ---------------------------------------------------------------------------
 STEP_TILE = 64  # the products' 64 x 64 output tiles and 64-deep K blocks
 STEP_RING_BYTES = 1024 + 4 * (2 * 64 * 64 * 2) + 2 * 4 * 8  # alignment, 4 stages, barriers
 STEP_ITEM_WARPS = 4  # one attention item: a warpgroup
-# A's and B's products (q|k|v or q, then the out projection) in the C entry's
-# order: their widths N in units of hd (K is hd)
-_STEP_PRODUCTS = {"self": (3, 1), "cross": (1, 1)}
+# A's, D's and B's products (q|k|v or q, then the out projection) in the C
+# entry's order: their widths N in units of hd (K is hd)
+_STEP_PRODUCTS = {"self": (3, 1), "bert_self": (3, 1), "cross": (1, 1)}
 
 
 class StepPlan(NamedTuple):
@@ -249,8 +249,10 @@ def _align(n: int) -> int:
 def step_plan(kind: str, rows: int, hd: int, heads: int, keys: int, d_ff: int = 0,
               sm_count: int = _cuda.SM_COUNT) -> StepPlan:
     """The plan of one call of the step kernel: `kind` "self" (kernel A, `keys`
-    = the ring's T), "cross" (kernels B and E, `keys` = Sk) or "layer" (`keys`
-    = max(T, Sk), with kernel C's FFN of width d_ff).  A's and B's products
+    = the ring's T), "bert_self" (kernel D, `keys` = C + T: the frozen
+    context's keys and the slots in one logits row), "cross" (kernels B and E,
+    `keys` = Sk) or "layer" (`keys` = max(T, Sk), with kernel C's FFN of width
+    d_ff).  A's, D's and B's products
     take gemm_plan's split of K.  The layer step's FFN phase takes ffn_plans
     exactly where kernel C's route at this row count is the 64 x 64 split one
     (or the unsplit 64 x 64 bias tile for the first product, the same sums), so
@@ -259,7 +261,7 @@ def step_plan(kind: str, rows: int, hd: int, heads: int, keys: int, d_ff: int = 
     their shared memory fits, else one."""
     _cuda.require_width(hd, "step_plan")
     d = hd // heads
-    if kind not in ("self", "cross", "layer"):
+    if kind not in ("self", "bert_self", "cross", "layer"):
         raise ValueError(f"step_plan: unknown kind {kind!r}")
     products = []  # (splits, k_slice, n) of each product
     for sublayer in (("self", "cross") if kind == "layer" else (kind,)):
@@ -306,6 +308,12 @@ def _step_workspace(plan: StepPlan, device):
     return workspace, [base + offset for _, offset, _ in plan.buffers]
 
 
+def _attention_pointers(w, in_name: str):
+    p = _cuda.ptr
+    return (p(w[in_name]), p(w["b" + in_name[1:]]), p(w["wo"]), p(w["bo"]),
+            p(w["ln_scale"]), p(w["ln_bias"]))
+
+
 # ---------------------------------------------------------------------------
 # kernel D
 # ---------------------------------------------------------------------------
@@ -345,7 +353,10 @@ def fused_bert_self_step(
     PLACE, one softmax over [ctx K/V (bs, C, hd), read-only | slots <= that slot],
     out projection, residual and LayerNorm.  ctx_bias (bs, C) float32 carries
     MASK_VALUE on padded context keys.  w holds wqkv (hd, 3hd), bqkv, wo (hd, hd),
-    bo, ln_scale, ln_bias.  Returns (y, slot_k, slot_v)."""
+    bo, ln_scale, ln_bias.  On the card the context and the slots are bf16, and
+    the call is one launch of the step kernel (``step_plan("bert_self", ...)``);
+    a context too long for its shared memory raises.  Returns (y, slot_k,
+    slot_v)."""
     tensors = (x, ctx_kv[0], ctx_kv[1], slot_k, slot_v, ctx_bias, *w.values())
     if not _cuda.uses_kernel(*tensors):
         return fused_bert_self_step_plain(
@@ -358,20 +369,20 @@ def fused_bert_self_step(
     _require_attention_weights(w, "wqkv", 3 * hd, hd, h)
     for name, cache in (("ctx_k", ctx_kv[0]), ("ctx_v", ctx_kv[1])):
         _cuda.require(cache, name, torch.bfloat16, (bs, ctx_len, hd))
+    if n_slots == 0:
+        raise ValueError("slot_k: expected (bs, T >= 1, hd), got T = 0")
     for name, cache in (("slot_k", slot_k), ("slot_v", slot_v)):
         _cuda.require(cache, name, torch.bfloat16, (bs, n_slots, hd))
     _cuda.require(ctx_bias, "ctx_bias", torch.float32, (bs, ctx_len))
-    qkv = torch.empty((bs, 3 * hd), dtype=torch.float32, device=x.device)
-    context = torch.empty((bs, hd), dtype=torch.float32, device=x.device)
-    partial, splits, k_per_split = _cuda.row_partials(bs, hd, hd, x.device)
+    plan = step_plan("bert_self", bs, hd, h, ctx_len + n_slots, 0, _cuda.sm_count(x.device))
+    workspace, buffers = _step_workspace(plan, x.device)
     y = torch.empty_like(x)
     p = _cuda.ptr
     _cuda.launch(
-        "ovq_bert_self_step_forward", p(x), p(w["wqkv"]), p(w["bqkv"]),
-        p(w["wo"]), p(w["bo"]), p(w["ln_scale"]), p(w["ln_bias"]),
-        p(ctx_kv[0]), p(ctx_kv[1]), p(ctx_bias), p(slot_k), p(slot_v),
-        p(qkv), p(context), p(partial), p(y), bs, ctx_len, n_slots, _slot(step, n_slots),
-        hd, h, splits, k_per_split, scale, eps,
+        "ovq_bert_self_step_forward", p(x), *_attention_pointers(w, "wqkv"),
+        p(ctx_kv[0]), p(ctx_kv[1]), p(ctx_bias), p(slot_k), p(slot_v), *buffers, p(y),
+        bs, ctx_len, n_slots, _slot(step, n_slots), hd, h, *plan.k_slices, plan.ctas, plan.smem,
+        scale, eps,
     )
     _cuda.count("fused_bert_self_step")
     return y, slot_k, slot_v
@@ -403,12 +414,6 @@ def _require_ring(step_bias, cache_k, cache_v, cache_bias, rows: int, hd: int) -
     _cuda.require(cache_bias, "cache_bias", torch.float32, (rows, max_len))
     _cuda.require(step_bias, "step_bias", torch.float32, (rows,))
     return max_len, is_bf16
-
-
-def _attention_pointers(w, in_name: str):
-    p = _cuda.ptr
-    return (p(w[in_name]), p(w["b" + in_name[1:]]), p(w["wo"]), p(w["bo"]),
-            p(w["ln_scale"]), p(w["ln_bias"]))
 
 
 def fused_self_attention_step(

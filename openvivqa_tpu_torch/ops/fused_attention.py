@@ -7,12 +7,12 @@ version.
 Counterparts of ``fused_attention_packed``, ``fused_attention_packed_dropout``,
 ``fused_attention_packed_2bias``, ``fused_attention_packed_streamed`` and
 ``fused_attention`` in ``openvivqa_tpu/ops/fused_attention.py``; the CUDA
-sources are ``csrc/fused_attention.cu`` (block B: the packed entry and the
-dropout forward), ``csrc/fused_attention_dropout.cu`` (the dropout backward),
-``csrc/fused_attention_2bias.cu``, ``csrc/fused_attention_streamed.cu`` and
+sources are ``csrc/fused_attention.cu`` (block B: the packed entry, the
+dropout forward and the two-bias entry), ``csrc/fused_attention_dropout.cu``
+(the dropout backward), ``csrc/fused_attention_streamed.cu`` and
 ``csrc/fused_attention_flat.cu``.  Which device block serves a call of the
-packed, the dropout or the flat entry is a function of its shapes alone
-(:func:`attention_block`).  The packed kernels' bias is
+packed, the dropout, the two-bias or the flat entry is a function of its
+shapes alone (:func:`attention_block`).  The packed kernels' bias is
 head-shared, ``(bb, 1, bq, Sk)`` with ``bb`` in {1, b} and ``bq`` in {1, Sq}, and
 is never broadcast in memory.  It is a mask constant: neither gradient flows to
 it (the JAX package returns zeros for it under dropout and never uses the
@@ -57,10 +57,9 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
-def _bias_3d(bias: Optional[torch.Tensor], b: int, sq: int, sk: int, device):
-    """(bb, 1, bq, Sk) additive bias -> (bb, bq, Sk) float32, validated."""
-    if bias is None:
-        return torch.zeros((1, 1, sk), dtype=torch.float32, device=device)
+def _check_bias(bias: torch.Tensor, b: int, sq: int, sk: int) -> Tuple[int, int]:
+    """(bb, bq) of a head-shared (bb, 1, bq, Sk) additive bias; ValueError
+    unless bb is 1 or b and bq is 1 or Sq."""
     if bias.ndim != 4 or bias.shape[1] != 1:
         raise ValueError(f"packed attention needs a (b, 1, q, k) bias, got {tuple(bias.shape)}")
     bb, _, bq, bk = bias.shape
@@ -69,6 +68,14 @@ def _bias_3d(bias: Optional[torch.Tensor], b: int, sq: int, sk: int, device):
             f"bias {tuple(bias.shape)} does not broadcast to ({b}, 1, {sq}, {sk}) "
             "with its batch and query dims each 1 or full"
         )
+    return bb, bq
+
+
+def _bias_3d(bias: Optional[torch.Tensor], b: int, sq: int, sk: int, device):
+    """(bb, 1, bq, Sk) additive bias -> (bb, bq, Sk) float32, validated."""
+    if bias is None:
+        return torch.zeros((1, 1, sk), dtype=torch.float32, device=device)
+    _check_bias(bias, b, sq, sk)
     return bias[:, 0].to(torch.float32)
 
 
@@ -156,13 +163,14 @@ def attention_block(entry: str, sq: int, sk: int, dk: int, dv: int) -> str:
     ``single``, ``resident`` or ``ring`` (block B); the ``dropout`` entry
     ``resident`` or ``ring`` (block B's dropout instance, at any row count);
     the ``encoder`` entry (kernel F's attention, block B's bf16 instance on the
-    packed q|k|v projection) ``resident`` or ``ring`` at any row count;
+    packed q|k|v projection) and the ``2bias`` entry (block B's two-bias
+    instance) ``resident`` or ``ring`` at any row count;
     the ``streamed`` entry always ``streamed`` (its one-walk wgmma block).
     The dropout backward keeps K and V resident by this rule on (sq, sk), and
     Q and G by it on (sk, sq)."""
     if entry == "streamed":
         return "streamed"
-    if entry not in ("flat", "packed", "dropout", "encoder"):
+    if entry not in ("flat", "packed", "dropout", "encoder", "2bias"):
         raise ValueError(f"attention_block: unknown entry {entry!r}")
     if (entry in SINGLE_QUERY_MAX_ROWS and sq <= SINGLE_QUERY_MAX_ROWS[entry]
             and sk <= SINGLE_QUERY_MAX_KEYS):
@@ -581,7 +589,8 @@ def _check_2bias_shapes(q, k, v, bias, head_bias, num_heads: int) -> None:
     sk = k.shape[1]
     if num_heads <= 0 or hd % num_heads:
         raise ValueError(f"fused_attention_packed_2bias: {num_heads} heads do not tile width {hd}")
-    _bias_3d(bias, b, sq, sk, q.device)
+    if bias is not None:
+        _check_bias(bias, b, sq, sk)
     if head_bias.ndim != 4 or head_bias.shape[0] not in (1, b) \
             or tuple(head_bias.shape[1:]) != (num_heads, sq, sk):
         raise ValueError(
@@ -610,17 +619,37 @@ def fused_attention_packed_2bias_plain(
     return torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(b, sq, hd)
 
 
-def _packed_2bias_kernel(q, k, v, bias, head_bias, scale: float, num_heads: int):
-    b, sq, sk, hd = _check_packed(q, k, v, num_heads, "fused_attention_packed_2bias")
-    hb = head_bias.shape[0]
-    _cuda.require(head_bias, "head_bias", torch.float32, (hb, num_heads, sq, sk))
-    bias3 = _bias_3d(bias, b, sq, sk, q.device).contiguous()
+def _packed_2bias_kernel(q, k, v, bias, head_bias, scale: float, num_heads: int,
+                         block: Optional[str] = None):
+    """Block B's two-bias instance (resident or ring, as `attention_block` or
+    `block` says) on operands whose shapes passed ``_check_2bias_shapes``: the
+    checks the kernel adds (float32, contiguous, the head dim), then the
+    launch.  The bias is read through strides of 0 where it is shared, as laid
+    out in memory; an absent one is a null pointer."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    for name, x in (("q", q), ("k", k), ("v", v), ("head_bias", head_bias)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: expected torch.float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    _cuda.require_attention_shape(sk, hd, num_heads, "fused_attention_packed_2bias")
+    d = hd // num_heads
+    block = block or attention_block("2bias", sq, sk, d, d)
+    if block not in ("resident", "ring"):
+        raise ValueError(f"fused_attention_packed_2bias: no block {block!r}")
+    bias_ptr, bias_bs, bias_qs = None, 0, 0
+    if bias is not None:
+        if bias.dtype != torch.float32 or not bias.is_contiguous():
+            bias = bias.float().contiguous()
+        bb, _, bq, _ = bias.shape
+        bias_ptr, bias_bs, bias_qs = bias.data_ptr(), 0 if bb == 1 else bq * sk, 0 if bq == 1 else sk
     out = torch.empty_like(q)
-    p = _cuda.ptr
     _cuda.launch(
-        "ovq_packed_2bias_attention_forward", p(q), p(k), p(v), p(bias3), *_bias_strides(bias3),
-        p(head_bias), 0 if hb == 1 else num_heads * sq * sk, p(out), b, sq, sk, hd, num_heads,
-        scale,
+        "ovq_packed_2bias_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+        bias_bs, bias_qs, head_bias.data_ptr(),
+        0 if head_bias.shape[0] == 1 else num_heads * sq * sk, out.data_ptr(),
+        b, sq, sk, hd, num_heads, scale, int(block == "resident"),
     )
     _cuda.count("fused_attention_packed_2bias")
     return out
@@ -638,7 +667,7 @@ def fused_attention_packed_2bias(q, k, v, bias, head_bias, scale: float, num_hea
     tensors = (q, k, v, head_bias) if bias is None else (q, k, v, head_bias, bias)
     if not _cuda.uses_kernel(*tensors):
         return fused_attention_packed_2bias_plain(q, k, v, bias, head_bias, scale, num_heads)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if _needs_grad(tensors):
         raise ValueError(
             "fused_attention_packed_2bias has no backward kernel: call it on frozen "
             "inputs or under torch.no_grad()"

@@ -398,21 +398,23 @@ def test_scaled_dot_product_attention_routes_as_the_jax_package(monkeypatch, cas
 # -- the choice of device block ---------------------------------------------------------------
 _ALLOWED_BLOCKS = {"flat": {"single", "tile"}, "packed": {"single", "resident", "ring"},
                    "dropout": {"resident", "ring"}, "encoder": {"resident", "ring"},
-                   "streamed": {"streamed"}}
+                   "2bias": {"resident", "ring"}, "streamed": {"streamed"}}
+# the entries that take block B at any row count, never the single-query block
+_BLOCK_B_ONLY = ("dropout", "encoder", "2bias")
 
 
 def _round16(n):
     return -(-n // 16) * 16
 
 
-@pytest.mark.parametrize("entry", ["flat", "packed", "dropout", "encoder", "streamed"])
+@pytest.mark.parametrize("entry", ["flat", "packed", "dropout", "encoder", "2bias", "streamed"])
 def test_attention_block_choice_at_every_cut_over(entry):
     """Every shape an entry accepts maps to exactly one of its blocks, every
     one of them is reached, and each cut-over falls where its rule says: the
     single-query block up to the entry's SINGLE_QUERY_MAX_ROWS rows and
-    SINGLE_QUERY_MAX_KEYS keys (never for the dropout and encoder entries),
-    the packed, dropout and encoder blocks resident while four bytes per key
-    row of width d + 8 (bf16 K and V) fit RESIDENT_KV_BYTES."""
+    SINGLE_QUERY_MAX_KEYS keys (never for the dropout, encoder and two-bias
+    entries), the packed, dropout, encoder and two-bias blocks resident while
+    four bytes per key row of width d + 8 (bf16 K and V) fit RESIDENT_KV_BYTES."""
     rows = fused_attention.SINGLE_QUERY_MAX_ROWS.get(entry, 1)
     keys = fused_attention.SINGLE_QUERY_MAX_KEYS
     budget = fused_attention.RESIDENT_KV_BYTES
@@ -433,9 +435,9 @@ def test_attention_block_choice_at_every_cut_over(entry):
     assert seen == _ALLOWED_BLOCKS[entry]
     if entry == "streamed":
         return
-    if entry in ("dropout", "encoder"):
-        # the Iterative M4C decoder trains 5 query rows, and kernel F encodes
-        # one-token samples: block B, never block A
+    if entry in _BLOCK_B_ONLY:
+        # the Iterative M4C decoder trains 5 query rows, kernel F encodes
+        # one-token samples, T5 one-token questions: block B, never block A
         assert pick(1, 324, 64) == "resident" and pick(5, 210, 64) == "resident"
         assert pick(1, keys + 1, 64) == "ring"
     else:
@@ -448,7 +450,7 @@ def test_attention_block_choice_at_every_cut_over(entry):
     for d, last in ((64, 400), (96, 272), (128, 208)):
         assert 4 * _round16(last) * (d + 8) <= budget < 4 * _round16(last + 1) * (d + 8)
         assert pick(rows + 1, last, d) == "resident" and pick(rows + 1, last + 1, d) == "ring"
-        if entry in ("dropout", "encoder"):
+        if entry in _BLOCK_B_ONLY:
             assert pick(1, last, d) == "resident" and pick(1, last + 1, d) == "ring"
     assert pick(215, 215, 96) == "resident" and pick(64, 1535, 64) == "ring"
     with pytest.raises(ValueError, match="unknown entry"):
@@ -558,6 +560,122 @@ def test_wrappers_launch_the_chosen_block(monkeypatch, entry, sq, sk, dk, dv, bi
     assert launched == [entries[block]]
     assert fused_attention._cuda.launch_counts()[counter] == before + 1
     _close(got, want.numpy(), atol=1e-5)
+
+
+# -- the two-bias entry: block B's two-bias instance ---------------------------------------
+def _emulate_2bias_launch(entry, *args):
+    """Block B's two-bias entry on CPU memory: q, k, v and out as packed (b, S,
+    h * d) rows, the head-shared bias through its batch and row strides (a
+    null pointer: none), the head bias through its batch stride and the (Sq,
+    Sk) plane of each head."""
+    assert entry == "ovq_packed_2bias_attention_forward"
+    (q, k, v, bias, bias_bs, bias_qs, head_bias, head_bias_bs, out, b, sq, sk, hd, heads, scale,
+     resident) = args
+    assert resident in (0, 1)
+    d = hd // heads
+
+    def heads_of(ptr, s):
+        return _strided(ptr, (b, heads, s, d), (s * hd, d, hd, 1))
+
+    logits_bias = _strided(head_bias, (b, heads, sq, sk), (head_bias_bs, sq * sk, sk, 1)).copy()
+    if bias is not None:
+        logits_bias += _strided(bias, (b, heads, sq, sk), (bias_bs, 0, bias_qs, 1))
+    heads_of(out, sq)[...] = _emulated_attention(heads_of(q, sq), heads_of(k, sk),
+                                                 heads_of(v, sk), logits_bias, scale)
+
+
+T5_HEADS, T5_HD = 6, 384  # mT5-small: 6 heads of 64
+
+
+@pytest.mark.parametrize("b,sq,sk,form,block", [
+    # the mT5 encoder at a train and an eval batch of question lengths
+    (60, 26, 26, "padding + shared table", "resident"),
+    (60, 26, 26, "(b, h, L, L) head bias", "resident"),
+    (60, 23, 23, "padding + shared table", "resident"),
+    (60, 23, 23, "per-sample head bias, row bias", "resident"),
+    # one query row, and a key count past block B's resident reach
+    (3, 1, 26, "padding + shared table", "resident"),
+    (3, 1, 26, "per-sample head bias, row bias", "resident"),
+    (2, 20, 401, "padding + shared table", "ring"),
+    (2, 20, 401, "(b, h, L, L) head bias", "ring"),
+])
+def test_two_bias_wrapper_launches_block_b(monkeypatch, b, sq, sk, form, block):
+    """The two-bias wrapper launches block B's two-bias entry with the block
+    `attention_block("2bias", ...)` names (resident or ring, at any row
+    count), pointers and strides that address its operands (the (1, h, Sq,
+    Sk) table through a batch stride of 0, a per-sample head bias, a
+    (b, 1, 1, Sk) padding or (b, 1, Sq, Sk) row bias, or none as a null
+    pointer), and one count: an emulation of the entry on CPU memory gives the
+    plain version's output.  Sample 0 has every key masked."""
+    rng = np.random.default_rng(b * 1000 + sq * 10 + sk)
+    launched = []
+
+    def launch(name, *args):
+        launched.append((name, args[3] is None, args[-1]))
+        _emulate_2bias_launch(name, *args)
+
+    monkeypatch.setattr(fused_attention._cuda, "launch", launch)
+    q, k, v = (_t(rng.normal(size=(b, s, T5_HD)).astype(np.float32)) for s in (sq, sk, sk))
+    padding = _masked(rng, (b, 1, 1, sk))
+    padding[0] = MASK
+    table = rng.normal(size=(1, T5_HEADS, sq, sk)).astype(np.float32)
+    if form == "padding + shared table":
+        bias, head_bias = _t(padding), _t(table)
+    elif form == "(b, h, L, L) head bias":
+        bias, head_bias = None, _t(table + padding)
+    else:
+        bias, head_bias = _t(_masked(rng, (b, 1, sq, sk))), _t(table + padding)
+    assert fused_attention.attention_block("2bias", sq, sk, 64, 64) == block
+    before = fused_attention._cuda.launch_counts()["fused_attention_packed_2bias"]
+    got = fused_attention._packed_2bias_kernel(q, k, v, bias, head_bias, 1.0, T5_HEADS)
+    want = fused_attention.fused_attention_packed_2bias_plain(
+        q, k, v, bias, head_bias, 1.0, T5_HEADS, op_dtype=torch.bfloat16)
+    assert launched == [("ovq_packed_2bias_attention_forward", bias is None,
+                         int(block == "resident"))]
+    assert fused_attention._cuda.launch_counts()["fused_attention_packed_2bias"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, want.numpy(), atol=1e-5)
+
+
+def test_two_bias_wrapper_validates_once_and_allocates_no_bias(monkeypatch):
+    """On the kernel route the wrapper reads the bias where it lies (no
+    zeros for an absent one, no copy of a float32 contiguous one) and
+    allocates the output alone; refused operands raise ValueError before any
+    launch."""
+    launched = []
+    monkeypatch.setattr(fused_attention._cuda, "launch", lambda name, *args: launched.append(args))
+    monkeypatch.setattr(fused_attention._cuda, "uses_kernel", lambda *tensors: True)
+    allocated = []
+    real_empty_like, real_zeros = torch.empty_like, torch.zeros
+
+    def empty_like(*args, **kwargs):
+        allocated.append("empty_like")
+        return real_empty_like(*args, **kwargs)
+
+    def zeros(*args, **kwargs):
+        allocated.append("zeros")
+        return real_zeros(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    monkeypatch.setattr(torch, "zeros", zeros)
+    q = torch.zeros(2, 5, T5_HD)
+    table = torch.zeros(1, T5_HEADS, 5, 5)
+    padding = torch.zeros(2, 1, 1, 5)
+    allocated.clear()
+    with torch.no_grad():
+        fused_attention.fused_attention_packed_2bias(q, q, q, None, table, 1.0, T5_HEADS)
+        fused_attention.fused_attention_packed_2bias(q, q, q, padding, table, 1.0, T5_HEADS)
+    assert allocated == ["empty_like", "empty_like"]
+    assert launched[0][3] is None and launched[1][3] == padding.data_ptr()
+    assert launched[1][4:6] == (5, 0)  # per-sample padding: batch stride Sk, rows shared
+    launched.clear()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention.fused_attention_packed_2bias(
+            q, q, q, None, table.transpose(2, 3), 1.0, T5_HEADS)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        fused_attention.fused_attention_packed_2bias(  # head dim 192
+            q, q, q, None, torch.zeros(1, 2, 5, 5), 1.0, 2)
+    assert not launched
 
 
 # -- the dropout entries: block B's dropout instance and the backward pair -------------------

@@ -328,17 +328,6 @@ def test_attention_shape_rule(keys, hd, heads, ok):
             _cuda.require_attention_shape(keys, hd, heads, "test")
 
 
-@pytest.mark.parametrize("rows,k", [(64, 3072), (64, 768), (13440, 768), (640, 768), (1, 64)])
-def test_row_splits_cover_k_in_whole_slices(rows, k):
-    """The K split of the row-owning GEMM: slices are multiples of 32 that
-    together cover K, none empty, and only few-row shapes are split."""
-    splits, k_per_split = _cuda.row_splits(rows, k)
-    assert k_per_split % 32 == 0
-    assert (splits - 1) * k_per_split < k <= splits * k_per_split
-    if rows >= 66 * 32:
-        assert splits == 1
-
-
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

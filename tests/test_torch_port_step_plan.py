@@ -1,5 +1,5 @@
-"""The plan of the persistent step kernel (kernels A, B, E and the decoder-layer
-step, ``csrc/decoder_layer_step.cu``) and the arguments their wrappers hand its
+"""The plan of the persistent step kernel (kernels A, B, D, E and the
+decoder-layer step, ``csrc/decoder_layer_step.cu``) and the arguments their wrappers hand its
 C entries, on the CPU.
 
 The kernel runs only on the card.  What can be checked here is the Python that
@@ -137,6 +137,42 @@ def test_step_plan_refuses_what_the_kernel_does_not_take():
         ds.step_plan("self", 63, 320, 8, 5)
 
 
+# kernel D's (rows, hd, heads, C, T): MMF_M4C's greedy step (64 rows, 8 heads of 96,
+# 10 question + 100 object + 100 OCR context keys, 5 slots), the regional
+# variant's context (10 + 100 + 49 grids + 30 OCR), an odd context at a last
+# batch of odd size, the card tests' hd 256 over 2 heads, one row
+BERT_SELF_SHAPES = ((64, 768, 8, 210, 5), (64, 768, 8, 189, 5), (37, 768, 8, 77, 5),
+                    (5, 256, 2, 77, 4), (1, 768, 8, 13, 12))
+
+
+@pytest.mark.parametrize("rows,hd,heads,c_len,t_len", BERT_SELF_SHAPES)
+def test_bert_self_plan_holds_the_context_and_the_slots(rows, hd, heads, c_len, t_len):
+    """Kernel D's plan: one logits row of C + T keys in each attention item's
+    scratch (the head dim's instance, 128 at d 96), A's two products (q|k|v of
+    3 hd, then the out projection) at gemm_plan's K split, the workspace's
+    bf16 x and context and the partial tiles of the wider split, two CTAs per
+    SM within the shared memory each may take; past that context the plan
+    raises ValueError."""
+    plan = ds.step_plan("bert_self", rows, hd, heads, c_len + t_len)
+    d = hd // heads
+    assert ds.step_head_block(d) == (64 if d <= 64 else 128)
+    assert plan.smem == ds.step_smem_bytes(d, c_len + t_len)
+    assert plan.smem >= ds.STEP_RING_BYTES + 2 * 4 * (c_len + t_len)
+    assert plan.smem <= _cuda.MAX_SMEM_BYTES and plan.smem <= _cuda.SMEM_PER_SM // 2 - 1024
+    assert plan.ctas == 2 * _cuda.SM_COUNT
+    assert plan.k_slices == ds.step_plan("self", rows, hd, heads, t_len).k_slices
+    for (n, k), k_slice, splits in zip(((3 * hd, hd), (hd, hd)), plan.k_slices, plan.splits):
+        assert k_slice == _cuda.gemm_plan(rows, n, k, "bias").k_slice
+        assert k_slice % 64 == 0 and (splits - 1) * k_slice < k <= splits * k_slice
+    sizes = {name: size for name, _, size in plan.buffers}
+    assert list(sizes) == ["xb", "ctx", "partial"]
+    assert sizes["xb"] == sizes["ctx"] == rows * hd * 2
+    assert sizes["partial"] == 4 * rows * max(s * n for s, n in zip(plan.splits, (3 * hd, hd)))
+    too_long = _cuda.MAX_SMEM_BYTES // 8
+    with pytest.raises(ValueError, match="shared memory"):
+        ds.step_plan("bert_self", rows, hd, heads, too_long + t_len)
+
+
 def test_a_long_key_stream_takes_one_cta_per_sm():
     """Past half an SM's shared memory the grid is one CTA per SM."""
     plan = ds.step_plan("cross", 63, 512, 8, 20_000)
@@ -235,6 +271,20 @@ def _emulate_cross(args, workspaces):
     _f32(y, rows, hd)[...] = out
 
 
+def _emulate_bert_self(args, workspaces):
+    (x, *w, ck, cv, cb, sk, sv, xb, ctx, partial, y, rows, c_len, n_slots, t, hd, heads,
+     ks_qkv, ks_o, ctas, smem, scale, eps) = args
+    plan = ds.step_plan("bert_self", rows, hd, heads, c_len + n_slots)
+    assert ((ks_qkv, ks_o), ctas, smem) == (plan.k_slices, plan.ctas, plan.smem)
+    assert 0 <= t < n_slots
+    _check_buffers((xb, ctx, partial), plan, workspaces)
+    out, *_ = ds.fused_bert_self_step_plain(
+        _f32(x, rows, hd), _attention_w(w, "wqkv", hd, 3 * hd),
+        (_bf16(ck, rows, c_len, hd), _bf16(cv, rows, c_len, hd)), _bf16(sk, rows, n_slots, hd),
+        _bf16(sv, rows, n_slots, hd), t, _f32(cb, rows, c_len), scale, heads, eps)
+    _f32(y, rows, hd)[...] = out
+
+
 def _emulate_layer(args, workspaces):
     x, rest = args[0], args[1:]
     self_w, cross_w, ffn_w, rest = rest[:6], rest[6:12], rest[12:18], rest[18:]
@@ -275,6 +325,8 @@ def emulated(monkeypatch):
     def launch(entry, *args):
         if entry == "ovq_self_attention_step_forward":
             _emulate_self(args, workspaces)
+        elif entry == "ovq_bert_self_step_forward":
+            _emulate_bert_self(args, workspaces)
         elif entry in ("ovq_cross_attention_step_forward",
                        "ovq_cross_attention_streamed_forward"):
             _emulate_cross(args, workspaces)
@@ -376,6 +428,47 @@ def test_layer_step_wrapper_hands_the_entry_its_operands(emulated, shape, dtype)
     assert emulated == ["ovq_decoder_layer_step_forward"]
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(ring, plain_ring))
+
+
+@pytest.mark.parametrize("rows,hd,heads,c_len,t_len", [
+    (5, 256, 2, 77, 4), (3, 768, 8, 13, 5), (4, 128, 2, 1, 3), (1, 256, 4, 9, 1)])
+def test_bert_self_step_wrapper_hands_the_entry_its_operands(emulated, rows, hd, heads, c_len,
+                                                             t_len):
+    """Kernel D's launch, emulated over T + 2 steps (the last two clamp to the
+    last slot): the plain version's output and slots at every step, one launch
+    of the bert_self plan a step with its workspace, the context read where it
+    lies; a sample's context fully padded."""
+    rng = np.random.default_rng(rows * 7 + hd + c_len)
+    w = _weights(rng, hd, "wqkv", 3 * hd)
+    ctx = (_normal(rng, rows, c_len, hd, dtype=torch.bfloat16),
+           _normal(rng, rows, c_len, hd, dtype=torch.bfloat16))
+    cb = torch.where(torch.from_numpy(rng.random((rows, c_len))) < 0.3, -10e4, 0.0).float()
+    cb[0] = -10e4
+    slots = [torch.zeros(rows, t_len, hd, dtype=torch.bfloat16) for _ in range(2)]
+    plain_slots = [s.clone() for s in slots]
+    scale = (hd // heads) ** -0.5
+    for step in range(t_len + 2):
+        x = _normal(rng, rows, hd)
+        got, *_ = ds.fused_bert_self_step(x, w, ctx, *slots, step, cb, scale, heads, 1e-12)
+        want, *_ = ds.fused_bert_self_step_plain(x, w, ctx, *plain_slots, step, cb, scale, heads,
+                                                 1e-12)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(slots, plain_slots))
+    assert emulated == ["ovq_bert_self_step_forward"] * (t_len + 2)
+
+
+def test_bert_self_step_refuses_a_context_past_shared_memory(emulated):
+    """A context whose logits row does not fit the step kernel's shared memory
+    raises ValueError before any launch (there is no plain fallback)."""
+    rows, hd, heads, c_len = 1, 128, 2, _cuda.MAX_SMEM_BYTES // 8
+    rng = np.random.default_rng(5)
+    w = _weights(rng, hd, "wqkv", 3 * hd)
+    ctx = tuple(torch.zeros(rows, c_len, hd, dtype=torch.bfloat16) for _ in range(2))
+    slots = [torch.zeros(rows, 4, hd, dtype=torch.bfloat16) for _ in range(2)]
+    with pytest.raises(ValueError, match="shared memory"):
+        ds.fused_bert_self_step(_normal(rng, rows, hd), w, ctx, *slots, 0,
+                                torch.zeros(rows, c_len), 0.125, heads, 1e-12)
+    assert emulated == []
 
 
 @pytest.mark.parametrize("hd,heads", [(128, 32), (384, 32), (128, 128)])
