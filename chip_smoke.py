@@ -118,15 +118,43 @@ Phases, each fatal on failure:
      train-step times and peak memory; the model's Encoder over a 16 x 1536
      stream with a padding bias (3 streamed launches per forward, in eval and
      in training with a backward; within 2^-5 of the plain route relative to
-     its largest output).
+     its largest output);
+ 10. the ClassificationTask configs on phase 4's data (and a second set with
+     2048-wide regions for the last three): ``configs/mcan.yaml`` at its full
+     widths (512 wide, 8 heads of 64, 3 self + 3 guided layers, FFN 2048, the
+     LSTM 300 -> 512; random weights from the seed): ``evaluate_metrics`` over
+     the dev split on the kernel path (packed = 9 x dev batches, nothing else
+     launched, no plain version called), eval samples/s on both paths in turns,
+     the kernel vs plain path's log-probs over the dev split (max |diff|
+     within LOGPROB_TOL, argmax agreement >= 90 %), the packed kernel against
+     its plain version at MCAN's three encoder attentions (64 x 100 x 100, 64
+     x 100 x Lq, 64 x Lq x Lq on the first dev batch's own projections and
+     padding biases) beside one f32 SDPA call, a torch.profiler table of one
+     eval batch; one step's gradients on
+     both paths on the seeded weights, the gradients of the train split, the
+     train-step time on both paths; then ``start()`` for one epoch (the
+     config's constant rate, Adam at 1.0: finite losses only) and
+     ``get_predictions()``; then each of ``mcan_non_lstm``,
+     ``mcan_hierarchical``, ``saaa``, ``saaa_non_lstm``, ``saaa_hierarchical``,
+     ``vanilla_transformer``, ``parallel_attention_transformer`` and
+     ``hierarchical_co_attention`` at its own widths: dev eval with exact packed
+     launches (9, 8, 4 x 8 a batch; none for SAAA, which has no attention core)
+     and one train step with a finite loss and finite gradients; every config
+     with an attention core (MCAN's three too) also gets the kernel vs plain
+     path's log-probs over the dev split (max |diff| within LOGPROB_TOL,
+     argmax agreement >= 90 %) and the packed kernel against its plain version
+     at every shape one eval forward gives it, on that forward's own inputs
+     (64 x 110 x 110 for VanillaTransformer; the co-attention models' 64 x
+     100 x Lq, 64 x Lq x 100, 64 x 100 x 100 and 64 x Lq x Lq); phase 10's
+     seconds.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
 report, and checks in the library's SASS (cuobjdump) that no wgmma kernel
 writes an operand of a product after its fence, or touches it before the wait
 (``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
-mode and decode batch; 5, 6, 7, 8 and 9: each eval route, start() and
-get_predictions(); 9: each long-stream forward) and read just after it, kernel
+mode and decode batch; 5, 6, 7, 8, 9 and 10: each eval route, start() and
+get_predictions(); 9: each long-stream forward; 10: each config's dev eval) and read just after it, kernel
 C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
@@ -180,8 +208,10 @@ RING_TOL = 1e-4  # float32 ring: the k, v rows are f32 sums in another order
 # max_answer_length of them
 LOGPROB_TOL = 5e-2
 # a key projection's bias has no gradient: softmax(q . (k + b)) does not depend on b
-# (MultiHeadAttention's fc_k, BERT's self.key)
-GRADIENT_FREE = ("fc_k.bias", "self.key.bias")
+# (MultiHeadAttention's fc_k, BERT's self.key); nor has the bias of a logit that a
+# softmax over tokens or regions reads, a constant shift of every logit
+# (the attention-reduce MLPs' fc2, SAAA's glimpse logits x_conv)
+GRADIENT_FREE = ("fc_k.bias", "self.key.bias", "attr_reduce.fc2.bias", "x_conv.bias")
 DROPOUT_RATE = 0.1
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -1249,10 +1279,23 @@ def param_group(name: str) -> str:
     return ".".join(parts[:2]) if parts[0] in ("text_bert", "mmt") else parts[0]
 
 
+MMF_TRAIN_KERNELS = ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward",
+                     "fused_attention_packed", "fused_encoder_self_attention", "fused_ffn_step")
+
+
 def run_training(task, failures, label="train", check_grads=False):
     """Phases 5 and 7: one epoch of start(), then get_predictions() from
-    best_model.pth; with `check_grads`, also the gradients of the whole train
-    split (check_gradients)."""
+    best_model.pth (run_epoch), then the train step on both paths
+    (check_train_step); with `check_grads`, also the gradients of the whole
+    train split (check_gradients)."""
+    counts = run_epoch(task, failures, label)
+    check_train_step(task, failures, label, check_grads)
+    return counts
+
+
+def run_epoch(task, failures, label="train", expected=MMF_TRAIN_KERNELS):
+    """One epoch of start(), then get_predictions() from best_model.pth, which
+    must launch each kernel in `expected`; returns the launch counts."""
     import torch
 
     from openvivqa_tpu_torch.ops import _cuda
@@ -1286,8 +1329,7 @@ def run_training(task, failures, label="train", check_grads=False):
     want_steps = -(-n_train // BATCH)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
         failures.append(f"[{label}] losses {losses}: want {want_steps} finite values")
-    for name in ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward",
-                 "fused_attention_packed", "fused_encoder_self_attention", "fused_ffn_step"):
+    for name in expected:
         if counts[name] <= 0:
             failures.append(f"[{label}] {name} was not launched by the main path")
     for name in ("best_model.pth", "last_model.pth", "test_results.json"):
@@ -1295,17 +1337,16 @@ def run_training(task, failures, label="train", check_grads=False):
             failures.append(f"[{label}] {name} was not written")
     if "CIDEr" not in scores or not math.isfinite(scores["CIDEr"]):
         failures.append(f"[{label}] no finite CIDEr from get_predictions()")
+    return counts
 
-    # one batch: the train step's time on both paths, in turns
+
+def check_train_step(task, failures, label, check_grads=False):
+    """One train batch: one step's gradients on both paths per parameter
+    group, with `check_grads` the gradients of the whole train split, then the
+    train step's time on both paths and a profiler table of one step."""
+    import torch
+
     _, batch = next(task.device_batches(task.train_dataloader))
-    step = lambda: task._train_step(batch)  # noqa: E731
-    kernel_ms = [median_ms(step, reps=5)]
-    with plain_versions():
-        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
-    kernel_ms.append(median_ms(step, reps=5))
-    log(f"  [{label}] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
-        f"{kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path {plain_ms[0]:.3f}, "
-        f"{plain_ms[1]:.3f} ms")
 
     # one step's gradients on both paths: same weights, batch and generator seed
     def grads(seed):
@@ -1335,8 +1376,18 @@ def run_training(task, failures, label="train", check_grads=False):
         failures.append(f"[{label}] gradient difference {worst} > {STEP_GRAD_RTOL}")
     if check_grads:
         check_gradients(task, failures, label)
+
+    # the train step's time on both paths, in turns (after the gradient checks:
+    # these steps move the weights)
+    step = lambda: task._train_step(batch)  # noqa: E731
+    kernel_ms = [median_ms(step, reps=5)]
+    with plain_versions():
+        plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
+    kernel_ms.append(median_ms(step, reps=5))
+    log(f"  [{label}] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
+        f"{kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path {plain_ms[0]:.3f}, "
+        f"{plain_ms[1]:.3f} ms")
     profile(step, f"{label} step")
-    return counts
 
 
 def check_gradients(task, failures, label):
@@ -2290,6 +2341,235 @@ def run_joint_transformer(task, seed, failures):
     return launches
 
 
+# phase 10: the classification configs, each with the width of its region features
+CLASSIFICATION_CONFIGS = (
+    ("mcan.yaml", 1024), ("mcan_non_lstm.yaml", 1024), ("mcan_hierarchical.yaml", 1024),
+    ("saaa.yaml", 1024), ("saaa_non_lstm.yaml", 1024), ("saaa_hierarchical.yaml", 1024),
+    ("vanilla_transformer.yaml", 2048), ("parallel_attention_transformer.yaml", 2048),
+    ("hierarchical_co_attention.yaml", 2048),
+)
+ARGMAX_AGREEMENT = 0.9  # the kernel path's answers against the plain path's
+
+
+def with_classification(config_file, paths, seed, checkpoint):
+    """`configs/<config_file>` (a ClassificationTask config) on the synthetic
+    data at `paths`."""
+    from openvivqa_tpu_torch.config import get_config
+
+    json_paths = {"TRAIN": paths["train"], "DEV": paths["dev"], "TEST": paths["test"]}
+    return get_config(str(ROOT / "configs" / config_file)).merged({
+        "DATASET": {"FEATURE_DATASET": {"FEATURE_PATH": {"FEATURES": paths["features"]}},
+                    "JSON_PATH": json_paths, "VOCAB": {"JSON_PATH": json_paths}},
+        "TRAINING": {"SEED": seed, "CHECKPOINT_PATH": checkpoint},
+    })
+
+
+def packed_per_batch(model) -> int:
+    """Packed-attention launches of one forward of a classification MODEL
+    node: one per encoder attention (MCAN: self layers + 2 x guided layers;
+    an Encoder: its layers; a CoAttentionEncoder: 4 x its layers; SAAA none)."""
+    if model.ARCHITECTURE == "MCAN":
+        return model.SELF_ENCODER.LAYERS + 2 * model.GUIDED_ENCODER.LAYERS
+    if model.ARCHITECTURE == "SAAA":
+        return 0
+    encoder = model.ENCODER
+    return (4 if encoder.ARCHITECTURE == "CoAttentionEncoder" else 1) * encoder.LAYERS
+
+
+def classification_eval(task, label, failures, timed=False):
+    """The dev split through ``evaluate_metrics`` on the kernel path: exactly
+    packed_per_batch x batches packed launches and no plain version called.
+    With `timed`, eval samples/s on both paths (kernel, plain, plain, kernel)."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    n_valid, n_batches = len(task.dev_dataset), len(task.dev_dataloader)
+    want = packed_per_batch(task.config.MODEL) * n_batches
+
+    def timed_eval():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = task.evaluate_metrics(task.dev_dataloader)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    # one batch first, so that the libraries' first-call set-up is not in the timed runs
+    _, first = next(task.device_batches(task.dev_dataloader))
+    task.predict(first)
+    torch.cuda.synchronize()
+
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        scores, seconds = timed_eval()
+        counts = counts_now()
+    log(f"  [{label}] dev scores {json.dumps(scores, default=float)}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; plain calls "
+        f"{json.dumps(plain_calls)}")
+    if counts["fused_attention_packed"] != want:
+        failures.append(f"[{label}] fused_attention_packed: {counts['fused_attention_packed']} "
+                        f"launches, want {want} ({n_batches} dev batches)")
+    others = {k: v for k, v in counts.items() if v and k != "fused_attention_packed"}
+    if others or plain_calls:
+        failures.append(f"[{label}] other kernels {others} or plain versions {plain_calls}")
+    if task.score_name not in scores or not math.isfinite(scores[task.score_name]):
+        failures.append(f"[{label}] no finite {task.score_name} in the dev scores")
+    if timed:
+        with plain_versions():
+            plain_seconds = [timed_eval()[1], timed_eval()[1]]
+        kernel_seconds = [seconds, timed_eval()[1]]
+        for name, runs in (("kernel", kernel_seconds), ("plain", plain_seconds)):
+            log(f"  [{label}] eval loop, {name} path: {n_valid} samples in "
+                + ", ".join(f"{t:.3f} s ({n_valid / t:.2f} samples/s)" for t in runs))
+    return counts
+
+
+def compare_classification_paths(task, label, failures):
+    """The dev split's log-probs on the kernel and the plain path: the max
+    |difference| (within LOGPROB_TOL) and the argmax agreement over the valid
+    samples (at least ARGMAX_AGREEMENT)."""
+    import torch
+
+    err, agree, total = 0.0, 0, 0
+    task.model.eval()
+    with torch.no_grad():
+        for host, batch in task.device_batches(task.dev_dataloader):
+            valid = torch.from_numpy(host["sample_valid"]).to(batch["answer"].device)
+            out_k = task.model(batch)
+            with plain_versions():
+                out_p = task.model(batch)
+            if not bool(torch.isfinite(out_k).all()) or out_k.shape[-1] != task.vocab.total_answers:
+                failures.append(f"[{label}] log-probs of shape {tuple(out_k.shape)} or "
+                                "non-finite")
+            err = max(err, max_err(out_k[valid], out_p[valid]))
+            agree += int((out_k.argmax(-1) == out_p.argmax(-1))[valid].sum())
+            total += int(valid.sum())
+    log(f"  [{label}] kernel vs plain path over the dev split: max|log-prob diff| {err:.3e} "
+        f"(tol {LOGPROB_TOL:.0e}), argmax agreement {100 * agree / total:.2f} % of {total} samples")
+    if not err <= LOGPROB_TOL:
+        failures.append(f"[{label}] kernel vs plain path: max|log-prob diff| {err} > {LOGPROB_TOL}")
+    if agree < ARGMAX_AGREEMENT * total:
+        failures.append(f"[{label}] argmax agreement {agree} of {total} < {ARGMAX_AGREEMENT}")
+
+
+def check_packed_at_path_shapes(task, label, record, failures):
+    """The packed kernel against its plain version at every shape one eval
+    forward of the first dev batch gives it (MCAN: the regions'
+    self-attention, the guided attention over the question, the question's
+    self-attention; VanillaTransformer: [regions | question] over itself;
+    the co-attention models also the question over the regions), on the
+    inputs of that shape's first call there, beside one float32 SDPA call."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    kernel, calls = fused_attention.fused_attention_packed, {}
+
+    def capture(q, k, v, bias, scale, heads):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], heads)
+        calls.setdefault(key, tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in (q, k, v, bias, scale, heads)))
+        return kernel(q, k, v, bias, scale, heads)
+
+    _, batch = next(task.device_batches(task.dev_dataloader))
+    task.model.eval()
+    fused_attention.fused_attention_packed = capture
+    try:
+        with torch.no_grad():
+            task.model(batch)
+    finally:
+        fused_attention.fused_attention_packed = kernel
+    if not calls:
+        failures.append(f"[{label}] no packed attention call in one eval forward")
+
+    def sdpa(q, k, v, bias, scale, heads):
+        bs = q.shape[0]
+        qh, kh, vh = (x.reshape(bs, x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale)
+
+    with torch.no_grad():
+        for (bs, sq, sk, hd, heads), args in calls.items():
+            q, k, v, bias = args[:4]
+            out = kernel(*args)
+            block = fused_attention.attention_block("packed", sq, sk, hd // heads, hd // heads)
+            record("fused_attention_packed",
+                   f"{label} {bs} x {sq} x {sk}, {heads} heads of {hd // heads}, block {block}",
+                   max_err(out, fused_attention.fused_attention_packed_plain(*args)), ATTN_TOL,
+                   lambda: kernel(*args), lambda: fused_attention.fused_attention_packed_plain(*args),
+                   4.0 * bs * sq * sk * hd, tensor_bytes(q, k, v, bias, out), sdpa(*args))
+
+
+def run_classification(paths, wide_paths, tmp, seed, failures, record):
+    """Phase 10, each classification config at its own widths: dev eval on
+    the kernel path with exact packed launches and no plain call; for the
+    configs with an attention core, kernel vs plain log-probs and the packed
+    kernel against its plain version at every shape the config gives it.
+    configs/mcan.yaml (full widths) also gets eval samples/s on both paths, a
+    profiler table of one eval batch, one step's gradients on both paths and
+    train-step times, then start() for one epoch and get_predictions(); each
+    other config one train step with a finite loss and finite gradients.
+    `wide_paths` is the synthetic set with 2048-wide regions.  Returns the
+    launch counts of the main-path runs."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    for config_file, width in CLASSIFICATION_CONFIGS:
+        start = time.perf_counter()
+        data = paths if width == 1024 else wide_paths
+        name = config_file.removesuffix(".yaml")
+        config = with_classification(config_file, data, seed, str(Path(tmp) / name))
+        task = build_task(config, "cuda")
+        model = config.MODEL
+        log(f"  [{name}] {model.ARCHITECTURE}, d_model {model.D_MODEL}, "
+            f"{sum(p.numel() for p in task.model.parameters()) / 1e6:.2f}M parameters, "
+            f"{width}-wide regions, {len(task.train_dataset)} train / {len(task.dev_dataset)} "
+            f"dev samples, {task.vocab.total_answers} classes, packed launches a forward "
+            f"{packed_per_batch(model)}" + (" (SAAA has no attention core: it runs on "
+                                            "nn.Linear and nn.LSTM only)"
+                                            if model.ARCHITECTURE == "SAAA" else ""))
+        add(classification_eval(task, name, failures, timed=name == "mcan"))
+        if packed_per_batch(model):
+            compare_classification_paths(task, name, failures)
+            check_packed_at_path_shapes(task, name, record, failures)
+        if name == "mcan":
+            _, batch = next(task.device_batches(task.dev_dataloader))
+            profile(lambda: task.predict(batch), f"{name} eval batch")
+            # the step checks on the seeded weights: at the config's constant rate of
+            # 1.0 (Adam at 1.0, the reference's), an epoch leaves weights that no
+            # longer tell a missing gradient from a dead unit
+            torch.cuda.reset_peak_memory_stats()
+            check_train_step(task, failures, "mcan step", check_grads=True)
+            log(f"  [mcan step] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del task
+            torch.cuda.empty_cache()
+            train_task = build_task(config.merged({"TRAINING": {
+                "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "mcan_train")}}), "cuda")
+            add(run_epoch(train_task, failures, "mcan train", expected=("fused_attention_packed",)))
+            del train_task
+        else:
+            _, batch = next(task.device_batches(task.train_dataloader))
+            loss = float(task._train_step(batch))
+            bad = [n for n, p in task.model.named_parameters()
+                   if p.requires_grad and (p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+            log(f"  [{name}] one train step: loss {loss:.6f}, "
+                f"{'all gradients finite' if not bad else f'missing or non-finite {bad[:4]}'}")
+            if not math.isfinite(loss) or bad:
+                failures.append(f"[{name}] train step: loss {loss}, bad gradients {bad[:4]}")
+            del task
+        torch.cuda.empty_cache()
+        log(f"  [{name}] {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2449,6 +2729,20 @@ def main() -> int:
         for name, n in run_joint_transformer(joint, args.seed, failures).items():
             launches[name] += n
         del joint
+        torch.cuda.empty_cache()
+
+        # 10. the ClassificationTask configs
+        start = time.perf_counter()
+        log("main path, classification: configs/mcan.yaml at full widths (dev eval on both "
+            "paths, one epoch, predictions), then the 8 other ClassificationTask configs")
+        wide = generate_synthetic_dataset(
+            str(Path(tmp) / "wide"), n_images=240, n_regions=100, n_grids=1, d_grid_feature=8,
+            d_feature=2048, max_scene_text=1, seed=args.seed,
+        )
+        for name, n in run_classification(paths, wide, tmp, args.seed, failures,
+                                          make_recorder(results, failures)).items():
+            launches[name] += n
+        log(f"phase 10: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,7 +1,7 @@
 """Feature-file datasets.
 
-The port's copy of the feature and dictionary datasets of
-``openvivqa_tpu/data/datasets.py``: `__getitem__` returns numpy arrays already
+The port's copy of the feature, dictionary and feature-classification datasets
+of ``openvivqa_tpu/data/datasets.py``: `__getitem__` returns numpy arrays already
 padded to static lengths, and visual feature arrays are padded/truncated to a
 fixed region count, so every batch of a split has one shape.
 """
@@ -226,5 +226,48 @@ class DictionaryDataset(BaseDataset):
             question=item["question"],
             question_tokens=self.vocab.encode_question(item["question"]),
             answers=item["answers"],
+            **features,
+        )
+
+
+@META_DATASET.register()
+class FeatureClassificationDataset(BaseDataset):
+    """One sample per (question, answer) with the answer as a (1,) class id."""
+
+    @property
+    def questions(self):
+        return [ann["question"] for ann in self.annotations]
+
+    @property
+    def answers(self):
+        return [ann["answer"] for ann in self.annotations]
+
+    def load_annotations(self, json_data: Dict) -> List[Dict]:
+        images = self._index_images(json_data)
+        annotations = []
+        for ann in json_data["annotations"]:
+            image = images.get(ann["image_id"])
+            if image is None:
+                continue
+            question = preprocess_sentence(ann["question"], self.vocab.tokenizer)
+            for answer in ann["answers"]:
+                annotations.append({
+                    "id": ann["id"],
+                    "question": question,
+                    "answer": preprocess_sentence(answer, self.vocab.tokenizer),
+                    "image_id": ann["image_id"],
+                    "filename": image["filename"],
+                })
+        return annotations
+
+    def __getitem__(self, idx: int) -> Instance:
+        item = self.annotations[idx]
+        features = self.load_features(item["image_id"])
+        return Instance(
+            question_id=item["id"],
+            image_id=item["image_id"],
+            filename=item["filename"],
+            question_tokens=self.vocab.encode_question(item["question"]),
+            answer=self.vocab.encode_answer(item["answer"]),
             **features,
         )

@@ -1,17 +1,19 @@
-"""Vocabulary base class.
+"""Vocabulary base class and the classification vocab.
 
-The port's copy of Vocab from ``openvivqa_tpu/data/vocab.py``: the
-reference's special tokens, frequency-then-alphabetical ordering, +2
-(bos/eos) length accounting and encode/decode behaviour.  Encoded vectors are
-numpy int32 padded to the dataset-level maxima so every batch has a static
-shape.
+The port's copy of Vocab and ClassificationVocab from
+``openvivqa_tpu/data/vocab.py``: the reference's special tokens,
+frequency-then-alphabetical ordering, +2 (bos/eos) length accounting and
+encode/decode behaviour.  Encoded vectors are numpy int32 padded to the
+dataset-level maxima so every batch has a static shape.  ClassificationVocab
+sorts its answer set before assigning class ids, as the JAX package does (the
+reference enumerates a python ``set``, whose order depends on PYTHONHASHSEED).
 """
 
 from __future__ import annotations
 
 import json
 from collections import Counter
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 
@@ -188,3 +190,42 @@ class Vocab:
                 table[i, start : start + emb.dim] = emb[token.strip()]
                 start += emb.dim
         self.word_embeddings = table
+
+
+@META_VOCAB.register()
+class ClassificationVocab(Vocab):
+    """Answers as class ids: each distinct answer string, sorted, is one class."""
+
+    def make_vocab(self, json_paths: Sequence[str]) -> None:
+        self.freqs = Counter()
+        answers = set()
+        self.max_question_length = 0
+        self.max_answer_length = 1
+        for json_path in json_paths:
+            if json_path is None:
+                continue
+            with open(json_path) as handle:
+                json_data = json.load(handle)
+            for ann in json_data["annotations"]:
+                question = preprocess_sentence(ann["question"], self.tokenizer)
+                for answer in ann["answers"]:
+                    self.freqs.update(question)
+                    answers.add(" ".join(preprocess_sentence(answer, self.tokenizer)))
+                self.max_question_length = max(self.max_question_length, len(question) + 2)
+
+        self.itoa: Dict[int, str] = dict(enumerate(sorted(answers)))
+        self.atoi: Dict[str, int] = {a: i for i, a in self.itoa.items()}
+        self.total_answers = len(self.atoi)
+
+    def encode_answer(self, answer: List[str]) -> np.ndarray:
+        return np.asarray([self.atoi[" ".join(answer)]], dtype=np.int32)
+
+    def decode_answer(self, answer_vecs, join_words: bool = False,
+                      **kwargs) -> Union[List[str], List[List[str]]]:
+        # the reference's task layer passes the `join_word` spelling
+        join_words = kwargs.get("join_word", join_words)
+        answers = []
+        for idx in np.asarray(answer_vecs).reshape(-1).tolist():
+            text = self.itoa[int(idx)]
+            answers.append(text if join_words else text.split())
+        return answers

@@ -19,16 +19,24 @@ BatchTensors = Dict[str, torch.Tensor]
 def init_xavier_law_(model: nn.Module, generator: torch.Generator,
                      skip: Iterable[nn.Module] = ()) -> None:
     """The JAX package's initialisers of the MCAN-family models, drawn from
-    `generator` in module order: Xavier-uniform Linear weights with zero
-    biases, N(0, 1) embedding tables, LayerNorm scale 1 and bias 0.  The
-    modules in `skip`, and everything under them, are left as they are."""
+    `generator` in module order: Xavier-uniform Linear and Conv1d weights (a
+    convolution's fans count its window) with zero biases, N(0, 1) embedding
+    tables, LayerNorm scale 1 and bias 0, and flax's LSTM laws (truncated
+    LeCun-normal input kernels, orthogonal recurrent kernels, zero biases).
+    The modules in `skip`, and everything under them, are left as they are."""
     skipped = {id(p) for module in skip for p in module.parameters()}
     with torch.no_grad():
         for sub in model.modules():
+            if isinstance(sub, nn.LSTM):
+                if id(sub.weight_ih_l0) not in skipped:
+                    _init_lstm_(sub, generator)
+                continue
             if id(getattr(sub, "weight", None)) in skipped:
                 continue
-            if isinstance(sub, nn.Linear):
-                bound = (6.0 / (sub.in_features + sub.out_features)) ** 0.5
+            if isinstance(sub, (nn.Linear, nn.Conv1d)):
+                window = sub.weight[0, 0].numel() if sub.weight.ndim == 3 else 1
+                fans = (sub.weight.shape[0] + sub.weight.shape[1]) * window
+                bound = (6.0 / fans) ** 0.5
                 uniform = torch.rand(sub.weight.shape, generator=generator)
                 sub.weight.copy_((2.0 * uniform - 1.0) * bound)
                 if sub.bias is not None:
@@ -40,8 +48,32 @@ def init_xavier_law_(model: nn.Module, generator: torch.Generator,
                 sub.bias.zero_()
 
 
+def _init_lstm_(lstm: nn.LSTM, generator: torch.Generator) -> None:
+    """flax OptimizedLSTMCell's laws for each gate's kernels (rows i, f, g, o):
+    the input kernel LeCun-normal truncated at two standard deviations, the
+    recurrent kernel orthogonal; both biases zero."""
+    hidden, d_in = lstm.hidden_size, lstm.input_size
+    std = (1.0 / d_in) ** 0.5 / 0.87962566103423978  # the truncated normal's unit variance
+    for gate in range(4):
+        rows = slice(gate * hidden, (gate + 1) * hidden)
+        normal = torch.randn((hidden, d_in), generator=generator)
+        while bool((normal.abs() > 2.0).any()):
+            redraw = torch.randn(normal.shape, generator=generator)
+            normal = torch.where(normal.abs() > 2.0, redraw, normal)
+        lstm.weight_ih_l0[rows] = normal * std
+        q, r = torch.linalg.qr(torch.randn((hidden, hidden), generator=generator))
+        lstm.weight_hh_l0[rows] = (q * torch.sign(torch.diagonal(r))).t()
+    lstm.bias_ih_l0.zero_()
+    lstm.bias_hh_l0.zero_()
+
+
 class ClassificationModel(nn.Module):
     """Answer-classification models: forward -> (bs, n_answers) log-probs."""
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisers of the classification models
+        (``init_xavier_law_``)."""
+        init_xavier_law_(self, generator)
 
     def forward(self, batch: BatchTensors, generator=None) -> torch.Tensor:
         raise NotImplementedError

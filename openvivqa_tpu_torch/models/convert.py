@@ -5,12 +5,17 @@ The port's parameter names are the reference's torch names, the ones
 ``openvivqa_tpu.models.modules.torch_conversion``'s converters read
 (``convert_mmf_m4c``, ``convert_mmf_regional_m4c``, ``convert_mmf_iterative_m4c``,
 ``convert_mmf_language_adaptive``, ``convert_iterative_mcan``,
-``convert_joint_transformer``), so those
+``convert_joint_transformer``, ``convert_mcan``, ``convert_saaa``), so those
 converters are this bridge's inverses and the port also loads the reference's own
 checkpoints; the ViT and T5 backbones carry HF's names, which
 ``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
-Flax Dense kernels are (in, out) and torch Linear weights (out, in); LayerNorm
-scale/bias become weight/bias.
+VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention and
+the hierarchical text embedding have no reference converter: their flax trees
+(``@nn.compact`` auto-names such as ``Encoder_0``, ``Dense_0``, ``Conv_0``) map
+to the port's names here.  Flax Dense kernels are (in, out) and torch Linear
+weights (out, in); flax Conv kernels (n, in, out) and Conv1d weights (out, in,
+n); LayerNorm scale/bias become weight/bias; flax's LSTM cell keeps one bias,
+on its hidden kernels, which becomes ``bias_hh_l0`` beside a zero ``bias_ih_l0``.
 """
 
 from __future__ import annotations
@@ -179,6 +184,37 @@ def _text_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
         _linear(out, f"{name}.components.1", tree["Dense_0"])
 
 
+def _conv(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = np.ascontiguousarray(_arr(tree["kernel"]).transpose(2, 1, 0))
+    out[f"{name}.bias"] = _arr(tree["bias"])
+
+
+def _lstm(out: StateDict, name: str, cell: Mapping[str, Any]) -> None:
+    """flax OptimizedLSTMCell (gates i, f, g, o; input kernels ``i*`` without
+    bias, hidden kernels ``h*`` with the one bias) -> a one-layer nn.LSTM."""
+    gates = "ifgo"
+    out[f"{name}.weight_ih_l0"] = np.concatenate([_arr(cell[f"i{g}"]["kernel"]).T for g in gates])
+    out[f"{name}.weight_hh_l0"] = np.concatenate([_arr(cell[f"h{g}"]["kernel"]).T for g in gates])
+    out[f"{name}.bias_hh_l0"] = np.concatenate([_arr(cell[f"h{g}"]["bias"]) for g in gates])
+    out[f"{name}.bias_ih_l0"] = np.zeros_like(out[f"{name}.bias_hh_l0"])
+
+
+def _any_text_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """UsualEmbedding, LSTMTextEmbedding or the registered
+    HierarchicalFeaturesExtractor, told apart by their subtrees."""
+    if "_LSTM_0" in tree:
+        if "embedding" in tree:
+            out[f"{name}.embedding.weight"] = _arr(tree["embedding"])
+        _linear(out, f"{name}.proj", tree["Dense_0"])
+        _lstm(out, f"{name}.lstm", tree["_LSTM_0"]["OptimizedLSTMCell_0"])
+    elif "UsualEmbedding_0" in tree:
+        _text_embedding(out, f"{name}.embedding", tree["UsualEmbedding_0"])
+        for i in range(sum(1 for key in tree if key.startswith("Conv_"))):
+            _conv(out, f"{name}.convs.{i}", tree[f"Conv_{i}"])
+    else:
+        _text_embedding(out, name, tree)
+
+
 def _layers(tree: Mapping[str, Any]):
     """(index, subtree) of a stack's ``layer_{i}`` entries, in order."""
     count = sum(1 for key in tree if key[6:].isdigit() and key.startswith("layer_"))
@@ -193,17 +229,120 @@ def _encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
         _positionwise_ffn(out, f"{name}.layers.{i}.pwff", layer["pwff"])
 
 
+def _guided_encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """MCAN's ``GuidedAttentionEncoder``: its LayerNorm and guided layers."""
+    _layer_norm(out, f"{name}.layer_norm", tree["layer_norm"])
+    for i, layer in _layers(tree):
+        prefix = f"{name}.guided_attn_layers.{i}"
+        _multi_head_attention(out, f"{prefix}.self_mhatt", layer["self_mhatt"])
+        _multi_head_attention(out, f"{prefix}.guided_mhatt", layer["guided_mhatt"])
+        _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
+
+
+def _co_attention_encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """``CoAttentionEncoder``: the two stream LayerNorms and the ``vl_i``,
+    ``lv_i``, ``vs_i``, ``ls_i`` layers."""
+    _layer_norm(out, f"{name}.vision_layer_norm", tree["vision_layer_norm"])
+    _layer_norm(out, f"{name}.language_layer_norm", tree["language_layer_norm"])
+    for flax_name, torch_name in (("vl", "vision_language"), ("lv", "language_vision"),
+                                  ("vs", "vision_self"), ("ls", "language_self")):
+        count = sum(1 for key in tree if key.startswith(f"{flax_name}_"))
+        for i in range(count):
+            layer, prefix = tree[f"{flax_name}_{i}"], f"{name}.{torch_name}_attn_layers.{i}"
+            _multi_head_attention(out, f"{prefix}.mhatt", layer["mhatt"])
+            _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
+
+
+def _attr_reduce(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    _linear(out, f"{name}.fc1", tree["Dense_0"])
+    _linear(out, f"{name}.fc2", tree["Dense_1"])
+
+
+def _dual_stream_head(out: StateDict, tree: Mapping[str, Any]) -> None:
+    """``DualStreamClassifier``'s tree -> the head's names on the model."""
+    _attr_reduce(out, "vision_attr_reduce", tree["AttentionReduceMLP_0"])
+    _attr_reduce(out, "text_attr_reduce", tree["AttentionReduceMLP_1"])
+    _linear(out, "vision_proj", tree["Dense_0"])
+    _linear(out, "text_proj", tree["Dense_1"])
+    _layer_norm(out, "layer_norm", tree["LayerNorm_0"])
+    _linear(out, "classify", tree["Dense_2"])
+
+
+_TEXT_EMBEDDINGS = ("LSTMTextEmbedding_0", "UsualEmbedding_0", "HierarchicalFeaturesExtractor_0")
+
+
+def _compact_text_embedding(tree: Mapping[str, Any], candidates=_TEXT_EMBEDDINGS):
+    """The text embedding's subtree in a ``@nn.compact`` model's tree."""
+    return next(tree[key] for key in candidates if key in tree)
+
+
+def _mcan(tree: Mapping[str, Any]) -> StateDict:
+    """MCAN (the inverse of ``convert_mcan``, plus the hierarchical text
+    embedding's convolutions)."""
+    out: StateDict = {}
+    _linear(out, "vision_embedding.proj", tree["vision_embedding"]["Dense_0"])
+    _any_text_embedding(out, "text_embedding", tree["text_embedding"])
+    _encoder(out, "self_encoder", tree["self_encoder"])
+    _guided_encoder(out, "guided_encoder", tree["guided_encoder"])
+    _attr_reduce(out, "vision_attr_reduce", tree["vision_attr_reduce"])
+    _attr_reduce(out, "text_attr_reduce", tree["text_attr_reduce"])
+    for name in ("vision_proj", "text_proj", "classify"):
+        _linear(out, name, tree[name])
+    _layer_norm(out, "layer_norm", tree["layer_norm"])
+    return out
+
+
+def _saaa(tree: Mapping[str, Any]) -> StateDict:
+    """SAAA (the inverse of ``convert_saaa`` for its LSTM text processor; the
+    Usual and hierarchical processors too)."""
+    out: StateDict = {}
+    _linear(out, "vision.proj", tree["FeatureEmbedding_0"]["Dense_0"])
+    _any_text_embedding(out, "text", _compact_text_embedding(tree))
+    attention = tree["CoAttention_0"]
+    _kernel(out, "attention.v_conv", attention["Dense_0"])
+    _linear(out, "attention.q_lin", attention["Dense_1"])
+    _linear(out, "attention.x_conv", attention["Dense_2"])
+    _linear(out, "classifier.lin1", tree["Dense_0"])
+    _linear(out, "classifier.lin2", tree["Dense_1"])
+    return out
+
+
+def _vanilla_transformer(tree: Mapping[str, Any]) -> StateDict:
+    out: StateDict = {}
+    _linear(out, "vision_embedding.proj", tree["FeatureEmbedding_0"]["Dense_0"])
+    _any_text_embedding(out, "text_embedding", _compact_text_embedding(tree))
+    _encoder(out, "encoder", tree["Encoder_0"])
+    _attr_reduce(out, "attr_reduce", tree["AttentionReduceMLP_0"])
+    _linear(out, "proj", tree["Dense_0"])
+    _layer_norm(out, "layer_norm", tree["LayerNorm_0"])
+    _linear(out, "classify", tree["Dense_1"])
+    return out
+
+
+def _co_attention_model(tree: Mapping[str, Any]) -> StateDict:
+    """ParallelAttentionTransformer, and HierarchicalCoAttention with its
+    model-local extractor (``hierarchical.convs.N``)."""
+    out: StateDict = {}
+    _linear(out, "vision_embedding.proj", tree["FeatureEmbedding_0"]["Dense_0"])
+    extractor = tree.get("HierarchicalFeaturesExtractor_0")
+    if extractor is not None and "UsualEmbedding_0" not in extractor:  # the model-local one
+        for i in range(sum(1 for key in extractor if key.startswith("Conv_"))):
+            _conv(out, f"hierarchical.convs.{i}", extractor[f"Conv_{i}"])
+        text = _compact_text_embedding(tree, _TEXT_EMBEDDINGS[:2])
+    else:
+        text = _compact_text_embedding(tree)
+    _any_text_embedding(out, "text_embedding", text)
+    _co_attention_encoder(out, "encoder", tree["CoAttentionEncoder_0"])
+    _dual_stream_head(out, tree["DualStreamClassifier_0"])
+    return out
+
+
 def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
     out: StateDict = {}
     _linear(out, "vision_embedding.proj", tree["vision_embedding"]["Dense_0"])
     _text_embedding(out, "text_embedding", tree["text_embedding"])
     _encoder(out, "self_encoder", tree["self_encoder"])
-    _layer_norm(out, "guided_encoder.layer_norm", tree["guided_encoder"]["layer_norm"])
-    for i, layer in _layers(tree["guided_encoder"]):
-        prefix = f"guided_encoder.guided_attn_layers.{i}"
-        _multi_head_attention(out, f"{prefix}.self_mhatt", layer["self_mhatt"])
-        _multi_head_attention(out, f"{prefix}.guided_mhatt", layer["guided_mhatt"])
-        _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
+    _guided_encoder(out, "guided_encoder", tree["guided_encoder"])
     _positionwise_ffn(out, "fusion", tree["fusion"])
     _layer_norm(out, "norm", tree["norm"])
     _decoder(out, tree["decoder"])
@@ -234,7 +373,7 @@ def _decoder(out: StateDict, decoder: Mapping[str, Any]) -> None:
 
 
 def _kernel(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
-    """A bias-free Dense (T5's projections)."""
+    """A bias-free Dense (T5's projections, SAAA's v_conv)."""
     out[f"{name}.weight"] = np.ascontiguousarray(_arr(tree["kernel"]).T)
 
 
@@ -304,8 +443,10 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     """A flax ``params`` collection (numpy arrays) -> the port's state_dict as
     float32 numpy arrays, for the MMF_M4C family (MMF_M4C, MMF_REGIONAL_M4C,
     MMF_SAL, MMF_LanguageAdaptiveM4C, MMF_IterativeM4C and its multilevel
-    variant), IterativeMCAN, ViTmT5 and JointTransformer trees, told apart by
-    their top-level keys.
+    variant), IterativeMCAN, ViTmT5, JointTransformer and the classification
+    models (MCAN, SAAA, VanillaTransformer, ParallelAttentionTransformer,
+    HierarchicalCoAttention; each text embedding: Usual, LSTM, hierarchical)
+    trees, told apart by their top-level keys.
     `config` (the MODEL node) is accepted for symmetry with the JAX converters;
     the tree alone determines the layer counts."""
     if "joint_encoder" in tree:
@@ -316,6 +457,14 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
         return _mmf_m4c(tree)
     if "self_encoder" in tree and "decoder" in tree:
         return _iterative_mcan(tree)
+    if "self_encoder" in tree and "classify" in tree:
+        return _mcan(tree)
+    if "CoAttention_0" in tree:
+        return _saaa(tree)
+    if "Encoder_0" in tree and "AttentionReduceMLP_0" in tree:
+        return _vanilla_transformer(tree)
+    if "CoAttentionEncoder_0" in tree and "DualStreamClassifier_0" in tree:
+        return _co_attention_model(tree)
     if "vision_encoder" in tree and "text_embedding" in tree and "fusion" in tree:
         return _vit_mt5(tree)
     if "streams" in tree and "encoder" in tree:

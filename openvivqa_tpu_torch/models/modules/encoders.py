@@ -1,11 +1,13 @@
-"""Encoder stacks: the self-attention encoder and MCAN's guided-attention one.
+"""Encoder stacks: the self-attention encoder, MCAN's guided-attention one and
+the ViLBERT co-attention one.
 
-Counterpart of ``EncoderLayer``, ``GuidedEncoderLayer``, ``Encoder`` and
-``GuidedAttentionEncoder`` in ``openvivqa_tpu/models/modules/encoders.py``, under
-the reference's parameter names (``layers.N.mhatt``, ``guided_attn_layers.N.
-self_mhatt`` ...).  The geometric, co-attention and cross-modality encoders wait
-for the models that use them (ROADMAP queue 1, slice 5).  A `generator` selects
-the training route (dropout drawn from it).
+Counterpart of ``EncoderLayer``, ``GuidedEncoderLayer``, ``Encoder``,
+``GuidedAttentionEncoder`` and ``CoAttentionEncoder`` in
+``openvivqa_tpu/models/modules/encoders.py``, under the reference's parameter
+names (``layers.N.mhatt``, ``guided_attn_layers.N.self_mhatt``,
+``vision_language_attn_layers.N.mhatt`` ...).  The geometric and
+cross-modality encoders wait for the models that use them (ROADMAP queue 1,
+item 5).  A `generator` selects the training route (dropout drawn from it).
 """
 
 from __future__ import annotations
@@ -86,3 +88,40 @@ class GuidedAttentionEncoder(nn.Module):
             out = layer(out, language_features, language_features, vision_padding_bias,
                         language_padding_bias, generator)
         return out
+
+
+@META_ENCODER.register()
+class CoAttentionEncoder(nn.Module):
+    """ViLBERT's co-attention stack.  Both streams share one sinusoid table,
+    each behind its own LayerNorm; in each layer the vision stream
+    cross-attends the language stream, the language stream cross-attends the
+    vision stream as just updated, then each stream attends itself."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.pos_embedding = SinusoidPositionalEmbedding(config.D_MODEL)
+        self.vision_layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+        self.language_layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+
+        def stack(attention):
+            return nn.ModuleList(EncoderLayer(attention) for _ in range(config.LAYERS))
+
+        self.vision_language_attn_layers = stack(config.VISION_LANGUAGE_ATTENTION)
+        self.language_vision_attn_layers = stack(config.LANGUAGE_VISION_ATTENTION)
+        self.vision_self_attn_layers = stack(config.VISION_SELF_ATTENTION)
+        self.language_self_attn_layers = stack(config.LANGUAGE_SELF_ATTENTION)
+
+    def forward(self, vision_features, vision_padding_bias, language_features,
+                language_padding_bias, generator=None):
+        vision = self.vision_layer_norm(vision_features) + self.pos_embedding(vision_features)
+        language = (self.language_layer_norm(language_features)
+                    + self.pos_embedding(language_features))
+        for vl, lv, vs, ls in zip(self.vision_language_attn_layers,
+                                  self.language_vision_attn_layers,
+                                  self.vision_self_attn_layers,
+                                  self.language_self_attn_layers):
+            vision = vl(vision, language, language, language_padding_bias, generator)
+            language = lv(language, vision, vision, vision_padding_bias, generator)
+            vision = vs(vision, vision, vision, vision_padding_bias, generator)
+            language = ls(language, language, language, language_padding_bias, generator)
+        return vision, language

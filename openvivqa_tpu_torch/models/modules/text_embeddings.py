@@ -1,10 +1,14 @@
 """Text embeddings.
 
-Counterpart of ``UsualEmbedding`` in
+Counterpart of ``UsualEmbedding``, ``LSTMTextEmbedding`` (with its ``_LSTM``)
+and the registered ``HierarchicalFeaturesExtractor`` in
 ``openvivqa_tpu/models/modules/text_embeddings.py``, under the reference's
 parameter names (``components.weight``, or ``components.1`` for the projection
-of frozen pretrained vectors).  The LSTM, dynamic and OCR embeddings wait for
-the models that use them.  Every embedding returns
+of frozen pretrained vectors; the LSTM embedding's ``embedding``, ``proj`` and
+``lstm``).  The hierarchical extractor's names are the port's own
+(``embedding``, its UsualEmbedding, and ``convs.N``, one Conv1d per n-gram
+size): no reference converter reads them.  The dynamic and OCR embeddings wait
+for the models that use them.  Every embedding returns
 ``(features, (padding_bias, causal_bias))`` with additive 0 / MASK_VALUE biases.
 """
 
@@ -17,6 +21,10 @@ from torch import nn
 from ...builders import META_TEXT_EMBEDDING
 from .bert import dropout
 from .masks import causal_bias, padding_bias
+
+
+def _token_masks(tokens: torch.Tensor, padding_idx: int):
+    return padding_bias(tokens, padding_idx), causal_bias(tokens.shape[-1], tokens.device)
 
 
 @META_TEXT_EMBEDDING.register()
@@ -45,10 +53,82 @@ class UsualEmbedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor, generator=None):
         tokens = tokens.long()
-        masks = (padding_bias(tokens, self.padding_idx),
-                 causal_bias(tokens.shape[-1], tokens.device))
+        masks = _token_masks(tokens, self.padding_idx)
         if self.pretrained:
             features = self.components["1"](F.embedding(tokens, self.word_vectors))
             return dropout(features, self.dropout, generator), masks
         features = self.components(tokens) * (tokens != self.padding_idx)[..., None]
         return features, masks
+
+
+@META_TEXT_EMBEDDING.register()
+class LSTMTextEmbedding(nn.Module):
+    """Embed (a learned table whose padding row reads as zero at every
+    forward, or the vocab's frozen pretrained vectors), project, dropout, then
+    a one-layer LSTM over the whole padded sequence (not packed: the padded
+    steps run too, as in the JAX package).  flax's LSTM cell has one bias, on
+    its hidden kernels: here that is ``bias_hh_l0``, and ``bias_ih_l0`` is held
+    out of training (no gradient; zero unless a reference checkpoint sets it),
+    so that one Adam step moves the summed bias as the JAX package's does."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.padding_idx = vocab.padding_idx
+        self.dropout = config.DROPOUT
+        self.pretrained = config.get("WORD_EMBEDDING") is not None
+        if self.pretrained:
+            if vocab.word_embeddings is None:
+                raise ValueError(
+                    "TEXT_EMBEDDING.WORD_EMBEDDING is set but the vocab has no word_embeddings "
+                    "loaded (a stale vocab cache? a mismatched vocab config?)"
+                )
+            vectors = torch.as_tensor(vocab.word_embeddings, dtype=torch.float32)
+            self.register_buffer("word_vectors", vectors, persistent=False)
+            d_embedding = vectors.shape[1]
+        else:
+            self.embedding = nn.Embedding(len(vocab), config.D_EMBEDDING)
+            d_embedding = config.D_EMBEDDING
+        self.proj = nn.Linear(d_embedding, config.D_MODEL)
+        self.lstm = nn.LSTM(config.D_MODEL, config.D_MODEL, batch_first=True)
+        self.lstm.bias_ih_l0.requires_grad_(False)
+
+    def forward(self, tokens: torch.Tensor, generator=None):
+        tokens = tokens.long()
+        masks = _token_masks(tokens, self.padding_idx)
+        if self.pretrained:
+            embedded = F.embedding(tokens, self.word_vectors)
+        else:
+            embedded = self.embedding(tokens) * (tokens != self.padding_idx)[..., None]
+        features = dropout(self.proj(embedded), self.dropout, generator)
+        out, _ = self.lstm(features.contiguous())
+        return out, masks
+
+
+def conv_windows(conv: nn.Conv1d, features: torch.Tensor) -> torch.Tensor:
+    """A 'valid' Conv1d over the time axis of channels-last features:
+    (bs, L, d_in) -> (bs, L - n + 1, d_out)."""
+    return conv(features.transpose(1, 2)).transpose(1, 2)
+
+
+@META_TEXT_EMBEDDING.register()
+class HierarchicalFeaturesExtractor(nn.Module):
+    """A UsualEmbedding, then one Conv1d per n-gram size; each n-gram window's
+    feature is added into every token position the window covers, and the
+    sizes' sums are added, so the output stays token-aligned (bs, L, D) under
+    the token masks."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.ngrams = [int(n) for n in config.N_GRAMS]
+        self.embedding = UsualEmbedding(config, vocab)
+        self.convs = nn.ModuleList(
+            nn.Conv1d(config.D_MODEL, config.D_MODEL, n) for n in self.ngrams)
+
+    def forward(self, tokens: torch.Tensor, generator=None):
+        features, masks = self.embedding(tokens, generator)
+        out = None
+        for n, conv in zip(self.ngrams, self.convs):
+            windows = conv_windows(conv, features)  # window p covers tokens [p, p + n)
+            acc = sum(F.pad(windows, (0, 0, offset, n - 1 - offset)) for offset in range(n))
+            out = acc if out is None else out + acc
+        return out, masks

@@ -1,2 +1,3 @@
+from . import classification_task  # noqa: F401  (registers ClassificationTask)
 from . import ocr_tasks  # noqa: F401  (registers TrainingMMF)
 from . import vlsp_evjvqa_task  # noqa: F401  (registers VlspEvjVqaTask)

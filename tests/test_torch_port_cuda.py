@@ -316,6 +316,38 @@ def test_packed_attention_kernel_matches_plain(dev, sq, sk, d, bias_form):
     assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
 
 
+@pytest.mark.parametrize("sq,sk", [(100, 100), (100, 12), (12, 12), (12, 100), (110, 110),
+                                   (100, 1), (1, 1)])
+def test_packed_attention_at_classification_shapes(dev, sq, sk):
+    """The classification models' encoder attentions (64 samples, 8 heads of
+    64 under a per-sample key-padding bias that masks every key of sample 0):
+    the regions' self-attention, the regions over the question's keys, the
+    question's self-attention, the question over the regions (the
+    co-attention models) and [regions | question] over itself
+    (VanillaTransformer), plus one key and one row; forward one launch within
+    ATTN_TOL of plain, and in training the plain backward's gradients through
+    the kernel's autograd function equal to plain's."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 1000 + sk)
+    heads, d = 8, 64
+    q = _randn(gen, 64, sq, heads * d)
+    k, v = _randn(gen, 64, sk, heads * d), _randn(gen, 64, sk, heads * d)
+    bias = _bias_of_form(gen, "per-sample keys", 64, sq, sk)
+    args = (q, k, v, bias, d ** -0.5, heads)
+    before = _cuda.launch_counts()["fused_attention_packed"]
+    got = fused_attention.fused_attention_packed(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["fused_attention_packed"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fused_attention.fused_attention_packed(*leaves, *args[3:]).sum().backward()
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fused_attention.fused_attention_packed_plain(*plain, *args[3:]).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _err(a.grad, b.grad) <= ATTN_TOL * max(1.0, float(b.grad.abs().max()))
+
+
 @pytest.mark.parametrize("block", ["single", "resident", "ring"])
 def test_packed_attention_blocks_agree_at_one_shape(dev, block):
     """Every packed block, forced, at one shape each can take (4 rows, 215

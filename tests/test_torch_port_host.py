@@ -64,10 +64,14 @@ def _vocab_config(paths, kind="OcrVocab"):
 @pytest.mark.parametrize("kind,split,shuffle", [
     ("OcrFeatureDataset", "train", True), ("OcrDictionaryDataset", "dev", False),
     ("FeatureDataset", "train", True), ("DictionaryDataset", "dev", False),
+    ("FeatureClassificationDataset", "train", True),
+    ("FeatureClassificationDataset", "test", False),
 ])
 def test_loader_batches_match_the_jax_package(synthetic_data, kind, split, shuffle):
     builders.populate()
-    vocab_config = _vocab_config(synthetic_data, "OcrVocab" if kind.startswith("Ocr") else "Vocab")
+    vocab_kind = ("OcrVocab" if kind.startswith("Ocr") else "ClassificationVocab"
+                  if kind == "FeatureClassificationDataset" else "Vocab")
+    vocab_config = _vocab_config(synthetic_data, vocab_kind)
     ours = builders.build_vocab(vocab_config)
     theirs = jax_builders.build_vocab(vocab_config)
     assert ours.itos == theirs.itos
@@ -107,3 +111,27 @@ def test_compute_scores_matches_the_jax_package():
     assert sorted(per_sample) == sorted(want_per_sample)
     for metric, values in want_per_sample.items():
         np.testing.assert_array_equal(np.asarray(per_sample[metric]), np.asarray(values))
+
+
+def test_classification_vocab_matches_the_jax_package(synthetic_data):
+    """The port's ClassificationVocab against the JAX package's: the same
+    classes (sorted answers), lengths and specials, the same encoded answer
+    of every train annotation, and decode_answer under both spellings."""
+    builders.populate()
+    vocab_config = _vocab_config(synthetic_data, "ClassificationVocab")
+    ours = builders.build_vocab(vocab_config)
+    theirs = jax_builders.build_vocab(vocab_config)
+    assert type(ours).__name__ == type(theirs).__name__ == "ClassificationVocab"
+    assert ours.itoa == theirs.itoa and ours.atoi == theirs.atoi
+    assert ours.total_answers == theirs.total_answers == len(ours.itoa) > 1
+    assert (ours.max_question_length, ours.max_answer_length, ours.padding_idx) == (
+        theirs.max_question_length, theirs.max_answer_length, theirs.padding_idx)
+    config = _dataset_config(synthetic_data, "FeatureClassificationDataset")
+    got = builders.build_dataset(synthetic_data["train"], ours, config)
+    want = jax_builders.build_dataset(synthetic_data["train"], theirs, config)
+    assert got.questions == want.questions and got.answers == want.answers
+    for answer in got.answers:
+        np.testing.assert_array_equal(ours.encode_answer(answer), theirs.encode_answer(answer))
+    ids = np.arange(ours.total_answers)
+    assert ours.decode_answer(ids, join_word=True) == theirs.decode_answer(ids, join_word=True)
+    assert ours.decode_answer(ids) == theirs.decode_answer(ids)
