@@ -146,6 +146,32 @@ Phases, each fatal on failure:
      at every shape one eval forward gives it, on that forward's own inputs
      (64 x 110 x 110 for VanillaTransformer; the co-attention models' 64 x
      100 x Lq, 64 x Lq x 100, 64 x 100 x 100 and 64 x Lq x Lq); phase 10's
+     seconds;
+ 11. the rest of the M4C family at its widths (random weights from the seed,
+     TEXT_BERT.LOAD_PRETRAINED false) on one synthetic set of 120 images (100
+     regions x 1024, 49 grids x 2048, up to 100 OCR tokens, questions of 10, T =
+     5), each config at its own batch sizes: ``configs/m4c.yaml`` (the
+     standalone M4C under TrainingMMF: 512 wide, 8 heads of 64, 4 question + 4
+     joint layers, FFN 3072) through ``evaluate_metrics`` in both decode modes
+     with exact launch counts (quadratic: F 4, C 4 + 4T, packed 4T a batch;
+     incremental: F 8, C 8 + 4T, D 4T), phase 4's kernel vs plain checks, the
+     incremental against the context-blind quadratic greedy, kernels C, D and
+     the packed attention against their plain versions on the inputs one
+     forward gives them (``capture_calls``), then one step's gradients on both
+     paths, ``start()`` for one epoch (batches of 16) and ``get_predictions()``,
+     then the dropout pair against its plain versions on the inputs one train
+     step gives it (16 x 165 x 165 under the prefix-LM bias, 16 x 10 x 10);
+     ``configs/iterative_m4c.yaml`` (IterativeM4C under OcrOpenEndedTask):
+     beam-3 ``evaluate_metrics`` (packed = 4 x T x batches, nothing else), one
+     batch on the kernel and plain routes and in the incremental mode against
+     the context-blind quadratic one (token agreement, cumulative log-probs of
+     the agreeing beams), the packed kernel under the prefix-LM bias and at one
+     query row, one epoch and predictions; then
+     ``small_mmf_improved_decoding_m4c``, ``experimental_mmf_m4c`` (its OCR
+     input at the data's 812 columns, as flax infers it; the config says
+     1024), ``mmf_iterative_lorra`` and ``mmf_lorra`` (MmfClassificationTask; no kernel launched, its attentions plain as in the
+     JAX package): a dev eval with exact launches, the kernel vs plain scores
+     (not for ``mmf_lorra``) and the gradients of the train split; phase 11's
      seconds.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
@@ -154,7 +180,8 @@ report, and checks in the library's SASS (cuobjdump) that no wgmma kernel
 writes an operand of a product after its fence, or touches it before the wait
 (``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8, 9 and 10: each eval route, start() and
-get_predictions(); 9: each long-stream forward; 10: each config's dev eval) and read just after it, kernel
+get_predictions(); 9: each long-stream forward; 10 and 11: each config's dev eval and
+each decode mode) and read just after it, kernel
 C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
@@ -659,7 +686,6 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
     JointTransformer task, whose dev batch gives the flat attention its
     shapes."""
     import torch
-    import torch.nn.functional as F
 
     from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
     from openvivqa_tpu_torch.models.modules.bert import LN_EPS
@@ -732,38 +758,6 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
         context = randn(rows, hd, dtype=bf16)
         cublas_reference(lambda: (x.view(rows, hd).to(bf16) @ a["wqkv"], context @ a["wo"]))
 
-    def sdpa_args(q, k, v, bias, grad=False, n_heads=heads):
-        """Head-split views of the packed projections, for the library call."""
-        def split(x):
-            x = x.detach().requires_grad_(grad)
-            return x, x.view(x.shape[0], x.shape[1], n_heads, -1).transpose(1, 2)
-
-        (q0, qh), (k0, kh), (v0, vh) = split(q), split(k), split(v)
-        return (q0, k0, v0), (qh, kh, vh), bias
-
-    def sdpa_call(q, k, v, bias, dropout_p=0.0, backward=False, n_heads=heads, sc=scale):
-        """One library call on the head-split views, as a callable to time."""
-        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward, n_heads=n_heads)
-        g = torch.ones_like(qh)
-
-        def call():
-            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
-                                                 scale=sc)
-            if backward:
-                out.backward(g)
-
-        return call
-
-    def sdpa_backward_call(q, k, v, bias, dropout_p, n_heads=heads, sc=scale):
-        """SDPA's backward alone: the graph is built once, outside the timed
-        callable, and each call runs its backward again (the gradients of the
-        head-split views, returned, not accumulated into leaves)."""
-        leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=True, n_heads=n_heads)
-        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
-                                             scale=sc)
-        g = torch.ones_like(out)
-        return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
-
     # packed: the MMT joint encode under its per-sample prefix-LM bias, then a
     # batch-shared bias
     q, k, v = randn(BATCH, joint, hd), randn(BATCH, joint, hd), randn(BATCH, joint, hd)
@@ -782,7 +776,7 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
                    lambda: fused_attention.fused_attention_packed(*args),
                    lambda: fused_attention.fused_attention_packed_plain(*args),
                    4.0 * BATCH * joint * joint * hd, tensor_bytes(q, k, v, bias, out),
-                   sdpa_call(q, k, v, bias))
+                   sdpa_call(q, k, v, bias, n_heads=heads, sc=scale))
         # both sides of the single-query cut-over at the MMT geometry (Sq query rows
         # over the joint keys under a per-sample bias)
         for sq in CUT_OVER_ROWS:
@@ -818,50 +812,12 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
     )
     for what, (q_, k_, v_, bias), n_heads in dropout_cases:
         what = f"{what}, rate {DROPOUT_RATE}"
-        width = q_.shape[2]
-        sc = 1.0 / float(width // n_heads) ** 0.5
-        g = randn(*q_.shape)
-        fwd_args = (q_, k_, v_, bias, seed_t, sc, n_heads, DROPOUT_RATE)
-        out, stats, bits = fused_attention._dropout_forward_kernel(*fwd_args)
-        err = max_err(out, fused_attention.fused_attention_packed_dropout_plain(*fwd_args))
-        s_q, s_k = q_.shape[1], k_.shape[1]
-        # the mask the backward reads is the plain version's, bit for bit
-        want_bits = fused_attention.dropout_mask_bits(seed_t, BATCH, n_heads, s_q, s_k, DROPOUT_RATE)
-        if not torch.equal(bits, want_bits):
-            failures.append(f"dropout forward [{what}]: keep bits differ from dropout_mask_bits")
-        record("fused_attention_packed_dropout", what, err, ATTN_TOL,
-               lambda: fused_attention._dropout_forward_kernel(*fwd_args),
-               lambda: fused_attention.fused_attention_packed_dropout_plain(*fwd_args),
-               # the function's own traffic: the stats and keep bits the forward
-               # hands the backward are this design's, not the function's
-               4.0 * BATCH * s_q * s_k * width, tensor_bytes(q_, k_, v_, bias, seed_t, out),
-               sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, n_heads=n_heads, sc=sc))
-        grads = fused_attention._dropout_backward_kernel(
-            q_, k_, v_, bias, stats, bits, g, sc, n_heads, DROPOUT_RATE)
-        plain = fused_attention.fused_attention_packed_dropout_backward_plain(
-            q_, k_, v_, bias, seed_t, g, sc, n_heads, DROPOUT_RATE)
-        errs = [max_err(a, b) for a, b in zip(grads, plain)]
-        rel = max(e / float(b.abs().max()) for e, b in zip(errs, plain))
-        log(f"  fused_attention_packed_dropout_backward [{what}]: max|kernel-plain| / max|plain| "
-            f"over dq, dk, dv {rel:.3e} (tol {GRAD_RTOL:.0e})")
-        if not rel <= GRAD_RTOL:
-            failures.append(f"dropout backward [{what}]: relative err {rel} > {GRAD_RTOL}")
-        bwd_args = (q_, k_, v_, bias, stats, bits, g, sc, n_heads, DROPOUT_RATE)
-        plain_args = (q_, k_, v_, bias, seed_t, g, sc, n_heads, DROPOUT_RATE)
-        backward = lambda: fused_attention._dropout_backward_kernel(*bwd_args)  # noqa: E731
-        record("fused_attention_packed_dropout_backward", what + " (library: SDPA's backward alone)",
-               max(errs), math.inf, backward,
-               lambda: fused_attention.fused_attention_packed_dropout_backward_plain(*plain_args),
-               10.0 * BATCH * s_q * s_k * width,
-               tensor_bytes(q_, k_, v_, g, bias, grads),
-               sdpa_backward_call(q_, k_, v_, bias, DROPOUT_RATE, n_heads=n_heads, sc=sc))
-        split = device_by_kernel(backward)
-        both = sdpa_call(q_, k_, v_, bias, dropout_p=DROPOUT_RATE, backward=True, n_heads=n_heads,
-                         sc=sc)
-        log(f"    backward by kernel, device ms: "
-            + ", ".join(f"{name} {us / 1e3:.4f}" for name, (us, _) in split.items())
-            + f"; one SDPA forward + backward at this shape: call {median_ms(both):.4f} ms, "
-            f"device {device_ms(both)[0]:.4f} ms")
+        sc = 1.0 / float(q_.shape[2] // n_heads) ** 0.5
+        stats, bits = check_dropout_forward(
+            what, (q_, k_, v_, bias, seed_t, sc, n_heads, DROPOUT_RATE), record, failures)
+        check_dropout_backward(
+            what, (q_, k_, v_, bias, stats, bits, randn(*q_.shape), sc, n_heads, DROPOUT_RATE),
+            seed_t, record, failures)
 
     # kernel D: every decode step of one sequence, kernel and plain on their own
     # slot caches; then the time of one step
@@ -899,6 +855,70 @@ def check_kernels(task, shapes, seed, failures, generative, iterative, joint_tas
     check_streamed_cross(iterative, gen, record, failures)
     check_flat_and_streamed(joint_task, gen, record, failures)
     return results
+
+
+def check_dropout_forward(what, args, record, failures):
+    """The dropout forward kernel on args (q, k, v, bias, seed, scale, heads,
+    rate) against its plain version within ATTN_TOL, its keep bits equal to
+    ``dropout_mask_bits``, bit for bit (the mask the backward reads); returns
+    the (stats, bits) it hands the backward."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    kernel = fused_attention._dropout_forward_kernel
+    plain = fused_attention.fused_attention_packed_dropout_plain
+    q, k, v, bias, seed, scale, heads, rate = args
+    bs, sq, sk, hd = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
+    with torch.no_grad():
+        out, stats, bits = kernel(*args)
+        if not torch.equal(bits, fused_attention.dropout_mask_bits(seed, bs, heads, sq, sk, rate)):
+            failures.append(f"dropout forward [{what}]: keep bits differ from dropout_mask_bits")
+        record("fused_attention_packed_dropout", what, max_err(out, plain(*args)), ATTN_TOL,
+               lambda: kernel(*args), lambda: plain(*args),
+               # the function's own traffic: the stats and keep bits the forward
+               # hands the backward are this design's, not the function's
+               4.0 * bs * sq * sk * hd, tensor_bytes(q, k, v, bias, seed, out),
+               sdpa_call(q, k, v, bias, n_heads=heads, sc=scale, dropout_p=rate))
+    return stats, bits
+
+
+def check_dropout_backward(what, args, seed, record, failures):
+    """The dropout backward kernel on args (q, k, v, bias, stats, bits, g,
+    scale, heads, rate) against its plain version, which regenerates the mask
+    from the forward's `seed`: max|kernel - plain| over dq, dk and dv within
+    GRAD_RTOL of the largest plain gradient; then its device time by kernel
+    beside one SDPA forward + backward."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    kernel = fused_attention._dropout_backward_kernel
+    plain = fused_attention.fused_attention_packed_dropout_backward_plain
+    q, k, v, bias, stats, bits, g, scale, heads, rate = args
+    bs, sq, sk, hd = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
+    plain_args = (q, k, v, bias, seed, g, scale, heads, rate)
+    if not torch.equal(bits, fused_attention.dropout_mask_bits(seed, bs, heads, sq, sk, rate)):
+        failures.append(f"dropout backward [{what}]: keep bits differ from dropout_mask_bits")
+    grads, want = kernel(*args), plain(*plain_args)
+    errs = [max_err(a, b) for a, b in zip(grads, want)]
+    rel = max(e / float(b.abs().max()) for e, b in zip(errs, want))
+    log(f"  fused_attention_packed_dropout_backward [{what}]: max|kernel-plain| / max|plain| "
+        f"over dq, dk, dv {rel:.3e} (tol {GRAD_RTOL:.0e})")
+    if not rel <= GRAD_RTOL:
+        failures.append(f"dropout backward [{what}]: relative err {rel} > {GRAD_RTOL}")
+    # SDPA's backward builds its graph: outside no_grad
+    record("fused_attention_packed_dropout_backward",
+           what + " (library: SDPA's backward alone)", max(errs), math.inf,
+           lambda: kernel(*args), lambda: plain(*plain_args),
+           10.0 * bs * sq * sk * hd, tensor_bytes(q, k, v, g, bias, grads),
+           sdpa_backward_call(q, k, v, bias, rate, n_heads=heads, sc=scale))
+    split = device_by_kernel(lambda: kernel(*args))
+    both = sdpa_call(q, k, v, bias, n_heads=heads, sc=scale, dropout_p=rate, backward=True)
+    log("    backward by kernel, device ms: "
+        + ", ".join(f"{name} {us / 1e3:.4f}" for name, (us, _) in split.items())
+        + f"; one SDPA forward + backward at this shape: call {median_ms(both):.4f} ms, "
+        f"device {device_ms(both)[0]:.4f} ms")
 
 
 def check_streamed_cross(task, gen, record, failures):
@@ -1326,7 +1346,7 @@ def run_epoch(task, failures, label="train", expected=MMF_TRAIN_KERNELS):
     log(f"  [{label}] launches: {json.dumps(counts)}; peak device memory {peak_gb:.2f} GB"
         f"{rows_text()}")
     n_train = len(task.train_dataset)
-    want_steps = -(-n_train // BATCH)
+    want_steps = -(-n_train // task.train_dataloader.batch_size)
     if len(losses) != want_steps or not all(math.isfinite(x) for x in losses):
         failures.append(f"[{label}] losses {losses}: want {want_steps} finite values")
     for name in expected:
@@ -1384,18 +1404,20 @@ def check_train_step(task, failures, label, check_grads=False):
     with plain_versions():
         plain_ms = [median_ms(step, reps=5), median_ms(step, reps=5)]
     kernel_ms.append(median_ms(step, reps=5))
-    log(f"  [{label}] one train step of {BATCH} (CUDA-event median of 5, in turns): kernel path "
+    rows = task.train_dataloader.batch_size
+    log(f"  [{label}] one train step of {rows} (CUDA-event median of 5, in turns): kernel path "
         f"{kernel_ms[0]:.3f}, {kernel_ms[1]:.3f} ms; plain path {plain_ms[0]:.3f}, "
         f"{plain_ms[1]:.3f} ms")
     profile(step, f"{label} step")
 
 
-def check_gradients(task, failures, label):
+def check_gradients(task, failures, label, no_gradient=()):
     """The gradients of the losses summed over the train split (every
     parameter then has the data it could get a gradient from, an OCR copy
     among the answers included): finite on every trainable parameter and
     non-zero except the key-projection biases; none, or zero, on a frozen
-    parameter."""
+    parameter and on the parameters whose names start with one of
+    `no_gradient` (those the model's output does not read)."""
     import torch
 
     task.optimizer.zero_grad(set_to_none=True)
@@ -1403,7 +1425,7 @@ def check_gradients(task, failures, label):
         task.compute_loss(batch).backward()
     bad, frozen = [], 0
     for name, p in task.model.named_parameters():
-        if not p.requires_grad:
+        if not p.requires_grad or name.startswith(no_gradient):
             frozen += 1
             if p.grad is not None and bool(p.grad.any()):
                 bad.append(name)
@@ -1412,8 +1434,8 @@ def check_gradients(task, failures, label):
             bad.append(name)
     n_params = sum(1 for _ in task.model.parameters())
     log(f"  [{label}] gradients over the train split: {n_params - len(bad)} of {n_params} "
-        f"parameter tensors as required ({frozen} frozen: no gradient; the rest finite, "
-        "non-zero except the gradient-free key biases)")
+        f"parameter tensors as required ({frozen} frozen or unread: no gradient; the rest "
+        "finite, non-zero except the gradient-free key biases)")
     if bad:
         failures.append(f"[{label}] missing, non-finite, zero or frozen-but-nonzero gradients: "
                         f"{bad[:8]}")
@@ -1613,7 +1635,7 @@ def one_greedy_batch(task, label, failures, want):
     return counts
 
 
-def compare_decode_modes(quadratic, incremental, failures):
+def compare_decode_modes(quadratic, incremental, failures, label="iterative"):
     """The incremental greedy against the quadratic one on one dev batch
     (the two tasks hold the same weights, drawn from one seed)."""
     import torch
@@ -1627,11 +1649,11 @@ def compare_decode_modes(quadratic, incremental, failures):
     agreement = float((out_q.argmax(-1) == out_i.argmax(-1)).float().mean())
     unmasked = out_q > MASK_VALUE / 2
     diff = max_err(out_q[unmasked], out_i[unmasked])
-    log(f"  [iterative] incremental vs quadratic greedy, one batch: token agreement "
+    log(f"  [{label}] incremental vs quadratic greedy, one batch: token agreement "
         f"{agreement * 100:.2f}% of {out_q.shape[0] * out_q.shape[1]} tokens, max|score diff| "
         f"{diff:.3e} (unmasked scores)")
     if agreement < 0.9:
-        failures.append(f"[iterative] incremental vs quadratic token agreement {agreement}")
+        failures.append(f"[{label}] incremental vs quadratic token agreement {agreement}")
 
 
 def with_data(config_file, paths, seed, checkpoint, model=None, features_only=False):
@@ -2378,47 +2400,31 @@ def packed_per_batch(model) -> int:
 
 def classification_eval(task, label, failures, timed=False):
     """The dev split through ``evaluate_metrics`` on the kernel path: exactly
-    packed_per_batch x batches packed launches and no plain version called.
-    With `timed`, eval samples/s on both paths (kernel, plain, plain, kernel)."""
+    packed_per_batch x batches packed launches, nothing else, and no plain
+    version called (``exact_eval``).  With `timed`, eval samples/s on both
+    paths (kernel, plain, plain, kernel)."""
     import torch
 
-    from openvivqa_tpu_torch.ops import _cuda
-
     n_valid, n_batches = len(task.dev_dataset), len(task.dev_dataloader)
-    want = packed_per_batch(task.config.MODEL) * n_batches
 
     def timed_eval():
         torch.cuda.synchronize()
         start = time.perf_counter()
-        result = task.evaluate_metrics(task.dev_dataloader)
+        task.evaluate_metrics(task.dev_dataloader)
         torch.cuda.synchronize()
-        return result, time.perf_counter() - start
+        return time.perf_counter() - start
 
     # one batch first, so that the libraries' first-call set-up is not in the timed runs
     _, first = next(task.device_batches(task.dev_dataloader))
     task.predict(first)
     torch.cuda.synchronize()
-
-    plain_calls = {}
-    with count_plain_calls(plain_calls):
-        _cuda.reset_launch_counts()
-        scores, seconds = timed_eval()
-        counts = counts_now()
-    log(f"  [{label}] dev scores {json.dumps(scores, default=float)}; launches "
-        f"{json.dumps({k: v for k, v in counts.items() if v})}; plain calls "
-        f"{json.dumps(plain_calls)}")
-    if counts["fused_attention_packed"] != want:
-        failures.append(f"[{label}] fused_attention_packed: {counts['fused_attention_packed']} "
-                        f"launches, want {want} ({n_batches} dev batches)")
-    others = {k: v for k, v in counts.items() if v and k != "fused_attention_packed"}
-    if others or plain_calls:
-        failures.append(f"[{label}] other kernels {others} or plain versions {plain_calls}")
-    if task.score_name not in scores or not math.isfinite(scores[task.score_name]):
-        failures.append(f"[{label}] no finite {task.score_name} in the dev scores")
+    counts = exact_eval(task, label, failures, exact_launches(
+        fused_attention_packed=packed_per_batch(task.config.MODEL) * n_batches))
     if timed:
+        kernel_seconds = [timed_eval()]
         with plain_versions():
-            plain_seconds = [timed_eval()[1], timed_eval()[1]]
-        kernel_seconds = [seconds, timed_eval()[1]]
+            plain_seconds = [timed_eval(), timed_eval()]
+        kernel_seconds.append(timed_eval())
         for name, runs in (("kernel", kernel_seconds), ("plain", plain_seconds)):
             log(f"  [{label}] eval loop, {name} path: {n_valid} samples in "
                 + ", ".join(f"{t:.3f} s ({n_valid / t:.2f} samples/s)" for t in runs))
@@ -2453,6 +2459,156 @@ def compare_classification_paths(task, label, failures):
         failures.append(f"[{label}] argmax agreement {agree} of {total} < {ARGMAX_AGREEMENT}")
 
 
+def exact_launches(**given) -> dict:
+    """Every kernel's launch count: those given, none of the others."""
+    from openvivqa_tpu_torch.ops import _cuda
+
+    return {name: given.get(name, 0) for name in _cuda.LAUNCHES}
+
+
+def exact_eval(task, label, failures, want):
+    """The dev split through ``evaluate_metrics`` with each kernel launched
+    exactly `want[name]` times and no plain version called; returns the
+    counts."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    loader = task.dev_dict_dataloader if hasattr(task, "dev_dict_dataloader") else \
+        task.dev_dataloader
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        scores = task.evaluate_metrics(loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = counts_now()
+    log(f"  [{label}] dev eval ({len(loader)} batches of {loader.batch_size}): {seconds:.3f} s, "
+        f"scores {json.dumps(scores, default=float)}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; plain calls "
+        f"{json.dumps(plain_calls)}{rows_text()}")
+    for name, n in want.items():
+        if counts[name] != n:
+            failures.append(f"[{label}] {name}: {counts[name]} launches, want {n}")
+    if plain_calls:
+        failures.append(f"[{label}] plain versions were called: {plain_calls}")
+    if task.score_name not in scores or not math.isfinite(scores[task.score_name]):
+        failures.append(f"[{label}] no finite {task.score_name} in the dev scores")
+    return counts
+
+
+def _clone_tree(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone_tree(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def capture_calls(module, name: str, key, calls: dict):
+    """Route `module.name` through a recorder that keeps, for each key(args)
+    met, a copy of the first call's (args, kwargs) taken before the call."""
+    original = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        if key(args) not in calls:
+            calls[key(args)] = (_clone_tree(args), _clone_tree(kwargs))
+        return original(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def sdpa_args(q, k, v, bias, grad, n_heads):
+    """Head-split views of the packed projections, for the library call."""
+    def split(x):
+        x = x.detach().requires_grad_(grad)
+        return x, x.view(x.shape[0], x.shape[1], n_heads, -1).transpose(1, 2)
+
+    (q0, qh), (k0, kh), (v0, vh) = split(q), split(k), split(v)
+    return (q0, k0, v0), (qh, kh, vh), bias
+
+
+def sdpa_call(q, k, v, bias, n_heads, sc, dropout_p=0.0, backward=False):
+    """One library call on the head-split views, as a callable to time."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=backward, n_heads=n_heads)
+    g = torch.ones_like(qh)
+
+    def call():
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
+                                             scale=sc)
+        if backward:
+            out.backward(g)
+
+    return call
+
+
+def sdpa_backward_call(q, k, v, bias, dropout_p, n_heads, sc):
+    """SDPA's backward alone: the graph is built once, outside the timed
+    callable, and each call runs its backward again (the gradients of the
+    head-split views, returned, not accumulated into leaves)."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves, (qh, kh, vh), mask = sdpa_args(q, k, v, bias, grad=True, n_heads=n_heads)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=dropout_p,
+                                         scale=sc)
+    g = torch.ones_like(out)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+
+
+def sdpa_library(q, k, v, bias, scale, heads):
+    """One float32 scaled_dot_product_attention call on the head-split views
+    of packed projections, as a callable to time (never called by the port)."""
+    import torch.nn.functional as F
+
+    bs = q.shape[0]
+    qh, kh, vh = (x.reshape(bs, x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale)
+
+
+def check_packed_calls(calls, label, record):
+    """The packed kernel against its plain version on each captured call."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    kernel, plain = fused_attention.fused_attention_packed, \
+        fused_attention.fused_attention_packed_plain
+    with torch.no_grad():
+        for (bs, sq, sk, hd, heads, full), (args, _) in calls.items():
+            q, k, v, bias = args[:4]
+            out = kernel(*args)
+            block = fused_attention.attention_block("packed", sq, sk, hd // heads, hd // heads)
+            record("fused_attention_packed",
+                   f"{label} {bs} x {sq} x {sk}, {heads} heads of {hd // heads}, "
+                   f"{'full (b, 1, Sq, Sk)' if full else 'key-only'} bias, block {block}",
+                   max_err(out, plain(*args)), ATTN_TOL, lambda a=args: kernel(*a),
+                   lambda a=args: plain(*a), 4.0 * bs * sq * sk * hd,
+                   tensor_bytes(q, k, v, bias, out), sdpa_library(*args))
+
+
+def packed_key(args):
+    """A packed call's shape: (b, Sq, Sk, hd, heads, whether the bias is per
+    query row)."""
+    q, k, bias, heads = args[0], args[1], args[3], args[5]
+    full = bias is not None and bias.ndim == 4 and bias.shape[2] > 1
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], heads, full)
+
+
 def check_packed_at_path_shapes(task, label, record, failures):
     """The packed kernel against its plain version at every shape one eval
     forward of the first dev batch gives it (MCAN: the regions'
@@ -2461,44 +2617,71 @@ def check_packed_at_path_shapes(task, label, record, failures):
     the co-attention models also the question over the regions), on the
     inputs of that shape's first call there, beside one float32 SDPA call."""
     import torch
-    import torch.nn.functional as F
 
     from openvivqa_tpu_torch.ops import fused_attention
 
-    kernel, calls = fused_attention.fused_attention_packed, {}
-
-    def capture(q, k, v, bias, scale, heads):
-        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], heads)
-        calls.setdefault(key, tuple(x.clone() if torch.is_tensor(x) else x
-                                    for x in (q, k, v, bias, scale, heads)))
-        return kernel(q, k, v, bias, scale, heads)
-
+    calls = {}
     _, batch = next(task.device_batches(task.dev_dataloader))
     task.model.eval()
-    fused_attention.fused_attention_packed = capture
-    try:
-        with torch.no_grad():
-            task.model(batch)
-    finally:
-        fused_attention.fused_attention_packed = kernel
+    with torch.no_grad(), capture_calls(fused_attention, "fused_attention_packed", packed_key,
+                                        calls):
+        task.model(batch)
     if not calls:
         failures.append(f"[{label}] no packed attention call in one eval forward")
+    check_packed_calls(calls, label, record)
 
-    def sdpa(q, k, v, bias, scale, heads):
-        bs = q.shape[0]
-        qh, kh, vh = (x.reshape(bs, x.shape[1], heads, -1).transpose(1, 2) for x in (q, k, v))
-        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale)
 
-    with torch.no_grad():
-        for (bs, sq, sk, hd, heads), args in calls.items():
-            q, k, v, bias = args[:4]
-            out = kernel(*args)
-            block = fused_attention.attention_block("packed", sq, sk, hd // heads, hd // heads)
-            record("fused_attention_packed",
-                   f"{label} {bs} x {sq} x {sk}, {heads} heads of {hd // heads}, block {block}",
-                   max_err(out, fused_attention.fused_attention_packed_plain(*args)), ATTN_TOL,
-                   lambda: kernel(*args), lambda: fused_attention.fused_attention_packed_plain(*args),
-                   4.0 * bs * sq * sk * hd, tensor_bytes(q, k, v, bias, out), sdpa(*args))
+def check_dropout_at_path_shapes(task, label, record, failures):
+    """The dropout pair against its plain versions at every shape one train
+    step of the first train batch gives it: per shape, the first forward's
+    inputs and the first backward's (the stats, keep bits and upstream
+    gradient the step gave it, and the seed its forward drew, found through
+    the bits), each held as phase 3 holds its cases."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    forward = fused_attention._dropout_forward_kernel
+    backward = fused_attention._dropout_backward_kernel
+    forwards, backwards, seeds = {}, {}, {}
+
+    def key(q, k, bias, heads):
+        return packed_key((q, k, None, bias, None, heads))
+
+    def recording_forward(*args):
+        q, k, _, bias, seed, _, heads = args[:7]
+        forwards.setdefault(key(q, k, bias, heads), _clone_tree(args))
+        out = forward(*args)
+        seeds[out[2].data_ptr()] = seed.clone()  # the graph keeps each bits tensor alive
+        return out
+
+    def recording_backward(*args):
+        q, k, _, bias, _, bits, _, _, heads = args[:9]
+        backwards.setdefault(key(q, k, bias, heads),
+                             (_clone_tree(args), seeds[bits.data_ptr()]))
+        return backward(*args)
+
+    _, batch = next(task.device_batches(task.train_dataloader))
+    fused_attention._dropout_forward_kernel = recording_forward
+    fused_attention._dropout_backward_kernel = recording_backward
+    try:
+        task.generator.manual_seed(1234)
+        task.optimizer.zero_grad(set_to_none=True)
+        task.compute_loss(batch).backward()
+    finally:
+        fused_attention._dropout_forward_kernel = forward
+        fused_attention._dropout_backward_kernel = backward
+        task.optimizer.zero_grad(set_to_none=True)
+    if not forwards or sorted(forwards) != sorted(backwards):
+        failures.append(f"[{label}] dropout pair: forward shapes {sorted(forwards)}, backward "
+                        f"shapes {sorted(backwards)} in one train step")
+    for (bs, sq, sk, hd, heads, full), args in sorted(forwards.items()):
+        what = (f"{label} {bs} x {sq} x {sk}, {heads} heads of {hd // heads}, "
+                f"{'full (b, 1, Sq, Sk)' if full else 'key-only'} bias, rate {args[7]}")
+        check_dropout_forward(what, args, record, failures)
+        if (bs, sq, sk, hd, heads, full) in backwards:
+            bwd_args, seed = backwards[(bs, sq, sk, hd, heads, full)]
+            check_dropout_backward(what, bwd_args, seed, record, failures)
 
 
 def run_classification(paths, wide_paths, tmp, seed, failures, record):
@@ -2565,6 +2748,372 @@ def run_classification(paths, wide_paths, tmp, seed, failures, record):
             if not math.isfinite(loss) or bad:
                 failures.append(f"[{name}] train step: loss {loss}, bad gradients {bad[:4]}")
             del task
+        torch.cuda.empty_cache()
+        log(f"  [{name}] {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+# -- phase 11: the rest of the M4C family ---------------------------------------------------
+# MMF_LoRRA keeps only the *weights* of its spatial and context attentions:
+# their value and out projections take no part in the scores, so get no gradient
+LORRA_UNREAD = ("spatial_attn.fc_v.", "spatial_attn.fc_o.", "context_attn.fc_v.",
+                "context_attn.fc_o.")
+
+
+def bert_self_step_f64(x, w, ctx, slot_k, slot_v, step, ctx_bias, scale, heads, eps):
+    """Kernel D's function in float64 on the operands both versions round
+    alike (x to bf16 for the projection, the new k and v to the bf16 slots),
+    with the attention's context left unrounded, where the kernel and the
+    plain version each round it to bf16 for the out projection: (y, the rows'
+    pre-LayerNorm spread sigma)."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+
+    f64 = torch.float64
+    bs, hd = x.shape
+    n_slots = slot_k.shape[1]
+    t = min(step, n_slots - 1)
+    q, k_new, v_new = (x.to(torch.bfloat16).to(f64) @ w["wqkv"].to(f64)
+                       + w["bqkv"].to(f64)).split(hd, dim=-1)
+    keys, values = (torch.cat([c.to(f64), s.to(f64)], dim=1)
+                    for c, s in zip(ctx, (slot_k, slot_v)))
+    keys[:, ctx[0].shape[1] + t] = k_new.to(torch.bfloat16).to(f64)
+    values[:, ctx[0].shape[1] + t] = v_new.to(torch.bfloat16).to(f64)
+    slot_bias = torch.where(torch.arange(n_slots, device=x.device) <= t, 0.0, MASK_VALUE)
+    bias = torch.cat([ctx_bias.to(f64), slot_bias.to(f64).expand(bs, n_slots)], dim=1)
+    d = hd // heads
+    logits = torch.einsum("bhd,bkhd->bhk", q.view(bs, heads, d), keys.view(bs, -1, heads, d))
+    weights = torch.softmax(logits * scale + bias[:, None], dim=-1)
+    context = torch.einsum("bhk,bkhd->bhd", weights,
+                           values.view(bs, -1, heads, d)).reshape(bs, hd)
+    h = x.to(f64) + context @ w["wo"].to(f64) + w["bo"].to(f64)
+    sigma = (h.var(dim=-1, unbiased=False) + eps).sqrt()
+    y = (h - h.mean(dim=-1, keepdim=True)) / sigma[:, None] * w["ln_scale"].to(f64) \
+        + w["ln_bias"].to(f64)
+    return y, sigma
+
+
+def check_m4c_kernels(quadratic, incremental, record, failures):
+    """Kernels C, D and the packed attention at the standalone M4C's own
+    shapes: the inputs of their first calls (per row count; per step and
+    layer; per shape) in one teacher-forced forward on the greedy prefix
+    (quadratic) and one incremental greedy decode of the first dev batch, each
+    against its plain version.  D's error is also taken apart: by step and
+    layer, each version against a float64 evaluation, the rows' pre-LayerNorm
+    spread (LayerNorm multiplies a difference in its input by 1 / sigma), and
+    its time three times over."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import decode_step, fused_attention
+
+    _, batch = next(quadratic.device_batches(quadratic.dev_dict_dataloader))
+    ffn, steps, packed, layer_of = {}, {}, {}, {}
+    ffn_key = lambda a: (a[0].shape[0], a[1].shape[1])  # noqa: E731 (rows, d_ff)
+
+    def step_key(a):  # (step, layer): the layers take their first step in order
+        return a[5], layer_of.setdefault(a[1]["wo"].data_ptr(), len(layer_of))
+
+    with torch.no_grad():
+        prev_inds = quadratic.model.greedy_decode(batch)["prev_inds"]
+        with capture_calls(decode_step, "fused_ffn_step", ffn_key, ffn), \
+                capture_calls(fused_attention, "fused_attention_packed", packed_key, packed):
+            quadratic.model.compute_scores(batch, prev_inds)
+        with capture_calls(decode_step, "fused_ffn_step", ffn_key, ffn), \
+                capture_calls(decode_step, "fused_bert_self_step", step_key, steps):
+            incremental.model.greedy_decode(batch)
+    if not (ffn and steps and packed):
+        failures.append("[m4c kernels] a kernel was not called in the captured forward")
+    hd = quadratic.model.encoder.layer[0].attention.hidden_size
+    with torch.no_grad():
+        for (rows, d_ff), (args, kwargs) in sorted(ffn.items()):
+            out = decode_step.fused_ffn_step(*args, **kwargs)
+            record("fused_ffn_step", f"m4c {rows} rows, {hd} -> {d_ff}",
+                   max_err(out, decode_step.fused_ffn_step_plain(*args, **kwargs)), LN_TOL,
+                   lambda a=args, k=kwargs: decode_step.fused_ffn_step(*a, **k),
+                   lambda a=args, k=kwargs: decode_step.fused_ffn_step_plain(*a, **k),
+                   4.0 * rows * hd * d_ff, tensor_bytes(args[:7], out))
+        # kernel D at every step and layer of the decode, kernel and plain on
+        # their own copies of the slot caches as they stood before the step
+        y_err = slot_err = 0.0
+        by_step, by_layer, worst = {}, {}, None
+        to_f64 = {"kernel": 0.0, "plain": 0.0}
+        sigmas, pre_ln_max = [], 0.0
+        for (step, layer), (args, _) in sorted(steps.items()):
+            runs = []
+            for fn in (decode_step.fused_bert_self_step, decode_step.fused_bert_self_step_plain):
+                a = _clone_tree(args)
+                runs.append((fn(*a)[0], a[3], a[4]))
+            y64, sigma = bert_self_step_f64(*_clone_tree(args))
+            diff = (runs[0][0] - runs[1][0]).abs()
+            err = float(diff.max())
+            y_err = max(y_err, err)
+            by_step[step] = max(by_step.get(step, 0.0), err)
+            by_layer[layer] = max(by_layer.get(layer, 0.0), err)
+            for name, (y, _, _) in zip(("kernel", "plain"), runs):
+                to_f64[name] = max(to_f64[name], float((y.double() - y64).abs().max()))
+            row = int(diff.max(dim=-1).values.argmax())
+            # the difference before LayerNorm: each row's |dy| times its sigma
+            pre_ln_max = max(pre_ln_max, float((diff.double().max(dim=-1).values * sigma).max()))
+            if worst is None or err > worst[0]:
+                worst = (err, step, layer, float(sigma[row]))
+            sigmas.append(sigma)
+            slot_err = max(slot_err, max_err(runs[0][1], runs[1][1]),
+                           max_err(runs[0][2], runs[1][2]))
+        sigma = torch.cat(sigmas)
+        log(f"  fused_bert_self_step [m4c, {len(steps)} calls: {len(by_step)} steps x "
+            f"{len(by_layer)} layers]: slots max|kernel-plain| {slot_err:.3e} (tol {SLOT_TOL:.0e})")
+        # the worst call again with x eight times larger: a larger sigma, a
+        # smaller LayerNorm gain on the same kind of rounding difference
+        big = _clone_tree(steps[(worst[1], worst[2])][0])
+        big = (big[0] * 8.0, *big[1:])
+        scaled = max_err(decode_step.fused_bert_self_step(*_clone_tree(big))[0],
+                         decode_step.fused_bert_self_step_plain(*_clone_tree(big))[0])
+        def listed(errs):
+            return json.dumps([float(f"{e:.3e}") for _, e in sorted(errs.items())])
+
+        log(f"    max|kernel-plain| by step {listed(by_step)}, by layer {listed(by_layer)}; "
+            f"against float64 with the context unrounded: kernel {to_f64['kernel']:.3e}, plain "
+            f"{to_f64['plain']:.3e}; rows' pre-LayerNorm sigma min {float(sigma.min()):.4f}, "
+            f"median {float(sigma.median()):.4f}, max {float(sigma.max()):.4f}; the worst "
+            f"difference {worst[0]:.3e} at step {worst[1]}, layer {worst[2]}, in a row of sigma "
+            f"{worst[3]:.4f}; max over rows of sigma x |dy| (the difference before LayerNorm) "
+            f"{pre_ln_max:.3e}; that call with x x 8: {scaled:.3e}")
+        if not slot_err <= SLOT_TOL:
+            failures.append(f"[m4c kernels] fused_bert_self_step slots: max err {slot_err}")
+        x, w, ctx, slot_k, slot_v, step, cb, scale, heads, eps = _clone_tree(args)
+        bs, c_len, t_len = x.shape[0], ctx[0].shape[1], slot_k.shape[1]
+        step_args = (x, w, ctx, slot_k, slot_v, step, cb, scale, heads, eps)
+        y = decode_step.fused_bert_self_step(*_clone_tree(step_args))[0]
+        kernel = lambda: decode_step.fused_bert_self_step(*step_args)  # noqa: E731
+        record("fused_bert_self_step", f"m4c step {bs} x ctx {c_len} + {t_len} slots, "
+               f"{heads} heads of {hd // heads} (library: none)", y_err, LN_TOL, kernel,
+               lambda: decode_step.fused_bert_self_step_plain(*step_args),
+               2.0 * bs * hd * 4 * hd + 4.0 * bs * (c_len + t_len) * hd,
+               tensor_bytes(x, w, ctx, slot_k, slot_v, cb, y))
+        # its time twice more, for the spread between measurements
+        log("    fused_bert_self_step at this shape, twice more: " + "; ".join(
+            f"call {median_ms(kernel):.4f} ms, device {device_ms(kernel)[0]:.4f} ms"
+            for _ in range(2)))
+    check_packed_calls(packed, "m4c", record)
+
+
+def compare_scores(task, label, failures):
+    """Teacher-forced scores of one dev batch on the kernel and the plain
+    path, on the greedy prefix: the max |difference| over the unmasked
+    scores within SCORE_TOL."""
+    import torch
+
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(batch["question_tokens"].device)
+    model = task.model
+    prev_inds = model.greedy_decode(batch)["prev_inds"]
+    tf_k = model.compute_scores(batch, prev_inds)
+    with plain_versions():
+        tf_p = model.compute_scores(batch, prev_inds)
+    unmasked = tf_p[valid] > MASK_VALUE / 2
+    err = max_err(tf_k[valid][unmasked], tf_p[valid][unmasked])
+    log(f"  [{label}] teacher-forced max|score kernel-plain| {err:.3e} (tol {SCORE_TOL:.0e})")
+    if not bool(torch.isfinite(tf_k).all()) or not err <= SCORE_TOL:
+        failures.append(f"[{label}] kernel vs plain scores: max diff {err} or non-finite")
+
+
+def run_iterative_m4c(task, tmp, config, record, failures):
+    """configs/iterative_m4c.yaml under OcrOpenEndedTask: the beam eval of the
+    dev split (packed = 4 layers x T steps x batches, nothing else), one batch
+    on the kernel and the plain route, the incremental mode against the
+    context-blind quadratic one, the packed kernel at the path's shapes, then
+    start() for one epoch and get_predictions()."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.ops import fused_attention
+    from openvivqa_tpu_torch.training.decode import generate
+
+    model, beam = task.model, task.evaluating_beam_size
+    steps, n_layers = task.vocab.max_answer_length, len(model.encoder.layers)
+    n_batches = len(task.dev_dict_dataloader)
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    add(exact_eval(task, "iterative_m4c beam", failures, exact_launches(
+        fused_attention_packed=n_layers * steps * n_batches)))
+
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(batch["question_tokens"].device)
+
+    def run(**mode):
+        """One batch's generate() under the mode's settings: (tokens,
+        cumulative log-probs) of the valid samples and its ms."""
+        saved = (model.decoding_mode, model.context_blind)
+        model.decoding_mode = mode.get("decoding_mode", saved[0])
+        model.context_blind = mode.get("context_blind", saved[1])
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            tokens, logprobs = generate(model, batch, beam)
+            torch.cuda.synchronize()
+            return tokens[valid], logprobs[valid].sum(-1), (time.perf_counter() - start) * 1e3
+        finally:
+            model.decoding_mode, model.context_blind = saved
+
+    def agree(a, b, what):
+        same = (a[0] == b[0]).all(-1)
+        agreement = float((a[0] == b[0]).float().mean())
+        diff = float((a[1] - b[1]).abs()[same].max()) if bool(same.any()) else 0.0
+        log(f"  [iterative_m4c] {what}: token agreement {agreement * 100:.2f}% of "
+            f"{a[0].numel()} tokens, max|cumulative log-prob diff| of the agreeing beams "
+            f"{diff:.3e}; generate() {a[2]:.1f} ms vs {b[2]:.1f} ms")
+        if agreement < 0.9:
+            failures.append(f"[iterative_m4c] {what}: token agreement {agreement}")
+        return diff
+
+    packed = {}
+    with capture_calls(fused_attention, "fused_attention_packed", packed_key, packed):
+        kernel = run()
+    with plain_versions():
+        plain = run()
+    diff = agree(kernel, plain, f"kernel vs plain route, one batch of {batch['question_tokens'].shape[0]}"
+                 f" x beam {beam}")
+    if not diff <= LOGPROB_TOL:
+        failures.append(f"[iterative_m4c] kernel vs plain cumulative log-prob diff {diff}")
+    with capture_calls(fused_attention, "fused_attention_packed", packed_key, packed):
+        incremental = run(decoding_mode="incremental", context_blind=True)
+    agree(incremental, run(context_blind=True),
+          "incremental vs context-blind quadratic")
+    check_packed_calls(packed, "iterative_m4c", record)
+
+    train_task = build_task(config.merged({"TRAINING": {
+        "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "iterative_m4c_train")}}), "cuda")
+    add(run_epoch(train_task, failures, "iterative_m4c train",
+                  expected=("fused_attention_packed",)))
+    return launches
+
+
+def m4c_family_data(tmp, seed):
+    """Phase 11's synthetic set: 120 images, 100 regions x 1024, 49 grids x
+    2048, up to 100 OCR tokens."""
+    from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    return generate_synthetic_dataset(str(Path(tmp) / "m4c_family"), n_images=120,
+                                      n_regions=100, n_grids=49, max_scene_text=100, seed=seed)
+
+
+def m4c_family_task(paths, tmp, seed, config_file, label, model=None):
+    """(config, task on the card) of one phase-11 config on `paths`."""
+    from openvivqa_tpu_torch.builders import build_task
+
+    config = with_data(config_file, paths, seed, str(Path(tmp) / label), model)
+    if config.DATASET.VOCAB.TYPE == "OcrClassificationVocab":
+        # mmf_lorra.yaml's vocab names FastText vectors that no module reads
+        config = config.merged({"DATASET": {"VOCAB": {"WORD_EMBEDDING": None}}})
+    return config, build_task(config, "cuda")
+
+
+def run_m4c_family(tmp, seed, failures, record):
+    """Phase 11: m4c.yaml (standalone M4C, TrainingMMF) in both decode modes
+    and trained, iterative_m4c.yaml (IterativeM4C, OcrOpenEndedTask), then
+    small_mmf_improved_decoding_m4c, experimental_mmf_m4c, mmf_iterative_lorra
+    (TrainingMMF) and mmf_lorra (MmfClassificationTask), each at its widths on
+    one synthetic set (100 regions x 1024, 49 grids x 2048, up to 100 OCR
+    tokens).  Returns the launch counts of the main-path runs."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    paths = m4c_family_data(tmp, seed)
+
+    def task_of(config_file, label, model=None):
+        return m4c_family_task(paths, tmp, seed, config_file, label, model)
+
+    # m4c.yaml: both decode modes, the kernels at its shapes, training
+    start = time.perf_counter()
+    config, quadratic = task_of("m4c.yaml", "m4c", NO_PRETRAINED)
+    _, incremental = task_of("m4c.yaml", "m4c", {**NO_PRETRAINED, "DECODING_MODE": "incremental"})
+    model = quadratic.model
+    steps, n_batches = quadratic.vocab.max_answer_length, len(quadratic.dev_dict_dataloader)
+    q_layers, layers = len(model.question_encoder.layer), len(model.encoder.layer)
+    log(f"  [m4c] M4C, hidden {model.encoder.hidden_size}, {model.encoder.num_heads} heads, "
+        f"{q_layers} question + {layers} joint layers, FFN "
+        f"{model.encoder.layer[0].intermediate.dense.out_features}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+        f"{len(quadratic.train_dataset)} train / {len(quadratic.dev_dict_dataset)} dev samples")
+    add(run_mode(quadratic, "m4c quadratic", failures, [], exact_launches(
+        fused_encoder_self_attention=q_layers * n_batches,
+        fused_ffn_step=(q_layers + layers * steps) * n_batches,
+        fused_attention_packed=layers * steps * n_batches)))
+    add(run_mode(incremental, "m4c incremental", failures, [], exact_launches(
+        fused_encoder_self_attention=(q_layers + layers) * n_batches,
+        fused_ffn_step=(q_layers + layers + layers * steps) * n_batches,
+        fused_bert_self_step=layers * steps * n_batches)))
+    quadratic.model.context_blind = True
+    compare_decode_modes(quadratic, incremental, failures, "m4c")
+    quadratic.model.context_blind = False
+    check_m4c_kernels(quadratic, incremental, record, failures)
+    del quadratic, incremental, model
+    torch.cuda.empty_cache()
+    log("  m4c training: TrainingMMF.start() for one epoch, then get_predictions()")
+    train_task = build_task(config.merged({"TRAINING": {
+        "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "m4c_train")}}), "cuda")
+    add(run_training(train_task, failures, label="m4c train"))
+    check_dropout_at_path_shapes(train_task, "m4c train", record, failures)
+    del train_task
+    torch.cuda.empty_cache()
+    log(f"  [m4c] {time.perf_counter() - start:.1f} s")
+
+    # iterative_m4c.yaml under OcrOpenEndedTask
+    start = time.perf_counter()
+    config, task = task_of("iterative_m4c.yaml", "iterative_m4c")
+    log(f"  [iterative_m4c] IterativeM4C, d_model {task.model.vocab_proj.in_features}, "
+        f"{len(task.model.encoder.layers)} layers, "
+        f"{sum(p.numel() for p in task.model.parameters()) / 1e6:.2f}M parameters, beam "
+        f"{task.evaluating_beam_size} over batches of {task.dev_dict_dataloader.batch_size}")
+    add(run_iterative_m4c(task, tmp, config, record, failures))
+    del task
+    torch.cuda.empty_cache()
+    log(f"  [iterative_m4c] {time.perf_counter() - start:.1f} s")
+
+    # the other four: one dev eval with exact launches, the kernel vs plain
+    # scores, the gradients of the train split
+    for config_file, model_overrides in (
+            ("small_mmf_improved_decoding_m4c.yaml", NO_PRETRAINED),
+            ("experimental_mmf_m4c.yaml", NO_PRETRAINED),
+            ("mmf_iterative_lorra.yaml", None), ("mmf_lorra.yaml", None)):
+        start = time.perf_counter()
+        name = config_file.removesuffix(".yaml")
+        _, task = task_of(config_file, name, model_overrides)
+        model = task.model
+        arch = type(model).__name__
+        log(f"  [{name}] {arch}, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+            "parameters")
+        if arch == "MMF_LoRRA":
+            # plain in the JAX package too: the registry attentions return their weights
+            add(exact_eval(task, name, failures, exact_launches()))
+            check_gradients(task, failures, name, no_gradient=LORRA_UNREAD)
+        else:
+            steps = task.vocab.max_answer_length
+            n_batches = len(task.dev_dict_dataloader)
+            mmt_layers = len(model.mmt.encoder.layer)
+            text = 0 if arch == "MMF_IterativeLoRRA" else len(model.text_bert.encoder.layer)
+            context = 1 if arch == "experimental_MMF_M4C" else 0  # txt_context_encoder
+            add(exact_eval(task, name, failures, exact_launches(
+                fused_encoder_self_attention=(text + context) * n_batches,
+                fused_ffn_step=(text + context + mmt_layers * steps) * n_batches,
+                fused_attention_packed=(context + mmt_layers * steps) * n_batches)))
+            compare_scores(task, name, failures)
+            check_gradients(task, failures, name)
+        del task, model
         torch.cuda.empty_cache()
         log(f"  [{name}] {time.perf_counter() - start:.1f} s")
     return launches
@@ -2743,6 +3292,17 @@ def main() -> int:
                                           make_recorder(results, failures)).items():
             launches[name] += n
         log(f"phase 10: {time.perf_counter() - start:.1f} s")
+
+        # 11. the rest of the M4C family
+        start = time.perf_counter()
+        log("main path, the rest of the M4C family: configs/m4c.yaml (both decode modes, one "
+            "epoch), configs/iterative_m4c.yaml (beam 3, one epoch), then "
+            "small_mmf_improved_decoding_m4c, experimental_mmf_m4c, mmf_iterative_lorra and "
+            "mmf_lorra")
+        for name, n in run_m4c_family(tmp, args.seed, failures,
+                                      make_recorder(results, failures)).items():
+            launches[name] += n
+        log(f"phase 11: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -23,14 +23,24 @@ META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
 META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
 
 
-def build_model(config, vocab):
-    """Instantiate the MODEL node's architecture (on the CPU; callers move it)."""
+def build_model(config, vocab, example=None):
+    """Instantiate the MODEL node's architecture (on the CPU; callers move it).
+    `example`, one sample's host arrays by field, gives the input widths that
+    flax infers from the data: each config node an architecture names in its
+    FEATURE_INPUTS gets D_FEATURE = the summed last dims of those fields."""
     name = config.ARCHITECTURE
     # the JAX package's schema dispatch: configs/iterative_m4c.yaml names M4C
     # but carries the IterativeM4C schema
     if name == "M4C" and config.get("OCR_DET_EMBEDDING") is not None:
         name = "IterativeM4C"
-    return META_ARCHITECTURE.get(name)(config=config, vocab=vocab)
+    architecture = META_ARCHITECTURE.get(name)
+    inputs = getattr(architecture, "FEATURE_INPUTS", {})
+    if example is not None and inputs:
+        config = config.merged({
+            node: {"D_FEATURE": sum(int(example[field].shape[-1]) for field in fields)}
+            for node, fields in inputs.items()
+        })
+    return architecture(config=config, vocab=vocab)
 
 
 def build_task(config, device="cuda", params=None):

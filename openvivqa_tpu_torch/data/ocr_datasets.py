@@ -1,6 +1,7 @@
 """OCR (scene-text) datasets.
 
-The port's copy of the OcrFeatureDataset and OcrDictionaryDataset of
+The port's copy of the OcrFeatureDataset, OcrDictionaryDataset and
+OcrClassificationDataset of
 ``openvivqa_tpu/data/ocr_datasets.py``: OCR streams are always padded or
 truncated to MAX_SCENE_TEXT, scene-text scores gate via threshold + top-k, and
 precomputed `fasttext_features` (when present in the store) are emitted as
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..builders import META_DATASET
 from ..utils.instance import Instance
-from .datasets import DictionaryDataset, FeatureDataset
+from .datasets import DictionaryDataset, FeatureClassificationDataset, FeatureDataset
 
 
 class _SceneTextMixin:
@@ -158,4 +159,28 @@ class OcrDictionaryDataset(_SceneTextMixin, DictionaryDataset):
             question=" ".join(item["question"]),
             question_tokens=self.vocab.encode_question(item["question"]),
             answers=item["answers"],
+        )
+
+
+@META_DATASET.register()
+class OcrClassificationDataset(_SceneTextMixin, FeatureClassificationDataset):
+    """LoRRA classification: one sample per (question, answer), the answer a
+    (1,) id over the classes and the sample's OCR slots."""
+
+    def __init__(self, json_path: str, vocab, config) -> None:
+        super().__init__(json_path, vocab, config)
+        self._init_scene_text(config)
+
+    def __getitem__(self, idx: int) -> Instance:
+        item = self.annotations[idx]
+        features = self.merged_features(item["image_id"])
+        ocr_tokens = self.clean_ocr_tokens(features["ocr_texts"], self.vocab.padding_token)
+        return Instance(
+            **features,
+            question_id=item.get("id", idx),
+            image_id=item["image_id"],
+            filename=item["filename"],
+            question_tokens=self.vocab.encode_question(item["question"]),
+            answer=self.vocab.encode_answer(item["answer"], ocr_tokens),
+            ocr_tokens=ocr_tokens,
         )

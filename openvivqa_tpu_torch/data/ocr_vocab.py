@@ -3,18 +3,19 @@
 The port's copy of OcrVocab from ``openvivqa_tpu/data/ocr_vocab.py``: 12
 special tokens, answer encoding against fixed-vocab ∪ per-sample OCR slots
 (OCR index space starts at len(stoi)), decode with per-sample OCR tables,
-decode_answer_with_determination.
+decode_answer_with_determination; and OcrClassificationVocab, LoRRA's classes
+over the answers and the OCR slots.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import numpy as np
 
 from ..builders import META_VOCAB
-from .vocab import Vocab
+from .vocab import ClassificationVocab, Vocab
 
 
 @META_VOCAB.register()
@@ -133,3 +134,45 @@ class OcrVocab(Vocab):
             answers.append(text if join_words else text.strip().split())
             in_fixed_vocab.append(flags)
         return answers, in_fixed_vocab
+
+
+@META_VOCAB.register()
+class OcrClassificationVocab(ClassificationVocab):
+    """LoRRA-style classification: the answer classes, then MAX_SCENE_TEXT OCR
+    slots."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.max_scene_text = config.MAX_SCENE_TEXT
+        self.num_choices = self.total_answers + config.MAX_SCENE_TEXT
+
+    def encode_answer(self, answer: List[str], ocr_tokens: List[str]) -> np.ndarray:
+        """The answer's class id, else the first OCR slot that holds it.  An
+        answer that is neither is a data error and raises (labelling slot 0
+        would corrupt the targets)."""
+        text = " ".join(answer)
+        if text in self.atoi:
+            return np.asarray([self.atoi[text]], np.int32)
+        for offset, token in enumerate(ocr_tokens):
+            if token == text:
+                return np.asarray([self.total_answers + offset], np.int32)
+        raise KeyError(
+            f"answer '{text}' is neither a known class nor among the sample's OCR tokens "
+            "- rebuild the vocab with every split's answers (JSON_PATH.TEST included)"
+        )
+
+    def decode_answer(self, answer_vecs, list_ocr_tokens: List[List[str]],
+                      join_words: bool = True, **kwargs) -> Union[List[str], List[List[str]]]:
+        """Class ids -> answers; an OCR slot past the sample's table reads as
+        the padding token."""
+        join_words = kwargs.get("join_word", join_words)
+        answers = []
+        for row, idx in enumerate(np.asarray(answer_vecs).reshape(-1).tolist()):
+            idx = int(idx)
+            if idx >= self.total_answers:
+                offset, ocr = idx - self.total_answers, list_ocr_tokens[row]
+                text = ocr[offset] if offset < len(ocr) else self.padding_token
+            else:
+                text = self.itoa[idx]
+            answers.append(text if join_words else text.split())
+        return answers

@@ -4,13 +4,15 @@
 The port's parameter names are the reference's torch names, the ones
 ``openvivqa_tpu.models.modules.torch_conversion``'s converters read
 (``convert_mmf_m4c``, ``convert_mmf_regional_m4c``, ``convert_mmf_iterative_m4c``,
-``convert_mmf_language_adaptive``, ``convert_iterative_mcan``,
-``convert_joint_transformer``, ``convert_mcan``, ``convert_saaa``), so those
+``convert_mmf_language_adaptive``, ``convert_standalone_m4c``, ``convert_mmf_lorra``,
+``convert_iterative_mcan``, ``convert_joint_transformer``, ``convert_mcan``,
+``convert_saaa``), so those
 converters are this bridge's inverses and the port also loads the reference's own
 checkpoints; the ViT and T5 backbones carry HF's names, which
 ``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
-VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention and
-the hierarchical text embedding have no reference converter: their flax trees
+VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention,
+IterativeM4C and the hierarchical text embedding have no reference converter, and
+the JAX converters refuse experimental_MMF_M4C and MMF_IterativeLoRRA: their flax trees
 (``@nn.compact`` auto-names such as ``Encoder_0``, ``Dense_0``, ``Conv_0``) map
 to the port's names here.  Flax Dense kernels are (in, out) and torch Linear
 weights (out, in); flax Conv kernels (n, in, out) and Conv1d weights (out, in,
@@ -160,6 +162,83 @@ def _mmf_iterative_m4c(tree: Mapping[str, Any]) -> StateDict:
     for i in range(n_layers):
         _bert_layer(out, f"decoder.layer.{i}", tree[f"dec_layer_{i}"])
     _m4c_heads(out, tree)
+    return out
+
+
+def _experimental_mmf_m4c(tree: Mapping[str, Any]) -> StateDict:
+    """experimental_MMF_M4C: MMF_M4C and its ``txt_context_encoder``, one
+    cross-attention BertLayer.  Its JAX converter refuses it (the reference
+    cannot build it): this bridge is written by hand."""
+    out = _mmf_m4c(tree)
+    _bert_encoder(out, "txt_context_encoder", tree["txt_context_encoder"])
+    return out
+
+
+def _standalone_m4c(tree: Mapping[str, Any]) -> StateDict:
+    """The standalone M4C (the inverse of ``convert_standalone_m4c``): the flat
+    object / OCR linears and LayerNorms, the question BERT, the joint encoder,
+    ``vocab_proj`` (a kept (in, out) kernel) and the pointer network."""
+    out: StateDict = {}
+    for stream in ("obj", "ocr"):
+        for part in ("feat", "bbox"):
+            _linear(out, f"linear_{stream}_{part}_to_mmt_in", tree[f"linear_{stream}_{part}_to_mmt_in"])
+            _layer_norm(out, f"{stream}_{part}_layer_norm", tree[f"{stream}_{part}_layer_norm"])
+    _bert_embeddings(out, "question_embedding", tree["question_embedding"])
+    _bert_encoder(out, "question_encoder", tree["question_encoder"])
+    _bert_encoder(out, "encoder", tree["encoder"])
+    out["vocab_proj.weight"] = np.ascontiguousarray(_arr(tree["vocab_proj_kernel"]).T)
+    out["vocab_proj.bias"] = _arr(tree["vocab_proj_bias"])
+    _linear(out, "dynamic_network.query", tree["dynamic_network"]["Dense_0"])
+    _linear(out, "dynamic_network.key", tree["dynamic_network"]["Dense_1"])
+    return out
+
+
+def _iterative_m4c(tree: Mapping[str, Any]) -> StateDict:
+    """IterativeM4C (no reference converter): its flax auto-names to the
+    port's names."""
+    out: StateDict = {}
+    for name in ("region_embedding", "grid_embedding", "box_embedding", "ocr_det_embedding",
+                 "ocr_rec_embedding", "ocr_embedding"):
+        _linear(out, f"{name}.proj", tree[name]["Dense_0"])
+    _text_embedding(out, "text_embedding", tree["text_embedding"])
+    out["dynamic_embedding.fixed_weights"] = _arr(tree["dynamic_embedding"]["fixed_weights"])
+    _encoder(out, "encoder", tree["encoder"])
+    _linear(out, "vocab_proj", tree["vocab_proj"])
+    _linear(out, "dynamic_network.query", tree["dynamic_network"]["Dense_0"])
+    _linear(out, "dynamic_network.key", tree["dynamic_network"]["Dense_1"])
+    return out
+
+
+def _lorra_branches(out: StateDict, tree: Mapping[str, Any]) -> None:
+    _text_embedding(out, "txt_embedding", tree["txt_embedding"])
+    for name in ("txt_norm", "obj_feat_layer_norm", "ocr_feat_layer_norm"):
+        _layer_norm(out, name, tree[name])
+    for name in ("linear_obj_feat_to_mmt_in", "linear_ocr_feat_to_mmt_in"):
+        _linear(out, name, tree[name])
+    for branch in ("self_attn", "spatial_attn", "context_attn"):
+        for projection in ("fc_q", "fc_k", "fc_v", "fc_o"):
+            _linear(out, f"{branch}.{projection}", tree[branch][projection])
+
+
+def _mmf_lorra(tree: Mapping[str, Any]) -> StateDict:
+    """MMF_LoRRA (the inverse of ``convert_mmf_lorra``)."""
+    out: StateDict = {}
+    _lorra_branches(out, tree)
+    _linear(out, "classifier", tree["classifier"])
+    return out
+
+
+def _mmf_iterative_lorra(tree: Mapping[str, Any]) -> StateDict:
+    """MMF_IterativeLoRRA: the LoRRA branches, then MMF_M4C's MMT, classifier
+    and pointer net.  Its JAX converter refuses it (the reference cannot build
+    it): this bridge is written by hand."""
+    out: StateDict = {}
+    _lorra_branches(out, tree)
+    _mmt(out, tree)
+    out["classifier.weight"] = np.ascontiguousarray(_arr(tree["classifier_kernel"]).T)
+    out["classifier.bias"] = _arr(tree["classifier_bias"])
+    _linear(out, "ocr_ptr_net.query", tree["ocr_ptr_net"]["Dense_0"])
+    _linear(out, "ocr_ptr_net.key", tree["ocr_ptr_net"]["Dense_1"])
     return out
 
 
@@ -441,14 +520,23 @@ def _vit_mt5(tree: Mapping[str, Any]) -> StateDict:
 
 def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     """A flax ``params`` collection (numpy arrays) -> the port's state_dict as
-    float32 numpy arrays, for the MMF_M4C family (MMF_M4C, MMF_REGIONAL_M4C,
-    MMF_SAL, MMF_LanguageAdaptiveM4C, MMF_IterativeM4C and its multilevel
-    variant), IterativeMCAN, ViTmT5, JointTransformer and the classification
+    float32 numpy arrays, for the M4C family (MMF_M4C, MMF_ImprovedDecodingM4C,
+    experimental_MMF_M4C, MMF_REGIONAL_M4C, MMF_SAL, MMF_LanguageAdaptiveM4C,
+    MMF_IterativeM4C and its multilevel variant, the standalone M4C,
+    IterativeM4C, MMF_LoRRA, MMF_IterativeLoRRA), IterativeMCAN, ViTmT5, JointTransformer and the classification
     models (MCAN, SAAA, VanillaTransformer, ParallelAttentionTransformer,
     HierarchicalCoAttention; each text embedding: Usual, LSTM, hierarchical)
     trees, told apart by their top-level keys.
     `config` (the MODEL node) is accepted for symmetry with the JAX converters;
     the tree alone determines the layer counts."""
+    if "self_attn" in tree and "txt_embedding" in tree:
+        return _mmf_iterative_lorra(tree) if "mmt" in tree else _mmf_lorra(tree)
+    if "question_encoder" in tree:
+        return _standalone_m4c(tree)
+    if "dynamic_embedding" in tree and "region_embedding" in tree:
+        return _iterative_m4c(tree)
+    if "txt_context_encoder" in tree:
+        return _experimental_mmf_m4c(tree)
     if "joint_encoder" in tree:
         return _mmf_iterative_m4c(tree)
     if "language_backbone" in tree:

@@ -2,7 +2,8 @@
 with the teacher-forced forward (eval, or training with dropout drawn from a
 generator) and both greedy decodes.
 
-Counterpart of ``openvivqa_tpu/models/mmf_m4c.py``.  The decode loops are
+Counterpart of ``openvivqa_tpu/models/mmf_m4c.py``, with its
+MMF_ImprovedDecodingM4C and experimental_MMF_M4C.  The decode loops are
 Python loops over ``max_answer_length`` steps with static shapes:
   * ``greedy_decode`` (the quadratic greedy): T full MMT re-encodes under the
     prefix-LM bias, the MMT attention through the packed kernel;
@@ -27,6 +28,7 @@ from .m4c_common import (
     ocr_joint_features,
     ocr_padding_bias,
 )
+from .modules.bert import BertEncoderStack
 from .modules.masks import padding_bias
 
 _TORCH_LN_EPS = 1e-5  # the reference's plain nn.LayerNorm on the feature encodings
@@ -43,6 +45,13 @@ def resolve_decoding_mode(config):
 
 @META_ARCHITECTURE.register()
 class MMF_M4C(nn.Module):
+    # the data fields whose summed widths are each stream's input width
+    # (``builders.build_model``): flax infers them, a config may misstate them
+    FEATURE_INPUTS = {
+        "OBJECT_EMBEDDING": ("region_features",),
+        "OCR_EMBEDDING": ("ocr_fasttext_features", "ocr_rec_features", "ocr_det_features"),
+    }
+
     def __init__(self, config, vocab):
         super().__init__()
         mmt = config.get("MMT") or config.get("ENCODER")
@@ -110,28 +119,36 @@ class MMF_M4C(nn.Module):
             txt_emb = self.text_bert_out_linear(txt_emb)
         return txt_emb, txt_bias
 
-    def _mmt_streams(self, batch, weights, generator=None) -> Dict:
-        """The MMT's input streams; `weights` are the kernel bundles of an
-        eval call (None with a training `generator`).  Variants add
-        ``pre_ocr`` / ``extra`` (emb, bias) streams (MMF_REGIONAL_M4C, MMF_SAL)
-        or change the question stream (MMF_LanguageAdaptiveM4C)."""
-        txt_emb, txt_bias = self._txt(batch, weights, generator)
+    def _obj(self, batch, generator=None):
+        """(obj_emb, obj_bias) of the object stream."""
         obj_emb = feature_box_encoding(
             batch["region_features"], batch["region_boxes"],
             self.linear_obj_feat_to_mmt_in, self.obj_feat_layer_norm,
             self.linear_obj_bbox_to_mmt_in, self.obj_bbox_layer_norm,
             self.obj_dropout, generator,
         )
+        return obj_emb, padding_bias(batch["region_features"], 0)
+
+    def _ocr(self, batch, generator=None):
+        """(ocr_emb, ocr_bias) of the OCR stream."""
         ocr_emb = feature_box_encoding(
             ocr_joint_features(batch), batch["ocr_boxes"],
             self.linear_ocr_feat_to_mmt_in, self.ocr_feat_layer_norm,
             self.linear_ocr_bbox_to_mmt_in, self.ocr_bbox_layer_norm,
             self.ocr_dropout, generator,
         )
+        return ocr_emb, ocr_padding_bias(batch)
+
+    def _mmt_streams(self, batch, weights, generator=None) -> Dict:
+        """The MMT's input streams; `weights` are the kernel bundles of an
+        eval call (None with a training `generator`).  Variants add
+        ``pre_ocr`` / ``extra`` (emb, bias) streams (MMF_REGIONAL_M4C, MMF_SAL)
+        or change the question stream (MMF_LanguageAdaptiveM4C,
+        experimental_MMF_M4C)."""
         return {
-            "txt": (txt_emb, txt_bias),
-            "obj": (obj_emb, padding_bias(batch["region_features"], 0)),
-            "ocr": (ocr_emb, ocr_padding_bias(batch)),
+            "txt": self._txt(batch, weights, generator),
+            "obj": self._obj(batch, generator),
+            "ocr": self._ocr(batch, generator),
             "pre_ocr": (),
             "extra": (),
         }
@@ -184,10 +201,17 @@ class MMF_M4C(nn.Module):
         device = batch["question_tokens"].device
         prev_inds = torch.zeros((bs, self.max_iter), dtype=torch.long, device=device)
         prev_inds[:, 0] = self.bos_idx
-        for _ in range(self.max_iter):
+        for step in range(self.max_iter):
             scores = self._scores_from_streams(streams, prev_inds, weights)
-            prev_inds[:, 1:] = scores.argmax(dim=-1)[:, :-1]
+            prev_inds = self._update_prev_inds(prev_inds, scores, step)
         return {"scores": scores, "prev_inds": prev_inds}
+
+    def _update_prev_inds(self, prev_inds, scores, step: int):
+        """The quadratic greedy's next prefix: position i + 1 takes the argmax
+        at position i."""
+        prev_inds = prev_inds.clone()
+        prev_inds[:, 1:] = scores.argmax(dim=-1)[:, :-1]
+        return prev_inds
 
     @torch.no_grad()
     def incremental_greedy_decode(self, batch) -> Dict:
@@ -222,3 +246,44 @@ class MMF_M4C(nn.Module):
         scores = torch.stack(all_scores, dim=1)
         prev_inds = torch.cat([bos[:, None], scores[:, :-1].argmax(dim=-1)], dim=1)
         return {"scores": scores, "prev_inds": prev_inds}
+
+
+@META_ARCHITECTURE.register()
+class MMF_ImprovedDecodingM4C(MMF_M4C):
+    """The quadratic greedy resets the prefix past step + 1 to 0 after each
+    step, so that no position is conditioned on a stale prediction.  The
+    incremental decode has no such prefix and keeps MMF_M4C's."""
+
+    def _update_prev_inds(self, prev_inds, scores, step: int):
+        updated = super()._update_prev_inds(prev_inds, scores, step)
+        positions = torch.arange(updated.shape[1], device=updated.device)[None, :]
+        return torch.where(positions <= step + 1, updated, torch.zeros_like(updated))
+
+
+@META_ARCHITECTURE.register()
+class experimental_MMF_M4C(MMF_M4C):  # noqa: N801 (the reference's name)
+    """The question stream re-encoded by one cross-attention BERT layer over
+    the object stream before it enters the MMT (``txt_context_encoder``: its
+    self-attention through kernel F, its cross-attention through the packed
+    attention, its FFN through kernel C).  The object stream is encoded twice
+    per forward, here and as the MMT's own stream, so in training its dropout
+    is drawn twice, as in the JAX package."""
+
+    def __init__(self, config, vocab):
+        super().__init__(config, vocab)
+        self.txt_context_encoder = BertEncoderStack(self.hidden_size, 1, self.num_heads,
+                                                    cross_attention=True)
+
+    def kernel_weights(self) -> Dict:
+        return {**super().kernel_weights(),
+                "txt_context": self.txt_context_encoder.kernel_weights(
+                    self.classifier.weight.device)}
+
+    def _txt(self, batch, weights, generator=None):
+        txt_emb, txt_bias = super()._txt(batch, weights, generator)
+        obj_emb, obj_bias = self._obj(batch, generator)
+        txt_emb = self.txt_context_encoder(
+            txt_emb, txt_bias, weights=None if weights is None else weights["txt_context"],
+            generator=generator, encoder_states=obj_emb, encoder_bias=obj_bias,
+        )
+        return txt_emb, txt_bias

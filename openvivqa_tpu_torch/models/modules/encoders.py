@@ -1,8 +1,9 @@
 """Encoder stacks: the self-attention encoder, MCAN's guided-attention one and
 the ViLBERT co-attention one.
 
-Counterpart of ``EncoderLayer``, ``GuidedEncoderLayer``, ``Encoder``,
-``GuidedAttentionEncoder`` and ``CoAttentionEncoder`` in
+Counterpart of ``EncoderLayer``, ``GuidedEncoderLayer``, ``Encoder`` (with its
+single-token ``decode_step``), ``MultiModalEncoder``, ``GuidedAttentionEncoder``
+and ``CoAttentionEncoder`` in
 ``openvivqa_tpu/models/modules/encoders.py``, under the reference's parameter
 names (``layers.N.mhatt``, ``guided_attn_layers.N.self_mhatt``,
 ``vision_language_attn_layers.N.mhatt`` ...).  The geometric and
@@ -12,6 +13,7 @@ item 5).  A `generator` selects the training route (dropout drawn from it).
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ...builders import META_ENCODER
@@ -61,11 +63,38 @@ class Encoder(nn.Module):
             EncoderLayer(config.SELF_ATTENTION) for _ in range(config.LAYERS)
         )
 
-    def forward(self, features, padding_bias, generator=None):
+    def forward(self, features, padding_bias, generator=None, return_layer_inputs: bool = False):
+        """With ``return_layer_inputs`` also each layer's input: the keys and
+        values an incremental decode caches beside its own prefix."""
         out = self.layer_norm(features) + self.pos_embedding(features)
+        layer_inputs = []
         for layer in self.layers:
+            layer_inputs.append(out)
             out = layer(out, out, out, padding_bias, generator)
+        if return_layer_inputs:
+            return out, layer_inputs
         return out
+
+    def decode_step(self, token_features, position, context_inputs, caches, step: int,
+                    attention_bias):
+        """One new token (bs, 1, d), before the LayerNorm and positions, through
+        every layer at the 1-based absolute `position` (bs, 1): layer i writes
+        its input into slot `step` of caches[i] (bs, T, d) in place and attends
+        [context_inputs[i] (bs, C, d) | caches[i]] under attention_bias (bs, 1,
+        1, C + T).  Eval only.  Returns (bs, 1, d)."""
+        x = self.layer_norm(token_features) + self.pos_embedding.encode_positions(position)
+        for layer, context, cache in zip(self.layers, context_inputs, caches):
+            cache[:, step] = x[:, 0]
+            kv = torch.cat([context, cache], dim=1)
+            x = layer(x, kv, kv, attention_bias)
+        return x
+
+
+@META_ENCODER.register()
+class MultiModalEncoder(Encoder):
+    """The Encoder under the name the M4C-family configs give their
+    single-stream encoder; the prefix-LM models pass it a full (bs, 1, L, L)
+    bias."""
 
 
 @META_ENCODER.register()

@@ -1,7 +1,8 @@
 """Additive attention biases (0 attends, MASK_VALUE (-1e5) masks) and the
 interleaved sinusoid table.
 
-Counterpart of the bias helpers and ``sinusoid_encoding_table`` in
+Counterpart of the bias helpers (``prefix_lm_bias`` included) and
+``sinusoid_encoding_table`` in
 ``openvivqa_tpu/models/modules/masks.py``.  Biases stay float32: -1e5 overflows
 float16.  The box-geometry embeddings wait for the models that use them.
 """
@@ -47,6 +48,22 @@ def combine_biases(*biases: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     for bias in present[1:]:
         masked = masked | (bias != 0)
     return masked.to(torch.float32) * MASK_VALUE
+
+
+def prefix_lm_bias(prefix_bias: torch.Tensor, answer_col_bias: torch.Tensor,
+                   answer_block_bias: torch.Tensor, context_blind: bool = False) -> torch.Tensor:
+    """(bs, 1, L, L) bias of a single-stream prefix LM: every row sees each
+    column's padding bias ([prefix_bias | answer_col_bias]), and the answer x
+    answer block is answer_block_bias (causal and padding).  `context_blind`
+    also hides the answer columns from the prefix rows, the masking under
+    which an incremental decode equals the quadratic one."""
+    cols = torch.cat([prefix_bias, answer_col_bias], dim=-1)
+    total, ans_len = cols.shape[-1], answer_col_bias.shape[-1]
+    full = cols.expand(cols.shape[0], cols.shape[1], total, total).clone()
+    full[:, :, -ans_len:, -ans_len:] = answer_block_bias
+    if context_blind:
+        full[:, :, : total - ans_len, -ans_len:] = MASK_VALUE
+    return full
 
 
 def sinusoid_encoding_table(max_len: int, d_model: int,

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...builders import META_TEXT_EMBEDDING
+from ...ops.gather import take_rows, take_rows_shared
 from .bert import dropout
 from .masks import causal_bias, padding_bias
 
@@ -132,3 +133,69 @@ class HierarchicalFeaturesExtractor(nn.Module):
             acc = sum(F.pad(windows, (0, 0, offset, n - 1 - offset)) for offset in range(n))
             out = acc if out is None else out + acc
         return out, masks
+
+
+def split_embedding_lookup(fixed_weights: torch.Tensor, oov_features: torch.Tensor,
+                           tokens: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    """Rows of the [shared fixed (n_fixed, d) | per-sample OOV (bs, K, d)] table
+    for tokens (bs, L), ids from n_fixed on indexing the OOV block, without
+    building the (bs, n_fixed + K, d) table.  A padding token reads its row as
+    F.embedding does (padding_idx only stops gradients): its row's gradient is
+    stopped, which changes no forward value."""
+    tokens = tokens.long()
+    n_fixed = fixed_weights.shape[0]
+    oov_ids = tokens - n_fixed
+    oov_rows = take_rows(oov_features, oov_ids.clamp(0, oov_features.shape[1] - 1))
+    gathered = take_rows_shared(fixed_weights, tokens) + torch.where(
+        (oov_ids >= 0)[..., None], oov_rows, torch.zeros((), dtype=oov_rows.dtype,
+                                                         device=oov_rows.device))
+    is_pad = (tokens == padding_idx)[..., None].to(gathered.dtype)
+    return gathered * (1.0 - is_pad) + gathered.detach() * is_pad
+
+
+@META_TEXT_EMBEDDING.register()
+class DynamicEmbedding(nn.Module):
+    """A learned fixed-vocab table (``fixed_weights``, len(vocab) x D_MODEL)
+    joined with each sample's OCR feature rows: ids from len(vocab) on index
+    the OCR block."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.padding_idx = vocab.padding_idx
+        self.fixed_weights = nn.Parameter(torch.empty(len(vocab), config.D_MODEL))
+        nn.init.xavier_uniform_(self.fixed_weights)
+
+    def forward(self, tokens: torch.Tensor, oov_features: torch.Tensor, generator=None):
+        masks = _token_masks(tokens, self.padding_idx)
+        return split_embedding_lookup(self.fixed_weights, oov_features, tokens,
+                                      self.padding_idx), masks
+
+
+@META_TEXT_EMBEDDING.register()
+class FixedVocabDynamicEmbedding(nn.Module):
+    """DynamicEmbedding whose fixed rows the caller supplies (standalone
+    M4C's vocab projection rows); no parameters."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.padding_idx = vocab.padding_idx
+
+    def forward(self, tokens: torch.Tensor, oov_features: torch.Tensor,
+                fixed_weights: torch.Tensor, generator=None):
+        masks = _token_masks(tokens, self.padding_idx)
+        return split_embedding_lookup(fixed_weights, oov_features, tokens,
+                                      self.padding_idx), masks
+
+
+@META_TEXT_EMBEDDING.register()
+class OcrWordEmbedding(nn.Module):
+    """The projection of each OCR token's FastText vector (the data layer
+    emits ``ocr_fasttext_features``), then dropout."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.dropout = config.DROPOUT
+        self.proj = nn.Linear(config.D_EMBEDDING, config.D_MODEL)
+
+    def forward(self, ocr_fasttext_features: torch.Tensor, generator=None):
+        return dropout(self.proj(ocr_fasttext_features), self.dropout, generator), None

@@ -143,16 +143,30 @@ def beam_search(
     return outputs, log_probs
 
 
+def _repeat_rows(tree, beam: int):
+    """Every tensor of `tree` (a tensor, or nested dicts, lists and tuples
+    such as IterativeM4C's encoder state) with each row repeated `beam` times;
+    anything else passes through."""
+    if isinstance(tree, torch.Tensor):
+        return tree.repeat_interleave(beam, dim=0)
+    if isinstance(tree, dict):
+        return {key: _repeat_rows(value, beam) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_repeat_rows(value, beam) for value in tree)
+    return tree
+
+
 @torch.no_grad()
 def generate(model, batch: Dict[str, torch.Tensor], beam_size: int, out_size: int = 1,
              return_probs: bool = False):
-    """Encode once, expand to beams, prepare the decode invariants once, then
+    """Encode once, expand to beams (the encoder output may be a tensor or a
+    tree of them), prepare the decode invariants once, then
     beam-search with the model's single-token decode step.  The batch size is
     the batch's own (loaders pad the last batch, so it is the same for a whole
     split)."""
     encoder_features, encoder_bias = model.encode(batch)
-    enc_b = encoder_features.repeat_interleave(beam_size, dim=0)
-    bias_b = None if encoder_bias is None else encoder_bias.repeat_interleave(beam_size, dim=0)
+    enc_b = _repeat_rows(encoder_features, beam_size)
+    bias_b = _repeat_rows(encoder_bias, beam_size)
     first = next(iter(batch.values()))
     batch_size, device = first.shape[0], first.device
     prep = model.prepare_decode(enc_b, bias_b)

@@ -80,7 +80,10 @@ class BaseTask:
 
     # -- setup ---------------------------------------------------------------------
     def build_model(self, params: Optional[Mapping[str, Any]]):
-        model = build_model(self.config.MODEL, self.vocab)
+        # the first train sample's feature widths, which flax infers from the data
+        train = getattr(self, "train_dataset", None)
+        example = train[0] if train is not None else None
+        model = build_model(self.config.MODEL, self.vocab, example)
         if params is None:
             generator = torch.Generator().manual_seed(int(self.config.TRAINING.get("SEED", 42)))
             if hasattr(model, "init_weights_"):  # a model with initialisers of its own

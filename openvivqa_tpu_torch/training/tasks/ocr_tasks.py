@@ -1,10 +1,11 @@
-"""OCR tasks: OCR-copy answer decoding, and TrainingMMF's XE train step, greedy
-evaluation and test predictions.
+"""OCR tasks: OcrOpenEndedTask (OpenEndedTask with OCR-copy answer decoding),
+TrainingMMF's XE train step, greedy evaluation and test predictions (and its
+alias TrainingM4C), and MmfClassificationTask (LoRRA's classification over the
+answers and the OCR slots).
 
-Counterpart of ``OcrOpenEndedTask`` and ``TrainingMMF`` in
-``openvivqa_tpu/training/tasks/ocr_tasks.py``.  Greedy ids are argmaxed on the
-device; only (bs, T) ids cross to the host, where ``compute_scores`` scores
-them.
+Counterpart of ``openvivqa_tpu/training/tasks/ocr_tasks.py``.  Greedy ids are
+argmaxed on the device; only (bs, T) ids cross to the host, where
+``compute_scores`` scores them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from ...builders import META_TASK
 from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
-from ..train_state import nll_loss
+from ..train_state import bce_with_logits_loss, nll_loss
+from .classification_task import ClassificationTask
 from .open_ended_task import OpenEndedTask
 
 logger = setup_logger()
@@ -32,14 +34,22 @@ def _pad_tables(ocr_tokens, n_rows):
     return tables
 
 
+@META_TASK.register()
 class OcrOpenEndedTask(OpenEndedTask):
     """Generative VQA with OCR copying: answers decode against each sample's
     OCR table."""
 
     def _decode_batch(self, outs: np.ndarray, batch) -> list:
-        """(bs, T) ids -> answer strings, consecutive repeats merged."""
-        ocr_tokens = _pad_tables(batch["ocr_tokens"], outs.shape[0])
-        token_lists = self.vocab.decode_answer(outs, ocr_tokens, join_words=False)
+        """(bs, T) ids, or (n, k, T) beam samples, -> answer strings,
+        consecutive repeats merged.  Row r of the (n * k, T) flattening
+        belongs to sample r // k, so each sample's OCR table is repeated k
+        times."""
+        flat = outs.reshape(-1, self.vocab.max_answer_length)
+        n_samples = outs.shape[0] if outs.ndim == 3 else flat.shape[0]
+        reps = max(flat.shape[0] // max(n_samples, 1), 1)
+        tables = [t for t in list(batch["ocr_tokens"])[:n_samples] for _ in range(reps)]
+        token_lists = self.vocab.decode_answer(flat, _pad_tables(tables, flat.shape[0]),
+                                               join_words=False)
         return [" ".join(k for k, _ in itertools.groupby(tokens)) for tokens in token_lists]
 
 
@@ -99,3 +109,34 @@ class TrainingMMF(OcrOpenEndedTask):
         logger.info("Evaluation scores on test: %s", scores)
         self.dump_json("test_results.json", {"results": results, **scores})
         return scores
+
+
+@META_TASK.register()
+class TrainingM4C(TrainingMMF):
+    """The reference's M4C task: TrainingMMF's training and greedy eval."""
+
+
+@META_TASK.register()
+class MmfClassificationTask(ClassificationTask):
+    """LoRRA's classification over the answers and the OCR slots: the BCE of
+    the model's scores against the one-hot class ids (batch-padding rows count
+    for nothing), argmax predictions, and answers decoded against each
+    sample's OCR table.  The loops are ClassificationTask's."""
+
+    def compute_loss(self, batch) -> torch.Tensor:
+        self.model.train()
+        scores = self.model(batch, generator=self.generator)["scores"]
+        return bce_with_logits_loss(scores, batch["answer"].reshape(-1),
+                                    weights=batch["sample_valid"])
+
+    @torch.no_grad()
+    def predict(self, batch) -> np.ndarray:
+        self.model.eval()
+        return self.model(batch)["scores"].argmax(dim=-1).cpu().numpy()
+
+    def _decode_eval(self, preds: np.ndarray, batch):
+        ocr_tokens = _pad_tables(batch["ocr_tokens"], preds.shape[0])
+        answers_gt = self.vocab.decode_answer(batch["answer"].reshape(-1), ocr_tokens,
+                                              join_word=True)
+        answers_gen = self.vocab.decode_answer(preds, ocr_tokens, join_word=True)
+        return answers_gt, answers_gen

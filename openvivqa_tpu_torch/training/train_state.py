@@ -19,3 +19,16 @@ def nll_loss(logprobs: torch.Tensor, targets: torch.Tensor, ignore_index: int,
     if weights is not None:
         valid = valid * weights.to(logprobs.dtype)
     return -(gathered * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def bce_with_logits_loss(scores: torch.Tensor, targets: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BCEWithLogitsLoss(reduction='mean') of scores (N, C) against the one-hot
+    rows of class ids targets (N,).  With per-row `weights` (sample_valid),
+    batch-padding rows count in neither the sum nor the denominator."""
+    one_hot = torch.nn.functional.one_hot(targets.long(), scores.shape[-1]).to(scores.dtype)
+    losses = scores.clamp(min=0) - scores * one_hot + torch.log1p(torch.exp(-scores.abs()))
+    if weights is None:
+        return losses.mean()
+    weights = weights.to(scores.dtype)[:, None]
+    return (losses * weights).sum() / (weights.sum() * scores.shape[-1]).clamp(min=1.0)

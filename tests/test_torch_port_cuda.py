@@ -119,6 +119,19 @@ def test_ffn_kernel_matches_plain_at_path_widths(dev, rows, hd, d_ff):
     assert _err(got, decode_step.fused_ffn_step_plain(*args, eps=EPS)) <= TOL
 
 
+@pytest.mark.parametrize("rows", [64, 64 * 10, 64 * 160, 64 * 165])
+def test_ffn_kernel_at_the_standalone_m4c_widths(dev, rows):
+    """Kernel C at 512 -> 3072 (BertConfig's default intermediate size, which
+    the standalone M4C keeps in both stacks): its step rows, question rows,
+    context and joint encode rows."""
+    gen = torch.Generator(device=dev).manual_seed(rows + 3072)
+    args = _ffn_args(gen, rows, 512, 3072)
+    got = decode_step.fused_ffn_step(*args, eps=EPS)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, decode_step.fused_ffn_step_plain(*args, eps=EPS)) <= TOL
+
+
 # (rows, hd, d_ff) at which ffn_plans takes each route of gemm_plan, and the
 # plans it takes there: every GEMM instance the plan reaches, each product's
 # epilogue in the GEMM or after a split
@@ -316,6 +329,52 @@ def test_packed_attention_kernel_matches_plain(dev, sq, sk, d, bias_form):
     assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
 
 
+def _prefix_lm_bias(gen, bs, total, ans_len):
+    """A (bs, 1, L, L) prefix-LM bias: padded prefix keys per sample, the
+    answer block causal, and query row 1 of sample 0 fully masked."""
+    lengths = torch.randint(total // 2, total - ans_len + 1, (bs,), generator=gen, device="cuda")
+    cols = torch.where(torch.arange(total, device="cuda")[None] < lengths[:, None], 0.0, MASK)
+    cols[:, total - ans_len:] = 0.0
+    bias = cols[:, None, None, :].expand(bs, 1, total, total).clone()
+    bias[:, :, -ans_len:, -ans_len:] = torch.triu(
+        torch.full((ans_len, ans_len), MASK, device="cuda"), 1)
+    bias[0, :, 1, :] = MASK
+    return bias
+
+
+@pytest.mark.parametrize("bs,total", [(64, 165), (180, 264), (60, 264)])
+def test_packed_attention_under_a_prefix_lm_bias(dev, bs, total):
+    """The packed entry at the M4C family's joint shapes (hd 512 over 8 heads)
+    under a full (b, 1, L, L) prefix-LM bias, read per (sample, query row),
+    with a fully masked query row: the standalone M4C's 64 x 165 and
+    IterativeM4C's beam step over 264 keys (60 and 180 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(bs + total)
+    q, k, v = (_randn(gen, bs, total, 512) for _ in range(3))
+    bias = _prefix_lm_bias(gen, bs, total, 5)
+    args = (q, k, v, bias, 64 ** -0.5, 8)
+    got = fused_attention.fused_attention_packed(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+
+def test_packed_attention_single_query_over_264_keys(dev):
+    """Block A at IterativeM4C's incremental step: 60 rows of one query over
+    [259 prefix keys | 5 slots], the unwritten slots and padded keys masked."""
+    gen = torch.Generator(device=dev).manual_seed(264)
+    q = _randn(gen, 60, 1, 512)
+    k, v = (_randn(gen, 60, 264, 512) for _ in range(2))
+    bias = _key_bias(gen, 60, 264)
+    bias[:, -3:] = MASK
+    bias = bias[:, None, None, :].contiguous()
+    args = (q, k, v, bias, 64 ** -0.5, 8)
+    assert fused_attention.attention_block("packed", 1, 264, 64, 64) == "single"
+    got = fused_attention.fused_attention_packed(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
+
+
 @pytest.mark.parametrize("sq,sk", [(100, 100), (100, 12), (12, 12), (12, 100), (110, 110),
                                    (100, 1), (1, 1)])
 def test_packed_attention_at_classification_shapes(dev, sq, sk):
@@ -422,6 +481,33 @@ def test_dropout_attention_kernels_at_decoder_shapes(dev, case):
         assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("bs,total", [(16, 165)])
+def test_dropout_attention_under_a_prefix_lm_bias(dev, bs, total):
+    """The dropout pair at the standalone M4C's training shape (a train batch
+    of 16 over its joint 165, hd 512 over 8 heads of 64) under a full (b, 1,
+    L, L) prefix-LM bias with a fully masked query row: the keep bits equal
+    to dropout_mask_bits; tolerances as in
+    test_dropout_attention_kernels_match_plain."""
+    hd, heads = 512, 8
+    gen = torch.Generator(device=dev).manual_seed(bs * total)
+    q, k, v, g = (_randn(gen, bs, total, hd) for _ in range(4))
+    bias = _prefix_lm_bias(gen, bs, total, 5)
+    seed = torch.tensor([165], dtype=torch.int64, device=dev)
+    scale = 1.0 / (hd // heads) ** 0.5
+    _, _, bits = fused_attention._dropout_forward_kernel(q, k, v, bias, seed, scale, heads, 0.1)
+    assert torch.equal(bits, fused_attention.dropout_mask_bits(seed, bs, heads, total, total, 0.1))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fused_attention.fused_attention_packed_dropout(*leaves, bias, seed, scale, heads, 0.1)
+    (out * g).sum().backward()
+    assert bool(torch.isfinite(out).all())
+    plain = fused_attention.fused_attention_packed_dropout_plain(q, k, v, bias, seed, scale, heads, 0.1)
+    assert _err(out.detach(), plain) <= ATTN_TOL
+    grads = fused_attention.fused_attention_packed_dropout_backward_plain(
+        q, k, v, bias, seed, g, scale, heads, 0.1)
+    for leaf, want in zip(leaves, grads):
+        assert _err(leaf.grad, want) <= 1e-2 * float(want.abs().max())
+
+
 def _rate0_case(dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v = (_randn(gen, 3, 40, HD) for _ in range(3))
@@ -517,6 +603,8 @@ def test_dropout_forward_mask_bits_match_plain(dev, block):
     # head block), 64 rows, an odd context
     (768, 8, 64, 211, 5),
     (768, 8, 3, 1, 3),
+    # the standalone M4C's joint encoder: 8 heads of 64 over its 160-key context
+    (512, 8, 64, 160, 5),
 ])
 def test_bert_self_step_kernel_matches_plain(dev, hd, heads, bs, ctx_len, n_slots):
     """Kernel D over T + 2 steps (the last two overwrite the last slot, as the
