@@ -172,7 +172,31 @@ Phases, each fatal on failure:
      1024), ``mmf_iterative_lorra`` and ``mmf_lorra`` (MmfClassificationTask; no kernel launched, its attentions plain as in the
      JAX package): a dev eval with exact launches, the kernel vs plain scores
      (not for ``mmf_lorra``) and the gradients of the train split; phase 11's
-     seconds.
+     seconds;
+ 12. eight more configs at their full widths (random weights from the seed):
+     ``unique_transformer``, ``cross_modality_transformer_vlsp``,
+     ``visiolinguistic_transformer_vlsp`` and ``extended_mcan_vlsp`` under
+     VlspEvjVqaTask on phase 8's EVJVQA set (beam 3 x 20 = 60 rows), each
+     with a beam dev eval at exact launches and no plain version called
+     (UniqueTransformer, which re-encodes [prefix | answer buffer] at every
+     step: packed = 6 x T a batch; the dual-stream generators packed = 12 and
+     ExtendedMCAN 9 an encode, the layer step T x 3), one batch's
+     ``generate()`` on the kernel and plain paths (token agreement >= 90 %,
+     cumulative log-probs of the agreeing samples within LOGPROB_TOL),
+     teacher-forced log-probs of those tokens within TF_TOL (the whole
+     distributions' and the encoder output's differences printed beside), the packed kernel at every shape
+     ``generate()`` gave it (60 x 332 x 332 under the prefix-LM bias; 20 x
+     149 x 26 and the like) and the layer step at the beam rows and keys
+     (Sk 175), one train step (finite loss, gradients finite and non-zero but
+     the gradient-free biases; UniqueTransformer also one step's gradients on
+     both paths and train-step times); ``cross_modality_transformer`` and
+     ``visiolinguistic_transformer`` (ClassificationTask) on phase 10's
+     2048-wide set (packed = 12 a batch, kernel vs plain log-probs, the packed
+     kernel at their shapes, one step); ``iterative_saaa`` (TrainingSAAATask)
+     on phase 4's data (the layer step over 101 keys, one layer) and
+     ``readable_iterative_mcan`` (OpenEndedTask over the OCR datasets) on
+     phase 11's (packed at 21 x 200 x 200 and against the question, the layer
+     step over ~210 keys), each as the VLSP generators; phase 12's seconds.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
@@ -180,7 +204,7 @@ report, and checks in the library's SASS (cuobjdump) that no wgmma kernel
 writes an operand of a product after its fence, or touches it before the wait
 (``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8, 9 and 10: each eval route, start() and
-get_predictions(); 9: each long-stream forward; 10 and 11: each config's dev eval and
+get_predictions(); 9: each long-stream forward; 10, 11 and 12: each config's dev eval and
 each decode mode) and read just after it, kernel
 C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
@@ -1118,11 +1142,13 @@ def by_launch(failures, calls) -> None:
                             f"a call over {len(split)} kernels, not 1")
 
 
-def check_layer_step_at(task, gen, record, failures):
-    """The decoder-layer step at JointTransformer's beam-eval step: the dev
-    loader's samples x beams rows, the joint stream's keys (bf16 encoder K/V),
-    the decoder's first layer's weights, a float32 ring filled by T steps; the
-    last step against the plain version from the same ring."""
+def check_layer_step_at(task, gen, record, failures, label="JointTransformer's step"):
+    """The decoder-layer step at a generative task's beam-eval step (phase 3:
+    JointTransformer's): the dev loader's samples x beams rows, the encoder
+    output's keys (bf16 encoder K/V), the decoder's first layer's weights, a
+    float32 ring filled by T steps; the last step against the plain version
+    from the same ring.  Beside it, one SDPA call of its cross-attention
+    alone, a yardstick (no library call computes the whole step)."""
     import torch
 
     from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
@@ -1138,7 +1164,7 @@ def check_layer_step_at(task, gen, record, failures):
     rows = first["question_tokens"].shape[0] * task.evaluating_beam_size
     t_len = task.vocab.max_answer_length
     with torch.no_grad():
-        sk = task.model.streams(first)[1].shape[-1]
+        sk = task.model.encode(first)[1].shape[-1]
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1158,12 +1184,17 @@ def check_layer_step_at(task, gen, record, failures):
     y = decode_step.fused_decoder_layer_step(*l_args)[0]
     want = decode_step.fused_decoder_layer_step_plain(*l_args[:6], *plain_ring, *l_args[9:])[0]
     record("fused_decoder_layer_step",
-           f"JointTransformer's step: {rows} rows, hd {hd}, T {t_len}, Sk {sk}, bf16 encoder "
+           f"{label}: {rows} rows, hd {hd}, T {t_len}, Sk {sk}, bf16 encoder "
            f"K/V, d_ff {f['w1'].shape[1]} (library: none)", max_err(y, want), LAYER_TOL,
            lambda: decode_step.fused_decoder_layer_step(*l_args),
            lambda: decode_step.fused_decoder_layer_step_plain(*l_args), *layer_step_work(l_args))
     by_launch(failures, (("fused_decoder_layer_step",
                           lambda: decode_step.fused_decoder_layer_step(*l_args)),))
+    q = randn(rows, 1, hd)
+    bias = enc_bias[:, None, None, :]
+    cross = sdpa_library(q, enc_k.float(), enc_v.float(), bias, scale, heads)
+    log(f"    [{label}] one float32 SDPA call of the step's cross-attention alone ({rows} x 1 "
+        f"x {sk}): call {median_ms(cross):.4f} ms, device {device_ms(cross)[0]:.4f} ms")
 
 
 def busy_us(events, device_type) -> float:
@@ -2025,13 +2056,14 @@ STREAMED_SHAPES = ((64, 1536), (16, 1601))
 LONG_STREAM = (16, 1536)
 
 
-def with_joint(paths, seed, checkpoint):
-    """``configs/joint_transformer_vlsp.yaml`` on the synthetic EVJVQA set at
-    `paths` (its VinVL-shaped feature store), one epoch."""
+def with_joint(paths, seed, checkpoint, config_file="joint_transformer_vlsp.yaml"):
+    """``configs/<config_file>`` (a VlspEvjVqaTask config; phase 9's
+    JointTransformer by default) on the synthetic EVJVQA set at `paths` (its
+    VinVL-shaped feature store), one epoch."""
     from openvivqa_tpu_torch.config import get_config
 
     dataset = {"FEATURE_PATH": {"FEATURES": paths["features"]}}
-    return get_config(str(ROOT / "configs" / "joint_transformer_vlsp.yaml")).merged({
+    return get_config(str(ROOT / "configs" / config_file)).merged({
         "DATASET": {
             "FEATURE_DATASET": dataset, "DICT_DATASET": dataset,
             "JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
@@ -2388,14 +2420,17 @@ def with_classification(config_file, paths, seed, checkpoint):
 
 def packed_per_batch(model) -> int:
     """Packed-attention launches of one forward of a classification MODEL
-    node: one per encoder attention (MCAN: self layers + 2 x guided layers;
-    an Encoder: its layers; a CoAttentionEncoder: 4 x its layers; SAAA none)."""
-    if model.ARCHITECTURE == "MCAN":
+    node (or of one encode of a generator's): one per encoder attention
+    (MCAN, ExtendedMCAN: self layers + 2 x guided layers; an Encoder: its
+    layers; a CoAttentionEncoder or CrossModalityEncoder: 4 x its layers;
+    SAAA none)."""
+    if model.get("SELF_ENCODER") is not None:
         return model.SELF_ENCODER.LAYERS + 2 * model.GUIDED_ENCODER.LAYERS
     if model.ARCHITECTURE == "SAAA":
         return 0
     encoder = model.ENCODER
-    return (4 if encoder.ARCHITECTURE == "CoAttentionEncoder" else 1) * encoder.LAYERS
+    dual = encoder.ARCHITECTURE in ("CoAttentionEncoder", "CrossModalityEncoder")
+    return (4 if dual else 1) * encoder.LAYERS
 
 
 def classification_eval(task, label, failures, timed=False):
@@ -3015,7 +3050,7 @@ def m4c_family_task(paths, tmp, seed, config_file, label, model=None):
     return config, build_task(config, "cuda")
 
 
-def run_m4c_family(tmp, seed, failures, record):
+def run_m4c_family(tmp, seed, failures, record, paths=None):
     """Phase 11: m4c.yaml (standalone M4C, TrainingMMF) in both decode modes
     and trained, iterative_m4c.yaml (IterativeM4C, OcrOpenEndedTask), then
     small_mmf_improved_decoding_m4c, experimental_mmf_m4c, mmf_iterative_lorra
@@ -3032,7 +3067,7 @@ def run_m4c_family(tmp, seed, failures, record):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
-    paths = m4c_family_data(tmp, seed)
+    paths = paths or m4c_family_data(tmp, seed)
 
     def task_of(config_file, label, model=None):
         return m4c_family_task(paths, tmp, seed, config_file, label, model)
@@ -3114,6 +3149,209 @@ def run_m4c_family(tmp, seed, failures, record):
             compare_scores(task, name, failures)
             check_gradients(task, failures, name)
         del task, model
+        torch.cuda.empty_cache()
+        log(f"  [{name}] {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+# -- phase 12: the VLSP generative family, the cross-modality models, IterativeSAAA and
+# ReadableIterativeMCAN ---------------------------------------------------------------------
+VLSP_CONFIGS = ("unique_transformer.yaml", "cross_modality_transformer_vlsp.yaml",
+                "visiolinguistic_transformer_vlsp.yaml", "extended_mcan_vlsp.yaml")
+DUAL_CLASSIFIERS = ("cross_modality_transformer.yaml", "visiolinguistic_transformer.yaml")
+TF_TOL = 1e-2  # teacher-forced log-probs of the generated tokens, kernel path vs plain path
+
+
+def generative_launches(task) -> dict:
+    """The exact launches of one beam dev eval of a phase-12 generator: each
+    encoder attention once an encode (packed), the decoder's layer step
+    once a layer and step; UniqueTransformer has no decoder and re-runs its
+    encoder at every step instead (packed = layers x steps)."""
+    model, config = task.model, task.config.MODEL
+    steps, n_batches = task.vocab.max_answer_length, len(task.dev_dict_dataloader)
+    if type(model).__name__ == "UniqueTransformer":
+        return exact_launches(fused_attention_packed=len(model.encoder.layers) * steps * n_batches)
+    encode = 0 if type(model).__name__ == "IterativeSAAA" else packed_per_batch(config)
+    return exact_launches(fused_attention_packed=encode * n_batches,
+                          fused_decoder_layer_step=steps * len(model.decoder.layers) * n_batches)
+
+
+def one_train_step(task, label, failures):
+    """One optimizer step on the first train batch (a finite loss), then the
+    gradients of the train split (``check_gradients``)."""
+    import torch
+
+    _, batch = next(task.device_batches(task.train_dataloader))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loss = float(task._train_step(batch))
+    seconds = time.perf_counter() - start
+    log(f"  [{label}] one train step of {task.train_dataloader.batch_size}: loss {loss:.6f}, "
+        f"{seconds * 1e3:.1f} ms by the host clock (first step)")
+    if not math.isfinite(loss):
+        failures.append(f"[{label}] train step: loss {loss}")
+    check_gradients(task, failures, label)
+
+
+def compare_generation(task, label, failures):
+    """One dev batch through generate() on the kernel and the plain path:
+    token agreement of the valid samples (at least 90 %), the cumulative
+    log-probs of the beams that agree (within LOGPROB_TOL), both calls'
+    times and a profiler table of the kernel path's; returns the packed
+    kernel's calls captured on the kernel path, the batch and the kernel
+    path's tokens."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+    from openvivqa_tpu_torch.training.decode import generate
+
+    host, batch = next(task.device_batches(task.dev_dict_dataloader))
+    valid = torch.from_numpy(host["sample_valid"]).to(task.device)
+    beam = task.evaluating_beam_size
+    packed = {}
+    with capture_calls(fused_attention, "fused_attention_packed", packed_key, packed):
+        tokens_k, logprobs_k = generate(task.model, batch, beam)
+    with plain_versions():
+        tokens_p, logprobs_p = generate(task.model, batch, beam)
+    same = (tokens_k == tokens_p).all(-1) & valid
+    agreement = float((tokens_k[valid] == tokens_p[valid]).float().mean())
+    diff = max_err(logprobs_k[same].sum(-1), logprobs_p[same].sum(-1)) if bool(
+        same.any()) else 0.0
+    kernel_ms = median_ms(lambda: generate(task.model, batch, beam), reps=3)
+    with plain_versions():
+        plain_ms = median_ms(lambda: generate(task.model, batch, beam), reps=3)
+    log(f"  [{label}] generate() of one batch of {valid.shape[0]} x beam {beam}, kernel vs "
+        f"plain path: token agreement {agreement * 100:.2f}% of {tokens_k[valid].numel()} tokens, "
+        f"{int(same.sum())} of {int(valid.sum())} samples equal; on those max|cumulative "
+        f"log-prob diff| {diff:.3e} (tol {LOGPROB_TOL:.0e}); {kernel_ms:.2f} ms kernel path, "
+        f"{plain_ms:.2f} ms plain path (CUDA-event medians of 3)")
+    if agreement < 0.9:
+        failures.append(f"[{label}] kernel vs plain token agreement {agreement} < 0.9")
+    if not diff <= LOGPROB_TOL or not bool(torch.isfinite(logprobs_k).all()):
+        failures.append(f"[{label}] kernel vs plain cumulative log-prob diff {diff} or non-finite")
+    profile(lambda: generate(task.model, batch, beam), f"{label} beam decode")
+    return packed, batch, tokens_k
+
+
+def compare_teacher_forced(task, label, failures, batch, tokens):
+    """Teacher forcing on a dev batch's generated `tokens` (after <bos>; a dev
+    split holds no answer ids, and a train split's OCR copy ids are drawn at
+    random) in eval, on the kernel and the plain path: the log-probs of the
+    tokens themselves within TF_TOL.  Beside them, the whole (rows, T, V)
+    distributions' max |difference|, the encoder output's, and the part the
+    decoder adds on its own (both decoders on the plain path's encoder
+    output): the bf16 attention's roundings compound through the encoder."""
+    import torch
+
+    model = task.model.eval()
+    bos = torch.full_like(tokens[:, :1], task.vocab.bos_idx)
+    answers = torch.cat([bos, tokens[:, :-1]], dim=1).long()
+    with torch.no_grad():
+        enc_k, bias = model.encode(batch)
+        with plain_versions():
+            enc_p, _ = model.encode(batch)
+            out_p = model.decode_teacher_forced(answers, enc_p, bias)
+        out_k = model.decode_teacher_forced(answers, enc_k, bias)
+        decoder_only = max_err(model.decode_teacher_forced(answers, enc_p, bias), out_p)
+    chosen = tokens.long()[..., None]
+    err = max_err(out_k.gather(-1, chosen), out_p.gather(-1, chosen))
+    log(f"  [{label}] teacher-forced log-probs of the {tuple(tokens.shape)} generated tokens, "
+        f"kernel vs plain path: max|diff| {err:.3e} (tol {TF_TOL:.0e}); over the whole "
+        f"{tuple(out_k.shape)} distributions {max_err(out_k, out_p):.3e}, of which the decoder "
+        f"on one encoder output {decoder_only:.3e}; encoder output max|diff| "
+        f"{max_err(enc_k, enc_p):.3e} (max|output| {float(enc_p.abs().max()):.2f})")
+    if not err <= TF_TOL or not bool(torch.isfinite(out_k).all()):
+        failures.append(f"[{label}] teacher-forced log-probs: max diff {err} or non-finite")
+
+
+def run_phase12_generator(task, label, record, failures, unique=False):
+    """One phase-12 generator: the beam dev eval with its exact launches and
+    no plain call, kernel vs plain generate() and teacher-forced log-probs,
+    the packed kernel at the shapes generate() gave it, the layer step at
+    its beam rows and keys, then one train step and the train split's
+    gradients (UniqueTransformer also one step's gradients on both paths,
+    check_train_step).  Returns the eval's
+    launches."""
+    import torch
+
+    from openvivqa_tpu_torch.training.decode import generate
+
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    generate(task.model, first, task.evaluating_beam_size)  # first-call set-up, uncounted
+    torch.cuda.synchronize()
+    counts = exact_eval(task, label, failures, generative_launches(task))
+    packed, batch, tokens = compare_generation(task, label, failures)
+    compare_teacher_forced(task, label, failures, batch, tokens)
+    check_packed_calls(packed, label, record)
+    if not unique:
+        check_layer_step_at(task, torch.Generator(device=task.device).manual_seed(12), record,
+                            failures, f"{label}'s step")
+    if unique:
+        check_train_step(task, failures, label)
+    one_train_step(task, label, failures)
+    return counts
+
+
+def run_phase12(evjvqa, main_paths, wide_paths, ocr_paths, tmp, seed, failures, record):
+    """Phase 12, each config at its full widths: the four VLSP configs under
+    VlspEvjVqaTask on the EVJVQA set, the two dual-stream classifiers on the
+    2048-wide regions, iterative_saaa.yaml (TrainingSAAATask) on the main
+    set, readable_iterative_mcan.yaml (OpenEndedTask) on the OCR set.
+    Returns the launches of the dev evals."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    def describe(task, name):
+        model = task.model
+        core = next(m for m in model.modules()
+                    if type(m).__name__ == "ScaledDotProductAttention")
+        log(f"  [{name}] {type(model).__name__} under {type(task).__name__}, d_model "
+            f"{core.d_model}, {core.h} heads of {core.d_k}, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+            f"{len(task.train_dataset)} train samples in batches of "
+            f"{task.train_dataloader.batch_size}")
+
+    for config_file in VLSP_CONFIGS:
+        start = time.perf_counter()
+        name = config_file.removesuffix(".yaml")
+        task = build_task(with_joint(evjvqa, seed, str(Path(tmp) / name), config_file), "cuda")
+        describe(task, name)
+        add(run_phase12_generator(task, name, record, failures,
+                                  unique=name == "unique_transformer"))
+        del task
+        torch.cuda.empty_cache()
+        log(f"  [{name}] {time.perf_counter() - start:.1f} s")
+
+    for config_file in DUAL_CLASSIFIERS:
+        start = time.perf_counter()
+        name = config_file.removesuffix(".yaml")
+        task = build_task(with_classification(config_file, wide_paths, seed,
+                                              str(Path(tmp) / name)), "cuda")
+        describe(task, name)
+        add(classification_eval(task, name, failures))
+        compare_classification_paths(task, name, failures)
+        check_packed_at_path_shapes(task, name, record, failures)
+        one_train_step(task, name, failures)
+        del task
+        torch.cuda.empty_cache()
+        log(f"  [{name}] {time.perf_counter() - start:.1f} s")
+
+    for config_file, paths, features_only in (("iterative_saaa.yaml", main_paths, True),
+                                              ("readable_iterative_mcan.yaml", ocr_paths, False)):
+        start = time.perf_counter()
+        name = config_file.removesuffix(".yaml")
+        task = build_task(with_data(config_file, paths, seed, str(Path(tmp) / name),
+                                    features_only=features_only), "cuda")
+        describe(task, name)
+        add(run_phase12_generator(task, name, record, failures))
+        del task
         torch.cuda.empty_cache()
         log(f"  [{name}] {time.perf_counter() - start:.1f} s")
     return launches
@@ -3299,10 +3537,23 @@ def main() -> int:
             "epoch), configs/iterative_m4c.yaml (beam 3, one epoch), then "
             "small_mmf_improved_decoding_m4c, experimental_mmf_m4c, mmf_iterative_lorra and "
             "mmf_lorra")
-        for name, n in run_m4c_family(tmp, args.seed, failures,
-                                      make_recorder(results, failures)).items():
+        m4c_paths = m4c_family_data(tmp, args.seed)
+        for name, n in run_m4c_family(tmp, args.seed, failures, make_recorder(results, failures),
+                                      m4c_paths).items():
             launches[name] += n
         log(f"phase 11: {time.perf_counter() - start:.1f} s")
+
+        # 12. the VLSP generative family, the cross-modality models, IterativeSAAA and
+        # ReadableIterativeMCAN
+        start = time.perf_counter()
+        log("main path, phase 12: unique_transformer, cross_modality_transformer_vlsp, "
+            "visiolinguistic_transformer_vlsp and extended_mcan_vlsp (VlspEvjVqaTask, beam 3), "
+            "cross_modality_transformer and visiolinguistic_transformer (ClassificationTask), "
+            "iterative_saaa (TrainingSAAATask) and readable_iterative_mcan (OpenEndedTask)")
+        for name, n in run_phase12(evjvqa, paths, wide, m4c_paths, tmp, args.seed, failures,
+                                   make_recorder(results, failures)).items():
+            launches[name] += n
+        log(f"phase 12: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

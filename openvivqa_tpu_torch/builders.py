@@ -27,7 +27,9 @@ def build_model(config, vocab, example=None):
     """Instantiate the MODEL node's architecture (on the CPU; callers move it).
     `example`, one sample's host arrays by field, gives the input widths that
     flax infers from the data: each config node an architecture names in its
-    FEATURE_INPUTS gets D_FEATURE = the summed last dims of those fields."""
+    FEATURE_INPUTS, and that the config has, gets D_FEATURE = the summed last
+    dims of those fields, or, where FEATURE_INPUTS maps the node to a dict of
+    keys to fields, each of those keys."""
     name = config.ARCHITECTURE
     # the JAX package's schema dispatch: configs/iterative_m4c.yaml names M4C
     # but carries the IterativeM4C schema
@@ -36,9 +38,13 @@ def build_model(config, vocab, example=None):
     architecture = META_ARCHITECTURE.get(name)
     inputs = getattr(architecture, "FEATURE_INPUTS", {})
     if example is not None and inputs:
+        def width(fields):
+            return sum(int(example[field].shape[-1]) for field in fields)
+
         config = config.merged({
-            node: {"D_FEATURE": sum(int(example[field].shape[-1]) for field in fields)}
-            for node, fields in inputs.items()
+            node: {key: width(fields) for key, fields in (
+                keys.items() if isinstance(keys, dict) else (("D_FEATURE", keys),))}
+            for node, keys in inputs.items() if config.get(node) is not None
         })
     return architecture(config=config, vocab=vocab)
 

@@ -1,5 +1,6 @@
 """The classification heads shared by the MCAN family: attention-reduce
-pooling and the fused dual-stream classifier.
+pooling and the fused dual-stream classifier; and the region + box, grid + box
+vision stream of the VLSP generators.
 
 Counterpart of ``openvivqa_tpu/models/common.py``, under the reference's
 parameter names (``fc1`` / ``fc2`` of each reduce MLP; ``vision_proj``,
@@ -61,3 +62,21 @@ class DualStreamClassifier:
         pooled_t = attention_pool(text_features, self.text_attr_reduce(text_features, generator))
         return self.classify(self.layer_norm(self.vision_proj(pooled_v)
                                              + self.text_proj(pooled_t)))
+
+
+# the input widths flax infers from the data, for the models that build
+# REGION_EMBEDDING, GRID_EMBEDDING and BOX_EMBEDDING (``builders.build_model``)
+REGION_GRID_BOX_INPUTS = {"REGION_EMBEDDING": ("region_features",),
+                          "GRID_EMBEDDING": ("grid_features",),
+                          "BOX_EMBEDDING": ("region_boxes",)}
+
+
+def region_grid_stream(model, batch, generator=None):
+    """[regions + their boxes | grids + their boxes] through the model's
+    region, grid and box embeddings (one box embedding serves both), and the
+    concatenated padding bias."""
+    region, region_bias = model.region_embedding(batch["region_features"], generator)
+    region = region + model.box_embedding(batch["region_boxes"], generator)[0]
+    grid, grid_bias = model.grid_embedding(batch["grid_features"], generator)
+    grid = grid + model.box_embedding(batch["grid_boxes"], generator)[0]
+    return torch.cat([region, grid], dim=1), torch.cat([region_bias, grid_bias], dim=-1)

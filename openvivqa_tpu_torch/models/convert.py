@@ -11,7 +11,10 @@ converters are this bridge's inverses and the port also loads the reference's ow
 checkpoints; the ViT and T5 backbones carry HF's names, which
 ``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
 VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention,
-IterativeM4C and the hierarchical text embedding have no reference converter, and
+IterativeM4C, UniqueTransformer, ExtendedMCAN, IterativeSAAA, the two dual-stream
+models and the hierarchical text embedding have no reference converter (the
+one the JAX package lists for ReadableIterativeMCAN, ``convert_iterative_mcan``,
+reads IterativeMCAN's one-linear vision embedding, not ``VisionOcrEmbedding``), and
 the JAX converters refuse experimental_MMF_M4C and MMF_IterativeLoRRA: their flax trees
 (``@nn.compact`` auto-names such as ``Encoder_0``, ``Dense_0``, ``Conv_0``) map
 to the port's names here.  Flax Dense kernels are (in, out) and torch Linear
@@ -416,9 +419,101 @@ def _co_attention_model(tree: Mapping[str, Any]) -> StateDict:
     return out
 
 
-def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
+def _cross_modality_encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """``CrossModalityEncoder``: the two stream LayerNorms and ``layer_{i}``'s
+    four attentions and two FFNs under their own names."""
+    _layer_norm(out, f"{name}.vision_layer_norm", tree["vision_layer_norm"])
+    _layer_norm(out, f"{name}.language_layer_norm", tree["language_layer_norm"])
+    for i, layer in _layers(tree):
+        for attention in ("vision_language_mhattn", "language_vision_mhattn", "vision_mhattn",
+                          "language_mhattn"):
+            _multi_head_attention(out, f"{name}.layers.{i}.{attention}", layer[attention])
+        for ffn in ("vision_pff", "language_pff"):
+            _positionwise_ffn(out, f"{name}.layers.{i}.{ffn}", layer[ffn])
+
+
+def _vision_ocr_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """``VisionOcrEmbedding``: Dense_{0..3} and LayerNorm_{0..3} are the object
+    features, object boxes, OCR features and OCR boxes, in that order."""
+    for i, (stream, part) in enumerate((("obj", "feat"), ("obj", "bbox"), ("ocr", "feat"),
+                                        ("ocr", "bbox"))):
+        _linear(out, f"{name}.linear_{stream}_{part}_to_mmt_in", tree[f"Dense_{i}"])
+        _layer_norm(out, f"{name}.{stream}_{part}_layer_norm", tree[f"LayerNorm_{i}"])
+
+
+def _region_grid_box(out: StateDict, tree: Mapping[str, Any]) -> None:
+    for name in ("region_embedding", "grid_embedding", "box_embedding"):
+        if name in tree:
+            _linear(out, f"{name}.proj", tree[name]["Dense_0"])
+
+
+def _dual_stream_model(tree: Mapping[str, Any]) -> StateDict:
+    """CrossModalityTransformer and VisiolinguisticTransformer in either mode:
+    the classifier's head (``classifier``) onto the model's top, or the
+    generator's streams, fusion, norm and decoder."""
     out: StateDict = {}
-    _linear(out, "vision_embedding.proj", tree["vision_embedding"]["Dense_0"])
+    _region_grid_box(out, tree)
+    _text_embedding(out, "text_embedding", tree["text_embedding"])
+    if "vl_0" in tree["encoder"]:
+        _co_attention_encoder(out, "encoder", tree["encoder"])
+    else:
+        _cross_modality_encoder(out, "encoder", tree["encoder"])
+    if "classifier" in tree:
+        _dual_stream_head(out, tree["classifier"])
+        return out
+    _positionwise_ffn(out, "fusion", tree["fusion"])
+    _layer_norm(out, "norm", tree["norm"])
+    _decoder(out, tree["decoder"])
+    return out
+
+
+def _extended_mcan(tree: Mapping[str, Any]) -> StateDict:
+    out: StateDict = {}
+    _region_grid_box(out, tree)
+    _text_embedding(out, "text_embedding", tree["text_embedding"])
+    _encoder(out, "self_encoder", tree["self_encoder"])
+    _guided_encoder(out, "guided_encoder", tree["guided_encoder"])
+    _positionwise_ffn(out, "fusion", tree["fusion"])
+    _layer_norm(out, "norm", tree["norm"])
+    _decoder(out, tree["decoder"])
+    return out
+
+
+def _unique_transformer(tree: Mapping[str, Any]) -> StateDict:
+    """UniqueTransformer: flax's ``streams/*`` embeddings at the top of the
+    port's names beside the shared ``text_embedding``, the encoder and the
+    bias-free ``fc``."""
+    out: StateDict = {}
+    _region_grid_box(out, tree["streams"])
+    _text_embedding(out, "text_embedding", tree["text_embedding"])
+    _encoder(out, "encoder", tree["encoder"])
+    _kernel(out, "fc", tree["fc"])
+    return out
+
+
+def _iterative_saaa(tree: Mapping[str, Any]) -> StateDict:
+    out: StateDict = {}
+    _linear(out, "vision.proj", tree["vision"]["Dense_0"])
+    out["text.embedding.weight"] = _arr(tree["text"]["embedding"])
+    _lstm(out, "text.lstm", tree["text"]["OptimizedLSTMCell_0"])
+    attention = tree["attention"]
+    _kernel(out, "attention.v_conv", attention["Dense_0"])
+    _linear(out, "attention.q_lin", attention["Dense_1"])
+    _linear(out, "attention.x_conv", attention["Dense_2"])
+    _positionwise_ffn(out, "fusion", tree["fusion"])
+    _layer_norm(out, "norm", tree["norm"])
+    _decoder(out, tree["decoder"])
+    return out
+
+
+def _iterative_mcan(tree: Mapping[str, Any]) -> StateDict:
+    """IterativeMCAN, and ReadableIterativeMCAN by its ``VisionOcrEmbedding``."""
+    out: StateDict = {}
+    vision = tree["vision_embedding"]
+    if "LayerNorm_0" in vision:
+        _vision_ocr_embedding(out, "vision_embedding", vision)
+    else:
+        _linear(out, "vision_embedding.proj", vision["Dense_0"])
     _text_embedding(out, "text_embedding", tree["text_embedding"])
     _encoder(out, "self_encoder", tree["self_encoder"])
     _guided_encoder(out, "guided_encoder", tree["guided_encoder"])
@@ -523,10 +618,12 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     float32 numpy arrays, for the M4C family (MMF_M4C, MMF_ImprovedDecodingM4C,
     experimental_MMF_M4C, MMF_REGIONAL_M4C, MMF_SAL, MMF_LanguageAdaptiveM4C,
     MMF_IterativeM4C and its multilevel variant, the standalone M4C,
-    IterativeM4C, MMF_LoRRA, MMF_IterativeLoRRA), IterativeMCAN, ViTmT5, JointTransformer and the classification
-    models (MCAN, SAAA, VanillaTransformer, ParallelAttentionTransformer,
-    HierarchicalCoAttention; each text embedding: Usual, LSTM, hierarchical)
-    trees, told apart by their top-level keys.
+    IterativeM4C, MMF_LoRRA, MMF_IterativeLoRRA), IterativeMCAN, ReadableIterativeMCAN,
+    ExtendedMCAN, IterativeSAAA, ViTmT5, JointTransformer, UniqueTransformer,
+    CrossModalityTransformer and VisiolinguisticTransformer (either mode) and
+    the classification models (MCAN, SAAA, VanillaTransformer,
+    ParallelAttentionTransformer, HierarchicalCoAttention; each text embedding:
+    Usual, LSTM, hierarchical) trees, told apart by their top-level keys.
     `config` (the MODEL node) is accepted for symmetry with the JAX converters;
     the tree alone determines the layer counts."""
     if "self_attn" in tree and "txt_embedding" in tree:
@@ -543,8 +640,12 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
         return _mmf_language_adaptive(tree)
     if "text_bert" in tree:
         return _mmf_m4c(tree)
+    if "self_encoder" in tree and "grid_embedding" in tree:
+        return _extended_mcan(tree)
     if "self_encoder" in tree and "decoder" in tree:
         return _iterative_mcan(tree)
+    if "text" in tree and "decoder" in tree:
+        return _iterative_saaa(tree)
     if "self_encoder" in tree and "classify" in tree:
         return _mcan(tree)
     if "CoAttention_0" in tree:
@@ -555,6 +656,10 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
         return _co_attention_model(tree)
     if "vision_encoder" in tree and "text_embedding" in tree and "fusion" in tree:
         return _vit_mt5(tree)
+    if "streams" in tree and "fc" in tree:
+        return _unique_transformer(tree)
     if "streams" in tree and "encoder" in tree:
         return _joint_transformer(tree)
+    if "region_embedding" in tree and "encoder" in tree:
+        return _dual_stream_model(tree)
     raise ValueError(f"no bridge for a parameter tree with keys {sorted(tree)}")

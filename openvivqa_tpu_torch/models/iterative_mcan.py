@@ -39,8 +39,11 @@ class IterativeMCAN(GenerativeModel):
         """The JAX package's initialisers for this model (``init_xavier_law_``)."""
         init_xavier_law_(self, generator)
 
+    def _vision(self, batch: BatchTensors, generator=None):
+        return self.vision_embedding(batch["region_features"], generator)
+
     def encode(self, batch: BatchTensors, generator=None):
-        vision_features, vision_bias = self.vision_embedding(batch["region_features"], generator)
+        vision_features, vision_bias = self._vision(batch, generator)
         text_features, (text_bias, _) = self.text_embedding(batch["question_tokens"], generator)
         text_features = self.self_encoder(text_features, text_bias, generator)
         vision_features = self.guided_encoder(

@@ -6,9 +6,11 @@ single-token ``decode_step``), ``MultiModalEncoder``, ``GuidedAttentionEncoder``
 and ``CoAttentionEncoder`` in
 ``openvivqa_tpu/models/modules/encoders.py``, under the reference's parameter
 names (``layers.N.mhatt``, ``guided_attn_layers.N.self_mhatt``,
-``vision_language_attn_layers.N.mhatt`` ...).  The geometric and
-cross-modality encoders wait for the models that use them (ROADMAP queue 1,
-item 5).  A `generator` selects the training route (dropout drawn from it).
+``vision_language_attn_layers.N.mhatt`` ...), and ``CrossModalityEncoderLayer``
+and ``CrossModalityEncoder`` (LXMERT's stack, ``layers.N.vision_language_mhattn``
+... after the JAX layer's attribute names).  The geometric encoder waits for the
+model that uses it.  A `generator` selects the training route (dropout drawn
+from it).
 """
 
 from __future__ import annotations
@@ -49,6 +51,35 @@ class GuidedEncoderLayer(nn.Module):
         self_att = self.self_mhatt(queries, queries, queries, self_attention_bias, generator)
         guided_att = self.guided_mhatt(self_att, keys, values, guided_attention_bias, generator)
         return self.pwff(guided_att, generator)
+
+
+class CrossModalityEncoderLayer(nn.Module):
+    """LXMERT's dual-stream layer: per stream cross-attention, then
+    self-attention over its output, then the FFN (the published dataflow; the
+    reference's self-attention overwrites the cross output instead).  Both
+    cross-attentions read the streams as they entered the layer."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.vision_language_mhattn = MultiHeadAttention(config.VISION_LANGUAGE_ATTENTION)
+        self.language_vision_mhattn = MultiHeadAttention(config.LANGUAGE_VISION_ATTENTION)
+        self.vision_mhattn = MultiHeadAttention(config.VISION_SELF_ATTENTION)
+        self.language_mhattn = MultiHeadAttention(config.LANGUAGE_SELF_ATTENTION)
+        self.vision_pff = PositionWiseFeedForward(config.VISION_SELF_ATTENTION)
+        self.language_pff = PositionWiseFeedForward(config.LANGUAGE_SELF_ATTENTION)
+
+    def forward(self, vision, vision_padding_bias, language, language_padding_bias,
+                generator=None):
+        vision_cross = self.vision_language_mhattn(vision, language, language,
+                                                   language_padding_bias, generator)
+        language_cross = self.language_vision_mhattn(language, vision, vision,
+                                                     vision_padding_bias, generator)
+        vision_attn = self.vision_mhattn(vision_cross, vision_cross, vision_cross,
+                                         vision_padding_bias, generator)
+        language_attn = self.language_mhattn(language_cross, language_cross, language_cross,
+                                             language_padding_bias, generator)
+        return (self.vision_pff(vision_attn, generator),
+                self.language_pff(language_attn, generator))
 
 
 @META_ENCODER.register()
@@ -153,4 +184,28 @@ class CoAttentionEncoder(nn.Module):
             language = lv(language, vision, vision, vision_padding_bias, generator)
             vision = vs(vision, vision, vision, vision_padding_bias, generator)
             language = ls(language, language, language, language_padding_bias, generator)
+        return vision, language
+
+
+@META_ENCODER.register()
+class CrossModalityEncoder(nn.Module):
+    """LXMERT's stack: each stream behind its own LayerNorm plus the shared
+    sinusoid table, then N ``CrossModalityEncoderLayer``s."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.pos_embedding = SinusoidPositionalEmbedding(config.D_MODEL)
+        self.vision_layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+        self.language_layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            CrossModalityEncoderLayer(config) for _ in range(config.LAYERS))
+
+    def forward(self, vision_features, vision_padding_bias, language_features,
+                language_padding_bias, generator=None):
+        vision = self.vision_layer_norm(vision_features) + self.pos_embedding(vision_features)
+        language = (self.language_layer_norm(language_features)
+                    + self.pos_embedding(language_features))
+        for layer in self.layers:
+            vision, language = layer(vision, vision_padding_bias, language,
+                                     language_padding_bias, generator)
         return vision, language

@@ -7,8 +7,13 @@ vit_mt5.yaml) is ViT-base pixels + the mT5-small encoder, concatenated along
 the sequence, through a plain Linear fusion (no GELU, no dropout) into the
 decoder, whose cross-attention spans 197 + question-length keys.
 ViTmBERTGeneration has a GELU and dropout after its fusion; its BERT-family
-text wrappers, ``ViTmBERTClassification``, ``ExtendedMCAN`` and
-``ReadableIterativeMCAN`` wait for their slice (ROADMAP).
+text wrappers and ``ViTmBERTClassification`` wait for their slice (ROADMAP).
+
+The module also holds the JAX file's two MCAN-family generators: ``ExtendedMCAN``
+(region + box and grid + box streams through MCAN's guided encoder against the
+self-encoded question, fused, under the decoder; extended_mcan_vlsp.yaml) and
+``ReadableIterativeMCAN`` (IterativeMCAN whose vision stream is the object +
+OCR ``VisionOcrEmbedding``).
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ from torch import nn
 from ..builders import (
     META_ARCHITECTURE,
     build_decoder,
+    build_encoder,
     build_text_embedding,
     build_vision_embedding,
 )
 from .base import BatchTensors, GenerativeModel, init_xavier_law_
+from .common import REGION_GRID_BOX_INPUTS, region_grid_stream
+from .iterative_mcan import IterativeMCAN
 from .modules.bert import dropout
+from .modules.ffn import LN_EPS, PositionWiseFeedForward
 
 # the BERT-family text wrappers (pretrained_embeddings.py), not ported yet
 _UNPORTED_TEXT = ("BertEmbedding", "RobertaEmbedding", "XLMRobertaEmbedding",
@@ -58,7 +67,7 @@ class ViTmBERTGeneration(GenerativeModel):
         name = config.TEXT_EMBEDDING.ARCHITECTURE
         if name in _UNPORTED_TEXT:
             raise NotImplementedError(
-                f"TEXT_EMBEDDING {name} is not ported yet (ROADMAP queue 1, slice 5)")
+                f"TEXT_EMBEDDING {name} is not ported yet (ROADMAP queue 1, item 7)")
         self.vocab = vocab
         self.config = config
         self.dropout = config.DROPOUT
@@ -104,3 +113,75 @@ class ViTmT5(ViTmBERTGeneration):
 
     def _fuse(self, fused, generator=None):
         return self.fusion(fused)
+
+
+@META_ARCHITECTURE.register()
+class ExtendedMCAN(GenerativeModel):
+    """Region + box and grid + box streams, the question through SELF_ENCODER,
+    the vision stream through GUIDED_ENCODER against it, both concatenated,
+    fused by an FFN and a LayerNorm, then the decoder.  The width falls back to
+    MULTIMODAL_FUSION.D_MODEL: extended_mcan_vlsp.yaml has no top-level
+    D_MODEL."""
+
+    FEATURE_INPUTS = REGION_GRID_BOX_INPUTS
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        self.vocab = vocab
+        self.d_model = config.get("D_MODEL") or config.MULTIMODAL_FUSION.D_MODEL
+        self.region_embedding = build_vision_embedding(config.REGION_EMBEDDING)
+        self.grid_embedding = build_vision_embedding(config.GRID_EMBEDDING)
+        self.box_embedding = build_vision_embedding(config.BOX_EMBEDDING)
+        self.text_embedding = build_text_embedding(config.TEXT_EMBEDDING, vocab)
+        self.self_encoder = build_encoder(config.SELF_ENCODER)
+        self.guided_encoder = build_encoder(config.GUIDED_ENCODER)
+        self.fusion = PositionWiseFeedForward(config.MULTIMODAL_FUSION)
+        self.norm = nn.LayerNorm(self.d_model, eps=LN_EPS)
+        self.decoder = build_decoder(config.DECODER, vocab=vocab)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisers for this model (``init_xavier_law_``)."""
+        init_xavier_law_(self, generator)
+
+    def encode(self, batch: BatchTensors, generator=None):
+        vision, vision_bias = region_grid_stream(self, batch, generator)
+        text, (text_bias, _) = self.text_embedding(batch["question_tokens"], generator)
+        text = self.self_encoder(text, text_bias, generator)
+        vision = self.guided_encoder(vision, vision_bias, text, text_bias, generator)
+        fused = self.norm(self.fusion(torch.cat([vision, text], dim=1), generator))
+        return fused, torch.cat([vision_bias, text_bias], dim=-1)
+
+    def forward(self, batch: BatchTensors, generator=None) -> torch.Tensor:
+        encoder_features, encoder_bias = self.encode(batch, generator)
+        return self.decoder(batch["answer_tokens"], encoder_features, encoder_bias, generator)
+
+
+@META_ARCHITECTURE.register()
+class ReadableIterativeMCAN(IterativeMCAN):
+    """IterativeMCAN whose vision stream is ``VisionOcrEmbedding``'s objects
+    and OCR tokens.  Its decoder's table and outputs cover the fixed vocab
+    only: an OcrVocab copy id in the answers (len(vocab) + OCR slot) reads as
+    <unk> (the task's loss counts such a target as <unk> too).  The JAX
+    package looks such an id up out of range, which gives NaN."""
+
+    FEATURE_INPUTS = {"VISION_EMBEDDING": {
+        "D_OBJ_FEATURE": ("region_features",),
+        "D_OCR_FEATURE": ("ocr_det_features", "ocr_rec_features", "ocr_fasttext_features")}}
+
+    def _vision(self, batch: BatchTensors, generator=None):
+        return self.vision_embedding(
+            batch["region_features"], batch["region_boxes"], batch["ocr_det_features"],
+            batch["ocr_rec_features"], batch["ocr_fasttext_features"], batch["ocr_boxes"],
+            generator)
+
+    def _in_vocab(self, tokens: torch.Tensor) -> torch.Tensor:
+        return torch.where(tokens < len(self.vocab), tokens, self.vocab.unk_idx)
+
+    def forward(self, batch: BatchTensors, generator=None) -> torch.Tensor:
+        return super().forward({**batch, "answer_tokens": self._in_vocab(batch["answer_tokens"])},
+                               generator)
+
+    def decode_teacher_forced(self, tokens, encoder_features, encoder_attention_bias,
+                              generator=None) -> torch.Tensor:
+        return super().decode_teacher_forced(self._in_vocab(tokens), encoder_features,
+                                             encoder_attention_bias, generator)

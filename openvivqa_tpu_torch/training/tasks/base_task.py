@@ -76,7 +76,11 @@ class BaseTask:
         raise NotImplementedError
 
     def lr_lambda(self):
-        return noam_lambda(self.config.MODEL.D_MODEL, self.config.TRAINING.WARMUP)
+        # extended_mcan_vlsp.yaml has no top-level D_MODEL: its model's width is
+        # the fusion's, as ExtendedMCAN reads it
+        model = self.config.MODEL
+        d_model = model.get("D_MODEL") or model.MULTIMODAL_FUSION.D_MODEL
+        return noam_lambda(d_model, self.config.TRAINING.WARMUP)
 
     # -- setup ---------------------------------------------------------------------
     def build_model(self, params: Optional[Mapping[str, Any]]):

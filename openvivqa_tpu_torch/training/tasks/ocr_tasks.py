@@ -10,8 +10,6 @@ argmaxed on the device; only (bs, T) ids cross to the host, where
 
 from __future__ import annotations
 
-import itertools
-
 import numpy as np
 import torch
 
@@ -20,37 +18,15 @@ from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
 from ..train_state import bce_with_logits_loss, nll_loss
 from .classification_task import ClassificationTask
-from .open_ended_task import OpenEndedTask
+from .open_ended_task import OpenEndedTask, _pad_tables
 
 logger = setup_logger()
-
-
-def _pad_tables(ocr_tokens, n_rows):
-    """Extend per-sample OCR tables to the padded batch size (padding rows
-    reuse the last table; sample_valid drops them)."""
-    tables = list(ocr_tokens)
-    if tables and len(tables) < n_rows:
-        tables += [tables[-1]] * (n_rows - len(tables))
-    return tables
 
 
 @META_TASK.register()
 class OcrOpenEndedTask(OpenEndedTask):
     """Generative VQA with OCR copying: answers decode against each sample's
-    OCR table."""
-
-    def _decode_batch(self, outs: np.ndarray, batch) -> list:
-        """(bs, T) ids, or (n, k, T) beam samples, -> answer strings,
-        consecutive repeats merged.  Row r of the (n * k, T) flattening
-        belongs to sample r // k, so each sample's OCR table is repeated k
-        times."""
-        flat = outs.reshape(-1, self.vocab.max_answer_length)
-        n_samples = outs.shape[0] if outs.ndim == 3 else flat.shape[0]
-        reps = max(flat.shape[0] // max(n_samples, 1), 1)
-        tables = [t for t in list(batch["ocr_tokens"])[:n_samples] for _ in range(reps)]
-        token_lists = self.vocab.decode_answer(flat, _pad_tables(tables, flat.shape[0]),
-                                               join_words=False)
-        return [" ".join(k for k, _ in itertools.groupby(tokens)) for tokens in token_lists]
+    OCR table (OpenEndedTask does so whenever the batch carries one)."""
 
 
 @META_TASK.register()

@@ -9,7 +9,8 @@ beams over batches of DICT_DATASET.BATCH_SIZE // beams samples), keeps
 ``last_model.pth`` and promotes it to ``best_model.pth`` when the score
 improves; it stops at TRAINING.PATIENCE epochs without improvement or at
 TRAINING.MAX_EPOCHS, and resumes from ``last_model.pth`` when one is present.
-SCST (``train_scst``) is not ported yet (ROADMAP queue 1, slice 3).
+SCST (``train_scst``) is not ported yet (ROADMAP queue 1).  ``TrainingSAAATask``
+is the same task at the constant LambdaLR schedule.
 """
 
 from __future__ import annotations
@@ -28,10 +29,20 @@ from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
 from ..decode import generate
+from ..optim import constant_lambda
 from ..train_state import nll_loss
 from .base_task import BaseTask
 
 logger = setup_logger()
+
+
+def _pad_tables(ocr_tokens, n_rows):
+    """Extend per-sample OCR tables to the padded batch size (padding rows
+    reuse the last table; sample_valid drops them)."""
+    tables = list(ocr_tokens)
+    if tables and len(tables) < n_rows:
+        tables += [tables[-1]] * (n_rows - len(tables))
+    return tables
 
 
 @META_TASK.register()
@@ -72,9 +83,15 @@ class OpenEndedTask(BaseTask):
     def compute_loss(self, batch) -> torch.Tensor:
         """The training loss of one device batch, with its graph: the NLL of
         the teacher-forced log-probs against the shifted answers, weighted by
-        sample_valid so that batch-padding rows count for nothing."""
+        sample_valid so that batch-padding rows count for nothing.  The model
+        runs in training mode here (cuDNN's LSTM, IterativeSAAA's, has no
+        backward in eval mode) and in eval mode in `generate_answers`; dropout
+        follows the generator."""
+        self.model.train()
         logprobs = self.model(batch, generator=self.generator)
+        # a copy id no output reads (OcrVocab's, under a fixed-vocab decoder) is <unk>
         targets = batch["shifted_right_answer_tokens"]
+        targets = torch.where(targets < logprobs.shape[-1], targets, self.vocab.unk_idx)
         weights = batch["sample_valid"][:, None].expand(targets.shape)
         return nll_loss(logprobs.reshape(-1, logprobs.shape[-1]), targets.reshape(-1),
                         self.vocab.padding_idx, weights=weights.reshape(-1))
@@ -89,15 +106,25 @@ class OpenEndedTask(BaseTask):
         return loss.detach()
 
     def _decode_batch(self, outs: np.ndarray, batch=None) -> list:
-        """(bs, T) ids -> answer strings, consecutive repeats merged; OCR-aware
-        subclasses read the per-sample OCR tables from `batch`."""
-        token_lists = self.vocab.decode_answer(
-            outs.reshape(-1, self.vocab.max_answer_length), join_words=False
-        )
+        """(bs, T) ids, or (n, k, T) beam samples, -> answer strings,
+        consecutive repeats merged.  When the batch carries each sample's OCR
+        tokens (an OCR vocab's datasets), the ids decode against those tables:
+        row r of the (n * k, T) flattening belongs to sample r // k, so each
+        sample's table is repeated k times."""
+        flat = outs.reshape(-1, self.vocab.max_answer_length)
+        if batch is None or "ocr_tokens" not in batch:
+            token_lists = self.vocab.decode_answer(flat, join_words=False)
+        else:
+            n_samples = outs.shape[0] if outs.ndim == 3 else flat.shape[0]
+            reps = max(flat.shape[0] // max(n_samples, 1), 1)
+            tables = [t for t in list(batch["ocr_tokens"])[:n_samples] for _ in range(reps)]
+            token_lists = self.vocab.decode_answer(flat, _pad_tables(tables, flat.shape[0]),
+                                                   join_words=False)
         return [" ".join(k for k, _ in itertools.groupby(tokens)) for tokens in token_lists]
 
     def generate_answers(self, batch, device_batch) -> list:
         """Beam-searched answers of one batch; only (bs, T) ids cross to the host."""
+        self.model.eval()
         outs, _ = generate(self.model, device_batch, self.evaluating_beam_size)
         return self._decode_batch(outs.cpu().numpy(), batch)
 
@@ -135,7 +162,7 @@ class OpenEndedTask(BaseTask):
 
     def start(self):
         if self.config.TRAINING.get("USE_SCST"):
-            raise NotImplementedError("SCST is not ported yet: ROADMAP queue 1, slice 3")
+            raise NotImplementedError("SCST is not ported yet: ROADMAP queue 1, item 6")
         last = os.path.join(self.checkpoint_path, LAST_NAME)
         metadata = self.load_checkpoint(last)
         if metadata is not None:
@@ -213,3 +240,11 @@ class OpenEndedTask(BaseTask):
         scored and written to test_results.json."""
         self.load_best_model()
         return self._predict_split(self.test_dict_dataloader, "test_results.json")
+
+
+@META_TASK.register()
+class TrainingSAAATask(OpenEndedTask):
+    """OpenEndedTask with the constant LambdaLR schedule."""
+
+    def lr_lambda(self):
+        return constant_lambda(self.config.TRAINING.LEARNING_RATE)

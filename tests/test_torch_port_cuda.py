@@ -342,12 +342,14 @@ def _prefix_lm_bias(gen, bs, total, ans_len):
     return bias
 
 
-@pytest.mark.parametrize("bs,total", [(64, 165), (180, 264), (60, 264)])
+@pytest.mark.parametrize("bs,total", [(64, 165), (180, 264), (60, 264), (60, 332)])
 def test_packed_attention_under_a_prefix_lm_bias(dev, bs, total):
     """The packed entry at the M4C family's joint shapes (hd 512 over 8 heads)
     under a full (b, 1, L, L) prefix-LM bias, read per (sample, query row),
-    with a fully masked query row: the standalone M4C's 64 x 165 and
-    IterativeM4C's beam step over 264 keys (60 and 180 rows)."""
+    with a fully masked query row: the standalone M4C's 64 x 165,
+    IterativeM4C's beam step over 264 keys (60 and 180 rows) and
+    UniqueTransformer's beam step, its encoder over 324 prefix + 8 answer
+    keys for 60 rows."""
     gen = torch.Generator(device=dev).manual_seed(bs + total)
     q, k, v = (_randn(gen, bs, total, 512) for _ in range(3))
     bias = _prefix_lm_bias(gen, bs, total, 5)
@@ -399,6 +401,36 @@ def test_packed_attention_at_classification_shapes(dev, sq, sk):
     assert bool(torch.isfinite(got).all())
     assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
 
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fused_attention.fused_attention_packed(*leaves, *args[3:]).sum().backward()
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fused_attention.fused_attention_packed_plain(*plain, *args[3:]).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _err(a.grad, b.grad) <= ATTN_TOL * max(1.0, float(b.grad.abs().max()))
+
+
+@pytest.mark.parametrize("bs,sq,sk", [(20, 149, 26), (20, 26, 149), (20, 149, 149), (20, 26, 26),
+                                      (21, 200, 200), (21, 200, 12), (21, 12, 12)])
+def test_packed_attention_at_the_generators_encoder_shapes(dev, bs, sq, sk):
+    """The encoder attentions of the VLSP generators and ReadableIterativeMCAN
+    at their beam evals' batches (8 heads of 64, a per-sample key-padding bias
+    that masks every key of sample 0): the dual-stream models' and
+    ExtendedMCAN's 149 vision tokens (100 regions, 49 grids) and 26 question
+    tokens for 20 samples, ReadableIterativeMCAN's 200 object + OCR tokens and
+    its question for 21; forward one launch within ATTN_TOL of plain, the
+    kernel's autograd function's gradients equal to plain's."""
+    gen = torch.Generator(device=dev).manual_seed(bs * 100000 + sq * 1000 + sk)
+    heads, d = 8, 64
+    q = _randn(gen, bs, sq, heads * d)
+    k, v = _randn(gen, bs, sk, heads * d), _randn(gen, bs, sk, heads * d)
+    bias = _bias_of_form(gen, "per-sample keys", bs, sq, sk)
+    args = (q, k, v, bias, d ** -0.5, heads)
+    before = _cuda.launch_counts()["fused_attention_packed"]
+    got = fused_attention.fused_attention_packed(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["fused_attention_packed"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, fused_attention.fused_attention_packed_plain(*args)) <= ATTN_TOL
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fused_attention.fused_attention_packed(*leaves, *args[3:]).sum().backward()
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -789,6 +821,9 @@ def test_decoder_layer_step_kernel_matches_its_stages_and_plain(dev):
 @pytest.mark.parametrize("rows,sk,t_len,ring_dtype", [
     (60, 324, 8, torch.float32),  # JointTransformer's beam step
     (64, 110, 5, torch.bfloat16),  # greedy rows over a bf16 ring
+    (63, 101, 5, torch.float32),  # IterativeSAAA: 100 regions + the question state
+    (60, 175, 8, torch.float32),  # the dual-stream generators and ExtendedMCAN
+    (63, 210, 5, torch.float32),  # ReadableIterativeMCAN: 200 object + OCR tokens, question
 ])
 def test_decoder_layer_step_at_path_shapes_matches_its_stages(dev, rows, sk, t_len, ring_dtype):
     """The persistent layer step at hd 512, 8 heads, d_ff 2048: bit-equal to
