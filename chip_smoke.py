@@ -197,6 +197,22 @@ Phases, each fatal on failure:
      ``readable_iterative_mcan`` (OpenEndedTask over the OCR datasets) on
      phase 11's (packed at 21 x 200 x 200 and against the question, the layer
      step over ~210 keys), each as the VLSP generators; phase 12's seconds.
+ 13. ``vit_mbert_classification.yaml`` (ClassificationTask, batches of 10, ViT-base
+     on the EVJVQA images at 224, mBERT-uncased at 105,879 x 768 x 12 layers,
+     d_model 512) and ``vit_mbert_generation.yaml`` (VlspEvjVqaTask on a
+     ViT-shaped store of 197 x 768 per image) at full widths: dev evals with
+     exact launches (12 F and 12 C a mBERT forward, 12 packed a ViT forward,
+     the layer step steps x 3 a beam batch) and no plain call, kernel vs plain
+     (the classifier's log-probs relative to their magnitude, which its sum
+     over every token puts in the hundreds, within BF16_ULP, argmax agreement;
+     the generator's tokens and teacher-forced log-probs), F, C, the packed
+     entry and the layer step at the shapes the forwards give them, one
+     step's gradients on both paths, the train split's gradients (none on the
+     frozen backbones), one epoch each with exact or non-zero launches; then
+     SCST on the generator: ``_switch_to_scst()``, one ``train_scst()`` epoch of
+     12 samples x 5 beams (exact launches, finite losses and rewards, every
+     parameter with a gradient moved and no frozen one), and a resume from
+     ``last_model.pth`` with ``use_rl`` (Adam's step continues, the RL rate).
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
@@ -205,7 +221,7 @@ writes an operand of a product after its fence, or touches it before the wait
 (``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8, 9 and 10: each eval route, start() and
 get_predictions(); 9: each long-stream forward; 10, 11 and 12: each config's dev eval and
-each decode mode) and read just after it, kernel
+each decode mode; 13: each dev eval, each start() and the SCST epoch) and read just after it, kernel
 C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
@@ -2466,13 +2482,17 @@ def classification_eval(task, label, failures, timed=False):
     return counts
 
 
-def compare_classification_paths(task, label, failures):
+def compare_classification_paths(task, label, failures, relative=False):
     """The dev split's log-probs on the kernel and the plain path: the max
     |difference| (within LOGPROB_TOL) and the argmax agreement over the valid
-    samples (at least ARGMAX_AGREEMENT)."""
+    samples (at least ARGMAX_AGREEMENT).  With `relative` (ViTmBERTClassification,
+    whose logits sum its fused features over every token and run to hundreds)
+    each sample's difference is taken relative to its largest |log-prob| and
+    held to BF16_ULP: one bf16 rounding of each token's features, carried
+    through the sum and the classifier."""
     import torch
 
-    err, agree, total = 0.0, 0, 0
+    err, rel, scale, agree, total = 0.0, 0.0, 0.0, 0, 0
     task.model.eval()
     with torch.no_grad():
         for host, batch in task.device_batches(task.dev_dataloader):
@@ -2484,12 +2504,18 @@ def compare_classification_paths(task, label, failures):
                 failures.append(f"[{label}] log-probs of shape {tuple(out_k.shape)} or "
                                 "non-finite")
             err = max(err, max_err(out_k[valid], out_p[valid]))
+            diff = (out_k - out_p).abs().max(-1).values / out_p.abs().max(-1).values
+            rel = max(rel, float(diff[valid].max()))
+            scale = max(scale, float(out_p[valid].abs().max()))
             agree += int((out_k.argmax(-1) == out_p.argmax(-1))[valid].sum())
             total += int(valid.sum())
-    log(f"  [{label}] kernel vs plain path over the dev split: max|log-prob diff| {err:.3e} "
-        f"(tol {LOGPROB_TOL:.0e}), argmax agreement {100 * agree / total:.2f} % of {total} samples")
-    if not err <= LOGPROB_TOL:
-        failures.append(f"[{label}] kernel vs plain path: max|log-prob diff| {err} > {LOGPROB_TOL}")
+    tol = f"relative tol {BF16_ULP:.1e}" if relative else f"tol {LOGPROB_TOL:.0e}"
+    log(f"  [{label}] kernel vs plain path over the dev split: max|log-prob diff| {err:.3e}, "
+        f"max|log-prob| {scale:.2f}, max over samples of |diff| / the sample's max|log-prob| "
+        f"{rel:.3e} ({tol}), argmax agreement {100 * agree / total:.2f} % of {total} samples")
+    if not (rel <= BF16_ULP if relative else err <= LOGPROB_TOL):
+        failures.append(f"[{label}] kernel vs plain path: max|log-prob diff| {err}, relative "
+                        f"{rel} ({tol})")
     if agree < ARGMAX_AGREEMENT * total:
         failures.append(f"[{label}] argmax agreement {agree} of {total} < {ARGMAX_AGREEMENT}")
 
@@ -3357,6 +3383,353 @@ def run_phase12(evjvqa, main_paths, wide_paths, ocr_paths, tmp, seed, failures, 
     return launches
 
 
+# -- phase 13: the BERT-family backbones (vit_mbert_classification, vit_mbert_generation)
+# and SCST ------------------------------------------------------------------------------------
+def with_vit_mbert(config_file, paths, seed, checkpoint, **training):
+    """``configs/<config_file>`` on the synthetic EVJVQA set at `paths`: its raw
+    images for the classifier, its ViT-shaped store (``paths["vit"]``) for the
+    generator; one epoch."""
+    from openvivqa_tpu_torch.config import get_config
+
+    classification = config_file == "vit_mbert_classification.yaml"
+    features = {"FEATURES": None if classification else paths["vit"], "IMAGE": paths["images"]}
+    sections = ("FEATURE_DATASET",) if classification else ("FEATURE_DATASET", "DICT_DATASET")
+    dataset = {key: {"FEATURE_PATH": features} for key in sections}
+    if classification:  # the flat schema's copy
+        dataset["FEATURE_PATH"] = features
+    test = paths["public_test"]
+    return get_config(str(ROOT / "configs" / config_file)).merged({
+        "DATASET": {**dataset,
+                    "JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"], "TEST": test,
+                                  "PUBLIC_TEST": test, "PRIVATE_TEST": paths["private_test"]},
+                    "VOCAB": {"JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                                            "TEST": test}}},
+        "TRAINING": {"SEED": seed, "CHECKPOINT_PATH": checkpoint, "MAX_EPOCHS": 1, **training},
+    })
+
+
+def describe_vit_mbert(task, label, failures):
+    """The model's shapes: mBERT's table, layers and heads, the frozen share;
+    every backbone parameter frozen.  Returns mBERT's layer count."""
+    model = task.model
+    trainable = [n for n, p in model.named_parameters() if n.startswith(BACKBONES)
+                 and p.requires_grad]
+    if trainable or not any(n.startswith(BACKBONES) for n, _ in model.named_parameters()):
+        failures.append(f"[{label}] backbone parameters missing or trainable: {trainable[:4]}")
+    bert = model.text_embedding.backbone
+    attention = bert.encoder.layer[0].attention
+    frozen = sum(p.numel() for p in model.parameters() if not p.requires_grad)
+    log(f"  [{label}] {type(model).__name__} under {type(task).__name__}: mBERT "
+        f"{bert.embeddings.word_embeddings.num_embeddings} x {attention.hidden_size} x "
+        f"{len(bert.encoder.layer)} layers, {attention.num_heads} heads of "
+        f"{attention.hidden_size // attention.num_heads}, FFN "
+        f"{bert.encoder.layer[0].intermediate.dense.out_features}; vision "
+        f"{type(model.vision_encoder).__name__}; d_model {model.config.D_MODEL}; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+        f"{frozen / 1e6:.2f}M frozen; {len(task.train_dataset)} train samples in batches of "
+        f"{task.train_dataloader.batch_size}")
+    return len(bert.encoder.layer)
+
+
+def log_backbone_split(task, batch, label):
+    """Where the kernel and plain paths part: each backbone's projected
+    features on `batch`, kernel vs plain, beside their magnitude, and the
+    pooled sum the classifier reads."""
+    import torch
+
+    model = task.model.eval()
+    tokens = batch["question_tokens"]
+    with torch.no_grad():
+        outs = []
+        for plain in (False, True):
+            with plain_versions() if plain else contextlib.nullcontext():
+                vision = model.vision_encoder(batch["pixel_values"])[0]
+                text = model.text_embedding(tokens)[0]
+                pooled = model.fusion(torch.cat([vision, text], dim=1)).sum(dim=1)
+                outs.append((vision, text, pooled))
+    parts = [f"{name} max|diff| {max_err(k, p):.3e} of max|x| {float(p.abs().max()):.2f}"
+             for name, k, p in zip(("ViT features", "mBERT features", "pooled sum"), *outs)]
+    log(f"  [{label}] kernel vs plain by stage on one dev batch: " + "; ".join(parts))
+
+
+def capture_kernel_calls(fn, calls):
+    """Run `fn()` with kernels F's and C's and the packed entry's first call
+    per shape captured into `calls` by kernel; returns fn's result."""
+    from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
+
+    with capture_calls(encoder_layer, "fused_encoder_self_attention",
+                       lambda a: tuple(a[0].shape), calls.setdefault("F", {})), \
+            capture_calls(decode_step, "fused_ffn_step", lambda a: (a[0].shape[0], a[1].shape[1]),
+                          calls.setdefault("C", {})), \
+            capture_calls(fused_attention, "fused_attention_packed", packed_key,
+                          calls.setdefault("packed", {})):
+        return fn()
+
+
+def check_backbone_calls(calls, label, record, failures):
+    """Kernels F and C (mBERT's layers) and the packed entry against their
+    plain versions on the captured calls' own inputs."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import decode_step, encoder_layer
+
+    if not (calls["F"] and calls["C"]):
+        failures.append(f"[{label}] kernel F or C was not called in the captured forward")
+    with torch.no_grad():
+        for (b, s, hd), (args, _) in sorted(calls["F"].items()):
+            out = encoder_layer.fused_encoder_self_attention(*args)
+            heads = args[4]
+            record("fused_encoder_self_attention",
+                   f"{label} mBERT {b} x {s}, {heads} heads of {hd // heads} (library: none)",
+                   max_err(out, encoder_layer.fused_encoder_self_attention_plain(*args)), LN_TOL,
+                   lambda a=args: encoder_layer.fused_encoder_self_attention(*a),
+                   lambda a=args: encoder_layer.fused_encoder_self_attention_plain(*a),
+                   2.0 * b * s * hd * 4 * hd + 4.0 * b * s * s * hd, tensor_bytes(args[:3], out))
+        for (rows, d_ff), (args, kwargs) in sorted(calls["C"].items()):
+            out = decode_step.fused_ffn_step(*args, **kwargs)
+            hd = args[0].shape[1]
+            record("fused_ffn_step", f"{label} mBERT {rows} rows, {hd} -> {d_ff} (library: none)",
+                   max_err(out, decode_step.fused_ffn_step_plain(*args, **kwargs)), LN_TOL,
+                   lambda a=args, k=kwargs: decode_step.fused_ffn_step(*a, **k),
+                   lambda a=args, k=kwargs: decode_step.fused_ffn_step_plain(*a, **k),
+                   4.0 * rows * hd * d_ff, tensor_bytes(args[:7], out))
+    check_packed_calls(calls["packed"], label, record)
+
+
+def counted_run(fn):
+    """(result, launch counts, plain calls) of `fn()`, the counts set to 0
+    just before it and read just after."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    plain_calls = {}
+    with count_plain_calls(plain_calls):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = counts_now()
+    return out, counts, plain_calls
+
+
+def check_counts(label, counts, plain_calls, want, failures):
+    """`want[name]` launches exactly, or, where want is None, at least one;
+    no plain version called."""
+    log(f"  [{label}] launches {json.dumps({k: v for k, v in counts.items() if v})}; plain "
+        f"calls {json.dumps(plain_calls)}{rows_text()}")
+    for name, n in want.items():
+        if (counts[name] != n) if n is not None else counts[name] <= 0:
+            failures.append(f"[{label}] {name}: {counts[name]} launches, want "
+                            f"{'some' if n is None else n}")
+    if plain_calls:
+        failures.append(f"[{label}] plain versions were called: {plain_calls}")
+
+
+def check_frozen_and_trainable(task, label, failures, before):
+    """After optimizer steps from the weights `before`: every parameter with a
+    gradient moved (the gradient-free biases excepted), the frozen backbones
+    did not, and they have no gradient."""
+    import torch
+
+    moved, still, bad = 0, 0, []
+    for name, p in task.model.named_parameters():
+        same = bool(torch.equal(p.detach(), before[name]))
+        if not p.requires_grad:
+            still += 1
+            if not same or p.grad is not None:
+                bad.append(name)
+        elif name.endswith(GRADIENT_FREE):
+            continue
+        elif same:
+            bad.append(name)
+        else:
+            moved += 1
+    log(f"  [{label}] after the steps: {moved} trainable parameter tensors moved, {still} frozen "
+        "ones unchanged and without a gradient")
+    if bad or not still:
+        failures.append(f"[{label}] unmoved trainable or moved frozen parameters: {bad[:8]}")
+
+
+def run_vit_mbert_classification(evjvqa, tmp, seed, failures, record):
+    """vit_mbert_classification.yaml under ClassificationTask at full widths:
+    the dev eval with exact launches (per forward mBERT's F and C once a layer,
+    the ViT's packed attention once a layer) and no plain call, kernel vs plain
+    log-probs and argmax agreement, F, C and packed at the forward's shapes,
+    one step's gradients on both paths, the train split's gradients, then
+    start() for one epoch with exact launches and get_predictions()."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    label = "vit_mbert_classification"
+    task = build_task(with_vit_mbert(f"{label}.yaml", evjvqa, seed, str(Path(tmp) / label)),
+                      "cuda")
+    layers = describe_vit_mbert(task, label, failures)
+    vit_layers = len(task.model.vision_encoder.backbone.encoder.layer)
+
+    def per_forward(n):
+        return exact_launches(fused_encoder_self_attention=layers * n, fused_ffn_step=layers * n,
+                              fused_attention_packed=vit_layers * n)
+
+    _, first = next(task.device_batches(task.dev_dataloader))
+    task.predict(first)  # first-call set-up, uncounted
+    launches = dict(exact_eval(task, label, failures, per_forward(len(task.dev_dataloader))))
+    compare_classification_paths(task, label, failures, relative=True)
+    log_backbone_split(task, first, label)
+    calls = {}
+    with torch.no_grad():
+        capture_kernel_calls(lambda: task.model(first), calls)
+    check_backbone_calls(calls, label, record, failures)
+    check_train_step(task, failures, label)
+    check_gradients(task, failures, label)
+
+    _, train_counts, plain_calls = counted_run(task.start)
+    check_counts(f"{label} start()", train_counts, plain_calls,
+                 per_forward(len(task.train_dataloader) + len(task.dev_dataloader)), failures)
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        losses = [x for r in map(json.loads, handle) if r["phase"] == "train"
+                  for x in r["step_losses"]]
+    log(f"  [{label}] start(), one epoch: per-step losses {json.dumps(losses)}")
+    if len(losses) != len(task.train_dataloader) or not all(map(math.isfinite, losses)):
+        failures.append(f"[{label}] epoch losses {losses}")
+    scores = task.get_predictions()
+    log(f"  [{label}] get_predictions(): {json.dumps(scores, default=float)}")
+    if not math.isfinite(scores.get("CIDEr", math.nan)):
+        failures.append(f"[{label}] no finite test CIDEr")
+    for name, n in train_counts.items():
+        launches[name] += n
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_vit_mbert_generation(evjvqa, tmp, seed, failures, record):
+    """vit_mbert_generation.yaml under VlspEvjVqaTask at full widths on the
+    ViT-shaped store: the beam-3 dev eval with exact launches (mBERT's F and C
+    once a layer a batch, the layer step steps x layers a batch) and no plain
+    call, kernel vs plain generate() and teacher-forced log-probs, F, C and
+    the layer step at the eval's shapes, one XE epoch and its dev eval
+    (start()), the train split's gradients; then SCST (TRAINING.USE_SCST):
+    ``_switch_to_scst()`` and one ``train_scst()`` epoch of 12 samples x 5
+    beams with exact launches (mBERT twice a batch, the layer step in the beam
+    draw, the packed entry in the teacher-forced re-run), finite losses and
+    rewards, every parameter with a gradient moved and the frozen ones not,
+    the re-run's kernels at its shapes, and a resume from last_model.pth with
+    use_rl."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.training.decode import generate
+    from openvivqa_tpu_torch.training.optim import make_optimizer, noam_lambda
+
+    label = "vit_mbert_generation"
+    config = with_vit_mbert(f"{label}.yaml", evjvqa, seed, str(Path(tmp) / label),
+                            USE_SCST=True)
+    task = build_task(config, "cuda")
+    layers = describe_vit_mbert(task, label, failures)
+    dec_layers, steps = len(task.model.decoder.layers), task.vocab.max_answer_length
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    generate(task.model, first, task.evaluating_beam_size)  # first-call set-up, uncounted
+    n_eval = len(task.dev_dict_dataloader)
+    launches = dict(exact_eval(task, label, failures, exact_launches(
+        fused_encoder_self_attention=layers * n_eval, fused_ffn_step=layers * n_eval,
+        fused_decoder_layer_step=steps * dec_layers * n_eval)))
+    _, batch, tokens = compare_generation(task, label, failures)
+    compare_teacher_forced(task, label, failures, batch, tokens)
+    calls = {}
+    with torch.no_grad():
+        capture_kernel_calls(lambda: task.model.encode(first), calls)
+    check_backbone_calls(calls, f"{label} eval", record, failures)
+    check_layer_step_at(task, torch.Generator(device=task.device).manual_seed(13), record,
+                        failures, f"{label}'s step")
+
+    # XE: one epoch and its dev eval, then the train split's gradients
+    (_, xe_counts, plain_calls) = counted_run(task.start)
+    check_counts(f"{label} xe start()", xe_counts, plain_calls,
+                 {name: None for name in ("fused_encoder_self_attention", "fused_ffn_step",
+                                          "fused_attention_packed", "fused_decoder_layer_step")},
+                 failures)
+    for name, n in xe_counts.items():
+        launches[name] += n
+    check_gradients(task, failures, label)
+
+    # SCST: the switch, one epoch, its launches and the weights it moved
+    task._switch_to_scst()
+    lr = [g["lr"] for g in task.optimizer.param_groups]
+    log(f"  [{label} scst] switched: best_model.pth reloaded, Adam afresh at {lr}, "
+        f"{len(task.train_dict_dataloader)} batches of {task.train_dict_dataloader.batch_size} "
+        f"samples x {task.training_beam_size} beams")
+    if lr != [task.rl_learning_rate] * len(lr) or task.optimizer.state:
+        failures.append(f"[{label} scst] the switch left lr {lr} or a used Adam state")
+    # the beam draw's and the re-run's kernels at their shapes (zero
+    # advantages: no update)
+    calls = {}
+    _, scst_first = next(task.device_batches(task.train_dict_dataloader))
+    samples = capture_kernel_calls(lambda: task.scst_samples(scst_first), calls)
+    capture_kernel_calls(lambda: task.scst_loss(scst_first, torch.zeros(
+        samples.shape[:2], device=task.device), samples).backward(), calls)
+    task.optimizer.zero_grad(set_to_none=True)
+    check_backbone_calls(calls, f"{label} scst draw and re-run", record, failures)
+    before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    n_scst = len(task.train_dict_dataloader)
+    start = time.perf_counter()
+    (loss, reward), scst_counts, plain_calls = counted_run(task.train_scst)
+    seconds = time.perf_counter() - start
+    check_counts(f"{label} scst epoch", scst_counts, plain_calls, exact_launches(
+        fused_encoder_self_attention=2 * layers * n_scst, fused_ffn_step=2 * layers * n_scst,
+        fused_decoder_layer_step=steps * dec_layers * n_scst,
+        fused_attention_packed=2 * dec_layers * n_scst), failures)
+    for name, n in scst_counts.items():
+        launches[name] += n
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        record_ = [r for r in map(json.loads, handle) if r["phase"] == "scst"][-1]
+    log(f"  [{label} scst] one train_scst() epoch: {seconds:.2f} s by the host clock, mean loss "
+        f"{loss:.6f}, mean reward {reward:.6f}; per step losses "
+        f"{json.dumps(record_['step_losses'])}, rewards {json.dumps(record_['step_rewards'])}")
+    values = record_["step_losses"] + record_["step_rewards"]
+    if len(record_["step_losses"]) != n_scst or not all(map(math.isfinite, values)):
+        failures.append(f"[{label} scst] step losses or rewards missing or non-finite")
+    check_frozen_and_trainable(task, f"{label} scst", failures, before)
+
+    # a resume with use_rl: Adam's step continues at the RL rate
+    task.save_checkpoint({"best_val_score": 0.0, "patience": 0, "use_rl": True})
+    steps_before = {int(s["step"]) for s in task.optimizer.state.values()}
+    task.optimizer, task.scheduler = make_optimizer(
+        task.model.parameters(), config.TRAINING.LEARNING_RATE,
+        noam_lambda(config.MODEL.D_MODEL, config.TRAINING.WARMUP))
+    meta = task.load_checkpoint(str(Path(task.checkpoint_path) / "last_model.pth"))
+    task._switch_to_scst(resume=True)
+    task.train_dict_dataloader = [next(iter(task.train_dict_dataloader))]
+    task.train_scst()
+    steps_after = {int(s["step"]) for s in task.optimizer.state.values()}
+    lr = {g["lr"] for g in task.optimizer.param_groups}
+    log(f"  [{label} scst] resumed from last_model.pth (use_rl {meta['use_rl']}): Adam steps "
+        f"{sorted(steps_before)} -> {sorted(steps_after)} after one more step, lr {sorted(lr)}")
+    if steps_after != {n + 1 for n in steps_before} or lr != {task.rl_learning_rate}:
+        failures.append(f"[{label} scst] resume: steps {steps_before} -> {steps_after}, lr {lr}")
+    del task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_phase13(evjvqa, tmp, seed, failures, record):
+    """Phase 13: the BERT-family configs at full widths on the EVJVQA set (its
+    images; a ViT-shaped store written beside them), and SCST on the
+    generator.  Returns the launches of the counted runs."""
+    from openvivqa_tpu_torch.data.synthetic import write_vit_features
+
+    evjvqa = dict(evjvqa, vit=str(Path(tmp) / "evjvqa_vit"))
+    write_vit_features(evjvqa["vit"], len(os.listdir(evjvqa["images"])), seed)
+    launches = {}
+    for run in (run_vit_mbert_classification, run_vit_mbert_generation):
+        start = time.perf_counter()
+        for name, n in run(evjvqa, tmp, seed, failures, record).items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"  [{run.__name__}] {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3554,6 +3927,15 @@ def main() -> int:
                                    make_recorder(results, failures)).items():
             launches[name] += n
         log(f"phase 12: {time.perf_counter() - start:.1f} s")
+
+        # 13. the BERT-family backbones, the last two configs, SCST
+        start = time.perf_counter()
+        log("main path, phase 13: vit_mbert_classification (ClassificationTask) and "
+            "vit_mbert_generation (VlspEvjVqaTask, beam 3, then SCST at 12 x 5 beams)")
+        for name, n in run_phase13(evjvqa, tmp, args.seed, failures,
+                                   make_recorder(results, failures)).items():
+            launches[name] += n
+        log(f"phase 13: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -4,8 +4,8 @@ The port's copy of the generative datasets of
 ``openvivqa_tpu/data/image_datasets.py``: each sample carries ``pixel_values``,
 the image resized bilinearly to IMAGE_SIZE (224 by default) and normalised by
 mean 0.5 and std 0.5 as an (H, W, 3) float32 array, in place of feature files,
-beside the raw question string and its vocab encoding.  The classification
-variants go with the classification slice.
+beside the raw question string and its vocab encoding; the classification
+variants carry the question's vocab encoding and the answer's class id.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 
 from ..builders import META_DATASET
 from ..utils.instance import Instance
-from .datasets import teacher_forcing_pair
+from .datasets import FeatureClassificationDataset, teacher_forcing_pair
 from .multilingual import (
     MultilingualDictionaryDataset,
     MultilingualFeatureDataset,
@@ -99,3 +99,36 @@ class MultilingualImageQuestionDataset(ImageQuestionDataset):
 class MultilingualImageQuestionDictionaryDataset(ImageQuestionDictionaryDataset):
     def load_annotations(self, json_data: Dict) -> List[Dict]:
         return MultilingualDictionaryDataset.load_annotations(self, json_data)
+
+
+@META_DATASET.register()
+class ImageQuestionClassificationDataset(_ImageLoaderMixin, FeatureClassificationDataset):
+    """Pixels + the question's vocab ids + the answer's class id, one sample
+    per (question, answer)."""
+
+    def __init__(self, json_path: str, vocab, config) -> None:
+        super().__init__(json_path, vocab, config)
+        self._init_images(config)
+
+    def __getitem__(self, idx: int) -> Instance:
+        item = self.annotations[idx]
+        return Instance(
+            question_id=item["id"],
+            image_id=item["image_id"],
+            filename=item["filename"],
+            pixel_values=self.load_pixel_values(item["filename"]),
+            question_tokens=self.vocab.encode_question(item["question"]),
+            answer=self.vocab.encode_answer(item["answer"]),
+        )
+
+
+@META_DATASET.register()
+class MultilingualImageQuestionClassificationDataset(ImageQuestionClassificationDataset):
+    """Over multilingual annotations (a Japanese question and its answer by
+    character); a sample's id is its index in the split."""
+
+    def load_annotations(self, json_data: Dict) -> List[Dict]:
+        annotations = MultilingualFeatureDataset.load_annotations(self, json_data)
+        for i, ann in enumerate(annotations):
+            ann.setdefault("id", i)
+        return annotations

@@ -4,13 +4,15 @@ The port's copy of the generative part of ``openvivqa_tpu/data/multilingual.py``
 Japanese questions are tokenised by character, Vietnamese and English ones by
 word; the EVJVQA vocab is built from train + dev only (the test answers are
 unseen); the multimodal vocabs add the modality special tokens of the
-single-stream models (``MultiModalVocab``); the RawQuestion datasets keep the
-raw question string on the host beside its vocab-encoded ``question_tokens``.
-The classification vocab goes with the classification slice.
+single-stream models (``MultiModalVocab``); the classification vocab's answer
+classes are the answers as the datasets tokenise them (a Japanese answer as its
+characters joined by spaces); the RawQuestion datasets keep the raw question
+string on the host beside its vocab-encoded ``question_tokens``.
 
-With ``HF_TOKENIZER`` set in a dataset's config the JAX package also emits the
-questions in a pretrained tokenizer's ids; the port has no tokenizer files, and
-such a config raises (ROADMAP), it never falls back to the vocab's ids.
+With ``HF_TOKENIZER`` set in a dataset's config, the RawQuestion datasets also
+emit each question in that pretrained tokenizer's ids and validity mask
+(``question_backbone_tokens``, ``question_backbone_mask``;
+``hf_tokenization.py``), tokenised once per split when the dataset is built.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..utils.instance import Instance
 from .datasets import DictionaryDataset, FeatureDataset, teacher_forcing_pair
 from .multimodal_vocab import MultiModalVocab
 from .text_utils import is_japanese_sentence, preprocess_sentence
-from .vocab import Vocab
+from .vocab import ClassificationVocab, Vocab
 
 
 def multilingual_tokenize(text: str, tokenizer) -> List[str]:
@@ -63,6 +65,36 @@ class _MultilingualMakeVocabMixin:
 @META_VOCAB.register()
 class MultilingualVocab(_MultilingualMakeVocabMixin, Vocab):
     pass
+
+
+@META_VOCAB.register()
+class MultilingualClassificationVocab(ClassificationVocab):
+    """Answer classes over multilingual annotations: a Japanese question's
+    answers as their characters joined by spaces, the form the datasets give
+    ``encode_answer``; the others by word."""
+
+    def make_vocab(self, json_paths) -> None:
+        self.freqs = Counter()
+        answers = set()
+        self.max_question_length = 0
+        self.max_answer_length = 1
+        for json_path in json_paths:
+            if json_path is None:
+                continue
+            with open(json_path) as handle:
+                json_data = json.load(handle)
+            for ann in json_data["annotations"]:
+                question = multilingual_tokenize(ann["question"], self.tokenizer)
+                for answer in ann["answers"]:
+                    self.freqs.update(question)
+                    if is_japanese_sentence(ann["question"]):
+                        answers.add(" ".join(list(answer)))
+                    else:
+                        answers.add(" ".join(preprocess_sentence(answer, self.tokenizer)))
+                self.max_question_length = max(self.max_question_length, len(question) + 2)
+        self.itoa = dict(enumerate(sorted(answers)))
+        self.atoi = {a: i for i, a in self.itoa.items()}
+        self.total_answers = len(self.atoi)
 
 
 @META_VOCAB.register()
@@ -144,22 +176,27 @@ class MultilingualDictionaryDataset(DictionaryDataset):
 
 
 class _RawQuestionItemMixin:
-    """The raw question string on the host beside its vocab encoding."""
+    """The raw question string on the host beside its vocab encoding, and,
+    with HF_TOKENIZER in the config, its pretrained tokenizer's ids and
+    validity mask (one table per split, built with the dataset: a tokenizer
+    that does not resolve fails here)."""
 
     def __init__(self, json_path: str, vocab, config) -> None:
-        if config.get("HF_TOKENIZER"):
-            raise NotImplementedError(
-                f"HF_TOKENIZER {config.HF_TOKENIZER!r}: questions in a pretrained tokenizer's "
-                "ids need its tokenizer files, which are not in the repository; the port does "
-                "not tokenise them yet (ROADMAP), unset HF_TOKENIZER to use the vocab's ids"
-            )
         super().__init__(json_path, vocab, config)
+        from .hf_tokenization import backbone_token_table
+
+        self._backbone_ids_by_question = backbone_token_table(config, self.annotations)
 
     def _question_payload(self, item):
-        return {
+        payload = {
             "question": item["raw_question"],
             "question_tokens": self.vocab.encode_question(item["question"]),
         }
+        if self._backbone_ids_by_question is not None:
+            ids, mask = self._backbone_ids_by_question[item["raw_question"]]
+            payload["question_backbone_tokens"] = ids
+            payload["question_backbone_mask"] = mask
+        return payload
 
 
 @META_DATASET.register()
@@ -205,6 +242,30 @@ class RawQuestionDictionaryDataset(_RawQuestionItemMixin, DictionaryDataset):
         for ann in annotations:
             ann["raw_question"] = raw.get(ann["question_id"], "")
         return annotations
+
+    def __getitem__(self, idx: int) -> Instance:
+        item = self.annotations[idx]
+        return Instance(
+            question_id=item["question_id"],
+            type=item["type"],
+            image_id=item["image_id"],
+            filename=item["filename"],
+            answers=item["answers"],
+            **self._question_payload(item),
+            **self.load_features(item["image_id"]),
+        )
+
+
+@META_DATASET.register()
+class RawQuestionMultilingualFeatureDataset(_MultilingualAnnotationsMixin,
+                                            RawQuestionFeatureDataset):
+    """RawQuestionFeatureDataset over multilingual annotations."""
+
+
+@META_DATASET.register()
+class RawQuestionMultilingualDictionaryDataset(_RawQuestionItemMixin,
+                                               MultilingualDictionaryDataset):
+    """MultilingualDictionaryDataset with the raw question payload."""
 
     def __getitem__(self, idx: int) -> Instance:
         item = self.annotations[idx]

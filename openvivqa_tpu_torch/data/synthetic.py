@@ -209,6 +209,24 @@ def write_vinvl_features(feat_dir: str, n_images: int, seed: int) -> None:
         }, allow_pickle=True)
 
 
+# the ViT feature store of configs/vit_mbert_generation.yaml (FEATURE_PATH.FEATURES
+# features/EVJVQA/vit, FeatureEmbedding D_FEATURE 768): ViT-base's last hidden states
+# at 224 px, patch 16, 196 patches + CLS
+_VIT_TOKENS, _VIT_D = 197, 768
+
+
+def write_vit_features(feat_dir: str, n_images: int, seed: int) -> None:
+    """A ViT-shaped feature store, {image_id}.npy per image: grid_features
+    (197, 768), LayerNorm-scaled draws (no row is all zero, so none reads as
+    padding).  Drawn from a generator of its own (seed + 7927)."""
+    os.makedirs(feat_dir, exist_ok=True)
+    rng = np.random.default_rng(seed + 7927)
+    for image_id in range(n_images):
+        np.save(os.path.join(feat_dir, f"{image_id}.npy"), {
+            "grid_features": rng.normal(size=(_VIT_TOKENS, _VIT_D)).astype(np.float32),
+        }, allow_pickle=True)
+
+
 def generate_evjvqa_dataset(
     root: str,
     n_images: int = 12,

@@ -12,7 +12,8 @@ checkpoints; the ViT and T5 backbones carry HF's names, which
 ``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
 VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention,
 IterativeM4C, UniqueTransformer, ExtendedMCAN, IterativeSAAA, the two dual-stream
-models and the hierarchical text embedding have no reference converter (the
+models, the two ViTmBERT models and the hierarchical text embedding have no
+reference converter (the
 one the JAX package lists for ReadableIterativeMCAN, ``convert_iterative_mcan``,
 reads IterativeMCAN's one-linear vision embedding, not ``VisionOcrEmbedding``), and
 the JAX converters refuse experimental_MMF_M4C and MMF_IterativeLoRRA: their flax trees
@@ -595,21 +596,55 @@ def _t5_encoder(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
             _kernel(out, f"{ff}.DenseReluDense.{proj}", weights)
 
 
-def _vit_mt5(tree: Mapping[str, Any]) -> StateDict:
-    """ViTmT5: the ViT and T5 embeddings (frozen backbones under HF names,
-    their projections ``proj``), the ``fusion`` Linear and the decoder.  The JAX
-    package has no converter for it: this bridge and its inverse (from
-    ``hf_conversion``'s backbone converters) are written by hand."""
+def _vision_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """ViTEmbedding (its backbone, where it has one, under HF names) or
+    FeatureEmbedding: then the projection ``proj``."""
+    if "backbone" in tree:
+        _vit_backbone(out, f"{name}.backbone", tree)
+    _linear(out, f"{name}.proj", tree["Dense_0"])
+
+
+def _pretrained_text_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """T5Embedding (its ``backbone``) or a BERT-layout wrapper (flax's
+    ``BertEmbeddings_0`` and ``BertEncoderStack_0`` -> HF BertModel's
+    ``embeddings`` and ``encoder``): the frozen backbone under
+    ``<name>.backbone``, then the projection ``proj``."""
+    if "backbone" in tree:
+        _t5_encoder(out, f"{name}.backbone", tree["backbone"])
+    else:
+        _bert_embeddings(out, f"{name}.backbone.embeddings", tree["BertEmbeddings_0"])
+        _bert_encoder(out, f"{name}.backbone.encoder", tree["BertEncoderStack_0"])
+    _linear(out, f"{name}.proj", tree["Dense_0"])
+
+
+def _vit_generation(tree: Mapping[str, Any]) -> StateDict:
+    """ViTmT5 and ViTmBERTGeneration: the vision and text embeddings (frozen
+    backbones under HF names, their projections ``proj``), the ``fusion``
+    Linear and the decoder.  The JAX package has no converter for either: this
+    bridge and its inverse (from ``hf_conversion``'s backbone converters) are
+    written by hand."""
     out: StateDict = {}
-    vision = tree["vision_encoder"]
-    if "backbone" in vision:
-        _vit_backbone(out, "vision_encoder.backbone", vision)
-    _linear(out, "vision_encoder.proj", vision["Dense_0"])
-    text = tree["text_embedding"]
-    _t5_encoder(out, "text_embedding.backbone", text["backbone"])
-    _linear(out, "text_embedding.proj", text["Dense_0"])
+    _vision_embedding(out, "vision_encoder", tree["vision_encoder"])
+    _pretrained_text_embedding(out, "text_embedding", tree["text_embedding"])
     _linear(out, "fusion", tree["fusion"])
     _decoder(out, tree["decoder"])
+    return out
+
+
+_BERT_WRAPPERS = ("BertEmbedding_0", "RobertaEmbedding_0", "XLMRobertaEmbedding_0")
+
+
+def _vit_mbert_classification(tree: Mapping[str, Any]) -> StateDict:
+    """ViTmBERTClassification's flax auto-names: the vision embedding, the
+    BERT-layout text wrapper, ``Dense_0`` (the fusion) and ``Dense_1`` (the
+    classifier)."""
+    out: StateDict = {}
+    vision = next(key for key in tree if key.endswith("Embedding_0") and key not in _BERT_WRAPPERS)
+    _vision_embedding(out, "vision_encoder", tree[vision])
+    text = next(key for key in _BERT_WRAPPERS if key in tree)
+    _pretrained_text_embedding(out, "text_embedding", tree[text])
+    _linear(out, "fusion", tree["Dense_0"])
+    _linear(out, "classify", tree["Dense_1"])
     return out
 
 
@@ -619,7 +654,8 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     experimental_MMF_M4C, MMF_REGIONAL_M4C, MMF_SAL, MMF_LanguageAdaptiveM4C,
     MMF_IterativeM4C and its multilevel variant, the standalone M4C,
     IterativeM4C, MMF_LoRRA, MMF_IterativeLoRRA), IterativeMCAN, ReadableIterativeMCAN,
-    ExtendedMCAN, IterativeSAAA, ViTmT5, JointTransformer, UniqueTransformer,
+    ExtendedMCAN, IterativeSAAA, ViTmT5, ViTmBERTGeneration, ViTmBERTClassification,
+    JointTransformer, UniqueTransformer,
     CrossModalityTransformer and VisiolinguisticTransformer (either mode) and
     the classification models (MCAN, SAAA, VanillaTransformer,
     ParallelAttentionTransformer, HierarchicalCoAttention; each text embedding:
@@ -655,7 +691,9 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     if "CoAttentionEncoder_0" in tree and "DualStreamClassifier_0" in tree:
         return _co_attention_model(tree)
     if "vision_encoder" in tree and "text_embedding" in tree and "fusion" in tree:
-        return _vit_mt5(tree)
+        return _vit_generation(tree)
+    if any(key in tree for key in _BERT_WRAPPERS) and "Dense_1" in tree:
+        return _vit_mbert_classification(tree)
     if "streams" in tree and "fc" in tree:
         return _unique_transformer(tree)
     if "streams" in tree and "encoder" in tree:

@@ -2,19 +2,25 @@
 exact GELU and dropout.
 
 The port's counterparts of ``backbone_table_rows``, ``BACKBONE_SPECS``,
-``resolve_backbone_spec``, ``_ProjectedBackboneEmbedding``, ``T5Embedding`` and
-``ViTEmbedding`` in ``openvivqa_tpu/models/modules/pretrained_embeddings.py``.
-Backbones are built at the published shapes of the checkpoint PRETRAINED_NAME
-names (mT5-small: 8 layers of 512, 6 heads of 64, gated gelu_new FFN of 1024,
-250,112 rows; ViT-base: 12 layers of 768, 12 heads, patch 16 at 224), with
-random weights: no checkpoint file is in the repository, and nothing is
-downloaded.  Their parameters are HF's, under ``backbone.``.
+``resolve_backbone_spec``, ``_ProjectedBackboneEmbedding``, ``T5Embedding``,
+the BERT-layout text wrappers (``_FrozenTextBackboneEmbedding``, registered as
+BertEmbedding, RobertaEmbedding and XLMRobertaEmbedding) and ``ViTEmbedding``
+in ``openvivqa_tpu/models/modules/pretrained_embeddings.py``.  Backbones are
+built at the published shapes of the checkpoint PRETRAINED_NAME names
+(mT5-small: 8 layers of 512, 6 heads of 64, gated gelu_new FFN of 1024, 250,112
+rows; bert-base-multilingual-uncased: 12 layers of 768, 12 heads of 64, FFN
+3072, 105,879 rows; ViT-base: 12 layers of 768, 12 heads, patch 16 at 224),
+with random weights: no checkpoint file is in the repository, and nothing is
+downloaded.  Their parameters are HF's, under ``backbone.`` (a BERT backbone is
+HF ``BertModel``'s ``embeddings`` and ``encoder``, without the pooler), so a
+local checkpoint loads by ``load_state_dict``.
 
 A backbone is frozen as the reference freezes it: ``requires_grad`` off and its
 forward under ``torch.no_grad()`` (no gradient, no Adam update, no dropout), the
-counterpart of the JAX package's ``stop_gradient``.  The BERT-family text
-wrappers (BertEmbedding, RobertaEmbedding, XLMRobertaEmbedding), ALBERT and
-DeBERTa wait for their slice (ROADMAP); a config naming them fails to build.
+counterpart of the JAX package's ``stop_gradient``.  It runs its eval route in
+training too, as the JAX wrappers call it with ``train=False``: a BERT layer is
+kernel F then kernel C.  ALBERT and DeBERTa wait for their slice (ROADMAP); a
+config naming them fails to build.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...builders import META_TEXT_EMBEDDING, META_VISION_EMBEDDING
-from .bert import dropout
+from .bert import BertEmbeddings, BertEncoderStack, dropout, init_jax_law_
 from .masks import padding_bias, validity_to_bias
 
 # real vocab sizes of the BERT-layout checkpoints the reference configs name
@@ -155,12 +161,15 @@ class _ProjectedBackboneEmbedding(nn.Module):
 
     def __init__(self, config, vocab):
         super().__init__()
-        spec = resolve_backbone_spec(config, self.family, vocab)
+        spec = self._spec(config, vocab)
         self.padding_idx = vocab.padding_idx
         self.dropout = config.DROPOUT
         self.backbone = self._build_backbone(spec)
         self.backbone.requires_grad_(False)  # frozen, as the reference freezes it
         self.proj = nn.Linear(spec["hidden"], config.D_MODEL)
+
+    def _spec(self, config, vocab) -> dict:
+        return resolve_backbone_spec(config, self.family, vocab)
 
     def _build_backbone(self, spec) -> nn.Module:
         raise NotImplementedError
@@ -191,6 +200,65 @@ class T5Embedding(_ProjectedBackboneEmbedding):
             num_heads=spec["heads"], d_kv=spec.get("d_kv", 64), d_ff=spec.get("d_ff"),
             gated_act=spec.get("gated_act", True), act_fn=spec.get("act_fn", "gelu_new"),
         )
+
+
+class BertBackbone(nn.Module):
+    """HF ``BertModel`` without its pooler: ``embeddings`` (word, position and
+    token-type tables, LayerNorm) and ``encoder`` (``layer.N``, kernels F and
+    C on the eval route).  Returns the last hidden states."""
+
+    def __init__(self, vocab_size: int, hidden: int, layers: int, heads: int,
+                 intermediate: Optional[int] = None):
+        super().__init__()
+        self.embeddings = BertEmbeddings(vocab_size, hidden)
+        self.encoder = BertEncoderStack(hidden, layers, heads, intermediate)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """BERT's law (normal(0.02) tables and matrices), drawn from `generator`."""
+        init_jax_law_(self, generator)
+
+    def forward(self, tokens, attention_bias):
+        return self.encoder(self.embeddings(tokens), attention_bias)
+
+
+class _FrozenTextBackboneEmbedding(_ProjectedBackboneEmbedding):
+    """The BERT-layout text wrappers: a frozen ``BertBackbone`` at the named
+    checkpoint's shapes (BERT-base unless D_PRETRAINED_FEATURE,
+    PRETRAINED_LAYERS / NUM_HIDDEN_LAYERS, NUM_ATTENTION_HEADS,
+    PRETRAINED_INTERMEDIATE_SIZE or PRETRAINED_VOCAB_SIZE say otherwise) ->
+    Linear(D_MODEL) -> GELU -> dropout.  RoBERTa and XLM-R share the layout;
+    their differences lie in the checkpoint's weights."""
+
+    family = "bert"
+
+    def _spec(self, config, vocab) -> dict:
+        hidden = int(config.get("D_PRETRAINED_FEATURE", 768))
+        return dict(
+            hidden=hidden,
+            layers=int(config.get("PRETRAINED_LAYERS") or config.get("NUM_HIDDEN_LAYERS") or 12),
+            heads=int(config.get("NUM_ATTENTION_HEADS") or max(1, hidden // 64)),
+            intermediate=config.get("PRETRAINED_INTERMEDIATE_SIZE"),
+            vocab_size=backbone_table_rows(config, len(vocab)),
+        )
+
+    def _build_backbone(self, spec) -> nn.Module:
+        return BertBackbone(spec["vocab_size"], spec["hidden"], spec["layers"], spec["heads"],
+                            spec["intermediate"])
+
+
+@META_TEXT_EMBEDDING.register()
+class BertEmbedding(_FrozenTextBackboneEmbedding):
+    pass
+
+
+@META_TEXT_EMBEDDING.register()
+class RobertaEmbedding(_FrozenTextBackboneEmbedding):
+    pass
+
+
+@META_TEXT_EMBEDDING.register()
+class XLMRobertaEmbedding(_FrozenTextBackboneEmbedding):
+    pass
 
 
 @META_VISION_EMBEDDING.register()

@@ -1,13 +1,19 @@
-"""ViT-backed generative models: a frozen ViT over the image and a frozen
-pretrained text encoder over the question, fused, under a transformer decoder.
+"""ViT-backed models: a frozen ViT over the image (or its pre-extracted
+features) and a frozen pretrained text encoder over the question, fused, under
+a classifier or a transformer decoder.
 
-Counterpart of ``_vision_input``, ``_question_input``, ``ViTmBERTGeneration``
-and ``ViTmT5`` in ``openvivqa_tpu/models/vit_models.py``.  ViTmT5 (configs/
-vit_mt5.yaml) is ViT-base pixels + the mT5-small encoder, concatenated along
-the sequence, through a plain Linear fusion (no GELU, no dropout) into the
-decoder, whose cross-attention spans 197 + question-length keys.
-ViTmBERTGeneration has a GELU and dropout after its fusion; its BERT-family
-text wrappers and ``ViTmBERTClassification`` wait for their slice (ROADMAP).
+Counterpart of ``_vision_input``, ``_question_input``,
+``ViTmBERTClassification``, ``ViTmBERTGeneration`` and ``ViTmT5`` in
+``openvivqa_tpu/models/vit_models.py``.  ViTmBERTClassification
+(configs/vit_mbert_classification.yaml) is ViT-base pixels + mBERT,
+concatenated along the sequence, Linear(D_MODEL), dropout, a sum over every
+token (padding included, as the JAX package sums), Linear(answers) and a
+log-softmax.  ViTmBERTGeneration (configs/vit_mbert_generation.yaml) fuses ViT
+grid features and mBERT by Linear + GELU + dropout into the decoder; ViTmT5
+(configs/vit_mt5.yaml) is ViT-base pixels + the mT5-small encoder through a
+plain Linear fusion (no GELU, no dropout), the decoder's cross-attention over
+197 + question-length keys.  ALBERT and DeBERTa text embeddings wait for their
+slice (ROADMAP) and raise.
 
 The module also holds the JAX file's two MCAN-family generators: ``ExtendedMCAN``
 (region + box and grid + box streams through MCAN's guided encoder against the
@@ -29,15 +35,32 @@ from ..builders import (
     build_text_embedding,
     build_vision_embedding,
 )
-from .base import BatchTensors, GenerativeModel, init_xavier_law_
-from .common import REGION_GRID_BOX_INPUTS, region_grid_stream
+from .base import BatchTensors, ClassificationModel, GenerativeModel, init_xavier_law_
+from .common import REGION_GRID_BOX_INPUTS, region_grid_stream, total_answers_of
 from .iterative_mcan import IterativeMCAN
 from .modules.bert import dropout
 from .modules.ffn import LN_EPS, PositionWiseFeedForward
 
-# the BERT-family text wrappers (pretrained_embeddings.py), not ported yet
-_UNPORTED_TEXT = ("BertEmbedding", "RobertaEmbedding", "XLMRobertaEmbedding",
-                  "AlbertEmbedding", "DebertaEmbedding")
+# the ALBERT and DeBERTa text wrappers (pretrained_embeddings.py), not ported yet
+_UNPORTED_TEXT = ("AlbertEmbedding", "DebertaEmbedding")
+
+
+def _refuse_unported(config) -> None:
+    name = config.TEXT_EMBEDDING.ARCHITECTURE
+    if name in _UNPORTED_TEXT:
+        raise NotImplementedError(
+            f"TEXT_EMBEDDING {name} is not ported yet (ROADMAP queue 1, item 8)")
+
+
+def _init_with_backbones_(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisers, drawn from `generator`: the backbones'
+    own laws first, then Xavier-uniform Linear weights, zero biases, N(0, 1)
+    embedding tables and unit LayerNorms for the rest, in module order."""
+    backbones = [m.backbone for m in (model.vision_encoder, model.text_embedding)
+                 if hasattr(m, "backbone")]
+    for backbone in backbones:
+        backbone.init_weights_(generator)
+    init_xavier_law_(model, generator, skip=backbones)
 
 
 def _vision_input(batch: BatchTensors) -> torch.Tensor:
@@ -57,6 +80,42 @@ def _question_input(batch: BatchTensors, text_config):
     return batch["question_tokens"], None, None
 
 
+def _text_features(model, batch: BatchTensors, generator=None):
+    """The text embedding over the batch's question ids: (features, bias)."""
+    tokens, pad, mask = _question_input(batch, model.config.TEXT_EMBEDDING)
+    features, masks = model.text_embedding(tokens, generator, padding_idx=pad,
+                                            padding_mask=mask)
+    return features, masks[0] if isinstance(masks, tuple) else masks
+
+
+@META_ARCHITECTURE.register()
+class ViTmBERTClassification(ClassificationModel):
+    """ViT and pretrained text features concatenated along the sequence,
+    Linear(D_MODEL), dropout, summed over every token, padding included (as
+    the JAX package sums), Linear(answers), log-softmax."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        _refuse_unported(config)
+        self.vocab = vocab
+        self.config = config
+        self.dropout = config.DROPOUT
+        self.vision_encoder = build_vision_embedding(config.VISION_EMBEDDING)
+        self.text_embedding = build_text_embedding(config.TEXT_EMBEDDING, vocab)
+        self.fusion = nn.Linear(config.D_MODEL, config.D_MODEL)
+        self.classify = nn.Linear(config.D_MODEL, total_answers_of(vocab))
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        _init_with_backbones_(self, generator)
+
+    def forward(self, batch: BatchTensors, generator=None) -> torch.Tensor:
+        vision_features, _ = self.vision_encoder(_vision_input(batch), generator)
+        text_features, _ = _text_features(self, batch, generator)
+        fused = self.fusion(torch.cat([vision_features, text_features], dim=1))
+        pooled = dropout(fused, self.dropout, generator).sum(dim=1)
+        return torch.log_softmax(self.classify(pooled), dim=-1)
+
+
 @META_ARCHITECTURE.register()
 class ViTmBERTGeneration(GenerativeModel):
     """Vision embedding + pretrained text embedding, concatenated, fused by
@@ -64,10 +123,7 @@ class ViTmBERTGeneration(GenerativeModel):
 
     def __init__(self, config, vocab):
         super().__init__()
-        name = config.TEXT_EMBEDDING.ARCHITECTURE
-        if name in _UNPORTED_TEXT:
-            raise NotImplementedError(
-                f"TEXT_EMBEDDING {name} is not ported yet (ROADMAP queue 1, item 7)")
+        _refuse_unported(config)
         self.vocab = vocab
         self.config = config
         self.dropout = config.DROPOUT
@@ -77,28 +133,14 @@ class ViTmBERTGeneration(GenerativeModel):
         self.decoder = build_decoder(config.DECODER, vocab=vocab)
 
     def init_weights_(self, generator: torch.Generator) -> None:
-        """The JAX package's initialisers, drawn from `generator`: the
-        backbones' own laws first, then Xavier-uniform Linear weights, zero
-        biases, N(0, 1) embedding tables and unit LayerNorms for the rest, in
-        module order."""
-        backbones = [m.backbone for m in (self.vision_encoder, self.text_embedding)
-                     if hasattr(m, "backbone")]
-        for backbone in backbones:
-            backbone.init_weights_(generator)
-        init_xavier_law_(self, generator, skip=backbones)
-
-    def _text(self, batch: BatchTensors, generator=None):
-        tokens, pad, mask = _question_input(batch, self.config.TEXT_EMBEDDING)
-        features, masks = self.text_embedding(tokens, generator, padding_idx=pad,
-                                              padding_mask=mask)
-        return features, masks[0] if isinstance(masks, tuple) else masks
+        _init_with_backbones_(self, generator)
 
     def _fuse(self, fused, generator=None):
         return dropout(F.gelu(self.fusion(fused)), self.dropout, generator)
 
     def encode(self, batch: BatchTensors, generator=None):
         vision_features, vision_bias = self.vision_encoder(_vision_input(batch), generator)
-        text_features, text_bias = self._text(batch, generator)
+        text_features, text_bias = _text_features(self, batch, generator)
         fused = self._fuse(torch.cat([vision_features, text_features], dim=1), generator)
         return fused, torch.cat([vision_bias, text_bias], dim=-1)
 

@@ -53,6 +53,10 @@ class TrainingMMF(OcrOpenEndedTask):
     def generate_answers(self, batch, device_batch) -> list:
         return self._decode_batch(self.greedy_ids(device_batch).cpu().numpy(), batch)
 
+    def train_scst(self):
+        raise NotImplementedError(
+            "SCST applies to beam-searchable models, not the greedy MMF path")
+
     def get_predictions(self):
         """Greedy predictions on the test split from best_model.pth, with
         each token's provenance (fixed vocab or OCR), into test_results.json."""

@@ -5,8 +5,8 @@ Counterpart of ``openvivqa_tpu/training/tasks/vlsp_evjvqa_task.py``: the
 OpenEndedTask protocol (XE training, beam-searched dev eval, checkpoints) over
 the four splits: the train split as teacher-forcing samples, every split as
 one sample per question.  The dictionary loaders run at DICT_DATASET.BATCH_SIZE
-// beam samples (TRAINING_BEAM_SIZE for the train split, read by SCST when it
-is ported; EVALUATING_BEAM_SIZE for the others), so a beam-searched batch holds
+// beam samples (TRAINING_BEAM_SIZE for the train split, which SCST reads;
+EVALUATING_BEAM_SIZE for the others), so a beam-searched batch holds
 BATCH_SIZE rows.  The JAX package's per-answer datasets of the dev and test
 splits have no reader and are not built.  ``get_predictions()``
 loads ``best_model.pth`` and writes ``public_test_results.json`` and

@@ -425,6 +425,11 @@ def test_open_ended_end_to_end(synthetic_data, tmp_path, route, heads, d_key):
 
 
 def test_start_refuses_scst_until_it_is_ported(synthetic_data, tmp_path):
-    task = build_task(_task_config(synthetic_data, tmp_path, USE_SCST=True), "cpu")
-    with pytest.raises(NotImplementedError, match="SCST"):
-        task.start()
+    """SCST is ported: with USE_SCST, start() runs its XE epochs and keeps
+    ``use_rl`` in the checkpoint's metadata (the switch itself:
+    tests/test_torch_port_scst.py)."""
+    config = _task_config(synthetic_data, tmp_path, USE_SCST=True, MAX_EPOCHS=1)
+    task = build_task(config, "cpu")
+    task.start()
+    ckpt = os.path.join(config.TRAINING.CHECKPOINT_PATH, config.MODEL.NAME, "last_model.pth")
+    assert torch.load(ckpt, weights_only=False)["metadata"]["use_rl"] is False
