@@ -212,7 +212,28 @@ Phases, each fatal on failure:
      SCST on the generator: ``_switch_to_scst()``, one ``train_scst()`` epoch of
      12 samples x 5 beams (exact launches, finite losses and rewards, every
      parameter with a gradient moved and no frozen one), and a resume from
-     ``last_model.pth`` with ``use_rl`` (Adam's step continues, the RL rate).
+     ``last_model.pth`` with ``use_rl`` (Adam's step continues, the RL rate);
+     the same for one short SCST epoch (two batches) of ``iterative_mcan``
+     (OpenEndedTask), ``iterative_m4c`` (OcrOpenEndedTask) and
+     ``iterative_saaa`` (TrainingSAAATask); each frozen backbone's output,
+     kernel vs plain, within 2^-5 of its magnitude (``check_backbone_chains``).
+ 14. ``vit_mbert_classification.yaml`` with TEXT_EMBEDDING an ALBERT
+     (albert-base-v2: 30,000 x 128 -> 768, one layer shared by 12) and a
+     DeBERTa (deberta-v3-base: 128,100 x 768 x 12, 256 buckets) wrapper: dev
+     evals with exact launches (F a layer; the two-bias entry with a
+     per-sample head bias and C at eps 1e-7 a layer) and no plain call, kernel
+     vs plain, the backbone chains, the text kernels at their shapes (ALBERT's
+     F, past BERT's weight scale, held stage by stage against float64), one
+     step's gradients; ``iterative_mcan.yaml`` with an AdaptiveDecoder (3 + 1 adaptive
+     layers, a frozen BERTModel at bert-base widths): the beam-3 dev eval with
+     exact decode launches, kernel vs plain, the frozen LM's chain, F, C and the
+     layer step at the decode's shapes, one XE epoch and its gradients; the
+     plain-torch modules (geometry, memory, adaptive + AoA cores,
+     GeometricEncoder, SpatialCirclePosition, TextSemanticSeparate) once on the
+     card against the CPU.  Phase 4 also runs ``small_mmf_m4c.yaml`` in both
+     decode modes with exact launches and one step's gradients.  Every phase
+     prints its seconds.  The configs name checkpoints that no file here holds:
+     the script sets OPENVIVQA_ALLOW_RANDOM_BACKBONE=1 and says so.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
@@ -221,7 +242,7 @@ writes an operand of a product after its fence, or touches it before the wait
 (``wgmma_hazards``; a hazard fails the phase).  Launch counts are reset just before each main-path run (4 and 7: each decode
 mode and decode batch; 5, 6, 7, 8, 9 and 10: each eval route, start() and
 get_predictions(); 9: each long-stream forward; 10, 11 and 12: each config's dev eval and
-each decode mode; 13: each dev eval, each start() and the SCST epoch) and read just after it, kernel
+each decode mode; 13 and 14: each dev eval, each start() and each SCST epoch) and read just after it, kernel
 C's and F's also by row count.  The
 nvcc/ptxas log (registers and spills per kernel) is kept beside the library in
 build/kernels/.  The line before the last is a JSON object with one entry per
@@ -655,7 +676,8 @@ def make_recorder(results, failures):
     library call or None) and the device times of `kernel` and `library`;
     `results` keeps, per kernel, the first case's times and bound (the
     kernel's main shape) and the largest error over all cases, for the JSON
-    line."""
+    line.  `tol` None: the caller holds the case stage by stage
+    (``encoder_float64_stages``) and adds its failures itself."""
 
     def record(name, what, err, tol, kernel, plain, flops, nbytes, library=None):
         ms, plain_ms = median_ms(kernel), median_ms(plain)
@@ -666,13 +688,14 @@ def make_recorder(results, failures):
             library_ms, library_dev_ms = median_ms(library), device_ms(library)[0]
             lib = f", one library call {library_ms:.4f} ms (device {library_dev_ms:.4f} ms)"
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} (tol {tol:.0e}), "
+        held = "held by stage" if tol is None else f"tol {tol:.0e}"
+        log(f"  {name} [{what}]: max|kernel-plain| {err:.3e} ({held}), "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms by {timer}, host share "
             f"{ms - dev_ms:.4f} ms), plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
             f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
             f"kernel at {100 * bound_ms / ms:.1f} % of it ({100 * bound_ms / dev_ms:.1f} % "
             "by device time)")
-        if not err <= tol:
+        if tol is not None and not err <= tol:
             failures.append(f"{name} [{what}]: max err {err} > {tol}")
         entry = results.setdefault(name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3431,27 +3454,6 @@ def describe_vit_mbert(task, label, failures):
     return len(bert.encoder.layer)
 
 
-def log_backbone_split(task, batch, label):
-    """Where the kernel and plain paths part: each backbone's projected
-    features on `batch`, kernel vs plain, beside their magnitude, and the
-    pooled sum the classifier reads."""
-    import torch
-
-    model = task.model.eval()
-    tokens = batch["question_tokens"]
-    with torch.no_grad():
-        outs = []
-        for plain in (False, True):
-            with plain_versions() if plain else contextlib.nullcontext():
-                vision = model.vision_encoder(batch["pixel_values"])[0]
-                text = model.text_embedding(tokens)[0]
-                pooled = model.fusion(torch.cat([vision, text], dim=1)).sum(dim=1)
-                outs.append((vision, text, pooled))
-    parts = [f"{name} max|diff| {max_err(k, p):.3e} of max|x| {float(p.abs().max()):.2f}"
-             for name, k, p in zip(("ViT features", "mBERT features", "pooled sum"), *outs)]
-    log(f"  [{label}] kernel vs plain by stage on one dev batch: " + "; ".join(parts))
-
-
 def capture_kernel_calls(fn, calls):
     """Run `fn()` with kernels F's and C's and the packed entry's first call
     per shape captured into `calls` by kernel; returns fn's result."""
@@ -3466,29 +3468,163 @@ def capture_kernel_calls(fn, calls):
         return fn()
 
 
-def check_backbone_calls(calls, label, record, failures):
-    """Kernels F and C (mBERT's layers) and the packed entry against their
-    plain versions on the captured calls' own inputs."""
+# kernel F's out stage (out projection, bias, residual, LayerNorm on the kernel's
+# own bf16 context) against float64: float32 sums of hd products in another
+# order, scaled by the LayerNorm's 1 / std (2.8e-6 at most at ALBERT's weights)
+F_OUT_TOL = 2e-5
+
+
+def encoder_float64_stages(x, w, key_bias, scale, heads, eps):
+    """Kernel F held stage by stage, each stage of the kernel against the
+    float64 evaluation of that stage from the kernel's own input to it, with
+    the kernel's bf16 roundings (x, q|k|v, the softmax weights, the context;
+    only the sums exact), each within what its own roundings allow:
+      qkv: the bf16 q|k|v against the exact products, within one bf16 ulp plus
+        K 2^-23 times the sum of the products' magnitudes (the error bound of a
+        K-term float32 sum under directed rounding: the tensor cores'
+        accumulation);
+      attention: the bf16 context against float64's from the kernel's q|k|v,
+        within one ulp plus two softmax weights flipped by one bf16 ulp (2^-7
+        of a weight) each, at the largest weight * |v| of the row;
+      out: the output against float64's from the kernel's context, within
+        F_OUT_TOL.
+    Also counts the q|k|v elements that round to another bf16 value than the
+    exact product (flips) for the kernel, the plain version (float32 SGEMM on
+    the same bf16 operands) and cuBLAS's bf16 tensor-core product (the bias-free
+    products), and what the kernel's and the plain version's q|k|v flips alone
+    move the output (float64 from there on).  Returns (numbers by name,
+    failures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvivqa_tpu_torch.ops import _cuda, encoder_layer
+    from openvivqa_tpu_torch.ops.decode_step import _dot
+    from openvivqa_tpu_torch.ops.fused_attention import attention_block
+
+    b, s, hd = x.shape
+    rows, d = b * s, hd // heads
+    # kernel F's launch (encoder_layer._encoder_attention_launch) with its bf16
+    # intermediates kept
+    plans = encoder_layer.encoder_attention_plans(rows, hd)
+    block = attention_block("encoder", s, s, d, d)
+    floats = max(plans[0].partial_floats(rows, 3 * hd), plans[1].partial_floats(rows, hd), 1)
+    xb, qkv, ctx = (torch.empty((rows, n), dtype=torch.bfloat16, device=x.device)
+                    for n in (hd, 3 * hd, hd))
+    partial = torch.empty(floats, dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    p = _cuda.ptr
+    _cuda.launch("ovq_encoder_attention_forward", p(x), p(w["wqkv"]), p(w["bqkv"]), p(w["wo"]),
+                 p(w["bo"]), p(w["ln_scale"]), p(w["ln_bias"]), p(key_bias), p(xb), p(qkv),
+                 p(ctx), p(partial), p(y), b, s, hd, heads, int(block == "resident"),
+                 *plans[0], *plans[1], scale, eps)
+    torch.cuda.synchronize()
+
+    def r(t):
+        return t.to(torch.bfloat16).double()
+
+    def ulp(t):
+        """bf16's spacing at |t| (8 significant bits)."""
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs())[1] - 8)
+
+    x64 = r(x.reshape(rows, hd))
+    w64 = w["wqkv"].double()
+    exact = x64 @ w64 + w["bqkv"].double()
+    slack = hd * 2.0 ** -23 * (x64.abs() @ w64.abs() + w["bqkv"].double().abs())
+    kernel_qkv = qkv.double()
+    qkv_ratio = float(((kernel_qkv - exact).abs() / (ulp(exact.abs() + slack) + slack)).max())
+    want_qkv = r(exact)
+
+    def split(qkv64):
+        return (part.reshape(b, s, heads, d) for part in qkv64.reshape(b, s, 3 * hd)
+                .split(hd, dim=-1))
+
+    def weights(q, k):
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+                  + key_bias.double()[:, None, None])
+        return r(torch.softmax(logits, dim=-1))
+
+    def attend(qkv64):
+        q, k, v = split(qkv64)
+        return r(torch.einsum("bhqk,bkhd->bqhd", weights(q, k), v)).reshape(rows, hd)
+
+    def finish(ctx64):
+        out = ctx64 @ w["wo"].double() + w["bo"].double()
+        return F.layer_norm(x.double().reshape(rows, hd) + out, (hd,),
+                            w["ln_scale"].double(), w["ln_bias"].double(), eps)
+
+    def err(a, b_):
+        return float((a - b_).abs().max())
+
+    q, k, v = split(kernel_qkv)
+    probs = weights(q, k)
+    from_kernel_qkv = r(torch.einsum("bhqk,bkhd->bqhd", probs, v)).reshape(rows, hd)
+    top = (probs[..., None] * v.abs().permute(0, 2, 1, 3)[:, :, None]).amax(dim=3)
+    top = top.permute(0, 2, 1, 3).reshape(rows, hd)  # (rows, hd): max_j p_j |v_j|
+    context_ratio = float(((ctx.double() - from_kernel_qkv).abs()
+                           / (ulp(from_kernel_qkv) + 2.0 ** -6 * top)).max())
+    out_err = err(y.double().reshape(rows, hd), finish(ctx.double()))
+    whole = finish(attend(want_qkv))
+    plain_qkv = r(_dot(x.reshape(rows, hd), w["wqkv"]) + w["bqkv"])
+    plain = encoder_layer.fused_encoder_self_attention_plain(x, w, key_bias, scale, heads, eps)
+    cublas = torch.matmul(x.reshape(rows, hd).to(torch.bfloat16), w["wqkv"]).double()
+    numbers = {
+        "qkv elements": rows * 3 * hd,
+        "qkv flips": int((kernel_qkv != want_qkv).sum()),
+        "plain qkv flips": int((plain_qkv != want_qkv).sum()),
+        "cuBLAS bf16 qkv flips": int((cublas != r(x64 @ w64)).sum()),
+        # with a zero bias the kernel's q|k|v and cuBLAS's round the same sums
+        "qkv unlike cuBLAS's": None if w["bqkv"].any() else int((kernel_qkv != cublas).sum()),
+        "qkv / bound": qkv_ratio,
+        "context flips": int((ctx.double() != from_kernel_qkv).sum()),
+        "context / bound": context_ratio,
+        "out": out_err,
+        "carried": err(finish(from_kernel_qkv), whole),
+        "plain carried": err(finish(attend(plain_qkv)), whole),
+        "kernel": err(y.double().reshape(rows, hd), whole),
+        "plain": err(plain.double().reshape(rows, hd), whole),
+    }
+    failures = [f"{stage} {value:.3e} past {bound}" for stage, value, bound in (
+        ("q|k|v", qkv_ratio, "its bound"), ("context", context_ratio, "its bound"),
+        ("out", out_err, f"F_OUT_TOL {F_OUT_TOL:.0e}")) if not value <= (
+            F_OUT_TOL if stage == "out" else 1.0)]
+    return numbers, failures
+
+
+def check_backbone_calls(calls, label, record, failures, name="mBERT", attention=True,
+                         ffn=True, by_stage=False):
+    """Kernels F and C (the layers of the backbone `name`) and the packed entry
+    against their plain versions on the captured calls' own inputs; the
+    backbone's layers must have called F (`attention`) and C (`ffn`).  With
+    `by_stage` (a backbone whose weights lie past BERT's 0.02 scale, where the
+    tensor cores' q|k|v rounding flips move the output by more than LN_TOL) F
+    is held stage by stage against float64 (``encoder_float64_stages``)."""
     import torch
 
     from openvivqa_tpu_torch.ops import decode_step, encoder_layer
 
-    if not (calls["F"] and calls["C"]):
+    if (attention and not calls["F"]) or (ffn and not calls["C"]):
         failures.append(f"[{label}] kernel F or C was not called in the captured forward")
     with torch.no_grad():
         for (b, s, hd), (args, _) in sorted(calls["F"].items()):
             out = encoder_layer.fused_encoder_self_attention(*args)
             heads = args[4]
-            record("fused_encoder_self_attention",
-                   f"{label} mBERT {b} x {s}, {heads} heads of {hd // heads} (library: none)",
-                   max_err(out, encoder_layer.fused_encoder_self_attention_plain(*args)), LN_TOL,
+            plain = encoder_layer.fused_encoder_self_attention_plain(*args)
+            what = f"{label} {name} {b} x {s}, {heads} heads of {hd // heads} (library: none)"
+            record("fused_encoder_self_attention", what, max_err(out, plain),
+                   None if by_stage else LN_TOL,
                    lambda a=args: encoder_layer.fused_encoder_self_attention(*a),
                    lambda a=args: encoder_layer.fused_encoder_self_attention_plain(*a),
                    2.0 * b * s * hd * 4 * hd + 4.0 * b * s * s * hd, tensor_bytes(args[:3], out))
+            if by_stage:
+                numbers, stage_failures = encoder_float64_stages(*args)
+                log(f"    by stage against float64: {json.dumps(numbers)}")
+                failures += [f"fused_encoder_self_attention [{what}]: {failure}"
+                             for failure in stage_failures]
         for (rows, d_ff), (args, kwargs) in sorted(calls["C"].items()):
             out = decode_step.fused_ffn_step(*args, **kwargs)
             hd = args[0].shape[1]
-            record("fused_ffn_step", f"{label} mBERT {rows} rows, {hd} -> {d_ff} (library: none)",
+            record("fused_ffn_step", f"{label} {name} {rows} rows, {hd} -> {d_ff}, eps "
+                   f"{kwargs.get('eps', 1e-6):.0e} (library: none)",
                    max_err(out, decode_step.fused_ffn_step_plain(*args, **kwargs)), LN_TOL,
                    lambda a=args, k=kwargs: decode_step.fused_ffn_step(*a, **k),
                    lambda a=args, k=kwargs: decode_step.fused_ffn_step_plain(*a, **k),
@@ -3526,10 +3662,10 @@ def check_counts(label, counts, plain_calls, want, failures):
         failures.append(f"[{label}] plain versions were called: {plain_calls}")
 
 
-def check_frozen_and_trainable(task, label, failures, before):
+def check_frozen_and_trainable(task, label, failures, before, frozen=True):
     """After optimizer steps from the weights `before`: every parameter with a
     gradient moved (the gradient-free biases excepted), the frozen backbones
-    did not, and they have no gradient."""
+    did not, and they have no gradient; with `frozen`, the model has some."""
     import torch
 
     moved, still, bad = 0, 0, []
@@ -3547,7 +3683,7 @@ def check_frozen_and_trainable(task, label, failures, before):
             moved += 1
     log(f"  [{label}] after the steps: {moved} trainable parameter tensors moved, {still} frozen "
         "ones unchanged and without a gradient")
-    if bad or not still:
+    if bad or (frozen and not still):
         failures.append(f"[{label}] unmoved trainable or moved frozen parameters: {bad[:8]}")
 
 
@@ -3576,7 +3712,7 @@ def run_vit_mbert_classification(evjvqa, tmp, seed, failures, record):
     task.predict(first)  # first-call set-up, uncounted
     launches = dict(exact_eval(task, label, failures, per_forward(len(task.dev_dataloader))))
     compare_classification_paths(task, label, failures, relative=True)
-    log_backbone_split(task, first, label)
+    check_backbone_chains(label, text_backbone_chains(task.model, first), failures)
     calls = {}
     with torch.no_grad():
         capture_kernel_calls(lambda: task.model(first), calls)
@@ -3637,6 +3773,7 @@ def run_vit_mbert_generation(evjvqa, tmp, seed, failures, record):
         fused_decoder_layer_step=steps * dec_layers * n_eval)))
     _, batch, tokens = compare_generation(task, label, failures)
     compare_teacher_forced(task, label, failures, batch, tokens)
+    check_backbone_chains(label, text_backbone_chains(task.model, first), failures)
     calls = {}
     with torch.no_grad():
         capture_kernel_calls(lambda: task.model.encode(first), calls)
@@ -3730,6 +3867,438 @@ def run_phase13(evjvqa, tmp, seed, failures, record):
     return launches
 
 
+# -- phase 14: ALBERT and DeBERTa, the AdaptiveDecoder with its frozen language model, the
+# plain-torch modules -----------------------------------------------------------------------
+TEXT_BACKBONES = {
+    "albert": {"ARCHITECTURE": "AlbertEmbedding", "PRETRAINED_NAME": "albert-base-v2"},
+    "deberta": {"ARCHITECTURE": "DebertaEmbedding",
+                "PRETRAINED_NAME": "microsoft/deberta-v3-base"},
+}
+ADAPTIVE_LM = {"ARCHITECTURE": "BERTModel", "D_MODEL": 512, "D_PRETRAINED_FEATURE": 768,
+               "PRETRAINED_LAYERS": 12, "PRETRAINED_NAME": "bert-base-uncased", "DROPOUT": 0.1}
+
+
+def check_backbone_chains(label, chains, failures):
+    """Each frozen backbone's own output, kernel vs plain path, relative to its
+    magnitude and held to ENCODER_RTOL (2^-5, as phase 8 holds the mT5
+    encoder): `chains` maps a name to (backbone module, a callable running
+    the model part around it), the output taken by a forward hook."""
+    import torch
+
+    for name, (backbone, run) in chains.items():
+        outs = []
+        for plain in (False, True):
+            captured = []
+            handle = backbone.register_forward_hook(
+                lambda m, i, o, c=captured: c.append(o.detach().float().clone()))
+            try:
+                with torch.no_grad(), plain_versions() if plain else contextlib.nullcontext():
+                    run()
+            finally:
+                handle.remove()
+            outs.append(captured[0])
+        err, top = max_err(*outs), float(outs[1].abs().max())
+        log(f"  [{label}] {name} backbone output {tuple(outs[0].shape)}, kernel vs plain path: "
+            f"max|diff| {err:.3e}, max|output| {top:.3f}: max|diff| / max|output| "
+            f"{err / top:.3e} (tol 2^-5)")
+        if not err / top <= ENCODER_RTOL or not bool(torch.isfinite(outs[0]).all()):
+            failures.append(f"[{label}] {name} backbone kernel vs plain: {err / top} > "
+                            f"{ENCODER_RTOL} or non-finite")
+
+
+def text_backbone_chains(model, batch):
+    """The ViT (on pixels) and the text backbone of a ViT-backed model."""
+    from openvivqa_tpu_torch.models.vit_models import _question_input
+
+    tokens, pad, mask = _question_input(batch, model.config.TEXT_EMBEDDING)
+    chains = {}
+    if "pixel_values" in batch:
+        chains["ViT"] = (model.vision_encoder.backbone,
+                         lambda: model.vision_encoder(batch["pixel_values"]))
+    chains[type(model.text_embedding.backbone).__name__] = (
+        model.text_embedding.backbone, lambda: model.text_embedding(tokens, None, pad, mask))
+    return chains
+
+
+def capture_text_calls(fn, calls):
+    """Run `fn()` with kernels F and C, the two-bias and the packed entries'
+    first call per shape captured into `calls`; returns fn's result."""
+    from openvivqa_tpu_torch.ops import decode_step, encoder_layer, fused_attention
+
+    with capture_calls(fused_attention, "fused_attention_packed_2bias",
+                       lambda a: (tuple(a[0].shape), tuple(a[4].shape)),
+                       calls.setdefault("2bias", {})):
+        return capture_kernel_calls(fn, calls)
+
+
+def check_two_bias_calls(calls, label, record):
+    """The two-bias entry against its plain version on each captured DeBERTa
+    call (a (b, 1, 1, L) padding bias, the per-sample disentangled terms as
+    the (b, h, L, L) head bias, hb = b), beside one float32 SDPA call with the
+    two summed into its mask."""
+    import torch
+
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    kernel, plain = fused_attention.fused_attention_packed_2bias, \
+        fused_attention.fused_attention_packed_2bias_plain
+    with torch.no_grad():
+        for ((b, n, hd), hb_shape), (args, _) in sorted(calls.items()):
+            q, k, v, bias, head_bias, scale, heads = args
+            out = kernel(*args)
+            mask = (head_bias + bias).contiguous()
+            record("fused_attention_packed_2bias",
+                   f"{label} DeBERTa {b} x {n}, {heads} heads of {hd // heads}, head bias "
+                   f"{hb_shape} (hb = b), padding bias {tuple(bias.shape)}",
+                   max_err(out, plain(*args)), ATTN_TOL, lambda a=args: kernel(*a),
+                   lambda a=args: plain(*a), 4.0 * b * heads * n * n * (hd // heads),
+                   tensor_bytes(q, k, v, bias, head_bias, out),
+                   sdpa_library(q, k, v, mask, scale, heads))
+
+
+def run_text_backbone(evjvqa, tmp, seed, failures, record, family):
+    """vit_mbert_classification.yaml with TEXT_EMBEDDING an ALBERT
+    (albert-base-v2) or DeBERTa (deberta-v3-base) wrapper at full width: the
+    dev eval with exact launches (ALBERT: F once a layer a forward; DeBERTa:
+    the two-bias entry and C once a layer a forward; the ViT's packed
+    attention once a layer) and no plain call, kernel vs plain log-probs and
+    argmax agreement, each backbone chain within 2^-5, the text kernels at
+    the forward's shapes, one step's gradients on both paths and the train
+    split's (none on a frozen backbone)."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    label = f"vit_{family}_classification"
+    config = with_vit_mbert("vit_mbert_classification.yaml", evjvqa, seed,
+                            str(Path(tmp) / label)).merged(
+        {"MODEL": {"TEXT_EMBEDDING": TEXT_BACKBONES[family]}})
+    task = build_task(config, "cuda")
+    model = task.model
+    backbone = model.text_embedding.backbone
+    layers = len(backbone.schedule()) if family == "albert" else len(backbone.encoder.layer)
+    vit_layers = len(model.vision_encoder.backbone.encoder.layer)
+    frozen = sum(p.numel() for p in model.parameters() if not p.requires_grad)
+    trainable = [n for n, p in model.named_parameters()
+                 if n.startswith(BACKBONES) and p.requires_grad]
+    log(f"  [{label}] {type(model.text_embedding).__name__} ({type(backbone).__name__}: "
+        f"{backbone.embeddings.word_embeddings.num_embeddings} rows x "
+        f"{backbone.embeddings.word_embeddings.embedding_dim}, {layers} layers) beside ViT-base; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+        f"{frozen / 1e6:.2f}M frozen; {len(task.train_dataset)} train samples")
+    if trainable:
+        failures.append(f"[{label}] trainable backbone parameters: {trainable[:4]}")
+
+    def per_forward(n):
+        text = ({"fused_encoder_self_attention": layers * n} if family == "albert" else
+                {"fused_attention_packed_2bias": layers * n, "fused_ffn_step": layers * n})
+        return exact_launches(fused_attention_packed=vit_layers * n, **text)
+
+    _, first = next(task.device_batches(task.dev_dataloader))
+    task.predict(first)  # first-call set-up, uncounted
+    launches = dict(exact_eval(task, label, failures, per_forward(len(task.dev_dataloader))))
+    compare_classification_paths(task, label, failures, relative=True)
+    check_backbone_chains(label, text_backbone_chains(model, first), failures)
+    calls = {}
+    with torch.no_grad():
+        capture_text_calls(lambda: model(first), calls)
+    if family == "albert":
+        # ALBERT's layers at the JAX package's lecun-normal law (std 0.036 at 768
+        # in, 0.088 at the 128-wide mapping), past BERT's 0.02
+        check_backbone_calls(calls, label, record, failures, name="ALBERT", ffn=False,
+                             by_stage=True)
+    else:
+        check_two_bias_calls(calls["2bias"], label, record)
+        check_backbone_calls(calls, label, record, failures, name="DeBERTa", attention=False)
+    check_packed_calls(calls["packed"], label, record)
+    check_train_step(task, failures, label)
+    check_gradients(task, failures, label)
+    del task, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adaptive_config(paths, seed, checkpoint):
+    """configs/iterative_mcan.yaml with MODEL.DECODER an AdaptiveDecoder: the
+    config's own decoder widths (512, 8 heads of 64), its adaptive layer's
+    self-attention on AdaptiveScaledDotProductAttention, LANGUAGE_MODEL a
+    BERTModel at bert-base widths (768, 12 layers)."""
+    config = with_data("iterative_mcan.yaml", paths, seed, checkpoint, features_only=True)
+    attention = config.MODEL.DECODER.ATTENTION.to_dict()
+    adaptive = dict(attention, SELF_ATTENTION=dict(
+        attention["SELF_ATTENTION"], ARCHITECTURE="AdaptiveScaledDotProductAttention"))
+    return config.merged({"MODEL": {"DECODER": {
+        "ARCHITECTURE": "AdaptiveDecoder", "ADAPTIVE_ATTENTION": adaptive,
+        "LANGUAGE_MODEL": ADAPTIVE_LM}}, "TRAINING": {"MAX_EPOCHS": 1}})
+
+
+def run_adaptive(paths, tmp, seed, failures, record):
+    """IterativeMCAN with the AdaptiveDecoder at full widths: the beam-3 dev
+    eval with exact decode launches (a step: the layer step per ordinary
+    layer; the language model on the step's token, F and C per backbone layer
+    and F and C in its own layer; kernels B and C in the adaptive layer) and
+    no plain call; kernel vs plain generate() and teacher-forced log-probs;
+    the LM backbone within 2^-5; F, C and the layer step at the decode's
+    shapes; one XE epoch (start()) and the train split's gradients (none on
+    the frozen backbone, none on the LM's unread head)."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.models.modules.masks import padding_bias
+    from openvivqa_tpu_torch.training.decode import generate
+
+    label = "adaptive"
+    task = build_task(adaptive_config(paths, seed, str(Path(tmp) / label)), "cuda")
+    decoder = task.model.decoder
+    lm = decoder.language_model
+    lm_layers = len(lm.backbone.encoder.layer)
+    ordinary, steps = len(decoder.layers) - 1, task.vocab.max_answer_length
+    log(f"  [{label}] IterativeMCAN + AdaptiveDecoder: {ordinary} + 1 adaptive layers of "
+        f"{decoder.d_model}, {decoder.layers[-1].self_attn.attention.h} heads; {type(lm).__name__} "
+        f"{lm.backbone.embeddings.word_embeddings.num_embeddings} rows x "
+        f"{lm.backbone.embeddings.word_embeddings.embedding_dim} x {lm_layers} layers (frozen) + "
+        f"one trainable layer of {lm.proj.out_features}; "
+        f"{sum(p.numel() for p in task.model.parameters()) / 1e6:.2f}M parameters")
+    _, first = next(task.device_batches(task.dev_dict_dataloader))
+    generate(task.model, first, task.evaluating_beam_size)  # first-call set-up, uncounted
+    n = len(task.dev_dict_dataloader)
+    decode = steps * n
+    want = exact_launches(
+        fused_decoder_layer_step=ordinary * decode,
+        fused_encoder_self_attention=(lm_layers + 1) * decode,
+        fused_ffn_step=(lm_layers + 2) * decode, fused_cross_attention_step=decode)
+    want["fused_attention_packed"] = None  # the encoders'
+    (scores, counts, plain_calls) = counted_run(
+        lambda: task.evaluate_metrics(task.dev_dict_dataloader))
+    log(f"  [{label}] beam-{task.evaluating_beam_size} dev eval ({n} batches): scores "
+        f"{json.dumps(scores, default=float)}")
+    check_counts(f"{label} dev eval", counts, plain_calls, want, failures)
+    if not math.isfinite(scores.get("CIDEr", math.nan)):
+        failures.append(f"[{label}] no finite dev CIDEr")
+    launches = dict(counts)
+    _, batch, tokens = compare_generation(task, label, failures)
+    compare_teacher_forced(task, label, failures, batch, tokens)
+    answers = torch.cat([torch.full_like(tokens[:, :1], task.vocab.bos_idx),
+                         tokens[:, :-1]], dim=1).long()
+    check_backbone_chains(label, {"frozen LM (BERT-base)": (lm.backbone, lambda: lm(answers))},
+                          failures)
+    calls = {}
+    with torch.no_grad():
+        capture_kernel_calls(lambda: generate(task.model, first, task.evaluating_beam_size),
+                             calls)
+    check_backbone_calls(calls, f"{label} decode", record, failures, name="frozen LM")
+    check_layer_step_at(task, torch.Generator(device=task.device).manual_seed(17), record,
+                        failures, f"{label}'s step")
+
+    (_, xe_counts, plain_calls) = counted_run(task.start)
+    check_counts(f"{label} xe start()", xe_counts, plain_calls,
+                 {name: None for name in ("fused_encoder_self_attention", "fused_ffn_step",
+                                          "fused_attention_packed", "fused_decoder_layer_step",
+                                          "fused_cross_attention_step")}, failures)
+    with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+        losses = [x for r in map(json.loads, handle) if r["phase"] == "train"
+                  for x in r["step_losses"]]
+    log(f"  [{label}] start(), one XE epoch: per-step losses {json.dumps(losses)}")
+    if len(losses) != len(task.train_dataloader) or not all(map(math.isfinite, losses)):
+        failures.append(f"[{label}] epoch losses {losses}")
+    for name, count in xe_counts.items():
+        launches[name] += count
+    check_gradients(task, failures, label, no_gradient=("decoder.language_model.head.",))
+    del task, decoder, lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_plain_modules(seed, failures):
+    """The modules the JAX package runs without a kernel, one forward each on
+    the card at d_model 512 with 8 heads (64 samples of 50 tokens with
+    boxes), against the same module's float32 forward on the CPU: the
+    geometry, memory and adaptive cores in MultiHeadAttention (the AoA gates
+    on the adaptive one), the GeometricEncoder (two layers),
+    SpatialCirclePosition and TextSemanticSeparate."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_attention, build_encoder
+    from openvivqa_tpu_torch.config import ConfigNode
+    from openvivqa_tpu_torch.models.modules.attentions import MultiHeadAttention
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.models.modules.scp_tss import TextSemanticSeparate
+
+    gen = torch.Generator().manual_seed(seed)
+    b, n, d = 64, 50, 512
+    x = torch.randn((b, n, d), generator=gen)
+    xy = torch.rand((b, n, 2), generator=gen) * 0.6
+    boxes = torch.cat([xy, xy + 0.05 + 0.35 * torch.rand((b, n, 2), generator=gen)], dim=-1)
+    bias = torch.where(torch.rand((b, 1, 1, n), generator=gen) < 0.2, MASK_VALUE, 0.0)
+    bias[..., 0] = 0.0
+
+    def attention(arch, **extra):
+        return {"ARCHITECTURE": arch, "HEAD": 8, "D_MODEL": d, "D_KEY": 64, "D_VALUE": 64,
+                "D_FF": 2048, "USE_AOA": False, "CAN_BE_STATEFUL": False, "DROPOUT": 0.1,
+                **extra}
+
+    cases = {
+        "AugmentedGeometryScaledDotProductAttention": (MultiHeadAttention(ConfigNode(attention(
+            "AugmentedGeometryScaledDotProductAttention", TRIGNOMETRIC_EMBEDDING=True))),
+            (x, x, x, bias), {"boxes": boxes}),
+        "AugmentedMemoryScaledDotProductAttention": (MultiHeadAttention(ConfigNode(attention(
+            "AugmentedMemoryScaledDotProductAttention", MEMORY=40))), (x, x, x, bias), {}),
+        "AdaptiveScaledDotProductAttention + AoA": (MultiHeadAttention(ConfigNode(attention(
+            "AdaptiveScaledDotProductAttention", USE_AOA=True))), (x, x, x, bias),
+            {"language_signals": torch.randn((b, n, d), generator=gen)}),
+        "GeometricEncoder": (build_encoder(ConfigNode({
+            "ARCHITECTURE": "GeometricEncoder", "D_MODEL": d, "LAYERS": 2,
+            "SELF_ATTENTION": attention("AugmentedGeometryScaledDotProductAttention",
+                                        TRIGNOMETRIC_EMBEDDING=True)})), (x, boxes, bias), {}),
+        "SpatialCirclePosition": (build_attention(ConfigNode(attention(
+            "SpatialCirclePosition", NUM_DISTANCE=16))), (x, boxes, bias), {}),
+        "TextSemanticSeparate": (TextSemanticSeparate(ConfigNode({"D_MODEL": d})),
+                                 (x, x.flip(1), x.roll(1, 1), x * 0.5), {}),
+    }
+    for name, (module, args, kwargs) in cases.items():
+        module = module.eval()
+        with torch.no_grad():
+            want = module(*args, **kwargs)
+            module.cuda()
+            start = time.perf_counter()
+            got = module(*(a.cuda() for a in args), **{k: v.cuda() for k, v in kwargs.items()})
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        err, top = max_err(got.cpu(), want), float(want.abs().max())
+        log(f"  [plain modules] {name}: {tuple(got.shape)} on {got.device}, {seconds * 1e3:.2f} ms "
+            f"(first call, host clock); max|card - CPU| {err:.3e} of max|x| {top:.2f}")
+        if got.device.type != "cuda" or not err <= 1e-3 * max(top, 1.0):
+            failures.append(f"[plain modules] {name}: on {got.device}, card vs CPU {err}")
+        del module
+    torch.cuda.empty_cache()
+
+
+def run_phase14(evjvqa, paths, tmp, seed, failures, record):
+    """Phase 14: ALBERT and DeBERTa under ViTmBERTClassification on the EVJVQA
+    images, the AdaptiveDecoder under IterativeMCAN on phase 4's data, the
+    plain-torch modules.  Returns the launches of the counted runs."""
+    launches = {}
+    runs = [(f"{family} classifier", lambda f=family: run_text_backbone(
+        evjvqa, tmp, seed, failures, record, f)) for family in TEXT_BACKBONES]
+    runs.append(("adaptive decoder", lambda: run_adaptive(paths, tmp, seed, failures, record)))
+    runs.append(("plain modules", lambda: run_plain_modules(seed, failures) or {}))
+    for name, run in runs:
+        start = time.perf_counter()
+        for kernel, n in run().items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        log(f"  [phase 14, {name}] {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+# -- small_mmf_m4c beside phase 4, the SCST epochs of phase 13 --------------------------------
+def run_small_mmf_m4c(paths, tmp, seed, failures):
+    """configs/small_mmf_m4c.yaml (TextBert and MMT of 4 layers at 512, 8 heads)
+    on phase 4's data: the dev eval in both decode modes with exact launches
+    (quadratic: F once a TextBert layer, C once a TextBert layer and once an
+    MMT layer a step, packed once an MMT layer a step; incremental: F and C
+    over the MMT context once a layer too, D once an MMT layer a step) and the
+    kernel vs plain checks of phase 4, then one step's gradients on both paths
+    and the train split's."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    config = with_data("small_mmf_m4c.yaml", paths, seed, str(Path(tmp) / "small_mmf_m4c"))
+    launches = {}
+    for mode in ("quadratic", "incremental"):
+        task = build_task(config.merged({"MODEL": {"DECODING_MODE": "incremental"}})
+                          if mode == "incremental" else config, "cuda")
+        model = task.model
+        text, mmt = len(model.text_bert.encoder.layer), len(model.mmt.encoder.layer)
+        steps, n = task.vocab.max_answer_length, len(task.dev_dict_dataloader)
+        if mode == "quadratic":
+            exact = {"fused_encoder_self_attention": n * text,
+                     "fused_ffn_step": n * (text + mmt * steps),
+                     "fused_attention_packed": n * mmt * steps}
+            log(f"  [small_mmf_m4c] hidden {model.hidden_size}, {model.num_heads} heads, {text} "
+                f"TextBert + {mmt} MMT layers, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+                f"M parameters; {n} dev batches x {steps} steps")
+        else:
+            exact = {"fused_encoder_self_attention": n * (text + mmt),
+                     "fused_ffn_step": n * (text + mmt + mmt * steps),
+                     "fused_bert_self_step": n * mmt * steps}
+        counts = run_mode(task, f"small_mmf_m4c {mode}", failures, list(exact), exact)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        if mode == "quadratic":
+            check_train_step(task, failures, "small_mmf_m4c", check_grads=True)
+        del task, model
+        torch.cuda.empty_cache()
+    return launches
+
+
+SCST_RUNS = (  # config, data set, features only, the kernels its beam draw and re-run launch
+    ("iterative_mcan.yaml", "main", True, ("fused_attention_packed", "fused_decoder_layer_step")),
+    ("iterative_m4c.yaml", "ocr", False, ("fused_attention_packed",)),
+    ("iterative_saaa.yaml", "main", True, ("fused_decoder_layer_step",)),
+)
+
+
+def run_scst_epochs(datasets, tmp, seed, failures):
+    """One short train_scst() epoch (two batches of the train split, 12 samples
+    x 5 beams each) under OpenEndedTask (IterativeMCAN), OcrOpenEndedTask
+    (IterativeM4C) and TrainingSAAATask (IterativeSAAA), with the checks of
+    ViTmBERTGeneration's: the switch (Adam afresh at the RL rate), the epoch's
+    launches and no plain call, finite losses and rewards, every trainable
+    parameter with a gradient moved and no frozen one, a resume with use_rl."""
+    import itertools
+
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    launches = {}
+    for config_file, data, features_only, kernels in SCST_RUNS:
+        start = time.perf_counter()
+        name = config_file.removesuffix(".yaml")
+        label = f"{name} scst"
+        config = with_data(config_file, datasets[data], seed, str(Path(tmp) / label),
+                           features_only=features_only).merged({"TRAINING": {"USE_SCST": True}})
+        task = build_task(config, "cuda")
+        task._switch_to_scst()
+        lr = [g["lr"] for g in task.optimizer.param_groups]
+        if lr != [task.rl_learning_rate] * len(lr) or task.optimizer.state:
+            failures.append(f"[{label}] the switch left lr {lr} or a used Adam state")
+        task.train_dict_dataloader = list(itertools.islice(task.train_dict_dataloader, 2))
+        before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+        (loss, reward), counts, plain_calls = counted_run(task.train_scst)
+        check_counts(label, counts, plain_calls, {k: None for k in kernels}, failures)
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        with open(Path(task.checkpoint_path) / "metrics.jsonl") as handle:
+            record_ = [r for r in map(json.loads, handle) if r["phase"] == "scst"][-1]
+        log(f"  [{label}] {type(task.model).__name__} under {type(task).__name__}, "
+            f"{len(task.train_dict_dataloader)} batches of "
+            f"{task.train_dict_dataloader[0]['question_tokens'].shape[0]} samples x "
+            f"{task.training_beam_size} beams at lr {lr[0]}: mean loss {loss:.6f}, mean reward "
+            f"{reward:.6f}; per step losses {json.dumps(record_['step_losses'])}, rewards "
+            f"{json.dumps(record_['step_rewards'])}")
+        values = record_["step_losses"] + record_["step_rewards"]
+        if len(record_["step_losses"]) != 2 or not all(map(math.isfinite, values)):
+            failures.append(f"[{label}] step losses or rewards missing or non-finite")
+        check_frozen_and_trainable(task, label, failures, before, frozen=False)
+        task.save_checkpoint({"best_val_score": 0.0, "patience": 0, "use_rl": True})
+        steps_before = {int(s["step"]) for s in task.optimizer.state.values()}
+        meta = task.load_checkpoint(str(Path(task.checkpoint_path) / "last_model.pth"))
+        task._switch_to_scst(resume=True)
+        task.train_dict_dataloader = task.train_dict_dataloader[:1]
+        task.train_scst()
+        steps_after = {int(s["step"]) for s in task.optimizer.state.values()}
+        lr = {g["lr"] for g in task.optimizer.param_groups}
+        log(f"  [{label}] resumed (use_rl {meta['use_rl']}): Adam steps {sorted(steps_before)} -> "
+            f"{sorted(steps_after)}, lr {sorted(lr)}; {time.perf_counter() - start:.1f} s")
+        if steps_after != {n + 1 for n in steps_before} or lr != {task.rl_learning_rate}:
+            failures.append(f"[{label}] resume: steps {steps_before} -> {steps_after}, lr {lr}")
+        del task
+        torch.cuda.empty_cache()
+    return launches
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3750,6 +4319,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
+    # the configs name checkpoints that no file here holds: every backbone is random
+    os.environ["OPENVIVQA_ALLOW_RANDOM_BACKBONE"] = "1"
+    log("OPENVIVQA_ALLOW_RANDOM_BACKBONE=1 (set here): the pretrained-weights policy lets the "
+        "configs that name checkpoints build random frozen backbones")
 
     # 1. the card
     smi = subprocess.run(
@@ -3813,11 +4386,14 @@ def main() -> int:
             f"shapes {json.dumps(shapes)}, set up in {time.perf_counter() - start:.1f} s")
 
         # 3. the kernels against their plain versions
+        start = time.perf_counter()
         log("kernels vs plain (CUDA-event medians of 20):")
         results = check_kernels(task, shapes, args.seed, failures, generative,
                                 iterative["incremental"], joint)
+        log(f"phase 3: {time.perf_counter() - start:.1f} s")
 
         # 4. the eval path in both decode modes
+        start = time.perf_counter()
         log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
         launches = {name: 0 for name in _cuda.LAUNCHES}
         for mode, mode_task in tasks.items():
@@ -3827,8 +4403,14 @@ def main() -> int:
                 launches[name] += n
         del tasks, task, mode_task
         torch.cuda.empty_cache()
+        log("main path, configs/small_mmf_m4c.yaml: the dev eval in both decode modes, one "
+            "step's gradients")
+        for name, n in run_small_mmf_m4c(paths, tmp, args.seed, failures).items():
+            launches[name] += n
+        log(f"phase 4: {time.perf_counter() - start:.1f} s")
 
         # 5. the training path
+        start = time.perf_counter()
         log("main path, training: TrainingMMF.start() for one epoch, then get_predictions()")
         train_task = build_task(config.merged({"TRAINING": {
             "MAX_EPOCHS": 1, "CHECKPOINT_PATH": str(Path(tmp) / "train")}}), "cuda")
@@ -3836,8 +4418,10 @@ def main() -> int:
             launches[name] += n
         del train_task
         torch.cuda.empty_cache()
+        log(f"phase 5: {time.perf_counter() - start:.1f} s")
 
         # 6. the beam-searched generative path
+        start = time.perf_counter()
         decoder = generative.model.decoder
         log(f"main path, beam search: configs/iterative_mcan.yaml, d_model {decoder.d_model}, "
             f"{decoder.layers[0].self_attn.attention.h} heads, "
@@ -3857,8 +4441,10 @@ def main() -> int:
             launches[name] += n
         del xe_task
         torch.cuda.empty_cache()
+        log(f"phase 6: {time.perf_counter() - start:.1f} s")
 
         # 7. the Iterative M4C family and the other MMF_M4C variants
+        start = time.perf_counter()
         model = iterative["incremental"].model
         log(f"main path, Iterative M4C: configs/mmf_iterative_m4c.yaml, hidden "
             f"{model.hidden_size}, {model.num_heads} heads, {len(model.text_bert.encoder.layer)} "
@@ -3871,8 +4457,10 @@ def main() -> int:
             launches[name] += n
         del iterative
         torch.cuda.empty_cache()
+        log(f"phase 7: {time.perf_counter() - start:.1f} s")
 
         # 8. ViTmT5 under VlspEvjVqaTask
+        start = time.perf_counter()
         log("main path, ViTmT5: configs/vit_mt5.yaml under VlspEvjVqaTask, beam-3 "
             "evaluate_metrics over the dev split, one XE epoch, get_predictions()")
         vit_launches, vit_results = run_vit_mt5(
@@ -3881,8 +4469,10 @@ def main() -> int:
             launches[name] += n
         results.update(vit_results)
         torch.cuda.empty_cache()
+        log(f"phase 8: {time.perf_counter() - start:.1f} s")
 
         # 9. JointTransformer under VlspEvjVqaTask
+        start = time.perf_counter()
         log("main path, JointTransformer: configs/joint_transformer_vlsp.yaml under "
             "VlspEvjVqaTask, beam-3 evaluate_metrics over the dev split on the layer and module "
             "routes, one XE epoch, get_predictions(), a long stream through its Encoder")
@@ -3890,6 +4480,7 @@ def main() -> int:
             launches[name] += n
         del joint
         torch.cuda.empty_cache()
+        log(f"phase 9: {time.perf_counter() - start:.1f} s")
 
         # 10. the ClassificationTask configs
         start = time.perf_counter()
@@ -3935,7 +4526,22 @@ def main() -> int:
         for name, n in run_phase13(evjvqa, tmp, args.seed, failures,
                                    make_recorder(results, failures)).items():
             launches[name] += n
+        log("main path, phase 13: one short SCST epoch each of iterative_mcan (OpenEndedTask), "
+            "iterative_m4c (OcrOpenEndedTask) and iterative_saaa (TrainingSAAATask)")
+        for name, n in run_scst_epochs({"main": paths, "ocr": m4c_paths}, tmp, args.seed,
+                                       failures).items():
+            launches[name] += n
         log(f"phase 13: {time.perf_counter() - start:.1f} s")
+
+        # 14. ALBERT, DeBERTa, the AdaptiveDecoder and its frozen LM, the plain-torch modules
+        start = time.perf_counter()
+        log("main path, phase 14: vit_mbert_classification with ALBERT (albert-base-v2) and "
+            "DeBERTa (deberta-v3-base) text backbones, iterative_mcan with the AdaptiveDecoder "
+            "(BERTModel at bert-base widths; beam 3, one XE epoch), the plain-torch modules")
+        for name, n in run_phase14(evjvqa, paths, tmp, args.seed, failures,
+                                   make_recorder(results, failures)).items():
+            launches[name] += n
+        log(f"phase 14: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -3,8 +3,9 @@
 The port keeps its own copies of the JAX package's host layers (config,
 registry, data, evaluation) and imports nothing of ``openvivqa_tpu``; the
 VOCAB, DATASET and WORD_EMBEDDING registries fill when ``openvivqa_tpu_torch.data``
-is imported, ARCHITECTURE, ENCODER, DECODER, ATTENTION, TEXT_EMBEDDING and
-VISION_EMBEDDING when ``openvivqa_tpu_torch.models`` is, TASK when the tasks are.
+is imported, ARCHITECTURE, ENCODER, DECODER, ATTENTION, TEXT_EMBEDDING,
+VISION_EMBEDDING and PRETRAINED_LANGUAGE_MODEL when ``openvivqa_tpu_torch.models``
+is, TASK when the tasks are.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ META_DECODER = Registry("DECODER")
 META_ATTENTION = Registry("ATTENTION")
 META_TEXT_EMBEDDING = Registry("TEXT_EMBEDDING")
 META_VISION_EMBEDDING = Registry("VISION_EMBEDDING")
+META_PRETRAINED_LANGUAGE_MODEL = Registry("PRETRAINED_LANGUAGE_MODEL")
 
 
 def build_model(config, vocab, example=None):
@@ -84,6 +86,10 @@ def build_text_embedding(config, vocab):
 
 def build_vision_embedding(config):
     return META_VISION_EMBEDDING.get(config.ARCHITECTURE)(config=config)
+
+
+def build_pretrained_language_model(config, vocab=None):
+    return META_PRETRAINED_LANGUAGE_MODEL.get(config.ARCHITECTURE)(config=config, vocab=vocab)
 
 
 def build_word_embedding(config):

@@ -1,7 +1,7 @@
 """Raw-image datasets (for the ViT-backed models).
 
-The port's copy of the generative datasets of
-``openvivqa_tpu/data/image_datasets.py``: each sample carries ``pixel_values``,
+The port's copy of ``openvivqa_tpu/data/image_datasets.py``: each sample carries
+``pixel_values``,
 the image resized bilinearly to IMAGE_SIZE (224 by default) and normalised by
 mean 0.5 and std 0.5 as an (H, W, 3) float32 array, in place of feature files,
 beside the raw question string and its vocab encoding; the classification
@@ -17,7 +17,7 @@ import numpy as np
 
 from ..builders import META_DATASET
 from ..utils.instance import Instance
-from .datasets import FeatureClassificationDataset, teacher_forcing_pair
+from .datasets import FeatureClassificationDataset, FeatureDataset, teacher_forcing_pair
 from .multilingual import (
     MultilingualDictionaryDataset,
     MultilingualFeatureDataset,
@@ -43,6 +43,30 @@ class _ImageLoaderMixin:
     def load_features(self, image_id: int) -> Dict:
         """Image datasets read pixels, not feature files."""
         return {}
+
+
+@META_DATASET.register()
+class ImageDataset(_ImageLoaderMixin, FeatureDataset):
+    """Pixels, the question's vocab encoding and the teacher-forcing answer
+    pair, one sample per (question, answer)."""
+
+    def __init__(self, json_path: str, vocab, config) -> None:
+        super().__init__(json_path, vocab, config)
+        self._init_images(config)
+
+    def __getitem__(self, idx: int) -> Instance:
+        item = self.annotations[idx]
+        answer, shifted_right = teacher_forcing_pair(
+            self.vocab.encode_answer(item["answer"]), self.vocab.padding_idx, self.vocab.eos_idx
+        )
+        return Instance(
+            image_id=item["image_id"],
+            filename=item["filename"],
+            pixel_values=self.load_pixel_values(item["filename"]),
+            question_tokens=self.vocab.encode_question(item["question"]),
+            answer_tokens=answer,
+            shifted_right_answer_tokens=shifted_right,
+        )
 
 
 @META_DATASET.register()

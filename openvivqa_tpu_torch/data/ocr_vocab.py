@@ -3,18 +3,21 @@
 The port's copy of OcrVocab from ``openvivqa_tpu/data/ocr_vocab.py``: 12
 special tokens, answer encoding against fixed-vocab ∪ per-sample OCR slots
 (OCR index space starts at len(stoi)), decode with per-sample OCR tables,
-decode_answer_with_determination; and OcrClassificationVocab, LoRRA's classes
-over the answers and the OCR slots.
+decode_answer_with_determination; OcrClassificationVocab, LoRRA's classes
+over the answers and the OCR slots; and CharacterVocab, word-level questions
+with character-level answers.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
+import json
+from collections import Counter, defaultdict
 from typing import Dict, List, Union
 
 import numpy as np
 
 from ..builders import META_VOCAB
+from .text_utils import preprocess_sentence
 from .vocab import ClassificationVocab, Vocab
 
 
@@ -174,5 +177,48 @@ class OcrClassificationVocab(ClassificationVocab):
                 text = ocr[offset] if offset < len(ocr) else self.padding_token
             else:
                 text = self.itoa[idx]
+            answers.append(text if join_words else text.split())
+        return answers
+
+
+@META_VOCAB.register()
+class CharacterVocab(Vocab):
+    """Word-level questions, character-level answers: an answer is encoded
+    one character per position between <bos> and <eos>."""
+
+    def make_vocab(self, json_paths) -> None:
+        self.freqs = Counter()
+        self.max_question_length = 0
+        self.max_answer_length = 0
+        for json_path in json_paths:
+            if json_path is None:
+                continue
+            with open(json_path) as handle:
+                json_data = json.load(handle)
+            for ann in json_data["annotations"]:
+                question = preprocess_sentence(ann["question"], self.tokenizer)
+                for answer in ann["answers"]:
+                    answer_text = " ".join(preprocess_sentence(answer, self.tokenizer))
+                    self.freqs.update(question)
+                    self.freqs.update(list(answer_text))
+                    self.max_question_length = max(self.max_question_length, len(question) + 2)
+                    self.max_answer_length = max(self.max_answer_length, len(answer_text) + 2)
+
+    def encode_answer(self, answer: Union[str, List[str]]) -> np.ndarray:
+        if isinstance(answer, list):
+            answer = " ".join(answer)
+        vec = np.full((self.max_answer_length,), self.padding_idx, np.int32)
+        chars = [self.bos_token] + list(answer) + [self.eos_token]
+        for i, ch in enumerate(chars[: self.max_answer_length]):
+            vec[i] = self.stoi.get(ch, self.unk_idx)
+        return vec
+
+    def decode_answer(self, answer_vecs, join_words: bool = True, **kwargs) -> List:
+        join_words = kwargs.get("join_word", join_words)
+        answers = []
+        for vec in np.asarray(answer_vecs):
+            chars = [self.itos[int(i)] for i in np.atleast_1d(vec)
+                     if self.itos[int(i)] not in self.specials]
+            text = "".join(chars).strip()
             answers.append(text if join_words else text.split())
         return answers

@@ -6,6 +6,7 @@ from .modules import (  # noqa: F401
     decoders,
     encoders,
     pretrained_embeddings,
+    scp_tss,
     text_embeddings,
     vision_embeddings,
 )

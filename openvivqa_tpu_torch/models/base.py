@@ -23,10 +23,17 @@ def init_xavier_law_(model: nn.Module, generator: torch.Generator,
     convolution's fans count its window) with zero biases, N(0, 1) embedding
     tables, LayerNorm scale 1 and bias 0, and flax's LSTM laws (truncated
     LeCun-normal input kernels, orthogonal recurrent kernels, zero biases).
-    The modules in `skip`, and everything under them, are left as they are."""
+    A submodule with initialisers of its own (``init_weights_``: a pretrained
+    backbone, e.g. the frozen language model's) draws them at its turn.  The
+    modules in `skip`, and everything under them, are left as they are."""
     skipped = {id(p) for module in skip for p in module.parameters()}
     with torch.no_grad():
         for sub in model.modules():
+            if sub is not model and hasattr(sub, "init_weights_") and not any(
+                    id(p) in skipped for p in sub.parameters()):
+                sub.init_weights_(generator)
+                skipped.update(id(p) for p in sub.parameters())
+                continue
             if isinstance(sub, nn.LSTM):
                 if id(sub.weight_ih_l0) not in skipped:
                     _init_lstm_(sub, generator)

@@ -8,8 +8,11 @@ The port's parameter names are the reference's torch names, the ones
 ``convert_iterative_mcan``, ``convert_joint_transformer``, ``convert_mcan``,
 ``convert_saaa``), so those
 converters are this bridge's inverses and the port also loads the reference's own
-checkpoints; the ViT and T5 backbones carry HF's names, which
-``hf_conversion.convert_vit_weights`` and ``convert_t5_encoder_weights`` read.
+checkpoints; the ViT, T5, ALBERT and DeBERTa backbones carry HF's names, which
+``hf_conversion.convert_vit_weights``, ``convert_t5_encoder_weights``,
+``convert_albert_weights`` and ``convert_deberta_v2_weights`` read (this bridge
+is their inverse, and ``backbone_state`` maps one backbone's converted tree for
+the pretrained-weights policy).
 VanillaTransformer, ParallelAttentionTransformer, HierarchicalCoAttention,
 IterativeM4C, UniqueTransformer, ExtendedMCAN, IterativeSAAA, the two dual-stream
 models, the two ViTmBERT models and the hierarchical text embedding have no
@@ -17,6 +20,9 @@ reference converter (the
 one the JAX package lists for ReadableIterativeMCAN, ``convert_iterative_mcan``,
 reads IterativeMCAN's one-linear vision embedding, not ``VisionOcrEmbedding``), and
 the JAX converters refuse experimental_MMF_M4C and MMF_IterativeLoRRA: their flax trees
+(and those of the AdaptiveDecoder with its frozen language model, the geometry,
+memory and adaptive attention cores, the AoA gates, the GeometricEncoder,
+SpatialCirclePosition)
 (``@nn.compact`` auto-names such as ``Encoder_0``, ``Dense_0``, ``Conv_0``) map
 to the port's names here.  Flax Dense kernels are (in, out) and torch Linear
 weights (out, in); flax Conv kernels (n, in, out) and Conv1d weights (out, in,
@@ -246,10 +252,25 @@ def _mmf_iterative_lorra(tree: Mapping[str, Any]) -> StateDict:
     return out
 
 
+def _attention_core(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """Any registered core: its Dense projections (``fc_q`` ... ``fc_o``, the
+    geometry core's ``fc_g``, the adaptive core's ``fc_s``), the memory core's
+    ``m_k`` / ``m_v`` slots and SpatialCirclePosition's ``dist_embedding``."""
+    for key, value in tree.items():
+        if key == "dist_embedding":
+            _embedding(out, f"{name}.{key}", value)
+        elif isinstance(value, Mapping):
+            _linear(out, f"{name}.{key}", value)
+        else:
+            out[f"{name}.{key}"] = _arr(value)
+
+
 def _multi_head_attention(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
-    for projection in ("fc_q", "fc_k", "fc_v", "fc_o"):
-        _linear(out, f"{name}.attention.{projection}", tree["attention"][projection])
+    _attention_core(out, f"{name}.attention", tree["attention"])
     _layer_norm(out, f"{name}.layer_norm", tree["layer_norm"])
+    for gate in ("informative_attention", "gated_attention"):  # the AoA gates
+        if gate in tree:
+            _linear(out, f"{name}.{gate}", tree[gate])
 
 
 def _positionwise_ffn(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
@@ -538,6 +559,8 @@ def _joint_transformer(tree: Mapping[str, Any]) -> StateDict:
 
 
 def _decoder(out: StateDict, decoder: Mapping[str, Any]) -> None:
+    """Decoder, and AdaptiveDecoder with its adaptive last layer and its
+    ``language_model``."""
     _text_embedding(out, "decoder.word_emb", decoder["word_emb"])
     out["decoder.fc.weight"] = np.ascontiguousarray(_arr(decoder["fc"]["kernel"]).T)
     for i, layer in _layers(decoder):
@@ -545,6 +568,82 @@ def _decoder(out: StateDict, decoder: Mapping[str, Any]) -> None:
         _multi_head_attention(out, f"{prefix}.self_attn", layer["self_attn"])
         _multi_head_attention(out, f"{prefix}.enc_attn", layer["enc_attn"])
         _positionwise_ffn(out, f"{prefix}.pwff", layer["pwff"])
+    if "language_model" in decoder:
+        _frozen_language_model(out, "decoder.language_model", decoder["language_model"])
+
+
+def _frozen_language_model(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """``_FrozenCausalLM``'s auto-names: the BERT backbone, ``Dense_0`` (the
+    projection), ``BertLayer_0`` (the trainable layer) and ``Dense_1`` (the head)."""
+    _bert_embeddings(out, f"{name}.backbone.embeddings", tree["BertEmbeddings_0"])
+    _bert_encoder(out, f"{name}.backbone.encoder", tree["BertEncoderStack_0"])
+    _linear(out, f"{name}.proj", tree["Dense_0"])
+    _bert_layer(out, f"{name}.layer", tree["BertLayer_0"])
+    _linear(out, f"{name}.head", tree["Dense_1"])
+
+
+def _albert_backbone(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """AlbertEncoderStack -> HF AlbertModel names (the inverse of
+    ``hf_conversion.convert_albert_weights``)."""
+    emb = tree["embeddings"]
+    for table in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        _embedding(out, f"{name}.embeddings.{table}", emb[table])
+    _layer_norm(out, f"{name}.embeddings.LayerNorm", emb["LayerNorm"])
+    _linear(out, f"{name}.encoder.embedding_hidden_mapping_in",
+            tree["embedding_hidden_mapping_in"])
+    for key, layer in tree.items():
+        if not key.startswith("group_"):
+            continue
+        _, g, _, j = key.split("_")
+        prefix = f"{name}.encoder.albert_layer_groups.{g}.albert_layers.{j}"
+        for flax_name, torch_name in (("query", "attention.query"), ("key", "attention.key"),
+                                      ("value", "attention.value"),
+                                      ("attn_dense", "attention.dense"), ("ffn", "ffn"),
+                                      ("ffn_output", "ffn_output")):
+            _linear(out, f"{prefix}.{torch_name}", layer[flax_name])
+        _layer_norm(out, f"{prefix}.attention.LayerNorm", layer["attn_LayerNorm"])
+        _layer_norm(out, f"{prefix}.full_layer_layer_norm", layer["full_layer_LayerNorm"])
+
+
+def _deberta_backbone(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
+    """DebertaV2EncoderStack -> HF DebertaV2Model names (the inverse of
+    ``hf_conversion.convert_deberta_v2_weights``)."""
+    for table in ("word_embeddings", "position_embeddings"):
+        if table in tree:
+            _embedding(out, f"{name}.embeddings.{table}", tree[table])
+    _layer_norm(out, f"{name}.embeddings.LayerNorm", tree["embeddings_LayerNorm"])
+    out[f"{name}.encoder.rel_embeddings.weight"] = _arr(tree["rel_embeddings"])
+    if "rel_LayerNorm" in tree:
+        _layer_norm(out, f"{name}.encoder.LayerNorm", tree["rel_LayerNorm"])
+    if "conv" in tree:
+        _conv(out, f"{name}.encoder.conv.conv", tree["conv"])
+        _layer_norm(out, f"{name}.encoder.conv.LayerNorm", tree["conv_LayerNorm"])
+    for i, layer in _layers(tree):
+        prefix = f"{name}.encoder.layer.{i}"
+        for proj, weights in layer["self"].items():
+            _linear(out, f"{prefix}.attention.self.{proj}", weights)
+        _linear(out, f"{prefix}.attention.output.dense", layer["attn_output"])
+        _layer_norm(out, f"{prefix}.attention.output.LayerNorm", layer["attn_LayerNorm"])
+        _linear(out, f"{prefix}.intermediate.dense", layer["intermediate"])
+        _linear(out, f"{prefix}.output.dense", layer["output"])
+        _layer_norm(out, f"{prefix}.output.LayerNorm", layer["output_LayerNorm"])
+
+
+def backbone_state(family: str, tree: Mapping[str, Any]) -> StateDict:
+    """A flax backbone tree of `family` (t5, albert, deberta; vit: the
+    ViTEmbedding-level tree with ``patch_embed``, ``cls_token``,
+    ``position_embedding`` and ``backbone``; bert_layout: ``{"embeddings",
+    "encoder"}`` as ``hf_conversion.convert_bert_weights`` returns it) -> the
+    state_dict of the port's backbone module (a BertBackbone or TextBert for
+    bert_layout), keys relative to it."""
+    out: StateDict = {}
+    if family == "bert_layout":
+        _bert_embeddings(out, "_.embeddings", tree["embeddings"])
+        _bert_encoder(out, "_.encoder", tree["encoder"])
+    else:
+        {"t5": _t5_encoder, "albert": _albert_backbone, "deberta": _deberta_backbone,
+         "vit": _vit_backbone}[family](out, "_", tree)
+    return {key[2:]: value for key, value in out.items()}
 
 
 def _kernel(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
@@ -605,12 +704,19 @@ def _vision_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> Non
 
 
 def _pretrained_text_embedding(out: StateDict, name: str, tree: Mapping[str, Any]) -> None:
-    """T5Embedding (its ``backbone``) or a BERT-layout wrapper (flax's
+    """T5Embedding, AlbertEmbedding or DebertaEmbedding (their ``backbone``,
+    told apart by its keys) or a BERT-layout wrapper (flax's
     ``BertEmbeddings_0`` and ``BertEncoderStack_0`` -> HF BertModel's
     ``embeddings`` and ``encoder``): the frozen backbone under
     ``<name>.backbone``, then the projection ``proj``."""
     if "backbone" in tree:
-        _t5_encoder(out, f"{name}.backbone", tree["backbone"])
+        backbone = tree["backbone"]
+        if "embedding_hidden_mapping_in" in backbone:
+            _albert_backbone(out, f"{name}.backbone", backbone)
+        elif "embeddings_LayerNorm" in backbone:
+            _deberta_backbone(out, f"{name}.backbone", backbone)
+        else:
+            _t5_encoder(out, f"{name}.backbone", backbone)
     else:
         _bert_embeddings(out, f"{name}.backbone.embeddings", tree["BertEmbeddings_0"])
         _bert_encoder(out, f"{name}.backbone.encoder", tree["BertEncoderStack_0"])
@@ -631,13 +737,14 @@ def _vit_generation(tree: Mapping[str, Any]) -> StateDict:
     return out
 
 
-_BERT_WRAPPERS = ("BertEmbedding_0", "RobertaEmbedding_0", "XLMRobertaEmbedding_0")
+_BERT_WRAPPERS = ("BertEmbedding_0", "RobertaEmbedding_0", "XLMRobertaEmbedding_0",
+                  "AlbertEmbedding_0", "DebertaEmbedding_0", "T5Embedding_0")
 
 
 def _vit_mbert_classification(tree: Mapping[str, Any]) -> StateDict:
     """ViTmBERTClassification's flax auto-names: the vision embedding, the
-    BERT-layout text wrapper, ``Dense_0`` (the fusion) and ``Dense_1`` (the
-    classifier)."""
+    pretrained text wrapper (BERT-layout, ALBERT, DeBERTa or T5), ``Dense_0``
+    (the fusion) and ``Dense_1`` (the classifier)."""
     out: StateDict = {}
     vision = next(key for key in tree if key.endswith("Embedding_0") and key not in _BERT_WRAPPERS)
     _vision_embedding(out, "vision_encoder", tree[vision])
@@ -656,7 +763,8 @@ def params_from_flax(tree: Mapping[str, Any], config=None) -> StateDict:
     IterativeM4C, MMF_LoRRA, MMF_IterativeLoRRA), IterativeMCAN, ReadableIterativeMCAN,
     ExtendedMCAN, IterativeSAAA, ViTmT5, ViTmBERTGeneration, ViTmBERTClassification,
     JointTransformer, UniqueTransformer,
-    CrossModalityTransformer and VisiolinguisticTransformer (either mode) and
+    CrossModalityTransformer and VisiolinguisticTransformer (either mode), any
+    decoder an AdaptiveDecoder, any text wrapper an ALBERT or DeBERTa one, and
     the classification models (MCAN, SAAA, VanillaTransformer,
     ParallelAttentionTransformer, HierarchicalCoAttention; each text embedding:
     Usual, LSTM, hierarchical) trees, told apart by their top-level keys.

@@ -3,11 +3,14 @@ decode-time caches.
 
 Counterpart of ``ScaledDotProductAttention``, ``_DecodeKVCache``,
 ``_StaticEncKVCache`` and ``MultiHeadAttention`` in
-``openvivqa_tpu/models/modules/attentions.py``.  Parameter names are the
-reference's (``attention.fc_q`` ... ``attention.fc_o``, ``layer_norm``).  The
-geometry, memory and adaptive attention cores and the AoA gates wait for the
-models that use them (ROADMAP queue 1, slice 5); a config that asks for them
-raises at build time.
+``openvivqa_tpu/models/modules/attentions.py``, with the geometry, memory and
+adaptive cores (``AugmentedGeometryScaledDotProductAttention``,
+``AugmentedMemoryScaledDotProductAttention``,
+``AdaptiveScaledDotProductAttention``) and the AoA gates.  Parameter names are
+the reference's (``attention.fc_q`` ... ``attention.fc_o``, ``layer_norm``,
+``informative_attention``, ``gated_attention``).  The three extra cores are plain
+torch, as the JAX package calls no kernel there; a core takes the extra inputs
+it reads (``boxes``, ``language_signals``) by keyword and ignores the others.
 
 The dispatch is the JAX package's (``attentions.py:71-171``) without its
 key-count crossover, which the card does not have.  ``ScaledDotProductAttention``
@@ -43,7 +46,7 @@ from ...ops import decode_step as _ds
 from ...ops import fused_attention as _attn
 from .bert import dropout
 from .ffn import LN_EPS, matrix
-from .masks import MASK_VALUE
+from .masks import MASK_VALUE, box_relational_embedding
 
 
 def _bias_4d(attention_bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -107,7 +110,7 @@ class ScaledDotProductAttention(nn.Module, _ProjectionMixin):
         super().__init__()
         self._build_projections(config)
 
-    def forward(self, queries, keys, values, attention_bias=None) -> torch.Tensor:
+    def forward(self, queries, keys, values, attention_bias=None, **_) -> torch.Tensor:
         q, k, v = self.fc_q(queries), self.fc_k(keys), self.fc_v(values)
         if self.d_k == self.d_v and (
             attention_bias is None or (attention_bias.ndim == 4 and attention_bias.shape[1] == 1)
@@ -120,6 +123,107 @@ class ScaledDotProductAttention(nn.Module, _ProjectionMixin):
                 return self.fc_o(_attn.fused_attention_packed_streamed(
                     *_packed(q, k, v), attention_bias, self.scale, self.h))
         return self.fc_o(self.attend(q, k, v, attention_bias))
+
+
+def _plain_attention(q, k, v, scale: float, *biases) -> torch.Tensor:
+    """softmax(q k^T * scale + biases) v on (b, h, S, d) heads."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    for bias in biases:
+        if bias is not None:
+            logits = logits + bias
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
+
+
+@META_ATTENTION.register()
+class AugmentedGeometryScaledDotProductAttention(nn.Module, _ProjectionMixin):
+    """Self-attention whose logits gain a per-head log box-relation bias:
+    log(max(relu(fc_g(geometry)), 1e-6)) of the (bs, n, n, d_g) pairwise box
+    embedding (d_g = D_MODEL / HEAD with TRIGNOMETRIC_EMBEDDING, else 4)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self._build_projections(config)
+        self.trignometric_embedding = bool(config.TRIGNOMETRIC_EMBEDDING)
+        self.d_g = config.D_MODEL // config.HEAD if self.trignometric_embedding else 4
+        self.fc_g = nn.Linear(self.d_g, self.h)
+
+    def forward(self, queries, keys, values, attention_bias=None, boxes=None, **_):
+        geometry = box_relational_embedding(boxes, dim_g=self.d_g,
+                                            trignometric_embedding=self.trignometric_embedding)
+        g_bias = torch.log(torch.clamp(torch.relu(self.fc_g(geometry)), min=1e-6))
+        out = _plain_attention(
+            _split_heads(self.fc_q(queries), self.h), _split_heads(self.fc_k(keys), self.h),
+            _split_heads(self.fc_v(values), self.h), self.scale, _bias_4d(attention_bias),
+            g_bias.permute(0, 3, 1, 2))
+        return self.fc_o(_merge_heads(out))
+
+
+@META_ATTENTION.register()
+class AugmentedMemoryScaledDotProductAttention(nn.Module, _ProjectionMixin):
+    """MEMORY learned key and value slots (scaled by sqrt(d_k) and sqrt(m))
+    appended to the projected keys and values; the bias covers the real keys
+    only."""
+
+    def __init__(self, config):
+        super().__init__()
+        self._build_projections(config)
+        self.m = int(config.MEMORY)
+        self.m_k = nn.Parameter(torch.randn(1, self.m, self.h * self.d_k) / self.d_k)
+        self.m_v = nn.Parameter(torch.randn(1, self.m, self.h * self.d_v) / self.m)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """The projections by the MCAN family's law, then the slots by the JAX
+        package's (normal with std 1 / d_k and 1 / m), drawn from `generator`."""
+        from ..base import init_xavier_law_
+
+        init_xavier_law_(self, generator)
+        with torch.no_grad():
+            self.m_k.copy_(torch.randn(self.m_k.shape, generator=generator) / self.d_k)
+            self.m_v.copy_(torch.randn(self.m_v.shape, generator=generator) / self.m)
+
+    def forward(self, queries, keys, values, attention_bias=None, **_):
+        bs = keys.shape[0]
+        m_k = math.sqrt(self.d_k) * self.m_k.expand(bs, self.m, self.h * self.d_k)
+        m_v = math.sqrt(self.m) * self.m_v.expand(bs, self.m, self.h * self.d_v)
+        k = _split_heads(torch.cat([self.fc_k(keys), m_k], dim=1), self.h)
+        v = _split_heads(torch.cat([self.fc_v(values), m_v], dim=1), self.h)
+        q = _split_heads(self.fc_q(queries), self.h)
+        bias = _bias_4d(attention_bias)
+        if bias is not None:
+            b, h, sq, sk = q.shape[0], self.h, q.shape[2], keys.shape[1]
+            bias = torch.cat([bias.float().expand(b, h, sq, sk),
+                              torch.zeros((b, h, sq, self.m), device=bias.device)], dim=-1)
+        return self.fc_o(_merge_heads(_plain_attention(q, k, v, self.scale, bias)))
+
+
+@META_ATTENTION.register()
+class AdaptiveScaledDotProductAttention(nn.Module, _ProjectionMixin):
+    """Adaptive attention: each query's language signal s_i (``fc_s`` of the
+    frozen language model's output) is one more column of its softmax, with
+    logit q_i . s_i / sqrt(d_k); out_i = sum_k w_ik v_k + w_i,s s_i."""
+
+    def __init__(self, config):
+        super().__init__()
+        self._build_projections(config)
+        self.fc_s = nn.Linear(self.d_model, self.h * self.d_k)
+
+    def attend_adaptive(self, q, k, v, signals, bias) -> torch.Tensor:
+        """The core on (b, Sq, h * d) q and signals and (b, Sk, h * d) k, v
+        projections; returns (b, Sq, h * d_v) before the out projection."""
+        q, k, v = (_split_heads(x, self.h) for x in (q, k, v))
+        s = _split_heads(self.fc_s(signals), self.h)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * self.scale
+        if bias is not None:
+            logits = logits + bias
+        lang = (q * s).sum(dim=-1, keepdim=True) * self.scale
+        combined = torch.softmax(torch.cat([logits, lang], dim=-1), dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", combined[..., :-1], v) + combined[..., -1:] * s
+        return _merge_heads(out)
+
+    def forward(self, queries, keys, values, attention_bias=None, language_signals=None, **_):
+        return self.fc_o(self.attend_adaptive(
+            self.fc_q(queries), self.fc_k(keys), self.fc_v(values), language_signals,
+            _bias_4d(attention_bias)))
 
 
 class _DecodeKVCache:
@@ -166,27 +270,38 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, config):
         super().__init__()
-        if config.USE_AOA:
-            raise NotImplementedError("the AoA gates are not ported yet (ROADMAP queue 1)")
+        self.use_aoa = bool(config.USE_AOA)
+        if self.use_aoa:
+            self.informative_attention = nn.Linear(2 * config.D_MODEL, config.D_MODEL)
+            self.gated_attention = nn.Linear(2 * config.D_MODEL, config.D_MODEL)
         self.attention = build_attention(config)
         self.dropout = config.DROPOUT
         self.layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
         self.can_be_stateful = bool(config.CAN_BE_STATEFUL)
 
+    def _aoa(self, queries, out):
+        """The attention-on-attention gates over [queries | out], when on."""
+        if not self.use_aoa:
+            return out
+        both = torch.cat([queries, out], dim=-1)
+        return self.informative_attention(both) * torch.sigmoid(self.gated_attention(both))
+
     def forward(self, queries, keys, values, attention_bias=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = self.attention(queries, keys, values, attention_bias)
+                generator: Optional[torch.Generator] = None, **extras) -> torch.Tensor:
+        """`extras` (``boxes``, ``language_signals``) go to the core."""
+        out = self.attention(queries, keys, values, attention_bias, **extras)
         out = dropout(out, self.dropout, generator)
-        return self.layer_norm(queries + out)
+        return self._aoa(queries, self.layer_norm(queries + out))
 
     # -- decode ------------------------------------------------------------------
     def supports_fused_decode(self) -> bool:
-        """Whether kernels A / B and the layer step compute this module: a
-        scaled dot-product core (no AoA reaches here) whose heads tile the
-        model width, d_k == d_v and h * d_k == d_model."""
+        """Whether kernels A / B and the layer step compute this module: no
+        AoA gates, a scaled dot-product core whose heads tile the model width,
+        d_k == d_v and h * d_k == d_model."""
         core = self.attention
         return (
-            isinstance(core, ScaledDotProductAttention)
+            not self.use_aoa
+            and type(core) is ScaledDotProductAttention
             and core.d_k == core.d_v
             and core.h * core.d_k == core.d_model
         )
@@ -214,24 +329,37 @@ class MultiHeadAttention(nn.Module):
             out["bq"] = core.fc_q.bias.detach().float()
         return out
 
+    def _require_cached_core(self) -> None:
+        """Decode caches projected keys and values: the geometry and memory
+        cores (encoder cores) have no decode route, as in the JAX package."""
+        if type(self.attention) not in (ScaledDotProductAttention,
+                                        AdaptiveScaledDotProductAttention):
+            raise NotImplementedError(
+                f"decode needs a ScaledDotProduct or Adaptive core, not "
+                f"{type(self.attention).__name__}")
+
     def init_decode_cache(self, rows: int, max_len: int, device) -> _DecodeKVCache:
+        self._require_cached_core()
         core = self.attention
         return _DecodeKVCache(rows, max_len, core.h * core.d_k, core.h * core.d_v, device)
 
     def fill_enc_cache(self, keys, values, dtype: torch.dtype = torch.float32) -> _StaticEncKVCache:
         """Project the constant encoder stream once, stored in `dtype`."""
+        self._require_cached_core()
         core = self.attention
         return _StaticEncKVCache(
             core.fc_k(keys).to(dtype).contiguous(), core.fc_v(values).to(dtype).contiguous()
         )
 
     def decode_step(self, queries, cache: _DecodeKVCache, step_bias, t: int,
-                    weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                    weights: Optional[Dict[str, torch.Tensor]] = None,
+                    language_signals=None) -> torch.Tensor:
         """One token (rows, 1, d_model) through the stateful self-attention:
         its key and value join the ring at slot min(t, T - 1) with the token's
         padding bias step_bias (rows,), and it attends over the slots up to
         there.  With `weights` (``fused_weights()``) the whole sublayer is kernel
-        A; without, the module route (the flat attention on the ring)."""
+        A; without, the module route (the flat attention on the ring; for the
+        adaptive core its plain attention with the token's language signal)."""
         if weights is not None:
             y, _, _, _ = _ds.fused_self_attention_step(
                 queries[:, 0].float().contiguous(), weights, step_bias, t,
@@ -241,8 +369,12 @@ class MultiHeadAttention(nn.Module):
             return y[:, None, :]
         core = self.attention
         keys, values, bias = cache.append(core.fc_k(queries), core.fc_v(queries), step_bias, t)
-        out = core.fc_o(core.attend(core.fc_q(queries), keys, values, bias))
-        return self.layer_norm(queries + out)
+        if isinstance(core, AdaptiveScaledDotProductAttention):
+            out = core.fc_o(core.attend_adaptive(core.fc_q(queries), keys, values,
+                                                 language_signals, bias))
+        else:
+            out = core.fc_o(core.attend(core.fc_q(queries), keys, values, bias))
+        return self._aoa(queries, self.layer_norm(queries + out))
 
     def cross_decode_step(self, queries, enc_cache: _StaticEncKVCache, enc_bias,
                           weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -259,7 +391,7 @@ class MultiHeadAttention(nn.Module):
         out = core.fc_o(core.attend(
             core.fc_q(queries), enc_cache.key, enc_cache.value, enc_bias[:, None, None, :]
         ))
-        return self.layer_norm(queries + out)
+        return self._aoa(queries, self.layer_norm(queries + out))
 
 
 def key_bias_rows(attention_bias: Optional[torch.Tensor], rows: int, keys: int,

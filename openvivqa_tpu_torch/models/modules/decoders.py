@@ -1,9 +1,9 @@
 """The transformer decoder: teacher-forced forward and single-token decode.
 
-Counterpart of ``DecoderLayer`` and ``Decoder`` in
+Counterpart of ``DecoderLayer``, ``Decoder`` and ``AdaptiveDecoder`` in
 ``openvivqa_tpu/models/modules/decoders.py``, under the reference's parameter
-names (``layers.N.{self_attn,enc_attn,pwff}``, ``word_emb``, a bias-free ``fc``).
-``AdaptiveDecoder`` waits for the models that use it (ROADMAP queue 1).
+names (``layers.N.{self_attn,enc_attn,pwff}``, ``word_emb``, a bias-free ``fc``,
+``language_model``).
 
 Decode state is explicit.  ``Decoder.prepare_decode`` computes, once per
 generate, what no decode step changes (the JAX package's ``decode_prep``
@@ -21,7 +21,9 @@ never by catching a failure:
     model width (d_k == d_v, h * d_k == d_model) and share their head geometry;
   * staged: kernel A for the self-attention ('self'), kernel B for the
     cross-attention ('cross'), kernel C for the FFN ('ffn'), each where its
-    part is chosen and its module supports it;
+    part is chosen and its module supports it; a layer that cannot take the
+    layer step while 'layer' is chosen (the AdaptiveDecoder's adaptive layer)
+    is routed core by core, each on its stage kernel where it supports one;
   * module: the modules' own projections and the flat attention kernel
     (``attend``) on the ring and the encoder cache.
 On CPU tensors every kernel wrapper runs its plain version.
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from ...builders import META_DECODER, build_text_embedding
+from ...builders import META_DECODER, build_pretrained_language_model, build_text_embedding
 from ...ops import _cuda
 from ...ops import decode_step as _ds
 from .attentions import MultiHeadAttention, key_bias_rows
@@ -52,9 +54,12 @@ class DecoderLayer(nn.Module):
         self.pwff = PositionWiseFeedForward(config.ENC_ATTENTION)
 
     def forward(self, queries, keys, values, self_attention_bias, enc_attention_bias,
-                generator: Optional[torch.Generator] = None):
-        self_att = self.self_attn(queries, queries, queries, self_attention_bias, generator)
-        enc_att = self.enc_attn(self_att, keys, values, enc_attention_bias, generator)
+                generator: Optional[torch.Generator] = None, **extras):
+        """`extras` (the AdaptiveDecoder's ``language_signals``) reach both
+        attention cores; the scaled dot-product core ignores them."""
+        self_att = self.self_attn(queries, queries, queries, self_attention_bias, generator,
+                                  **extras)
+        enc_att = self.enc_attn(self_att, keys, values, enc_attention_bias, generator, **extras)
         return self.pwff(enc_att, generator)
 
     # -- decode ------------------------------------------------------------------
@@ -84,6 +89,8 @@ class DecoderLayer(nn.Module):
                 "ffn_w": self.pwff.fused_weights(dtype),
                 "enc_kv": ca.fill_enc_cache(keys, values, dtype),
             }
+        if "layer" in parts:  # a layer the layer step cannot take: core by core
+            parts = parts | {"self", "cross", "ffn"}
         use_cross = "cross" in parts and ca.supports_fused_decode()
         return {
             "route": "staged",
@@ -94,10 +101,12 @@ class DecoderLayer(nn.Module):
             "enc_kv": ca.fill_enc_cache(keys, values, dtype if use_cross else torch.float32),
         }
 
-    def decode_step(self, queries, cache, bundle: Dict, step_bias, enc_bias, t: int):
+    def decode_step(self, queries, cache, bundle: Dict, step_bias, enc_bias, t: int,
+                    language_signals=None):
         """One token (rows, 1, d_model) through the layer; the ring `cache` is
         written in place at slot min(t, T - 1).  step_bias (rows,) is the
-        token's padding bias, enc_bias (rows, Sk) the encoder's."""
+        token's padding bias, enc_bias (rows, Sk) the encoder's;
+        `language_signals` (rows, 1, d_model) feed an adaptive self-attention."""
         enc_kv = bundle["enc_kv"]
         if bundle["route"] == "layer":
             core = self.self_attn.attention
@@ -107,7 +116,8 @@ class DecoderLayer(nn.Module):
                 enc_kv.key, enc_kv.value, enc_bias, core.scale, core.h,
             )
             return y[:, None, :]
-        out = self.self_attn.decode_step(queries, cache, step_bias, t, bundle["self_w"])
+        out = self.self_attn.decode_step(queries, cache, step_bias, t, bundle["self_w"],
+                                         language_signals)
         out = self.enc_attn.cross_decode_step(out, enc_kv, enc_bias, bundle["cross_w"])
         if bundle["ffn_w"] is not None:
             return self.pwff.decode_step(
@@ -182,4 +192,51 @@ class Decoder(nn.Module):
         layer_caches: List = cache["layers"]
         for layer, layer_cache, bundle in zip(self.layers, layer_caches, prep["layers"]):
             out = layer.decode_step(out, layer_cache, bundle, step_bias, prep["enc_bias"], t)
+        return torch.log_softmax(self.fc(out), dim=-1)
+
+
+@META_DECODER.register()
+class AdaptiveDecoder(Decoder):
+    """The Decoder's LAYERS layers, one more layer on ADAPTIVE_ATTENTION (its
+    self-attention the adaptive core) and a frozen language model
+    (LANGUAGE_MODEL, from the PRETRAINED_LANGUAGE_MODEL registry) whose
+    signals over the answer tokens feed the adaptive column.
+
+    Decode keeps the Decoder's explicit state: the ordinary layers take the
+    layer step, the adaptive layer is routed core by core (its self-attention
+    on the plain cached route with the step's signals, its cross-attention
+    and FFN on kernels B and C where 'layer' is chosen).  As in the JAX
+    package, a step runs the language model on the current token only."""
+
+    def __init__(self, config, vocab):
+        super().__init__(config, vocab)
+        self.layers.append(DecoderLayer(config.ADAPTIVE_ATTENTION))
+        self.language_model = build_pretrained_language_model(config.LANGUAGE_MODEL, vocab)
+
+    def forward(self, answer_tokens, encoder_features, encoder_attention_bias,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        seq_len = answer_tokens.shape[1]
+        pad_bias = padding_bias(answer_tokens, self.padding_idx)
+        self_bias = combine_biases(pad_bias, causal_bias(seq_len, answer_tokens.device))
+        positions = torch.arange(1, seq_len + 1, device=answer_tokens.device)[None, :]
+        positions = torch.where(pad_bias[:, 0, 0, :] != 0, 0, positions)
+        _, signals = self.language_model(answer_tokens, generator)
+        embedded, _ = self.word_emb(answer_tokens, generator)
+        out = embedded + self.pos_table[positions]
+        for layer in self.layers:
+            out = layer(out, encoder_features, encoder_features, self_bias,
+                        encoder_attention_bias, generator, language_signals=signals)
+        return torch.log_softmax(self.fc(out), dim=-1)
+
+    @torch.no_grad()
+    def step(self, token: torch.Tensor, cache: Dict, prep: Dict) -> torch.Tensor:
+        t = cache["pos"]
+        cache["pos"] = t + 1
+        step_bias = padding_bias(token, self.padding_idx)[:, 0, 0, 0].contiguous()
+        _, signals = self.language_model(token)
+        embedded, _ = self.word_emb(token)
+        out = embedded + self.pos_table[t + 1]
+        for layer, layer_cache, bundle in zip(self.layers, cache["layers"], prep["layers"]):
+            out = layer.decode_step(out, layer_cache, bundle, step_bias, prep["enc_bias"], t,
+                                    signals)
         return torch.log_softmax(self.fc(out), dim=-1)

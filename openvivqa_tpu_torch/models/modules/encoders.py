@@ -3,14 +3,14 @@ the ViLBERT co-attention one.
 
 Counterpart of ``EncoderLayer``, ``GuidedEncoderLayer``, ``Encoder`` (with its
 single-token ``decode_step``), ``MultiModalEncoder``, ``GuidedAttentionEncoder``
-and ``CoAttentionEncoder`` in
+and ``CoAttentionEncoder`` and ``GeometricEncoder`` (whose layers hand the boxes to
+the geometry attention core) in
 ``openvivqa_tpu/models/modules/encoders.py``, under the reference's parameter
 names (``layers.N.mhatt``, ``guided_attn_layers.N.self_mhatt``,
 ``vision_language_attn_layers.N.mhatt`` ...), and ``CrossModalityEncoderLayer``
 and ``CrossModalityEncoder`` (LXMERT's stack, ``layers.N.vision_language_mhattn``
-... after the JAX layer's attribute names).  The geometric encoder waits for the
-model that uses it.  A `generator` selects the training route (dropout drawn
-from it).
+... after the JAX layer's attribute names).  A `generator` selects the training
+route (dropout drawn from it).
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ class EncoderLayer(nn.Module):
         self.mhatt = MultiHeadAttention(config)
         self.pwff = PositionWiseFeedForward(config)
 
-    def forward(self, queries, keys, values, attention_bias, generator=None):
-        att = self.mhatt(queries, keys, values, attention_bias, generator)
+    def forward(self, queries, keys, values, attention_bias, generator=None, **extras):
+        att = self.mhatt(queries, keys, values, attention_bias, generator, **extras)
         return self.pwff(att, generator)
 
 
@@ -209,3 +209,23 @@ class CrossModalityEncoder(nn.Module):
             vision, language = layer(vision, vision_padding_bias, language,
                                      language_padding_bias, generator)
         return vision, language
+
+
+@META_ENCODER.register()
+class GeometricEncoder(nn.Module):
+    """LayerNorm + sinusoid positions, then N self-attention layers whose
+    cores receive the (bs, n, 4) boxes (the geometry-augmented attention)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.pos_embedding = SinusoidPositionalEmbedding(config.D_MODEL)
+        self.layer_norm = nn.LayerNorm(config.D_MODEL, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            EncoderLayer(config.SELF_ATTENTION) for _ in range(config.LAYERS)
+        )
+
+    def forward(self, features, boxes, padding_bias, generator=None):
+        out = self.layer_norm(features) + self.pos_embedding(features)
+        for layer in self.layers:
+            out = layer(out, out, out, padding_bias, generator, boxes=boxes)
+        return out

@@ -1,10 +1,10 @@
 """Additive attention biases (0 attends, MASK_VALUE (-1e5) masks) and the
 interleaved sinusoid table.
 
-Counterpart of the bias helpers (``prefix_lm_bias`` included) and
-``sinusoid_encoding_table`` in
+Counterpart of the bias helpers (``prefix_lm_bias`` included),
+``sinusoid_encoding_table`` and ``box_relational_embedding`` in
 ``openvivqa_tpu/models/modules/masks.py``.  Biases stay float32: -1e5 overflows
-float16.  The box-geometry embeddings wait for the models that use them.
+float16.
 """
 
 from __future__ import annotations
@@ -79,3 +79,30 @@ def sinusoid_encoding_table(max_len: int, d_model: int,
     if padding_idx is not None:
         table[padding_idx] = 0.0
     return table
+
+
+def box_relational_embedding(boxes: torch.Tensor, dim_g: int = 64, wave_len: float = 1000.0,
+                             trignometric_embedding: bool = True) -> torch.Tensor:
+    """Pairwise box geometry of (bs, n, 4) boxes (x_min, y_min, x_max, y_max):
+    (bs, n, n, 4) log-scaled displacements, or with `trignometric_embedding`
+    their sines and cosines at dim_g / 8 frequencies, (bs, n, n, dim_g)."""
+    x_min, y_min, x_max, y_max = boxes.float().split(1, dim=-1)  # (bs, n, 1) each
+    cx, cy = (x_min + x_max) * 0.5, (y_min + y_max) * 0.5
+    w, h = (x_max - x_min) + 1.0, (y_max - y_min) + 1.0
+
+    def t(x):
+        return x.transpose(1, 2)
+
+    position = torch.stack([
+        torch.log(torch.clamp(torch.abs((cx - t(cx)) / w), min=1e-3)),
+        torch.log(torch.clamp(torch.abs((cy - t(cy)) / h), min=1e-3)),
+        torch.log(w / t(w)),
+        torch.log(h / t(h)),
+    ], dim=-1)
+    if not trignometric_embedding:
+        return position
+    bs, n = position.shape[:2]
+    feat_range = torch.arange(dim_g / 8, dtype=torch.float32, device=boxes.device)
+    dim_mat = 1.0 / torch.pow(torch.tensor(wave_len, dtype=torch.float32), feat_range / (dim_g / 8))
+    angles = ((100.0 * position)[..., None] * dim_mat.to(boxes.device)).reshape(bs, n, n, -1)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

@@ -3,24 +3,30 @@ exact GELU and dropout.
 
 The port's counterparts of ``backbone_table_rows``, ``BACKBONE_SPECS``,
 ``resolve_backbone_spec``, ``_ProjectedBackboneEmbedding``, ``T5Embedding``,
-the BERT-layout text wrappers (``_FrozenTextBackboneEmbedding``, registered as
-BertEmbedding, RobertaEmbedding and XLMRobertaEmbedding) and ``ViTEmbedding``
-in ``openvivqa_tpu/models/modules/pretrained_embeddings.py``.  Backbones are
-built at the published shapes of the checkpoint PRETRAINED_NAME names
-(mT5-small: 8 layers of 512, 6 heads of 64, gated gelu_new FFN of 1024, 250,112
-rows; bert-base-multilingual-uncased: 12 layers of 768, 12 heads of 64, FFN
-3072, 105,879 rows; ViT-base: 12 layers of 768, 12 heads, patch 16 at 224),
-with random weights: no checkpoint file is in the repository, and nothing is
-downloaded.  Their parameters are HF's, under ``backbone.`` (a BERT backbone is
-HF ``BertModel``'s ``embeddings`` and ``encoder``, without the pooler), so a
-local checkpoint loads by ``load_state_dict``.
+``AlbertEmbedding``, ``DebertaEmbedding``, the BERT-layout text wrappers
+(``_FrozenTextBackboneEmbedding``, registered as BertEmbedding, RobertaEmbedding
+and XLMRobertaEmbedding), ``ViTEmbedding`` and the frozen causal language models
+(``_FrozenCausalLM``, registered as BERTModel, PhoBERTModel, BARTPhoModel and
+GPT2Model) in ``openvivqa_tpu/models/modules/pretrained_embeddings.py``.
+Backbones are built at the published shapes of the checkpoint PRETRAINED_NAME
+names (mT5-small: 8 layers of 512, 6 heads of 64, gated gelu_new FFN of 1024,
+250,112 rows; bert-base-multilingual-uncased: 12 layers of 768, 12 heads of 64,
+FFN 3072, 105,879 rows; albert-base-v2: 12 layers of 768 sharing one, 12 heads,
+embedding 128, FFN 3072, 30,000 rows; deberta-v3-base: 12 layers of 768, 12
+heads, FFN 3072, 128,100 rows, 256 position buckets and, as its config.json
+says, no absolute position table and no token types; ViT-base: 12 layers of 768,
+12 heads, patch 16 at 224), with random weights unless the pretrained-weights
+policy (``pretrained_loading.py``) loads local files.  Their parameters are
+HF's, under ``backbone.`` (a BERT backbone is HF ``BertModel``'s ``embeddings``
+and ``encoder``, without the pooler), so a local checkpoint loads by
+``load_state_dict``.
 
 A backbone is frozen as the reference freezes it: ``requires_grad`` off and its
 forward under ``torch.no_grad()`` (no gradient, no Adam update, no dropout), the
 counterpart of the JAX package's ``stop_gradient``.  It runs its eval route in
 training too, as the JAX wrappers call it with ``train=False``: a BERT layer is
-kernel F then kernel C.  ALBERT and DeBERTa wait for their slice (ROADMAP); a
-config naming them fails to build.
+kernel F then kernel C, an ALBERT layer kernel F then its tanh-GELU FFN in
+torch, a DeBERTa layer the two-bias attention kernel then kernel C.
 """
 
 from __future__ import annotations
@@ -31,9 +37,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...builders import META_TEXT_EMBEDDING, META_VISION_EMBEDDING
-from .bert import BertEmbeddings, BertEncoderStack, dropout, init_jax_law_
-from .masks import padding_bias, validity_to_bias
+from ...builders import (
+    META_PRETRAINED_LANGUAGE_MODEL,
+    META_TEXT_EMBEDDING,
+    META_VISION_EMBEDDING,
+)
+from .bert import BertEmbeddings, BertEncoderStack, BertLayer, dropout, init_jax_law_
+from .masks import (
+    causal_bias,
+    combine_biases,
+    padding_bias,
+    sinusoid_encoding_table,
+    validity_to_bias,
+)
 
 # real vocab sizes of the BERT-layout checkpoints the reference configs name
 _BERT_FAMILY_VOCABS = {
@@ -100,17 +116,17 @@ BACKBONE_SPECS = {
     ),
     "microsoft/deberta-v3-base": dict(
         family="deberta", hidden=768, layers=12, heads=12, intermediate=3072,
-        vocab_size=128100, position_buckets=256, share_att_key=True,
+        vocab_size=128100, position_buckets=256, share_att_key=True, position_biased_input=False,
         norm_rel_ebd="layer_norm",
     ),
     "microsoft/deberta-v3-large": dict(
         family="deberta", hidden=1024, layers=24, heads=16, intermediate=4096,
-        vocab_size=128100, position_buckets=256, share_att_key=True,
+        vocab_size=128100, position_buckets=256, share_att_key=True, position_biased_input=False,
         norm_rel_ebd="layer_norm",
     ),
     "microsoft/deberta-v2-xlarge": dict(
         family="deberta", hidden=1536, layers=24, heads=24, intermediate=6144,
-        vocab_size=128100, position_buckets=256, share_att_key=True,
+        vocab_size=128100, position_buckets=256, share_att_key=True, position_biased_input=False,
         norm_rel_ebd="layer_norm", conv_kernel_size=3, conv_groups=1,
     ),
 }
@@ -199,6 +215,44 @@ class T5Embedding(_ProjectedBackboneEmbedding):
             vocab_size=spec["vocab_size"], d_model=spec["hidden"], num_layers=spec["layers"],
             num_heads=spec["heads"], d_kv=spec.get("d_kv", 64), d_ff=spec.get("d_ff"),
             gated_act=spec.get("gated_act", True), act_fn=spec.get("act_fn", "gelu_new"),
+        )
+
+
+@META_TEXT_EMBEDDING.register()
+class AlbertEmbedding(_ProjectedBackboneEmbedding):
+    """ALBERT (factorised embeddings, one shared layer group) behind the
+    projection, with the single ``embedding_hidden_mapping_in`` of HF's model."""
+
+    family = "albert"
+
+    def _build_backbone(self, spec) -> nn.Module:
+        from .albert import AlbertEncoderStack
+
+        return AlbertEncoderStack(
+            vocab_size=spec["vocab_size"], hidden_size=spec["hidden"], num_layers=spec["layers"],
+            num_heads=spec["heads"], embedding_size=spec.get("embedding_size", 128),
+            intermediate_size=spec.get("intermediate"),
+        )
+
+
+@META_TEXT_EMBEDDING.register()
+class DebertaEmbedding(_ProjectedBackboneEmbedding):
+    """DeBERTa-v2 / v3 (disentangled attention) behind the projection."""
+
+    family = "deberta"
+
+    def _build_backbone(self, spec) -> nn.Module:
+        from .deberta import DebertaV2EncoderStack
+
+        return DebertaV2EncoderStack(
+            vocab_size=spec["vocab_size"], hidden_size=spec["hidden"], num_layers=spec["layers"],
+            num_heads=spec["heads"], intermediate_size=spec.get("intermediate"),
+            position_biased_input=spec.get("position_biased_input", True),
+            position_buckets=spec.get("position_buckets", -1),
+            share_att_key=spec.get("share_att_key", False),
+            norm_rel_ebd=spec.get("norm_rel_ebd", "none"),
+            conv_kernel_size=spec.get("conv_kernel_size", 0),
+            conv_groups=spec.get("conv_groups", 1),
         )
 
 
@@ -294,3 +348,67 @@ class ViTEmbedding(nn.Module):
             features = pixel_values.detach()
         mask = padding_bias(features, padding_idx=0)
         return dropout(F.gelu(self.proj(features)), self.dropout, generator), mask
+
+
+class _FrozenCausalLM(nn.Module):
+    """A frozen BERT-layout language model, a projection to D_MODEL plus
+    sinusoid positions, one trainable ``BertLayer`` under a causal padding bias
+    and a vocab head; returns (log-probs, language signals), the signals being
+    the layer's output, for the AdaptiveDecoder.
+
+    As in the JAX package, the frozen backbone (at D_PRETRAINED_FEATURE, 768 by
+    default, PRETRAINED_LAYERS deep, 12 by default, with at least 30,522 rows)
+    masks its padding.  Its only caller, the AdaptiveDecoder, runs it with
+    ``train=False`` in the JAX package, so the layer has no dropout: with a
+    `generator` it takes the layer's differentiable training route at rate 0,
+    without one the eval route (the kernels: F and C in the backbone; packed or
+    F, and C, in the layer)."""
+
+    def __init__(self, config, vocab):
+        super().__init__()
+        hidden = int(config.get("D_PRETRAINED_FEATURE", 768))
+        d_model = int(config.D_MODEL)
+        self.padding_idx = vocab.padding_idx
+        self.backbone = BertBackbone(max(len(vocab), 30522), hidden,
+                                     int(config.get("PRETRAINED_LAYERS", 12)), max(1, hidden // 64))
+        self.backbone.requires_grad_(False)  # frozen, as the reference freezes it
+        self.proj = nn.Linear(hidden, d_model)
+        # row 0 for padding, rows 1.. for the positions the backbone's table covers
+        rows = self.backbone.embeddings.position_embeddings.num_embeddings + 1
+        self.register_buffer("pos_table", torch.from_numpy(
+            sinusoid_encoding_table(rows, d_model, 0)), persistent=False)
+        self.layer = BertLayer(d_model, max(1, d_model // 64), dropout=0.0)
+        self.head = nn.Linear(d_model, len(vocab))
+
+    def forward(self, tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
+        length = tokens.shape[1]
+        pad_bias = padding_bias(tokens, self.padding_idx)
+        self_bias = combine_biases(pad_bias, causal_bias(length, tokens.device))
+        with torch.no_grad():
+            encoded = self.backbone(tokens, pad_bias)
+        positions = torch.arange(1, length + 1, device=tokens.device)[None, :]
+        positions = torch.where(pad_bias[:, 0, 0, :] != 0, 0, positions)
+        feature = self.proj(encoded) + self.pos_table[positions]
+        feature = self.layer(feature, self_bias, generator=generator)
+        return torch.log_softmax(self.head(feature), dim=-1), feature
+
+
+@META_PRETRAINED_LANGUAGE_MODEL.register()
+class BERTModel(_FrozenCausalLM):
+    pass
+
+
+@META_PRETRAINED_LANGUAGE_MODEL.register()
+class PhoBERTModel(_FrozenCausalLM):
+    pass
+
+
+@META_PRETRAINED_LANGUAGE_MODEL.register()
+class BARTPhoModel(_FrozenCausalLM):
+    """An empty stub in the reference; registered as a working frozen LM, as
+    the JAX package registers it."""
+
+
+@META_PRETRAINED_LANGUAGE_MODEL.register()
+class GPT2Model(_FrozenCausalLM):
+    """An empty stub in the reference; see BARTPhoModel."""

@@ -12,8 +12,8 @@ log-softmax.  ViTmBERTGeneration (configs/vit_mbert_generation.yaml) fuses ViT
 grid features and mBERT by Linear + GELU + dropout into the decoder; ViTmT5
 (configs/vit_mt5.yaml) is ViT-base pixels + the mT5-small encoder through a
 plain Linear fusion (no GELU, no dropout), the decoder's cross-attention over
-197 + question-length keys.  ALBERT and DeBERTa text embeddings wait for their
-slice (ROADMAP) and raise.
+197 + question-length keys.  Any registered text embedding may stand in for
+mBERT (``AlbertEmbedding``, ``DebertaEmbedding``, ...).
 
 The module also holds the JAX file's two MCAN-family generators: ``ExtendedMCAN``
 (region + box and grid + box streams through MCAN's guided encoder against the
@@ -40,17 +40,6 @@ from .common import REGION_GRID_BOX_INPUTS, region_grid_stream, total_answers_of
 from .iterative_mcan import IterativeMCAN
 from .modules.bert import dropout
 from .modules.ffn import LN_EPS, PositionWiseFeedForward
-
-# the ALBERT and DeBERTa text wrappers (pretrained_embeddings.py), not ported yet
-_UNPORTED_TEXT = ("AlbertEmbedding", "DebertaEmbedding")
-
-
-def _refuse_unported(config) -> None:
-    name = config.TEXT_EMBEDDING.ARCHITECTURE
-    if name in _UNPORTED_TEXT:
-        raise NotImplementedError(
-            f"TEXT_EMBEDDING {name} is not ported yet (ROADMAP queue 1, item 8)")
-
 
 def _init_with_backbones_(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from `generator`: the backbones'
@@ -96,7 +85,6 @@ class ViTmBERTClassification(ClassificationModel):
 
     def __init__(self, config, vocab):
         super().__init__()
-        _refuse_unported(config)
         self.vocab = vocab
         self.config = config
         self.dropout = config.DROPOUT
@@ -123,7 +111,6 @@ class ViTmBERTGeneration(GenerativeModel):
 
     def __init__(self, config, vocab):
         super().__init__()
-        _refuse_unported(config)
         self.vocab = vocab
         self.config = config
         self.dropout = config.DROPOUT

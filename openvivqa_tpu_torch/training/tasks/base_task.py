@@ -3,7 +3,9 @@ loaders, the model on an explicit device, the optimizer and its schedule, the
 seeded generator dropout draws from, host-to-device batch transfer, metrics
 and checkpoints.
 
-Counterpart of ``openvivqa_tpu/training/tasks/base_task.py``.  Device meshes,
+Counterpart of ``openvivqa_tpu/training/tasks/base_task.py``, the
+pretrained-weights policy included (``models/modules/pretrained_loading.py``,
+applied to every model it builds).  Device meshes,
 FSDP and TRAINING.REMAT wait for multi-device training (ROADMAP queue 1).
 """
 
@@ -23,6 +25,7 @@ from ...builders import build_model, build_vocab
 from ...logging_utils import setup_logger
 from ...models.convert import params_from_flax
 from ...models.modules.bert import init_jax_law_
+from ...models.modules.pretrained_loading import apply_pretrained_policy
 from ...utils.instance import Batch
 from ..checkpoint import LAST_NAME, load_checkpoint, save_checkpoint
 from ..optim import make_optimizer, noam_lambda
@@ -97,6 +100,9 @@ class BaseTask:
         else:
             state = params_from_flax(params, self.config.MODEL)
             model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        # a config naming pretrained weights must resolve them locally (or
+        # refuse), as the JAX task's apply_pretrained_policy does
+        apply_pretrained_policy(self.config.MODEL, model, example)
         n_params = sum(p.numel() for p in model.parameters())
         logger.info("Model parameters: %.2fM", n_params / 1e6)
         return model

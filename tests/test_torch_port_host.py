@@ -135,3 +135,45 @@ def test_classification_vocab_matches_the_jax_package(synthetic_data):
     ids = np.arange(ours.total_answers)
     assert ours.decode_answer(ids, join_word=True) == theirs.decode_answer(ids, join_word=True)
     assert ours.decode_answer(ids) == theirs.decode_answer(ids)
+
+
+def test_character_vocab_and_image_dataset_match_the_jax_package(tmp_path):
+    """CharacterVocab (word-level questions, one answer character per
+    position) and ImageDataset (pixels resized bilinearly to 32 and
+    normalised, the question's encoding, the teacher-forcing pair) against
+    the JAX package's on a synthetic EVJVQA set, loader batch for batch."""
+    from openvivqa_tpu_torch.data.synthetic import generate_evjvqa_dataset
+
+    builders.populate()
+    paths = generate_evjvqa_dataset(str(tmp_path), n_images=4, n_questions_per_image=2, seed=0)
+    vocab_config = ConfigNode({
+        "TYPE": "CharacterVocab", "TOKENIZER": None, "MIN_FREQ": 1, "WORD_EMBEDDING": None,
+        "PAD_TOKEN": "<pad>", "BOS_TOKEN": "<bos>", "EOS_TOKEN": "<eos>", "UNK_TOKEN": "<unk>",
+        "JSON_PATH": {"TRAIN": paths["train"], "DEV": paths["dev"],
+                      "TEST": paths["public_test"]},
+    })
+    ours = builders.build_vocab(vocab_config)
+    theirs = jax_builders.build_vocab(vocab_config)
+    assert type(ours).__name__ == type(theirs).__name__ == "CharacterVocab"
+    assert ours.itos == theirs.itos and ours.stoi == theirs.stoi
+    assert (ours.max_question_length, ours.max_answer_length) == (
+        theirs.max_question_length, theirs.max_answer_length)
+    config = ConfigNode({"TYPE": "ImageDataset", "BATCH_SIZE": 2, "IMAGE_SIZE": 32,
+                         "WORD_EMBEDDING": None,
+                         "FEATURE_PATH": {"FEATURES": None, "IMAGE": paths["images"],
+                                          "SCENE_TEXT": None}})
+    got = list(DataLoader(builders.build_dataset(paths["train"], ours, config), batch_size=3,
+                          shuffle=True, seed=1, num_workers=1))
+    want = list(JaxDataLoader(jax_builders.build_dataset(paths["train"], theirs, config),
+                              batch_size=3, shuffle=True, seed=1, num_workers=1))
+    assert len(got) == len(want) >= 2
+    for batch, expected in zip(got, want):
+        arrays, expected_arrays = batch.arrays(), expected.arrays()
+        assert sorted(arrays) == sorted(expected_arrays)
+        assert arrays["pixel_values"].shape[1:] == (32, 32, 3)
+        for key in expected_arrays:
+            np.testing.assert_array_equal(arrays[key], expected_arrays[key], err_msg=key)
+        answers = arrays["answer_tokens"]
+        assert ours.decode_answer(answers) == theirs.decode_answer(answers)
+        assert ours.decode_answer(answers, join_word=False) == theirs.decode_answer(
+            answers, join_word=False)

@@ -254,10 +254,25 @@ def test_bert_backbone_loads_an_hf_checkpoint():
 
 
 def test_albert_and_deberta_still_refuse():
-    for name in ("AlbertEmbedding", "DebertaEmbedding"):
-        config = _classification_config().merged({"TEXT_EMBEDDING": {"ARCHITECTURE": name}})
-        with pytest.raises(NotImplementedError, match=name):
-            builders.build_model(config, _Vocab())
+    """ALBERT and DeBERTa, once refused, now build under ViTmBERTClassification
+    with their backbones under HF's names and run a forward to finite
+    log-probs."""
+    small = {"D_PRETRAINED_FEATURE": 32, "PRETRAINED_LAYERS": 2, "NUM_ATTENTION_HEADS": 4,
+             "PRETRAINED_VOCAB_SIZE": 64, "PRETRAINED_INTERMEDIATE_SIZE": 48}
+    keys = {"AlbertEmbedding": "text_embedding.backbone.encoder.albert_layer_groups.0."
+                               "albert_layers.0.attention.query.weight",
+            "DebertaEmbedding": "text_embedding.backbone.encoder.layer.1.attention.self."
+                                "query_proj.weight"}
+    vocab = _Vocab()
+    for name, key in keys.items():
+        config = _classification_config().merged(
+            {"TEXT_EMBEDDING": {"ARCHITECTURE": name, **small}})
+        model = builders.build_model(config, vocab).eval()
+        assert key in model.state_dict()
+        batch = {k: torch.from_numpy(v) for k, v in _numpy_batch(3, 2, vocab).items()}
+        with torch.no_grad():
+            out = model(batch)
+        assert out.shape == (2, vocab.total_answers) and bool(torch.isfinite(out).all())
 
 
 # -- the two models ----------------------------------------------------------------------------

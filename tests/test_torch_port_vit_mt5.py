@@ -513,8 +513,8 @@ def test_beam3_generate_matches_jax(pair, monkeypatch, parts):
 
 
 def test_bert_family_text_wrappers_raise_until_ported():
-    """The BERT-layout wrappers build under ViTmBERTGeneration; ALBERT and
-    DeBERTa, not ported yet, raise."""
+    """The BERT-layout wrappers build under ViTmBERTGeneration, and so do
+    ALBERT and DeBERTa, once refused."""
     small = {"D_PRETRAINED_FEATURE": HIDDEN, "PRETRAINED_LAYERS": 1, "NUM_ATTENTION_HEADS": 3,
              "PRETRAINED_VOCAB_SIZE": 64}
     for name in ("BertEmbedding", "RobertaEmbedding", "XLMRobertaEmbedding"):
@@ -523,11 +523,12 @@ def test_bert_family_text_wrappers_raise_until_ported():
         model = builders.build_model(config, _Vocab())
         assert "text_embedding.backbone.encoder.layer.0.attention.self.query.weight" in (
             model.state_dict())
-    for name in ("AlbertEmbedding", "DebertaEmbedding"):
+    for name, key in (("AlbertEmbedding", "embeddings.word_embeddings.weight"),
+                      ("DebertaEmbedding", "encoder.rel_embeddings.weight")):
         config = _model_config().merged({"ARCHITECTURE": "ViTmBERTGeneration",
-                                         "TEXT_EMBEDDING": {"ARCHITECTURE": name}})
-        with pytest.raises(NotImplementedError, match=name):
-            builders.build_model(config, _Vocab())
+                                         "TEXT_EMBEDDING": {"ARCHITECTURE": name, **small}})
+        model = builders.build_model(config, _Vocab())
+        assert f"text_embedding.backbone.{key}" in model.state_dict()
 
 
 # -- the task ----------------------------------------------------------------------------
