@@ -234,6 +234,24 @@ Phases, each fatal on failure:
      decode modes with exact launches and one step's gradients.  Every phase
      prints its seconds.  The configs name checkpoints that no file here holds:
      the script sets OPENVIVQA_ALLOW_RANDOM_BACKBONE=1 and says so.
+ 15. scale-out (``parallel/``, ``TRAINING.MESH`` and ``TRAINING.REMAT``), last:
+     ``configs/mmf_m4c.yaml``'s train step of 64 at full widths, each variant
+     built from the seed with the same weights, batch and generator seed as the
+     unwrapped task: (b) under TRAINING.REMAT, the dropout forward's keep bits
+     of the forward and of the recomputation equal the unwrapped step's, the
+     gradients within STEP_GRAD_RTOL (bit-equal expected) and the generator's
+     state after the step equal, with both steps' peak device memory; (c)
+     under FSDP at world size 1 over NCCL, one greedy dev batch inside
+     ``eval_weights`` (kernels on whole weights) against the unwrapped
+     model's teacher-forced scores within SCORE_TOL, one step's gradients within
+     STEP_GRAD_RTOL, peak memory; (a) under DDP at world size 1 over NCCL, the
+     parameters after one Adam step bit-equal to the unwrapped step's, both
+     steps' CUDA-event times; the dropout pair launched in each; then the
+     process group is destroyed and (d) two spawned gloo ranks on cuda:0 run
+     ``small_mmf_m4c.yaml`` (dropout 0) at 32 rows each: their DDP gradients
+     against one process's full-batch step of 64 within STEP_GRAD_RTOL,
+     equal parameter checksums after the Adam step, and with dropout 0.1
+     different kernel seeds and keep bits on the two ranks.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
@@ -4299,6 +4317,390 @@ def run_scst_epochs(datasets, tmp, seed, failures):
         torch.cuda.empty_cache()
     return launches
 
+# -- phase 15: scale-out ---------------------------------------------------------------------
+DROPOUT_PAIR = ("fused_attention_packed_dropout", "fused_attention_packed_dropout_backward")
+RANK_JOIN_SECONDS = 300  # phase 15 (d): the two ranks' own time limit
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def seed_samples_by_index(task) -> None:
+    """Each sample of the task's datasets draws numpy's global generator (an
+    answer word both in the vocab and among the OCR tokens takes either index,
+    the reference's rule) from a seed of its own index, so that a sample is
+    the same whichever process and batch read it (with one loader worker: the
+    generator is global to the process)."""
+    import numpy as np
+
+    def seeded(getitem):
+        def draw(index):
+            np.random.seed(int(index))
+            return getitem(index)
+        return draw
+
+    for name, dataset in vars(task).items():
+        if name.endswith("_dataset") and dataset is not None:
+            dataset.__getitem__ = seeded(dataset.__getitem__)
+
+
+def set_dropout(task, rate: float) -> None:
+    """Every module dropout rate of the task's model (the BERT layers' fixed
+    0.1 and the embeddings' configured ones)."""
+    for module in task.model.modules():
+        if isinstance(getattr(module, "dropout", None), float):
+            module.dropout = rate
+
+
+def full_tensor(tensor):
+    return tensor.full_tensor() if hasattr(tensor, "full_tensor") else tensor
+
+
+def step_backward(task, batch, seed=1234):
+    """One step's loss and backward (no optimizer step), the generator seeded
+    with `seed` unless it is None: (loss, {name: whole gradient}, peak GB, the
+    step's own GB above what was allocated before it)."""
+    import torch
+
+    if seed is not None:
+        task.generator.manual_seed(seed)
+    task.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = task.train_forward(task.compute_loss, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {name: full_tensor(p.grad).detach().clone()
+             for name, p in task.model.named_parameters() if p.grad is not None}
+    task.optimizer.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, peak / 1e9, (peak - before) / 1e9
+
+
+def grad_rel(got, want) -> dict:
+    """max |got - want| / max |want| per parameter group (phase 5's measure)."""
+    groups = {}
+    for name, g_want in want.items():
+        diff, scale = groups.get(param_group(name), (0.0, 0.0))
+        groups[param_group(name)] = (max(diff, max_err(got[name], g_want)),
+                                     max(scale, float(g_want.abs().max())))
+    return {group: diff / scale if scale > 0 else 0.0 for group, (diff, scale) in groups.items()}
+
+
+@contextlib.contextmanager
+def keep_bits(bits: list, seeds: list = None):
+    """Record the keep bits (and seed) of every dropout-forward launch."""
+    from openvivqa_tpu_torch.ops import fused_attention
+
+    original = fused_attention._dropout_forward_kernel
+
+    def recording(*args):
+        out = original(*args)
+        bits.append(out[2].clone())
+        if seeds is not None:
+            seeds.append(int(args[4].reshape(-1)[0]))
+        return out
+
+    fused_attention._dropout_forward_kernel = recording
+    try:
+        yield
+    finally:
+        fused_attention._dropout_forward_kernel = original
+
+
+def greedy_scores(task, batch):
+    """(greedy prev_inds, teacher-forced scores on them) of one dev batch, on
+    the eval route, inside the task's eval_weights."""
+    import torch
+
+    with task.eval_weights(), torch.no_grad():
+        prev_inds = task.model.greedy_decode(batch)["prev_inds"]
+        return prev_inds, task.model.compute_scores(batch, prev_inds)
+
+
+def run_phase15(config, paths, tmp, seed, failures, smi):
+    """Phase 15: ``configs/mmf_m4c.yaml``'s train step under REMAT, FSDP and
+    DDP at world size 1 over NCCL against the unwrapped step, then two gloo
+    ranks of ``small_mmf_m4c.yaml`` on the one card; returns the launch
+    counts of the three wrapped runs."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.models.modules.masks import MASK_VALUE
+    from openvivqa_tpu_torch.parallel import multihost
+
+    def variant(name, **training):
+        # every variant runs on the unwrapped task's batches
+        return build_task(config.merged({"TRAINING": {
+            "CHECKPOINT_PATH": str(Path(tmp) / f"phase15_{name}"), **training}}), "cuda")
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    multihost.initialize("cuda", required=True)
+    launches = {}
+    plain = variant("plain")
+    _, batch = next(plain.device_batches(plain.train_dataloader))
+    dev_host, dev = next(plain.device_batches(plain.dev_dict_dataloader))
+    rows = batch["question_tokens"].shape[0]
+    want_prev, want_tf = greedy_scores(plain, dev)
+    plain_bits = []
+    with keep_bits(plain_bits):
+        plain_loss, plain_grads, plain_peak, plain_own = step_backward(plain, batch)
+    plain_state = plain.generator.get_state()
+    log(f"  [{smi}] unwrapped mmf_m4c step of {rows}: loss {plain_loss:.6f}, "
+        f"{len(plain_bits)} dropout-forward launches, peak device memory {plain_peak:.3f} GB "
+        f"({plain_own:.3f} GB of it the step's own)")
+
+    # (b) TRAINING.REMAT: the same backward with every layer recomputed
+    remat = variant("remat", REMAT=True)
+    remat_bits = []
+    _cuda_reset()
+    with keep_bits(remat_bits):
+        remat_loss, remat_grads, remat_peak, remat_own = step_backward(remat, batch)
+    counts = counts_now()
+    n = len(plain_bits)
+    bits_equal = (len(remat_bits) == 2 * n
+                  and all(torch.equal(a, b) for a, b in zip(remat_bits[:n], plain_bits))
+                  and all(any(torch.equal(r, p) for p in plain_bits) for r in remat_bits[n:]))
+    rel = grad_rel(remat_grads, plain_grads)
+    exact = all(torch.equal(remat_grads[k], plain_grads[k]) for k in plain_grads)
+    same_stream = torch.equal(remat.generator.get_state(), plain_state)
+    log(f"  [{smi}] (b) REMAT: loss {remat_loss:.6f}; {len(remat_bits)} dropout-forward launches "
+        f"({n} forward + {len(remat_bits) - n} recomputed), keep bits equal to the unwrapped "
+        f"step's: {bits_equal}; gradients bit-equal: {exact}, max|diff|/max|grad| per group "
+        + json.dumps({g: float(f"{v:.3e}") for g, v in rel.items()})
+        + f"; generator state after the step equal: {same_stream}; peak device memory "
+        f"{remat_peak:.3f} GB ({remat_own:.3f} GB the step's own) vs {plain_peak:.3f} GB "
+        f"({plain_own:.3f} GB) unwrapped; launches {json.dumps(counts)}")
+    if not bits_equal or not same_stream or not max(rel.values()) <= STEP_GRAD_RTOL:
+        failures.append(f"[phase 15 (b) REMAT] bits equal {bits_equal}, generator state equal "
+                        f"{same_stream}, gradient difference {max(rel.values())}")
+    if remat_own >= plain_own:
+        log(f"  [{smi}] (b) REMAT's step did not take less device memory than the unwrapped one")
+    for name in DROPOUT_PAIR:
+        launches[name] = launches.get(name, 0) + counts[name]
+        if counts[name] <= 0:
+            failures.append(f"[phase 15 (b) REMAT] {name} was not launched")
+    del remat, remat_grads, remat_bits
+    torch.cuda.empty_cache()
+
+    # (c) FSDP at world size 1: one eval batch on whole weights, one step's gradients
+    fsdp = variant("fsdp", MESH={"FSDP": True})
+    _cuda_reset()
+    got_prev, got_tf = greedy_scores(fsdp, dev)
+    eval_counts = counts_now()
+    valid = torch.from_numpy(dev_host["sample_valid"]).to(dev["question_tokens"].device)
+    unmasked = want_tf[valid] > MASK_VALUE / 2
+    err = max_err(got_tf[valid][unmasked], want_tf[valid][unmasked])
+    agree = float((got_prev[valid] == want_prev[valid]).float().mean())
+    _cuda_reset()
+    fsdp_loss, fsdp_grads, fsdp_peak, fsdp_own = step_backward(fsdp, batch)
+    fsdp.optimizer.step()
+    counts = counts_now()
+    rel = grad_rel(fsdp_grads, plain_grads)
+    sharded = sum(1 for p in fsdp.model.parameters() if hasattr(p, "placements"))
+    log(f"  [{smi}] (c) FSDP (world 1, NCCL; {sharded} DTensor parameters): greedy dev batch "
+        f"inside eval_weights, teacher-forced max|score FSDP-unwrapped| {err:.3e} (tol "
+        f"{SCORE_TOL:.0e}), greedy-token agreement {100 * agree:.1f} %, eval launches "
+        f"{json.dumps({k: v for k, v in eval_counts.items() if v})}; train step loss "
+        f"{fsdp_loss:.6f} vs {plain_loss:.6f}, max|grad diff|/max|grad| per group "
+        + json.dumps({g: float(f"{v:.3e}") for g, v in rel.items()})
+        + f"; peak device memory {fsdp_peak:.3f} GB ({fsdp_own:.3f} GB the step's own); "
+        f"launches {json.dumps(counts)}")
+    if not err <= SCORE_TOL or not max(rel.values()) <= STEP_GRAD_RTOL or sharded == 0:
+        failures.append(f"[phase 15 (c) FSDP] score diff {err}, gradient difference "
+                        f"{max(rel.values())}, {sharded} sharded parameters")
+    for name in DROPOUT_PAIR + ("fused_encoder_self_attention", "fused_ffn_step"):
+        source = counts if name in DROPOUT_PAIR else eval_counts
+        if source[name] <= 0:
+            failures.append(f"[phase 15 (c) FSDP] {name} was not launched")
+    for name in DROPOUT_PAIR:
+        launches[name] += counts[name]
+    del fsdp, fsdp_grads
+    torch.cuda.empty_cache()
+
+    # (a) DDP at world size 1: the same first step as the unwrapped task, then times
+    ddp = variant("ddp", MESH={"MODEL_PARALLEL": 1})
+
+    def first_step(task):
+        task.generator.manual_seed(1234)
+        _cuda_reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = task._train_step(batch)
+        end.record()
+        end.synchronize()
+        return float(loss), counts_now(), start.elapsed_time(end)
+
+    plain_loss, _, plain_ms = first_step(plain)
+    ddp_loss, counts, ddp_ms = first_step(ddp)
+    pairs = list(zip(plain.model.parameters(), ddp.model.parameters()))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(max_err(a.detach(), b.detach()) for a, b in pairs)
+    step = {"plain": lambda: plain._train_step(batch), "ddp": lambda: ddp._train_step(batch)}
+    times = [(name, median_ms(step[name], reps=5)) for name in ("plain", "ddp", "ddp", "plain")]
+    log(f"  [{smi}] (a) DDP (world 1, NCCL; {type(ddp.wrapper).__name__}, find_unused_parameters "
+        f"{ddp.wrapper.find_unused_parameters}): first step loss {ddp_loss:.6f} vs {plain_loss:.6f},"
+        f" parameters after the step bit-equal: {bit_equal} (max|diff| {worst:.3e}); first step "
+        f"{ddp_ms:.3f} ms (with DDP's probe forward and construction) vs {plain_ms:.3f} ms "
+        f"unwrapped (CUDA events); later steps of {rows} (median of 5, in turns): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times)
+        + f"; launches {json.dumps(counts)}")
+    if not bit_equal:
+        failures.append(f"[phase 15 (a) DDP] parameters after one step differ by {worst}")
+    for name in DROPOUT_PAIR:
+        launches[name] += counts[name]
+        if counts[name] <= 0:
+            failures.append(f"[phase 15 (a) DDP] {name} was not launched")
+    del ddp, plain, step
+    torch.cuda.empty_cache()
+    multihost.finalize()
+
+    # (d) two gloo ranks on the one card, each half of a global batch of 64
+    run_two_ranks(paths, tmp, seed, failures, smi)
+    return launches
+
+
+def _cuda_reset():
+    from openvivqa_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+
+
+def small_config(paths, tmp, seed, batch_size, name):
+    """small_mmf_m4c.yaml at `batch_size` rows a step, its embedding dropout 0,
+    one loader worker (``seed_samples_by_index`` seeds numpy's global
+    generator, which two worker threads would share)."""
+    return with_data("small_mmf_m4c.yaml", paths, seed, str(Path(tmp) / name), {
+        "OBJECT_EMBEDDING": {"DROPOUT": 0.0}, "OCR_EMBEDDING": {"DROPOUT": 0.0}}).merged({
+            "DATASET": {"FEATURE_DATASET": {"BATCH_SIZE": batch_size, "WORKERS": 1}}})
+
+
+def phase15_rank(rank, port, config_dict, reference, results):
+    """One of phase 15 (d)'s two gloo ranks on cuda:0: its half of the global
+    batch through DDP with dropout 0 (gradients against the one-process
+    reference, then the Adam step's parameter checksum), then a step with
+    dropout 0.1 (the seed and keep bits of its first dropout-forward
+    launch)."""
+    import traceback
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2", LOCAL_RANK="0")
+    try:
+        import torch
+
+        sys.path.insert(0, str(ROOT))
+        from openvivqa_tpu_torch.builders import build_task, populate
+        from openvivqa_tpu_torch.config import ConfigNode
+        from openvivqa_tpu_torch.parallel import multihost
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        multihost.initialize("cuda", backend="gloo")
+        populate()
+        task = build_task(ConfigNode(config_dict), "cuda")
+        seed_samples_by_index(task)
+        set_dropout(task, 0.0)
+        _, batch = next(task.device_batches(task.train_dataloader))
+        # the generator keeps its rank-folded seed throughout
+        loss, grads, _, _ = step_backward(task, batch, seed=None)
+        want = torch.load(reference, map_location="cuda", weights_only=True)
+        rel = grad_rel(grads, want["grads"])
+        del want
+        task._train_step(batch)
+        checksum = float(sum(p.detach().double().sum() for p in task.model.parameters()))
+        set_dropout(task, DROPOUT_RATE)
+        bits, seeds = [], []
+        with keep_bits(bits, seeds):
+            task.train_forward(task.compute_loss, batch).backward()
+        results.put((rank, "ok", {
+            "loss": loss, "rel": rel, "checksum": checksum, "seed": seeds[0],
+            "bits": int(bits[0].to(torch.int64).sum()), "wrapper": type(task.wrapper).__name__,
+        }))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))  # reported by the parent
+        raise
+    finally:
+        from openvivqa_tpu_torch.parallel import multihost
+
+        multihost.finalize()
+
+
+def run_two_ranks(paths, tmp, seed, failures, smi):
+    """Phase 15 (d): the one-process full-batch reference (64 rows, dropout
+    0), then two spawned gloo ranks on cuda:0 with 32 rows each."""
+    import multiprocessing
+    import queue
+
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+
+    start = time.perf_counter()
+    single = build_task(small_config(paths, tmp, seed, 64, "phase15_single"), "cuda")
+    seed_samples_by_index(single)
+    set_dropout(single, 0.0)
+    _, batch = next(single.device_batches(single.train_dataloader))
+    loss, grads, _, _ = step_backward(single, batch)
+    reference = Path(tmp) / "phase15_reference.pt"
+    torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()}}, reference)
+    n_params = sum(p.numel() for p in single.model.parameters())
+    del single, grads
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    config = small_config(paths, tmp, seed, 32, "phase15_ranks").to_dict()
+    procs = [ctx.Process(target=phase15_rank, args=(rank, port, config, str(reference), results))
+             for rank in range(2)]
+    for proc in procs:
+        proc.start()
+    out, errors = {}, []
+    deadline = time.monotonic() + RANK_JOIN_SECONDS
+    try:
+        while len(out) + len(errors) < 2:
+            try:
+                rank, status, value = results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                errors.append(f"no result within {RANK_JOIN_SECONDS} s")
+                break
+            if status == "error":
+                errors.append(f"rank {rank}: {value}")
+                break
+            out[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=30 if not errors else 5)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+    if errors:
+        failures.append("[phase 15 (d)] " + " | ".join(errors))
+        return
+    worst = max(max(r["rel"].values()) for r in out.values())
+    log(f"  [{smi}] (d) two gloo ranks on cuda:0, small_mmf_m4c ({n_params / 1e6:.2f}M "
+        f"parameters), 32 rows each, dropout 0: losses {out[0]['loss']:.6f} / "
+        f"{out[1]['loss']:.6f} vs {loss:.6f} one process at 64; DDP gradients vs the full-batch "
+        f"step, max|diff|/max|grad| per group (rank 0) "
+        + json.dumps({g: float(f"{v:.3e}") for g, v in out[0]["rel"].items()})
+        + f"; parameter checksums after the Adam step {out[0]['checksum']!r} / "
+        f"{out[1]['checksum']!r}; dropout 0.1: kernel seeds {out[0]['seed']} / {out[1]['seed']}, "
+        f"keep-bit sums {out[0]['bits']} / {out[1]['bits']}; "
+        f"{time.perf_counter() - start:.1f} s")
+    if not worst <= STEP_GRAD_RTOL or out[0]["checksum"] != out[1]["checksum"]:
+        failures.append(f"[phase 15 (d)] gradient difference {worst}, checksums "
+                        f"{out[0]['checksum']} / {out[1]['checksum']}")
+    if out[0]["seed"] == out[1]["seed"] or out[0]["bits"] == out[1]["bits"]:
+        failures.append("[phase 15 (d)] the two ranks drew the same dropout seed or keep bits")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4542,6 +4944,15 @@ def main() -> int:
                                    make_recorder(results, failures)).items():
             launches[name] += n
         log(f"phase 14: {time.perf_counter() - start:.1f} s")
+
+        # 15. scale-out: REMAT, FSDP and DDP, then two ranks on the one card
+        start = time.perf_counter()
+        log("main path, phase 15: configs/mmf_m4c.yaml's train step of 64 under "
+            "TRAINING.REMAT, FSDP and DDP (world size 1, NCCL) against the unwrapped step; "
+            "two gloo ranks of small_mmf_m4c.yaml on the one card")
+        phase15 = run_phase15(config, paths, tmp, args.seed, failures, smi)
+        log(f"phase 15: dropout-pair launches of its REMAT, FSDP and DDP steps "
+            f"{json.dumps(phase15)}; {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,10 +1,10 @@
 """Host-side batching pipeline with background prefetch.
 
-The port's copy of ``openvivqa_tpu/data/loader.py``, for one process: a
-thread pool hides the per-image `.npy` load latency, batches are collated to
-static shapes (see utils/instance.py), and the final partial batch is padded
-up to `batch_size` with a `sample_valid` mask.  Sharding batches over
-processes waits for multi-process training (ROADMAP queue 1).
+The port's copy of ``openvivqa_tpu/data/loader.py``: a thread pool hides the
+per-image `.npy` load latency, batches are collated to static shapes (see
+utils/instance.py), and the final partial batch is padded up to `batch_size`
+with a `sample_valid` mask.  Under ``torch.distributed`` each process reads a
+disjoint round-robin share of the batches, wrap-padded to a common count.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Iterator, Mapping, Optional
 
 import numpy as np
 
+from ..parallel.multihost import process_count, process_index
 from ..utils.instance import Batch, collate
 
 
@@ -32,6 +33,9 @@ class DataLoader:
         num_workers: int = 4,
         prefetch: int = 2,
         drop_last: bool = False,
+        process_shard: bool = True,
+        num_shards: Optional[int] = None,
+        shard_id: Optional[int] = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -42,14 +46,35 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
+        # each process reads every num_shards-th batch from shard_id on; every
+        # process shuffles from the same seed, so all see one global order.
+        # The defaults are the process group's count and index; explicit
+        # values override them (and make the sharding testable in one process)
+        self.process_shard = process_shard
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
 
-    def __len__(self) -> int:
+    def _shard_info(self) -> tuple:
+        if self.num_shards is not None:
+            return max(1, self.num_shards), self.shard_id or 0
+        if not self.process_shard:
+            return 1, 0
+        return process_count(), process_index()
+
+    def _n_batches(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def __len__(self) -> int:
+        num_shards, _ = self._shard_info()
+        n = self._n_batches()
+        if num_shards <= 1 or n == 0:
+            return n
+        return -(-n // num_shards)  # every shard padded up to the ceiling
 
     def _order(self) -> np.ndarray:
         indices = np.arange(len(self.dataset))
@@ -81,6 +106,17 @@ class DataLoader:
             if self.drop_last and len(chunk) < self.batch_size:
                 break
             spans.append(chunk)
+        num_shards, shard_id = self._shard_info()
+        if num_shards > 1 and spans:
+            # wrap-pad to a common per-shard count (DistributedSampler's rule):
+            # every train step is a collective, so a process with fewer batches
+            # would stall the others at the uneven tail.  Repeated eval batches
+            # merge by key in gather_eval_dicts.  The wrap cycles, so that even
+            # fewer batches than processes leave none of them empty
+            per_shard = -(-len(spans) // num_shards)
+            spans = spans + [spans[i % len(spans)]
+                             for i in range(per_shard * num_shards - len(spans))]
+            spans = spans[shard_id::num_shards]
 
         out_queue: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()

@@ -24,7 +24,9 @@ the C entries take it as arguments.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -118,16 +120,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libopenvivqa_kernels_{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``build/kernels/.lock``: processes that start cold
+    together (the ranks of one machine) build the library once, one after the
+    other finding it built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as handle:
+        fcntl.flock(handle, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(handle, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists: every
-    source to its object file in parallel, then one link.  The nvcc output
-    (with ptxas's registers and spills per kernel) is kept beside the library
-    as ``<library>.log``."""
-    global build_seconds
+    source to its object file in parallel, then one link, under a file lock
+    shared by the processes of one checkout.  The nvcc output (with ptxas's
+    registers and spills per kernel) is kept beside the library as
+    ``<library>.log``."""
     target = library_path()
     if target.is_file():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        if not target.is_file():
+            _compile(target)
+    return target
+
+
+def _compile(target: Path) -> None:
+    global build_seconds
     nvcc = _nvcc()
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="objects_", dir=BUILD_DIR) as objects:
@@ -153,7 +176,6 @@ def build() -> Path:
     build_seconds = time.perf_counter() - start
     target.with_name(f"{target.name}.log").write_text(log + link.stdout + link.stderr)
     os.replace(partial, target)
-    return target
 
 
 def lib() -> ctypes.CDLL:

@@ -3,17 +3,25 @@ split from the best checkpoint.
 
     python -m openvivqa_tpu_torch.train --config-file configs/mmf_m4c.yaml \
         [--opts KEY.SUBKEY=VALUE ...] [--eval-only] [--device cuda|cpu]
+
+Under torchrun every process takes ``cuda:LOCAL_RANK`` and trains its share of
+each global batch (DDP; ``TRAINING.MESH.FSDP=true`` shards the model):
+
+    torchrun --nproc_per_node N -m openvivqa_tpu_torch.train \
+        --config-file configs/mmf_m4c.yaml --opts TRAINING.MESH.FSDP=true
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import yaml
 
 from .builders import build_task, populate
 from .config import get_config
 from .logging_utils import setup_logger
+from .parallel import multihost
 
 
 def _parse_opts(pairs):
@@ -43,11 +51,16 @@ def main(argv=None):
 
     populate()
     config = get_config(args.config_file, _parse_opts(args.opts))
-    task = build_task(config, args.device)
+    device = args.device
+    if device == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{os.environ['LOCAL_RANK']}"
+    multihost.initialize(device, required=bool(config.TRAINING.get("MESH")))
+    task = build_task(config, device)
     if not args.eval_only:
         task.start()
     task.get_predictions()
     logger.info("Task done.")
+    multihost.finalize()
 
 
 if __name__ == "__main__":

@@ -28,8 +28,10 @@ from ...builders import META_TASK, build_dataset
 from ...data.loader import DataLoader
 from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
+from ...parallel.multihost import gather_eval_dicts
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
 from ..optim import constant_lambda
+from ..profiling import StepTimer, maybe_trace
 from ..train_state import nll_loss
 from .base_task import BaseTask
 
@@ -59,7 +61,10 @@ class ClassificationTask(BaseTask):
                       seed=int(config.TRAINING.get("SEED", 42)))
         self.train_dataloader = DataLoader(self.train_dataset, shuffle=True, **common)
         self.dev_dataloader = DataLoader(self.dev_dataset, shuffle=False, **common)
-        self.test_dataloader = DataLoader(self.test_dataset, shuffle=False, **common)
+        # every process predicts the whole test split, so that the primary's
+        # test_results.json is complete
+        self.test_dataloader = DataLoader(self.test_dataset, shuffle=False, process_shard=False,
+                                          **common)
 
     # -- steps ---------------------------------------------------------------------
     def compute_loss(self, batch) -> torch.Tensor:
@@ -74,7 +79,7 @@ class ClassificationTask(BaseTask):
     def _train_step(self, batch) -> torch.Tensor:
         """One optimizer step; returns the loss, left on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.compute_loss(batch)
+        loss = self.train_forward(self.compute_loss, batch)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
@@ -96,9 +101,13 @@ class ClassificationTask(BaseTask):
     def train(self) -> List[float]:
         """One epoch; returns the per-step losses, synced once."""
         losses = []
+        timer = StepTimer()
         start = time.time()
-        for _, device_batch in self.device_batches(self.train_dataloader):
-            losses.append(self._train_step(device_batch))
+        with maybe_trace(self.profile_dir, enabled=self.epoch == 0):
+            for _, device_batch in self.device_batches(self.train_dataloader):
+                timer.start()
+                losses.append(self._train_step(device_batch))
+                timer.stop()
         step_losses = torch.stack(losses).tolist() if losses else []
         elapsed = time.time() - start
         mean_loss = sum(step_losses) / max(len(step_losses), 1)
@@ -109,19 +118,24 @@ class ClassificationTask(BaseTask):
             "iterations": len(step_losses), "seconds": elapsed,
             "samples_per_sec": round(
                 len(step_losses) * self.train_dataloader.batch_size / max(elapsed, 1e-9), 2),
+            **timer.summary(),
         })
         return step_losses
 
     def evaluate_metrics(self, dataloader) -> dict:
+        """Scores of the argmax answers over `dataloader` (this process's
+        share), merged over the processes before scoring."""
         gens, gts = {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
-            answers_gt, answers_gen = self._decode_eval(self.predict(device_batch), batch)
-            for i, (gt, gen) in enumerate(zip(answers_gt, answers_gen)):
-                if not batch["sample_valid"][i]:
-                    continue
-                key = self.eval_key(batch, it, i)
-                gens[key] = [gen]
-                gts[key] = [gt]
+        with self.eval_weights():
+            for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
+                answers_gt, answers_gen = self._decode_eval(self.predict(device_batch), batch)
+                for i, (gt, gen) in enumerate(zip(answers_gt, answers_gen)):
+                    if not batch["sample_valid"][i]:
+                        continue
+                    key = self.eval_key(batch, it, i)
+                    gens[key] = [gen]
+                    gts[key] = [gt]
+        gts, gens = gather_eval_dicts(gts, gens)
         scores, _ = compute_scores(gts, gens)
         return scores
 
@@ -180,8 +194,11 @@ class ClassificationTask(BaseTask):
         self.load_checkpoint(best)
 
         results, overall_gens, overall_gts = [], {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dataloader)):
-            answers_gt, answers_gen = self._decode_eval(self.predict(device_batch), batch)
+        with self.eval_weights():
+            test_batches = [(batch, self.predict(device_batch))
+                            for batch, device_batch in self.device_batches(self.test_dataloader)]
+        for it, (batch, preds) in enumerate(test_batches):
+            answers_gt, answers_gen = self._decode_eval(preds, batch)
             valid = np.asarray(batch["sample_valid"])
             gens, gts = {}, {}
             for i, (gt, gen) in enumerate(zip(answers_gt, answers_gen)):

@@ -63,8 +63,10 @@ class TrainingMMF(OcrOpenEndedTask):
         self.load_best_model()
 
         results, overall_gens, overall_gts = [], {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(self.test_dict_dataloader)):
-            ids = self.greedy_ids(device_batch).cpu().numpy()
+        with self.eval_weights():
+            test_ids = [(batch, self.greedy_ids(device_batch).cpu().numpy())
+                        for batch, device_batch in self.device_batches(self.test_dict_dataloader)]
+        for it, (batch, ids) in enumerate(test_ids):
             valid = np.asarray(batch["sample_valid"])
             n_real = int(valid.sum())
             answers_gen, in_fixed = self.vocab.decode_answer_with_determination(

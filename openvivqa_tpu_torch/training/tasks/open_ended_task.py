@@ -44,9 +44,11 @@ from ...builders import META_TASK, build_dataset
 from ...data.loader import DataLoader
 from ...evaluation import Cider, compute_scores
 from ...logging_utils import setup_logger
+from ...parallel.multihost import gather_eval_dicts
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
 from ..decode import generate
 from ..optim import constant_lambda, make_optimizer
+from ..profiling import StepTimer, maybe_trace
 from ..train_state import nll_loss
 from .base_task import BaseTask
 
@@ -105,9 +107,10 @@ class OpenEndedTask(BaseTask):
             self.dev_dict_dataset, batch_size=eval_bs, shuffle=False, num_workers=workers,
             seed=seed,
         )
+        # every process predicts the whole test split (a complete prediction file)
         self.test_dict_dataloader = DataLoader(
             self.test_dict_dataset, batch_size=eval_bs, shuffle=False, num_workers=workers,
-            seed=seed,
+            seed=seed, process_shard=False,
         )
 
     def compute_loss(self, batch) -> torch.Tensor:
@@ -129,7 +132,7 @@ class OpenEndedTask(BaseTask):
     def _train_step(self, batch) -> torch.Tensor:
         """One optimizer step; returns the loss, left on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.compute_loss(batch)
+        loss = self.train_forward(self.compute_loss, batch)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
@@ -159,24 +162,32 @@ class OpenEndedTask(BaseTask):
         return self._decode_batch(outs.cpu().numpy(), batch)
 
     def evaluate_metrics(self, dataloader) -> dict:
+        """Scores of the generated answers over `dataloader` (this process's
+        share), merged over the processes before scoring."""
         gens, gts = {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
-            answers_gen = self.generate_answers(batch, device_batch)
-            for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
-                if not batch["sample_valid"][i]:
-                    continue
-                key = self.eval_key(batch, it, i)
-                gens[key] = [gen_i]
-                gts[key] = gts_i
+        with self.eval_weights():
+            for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
+                answers_gen = self.generate_answers(batch, device_batch)
+                for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):
+                    if not batch["sample_valid"][i]:
+                        continue
+                    key = self.eval_key(batch, it, i)
+                    gens[key] = [gen_i]
+                    gts[key] = gts_i
+        gts, gens = gather_eval_dicts(gts, gens)
         scores, _ = compute_scores(gts, gens)
         return scores
 
     def train(self) -> List[float]:
         """One XE epoch; returns the per-step losses, synced once."""
         losses = []
+        timer = StepTimer()
         start = time.time()
-        for _, device_batch in self.device_batches(self.train_dataloader):
-            losses.append(self._train_step(device_batch))
+        with maybe_trace(self.profile_dir, enabled=self.epoch == 0):
+            for _, device_batch in self.device_batches(self.train_dataloader):
+                timer.start()
+                losses.append(self._train_step(device_batch))
+                timer.stop()
         step_losses = torch.stack(losses).tolist() if losses else []
         elapsed = time.time() - start
         mean_loss = sum(step_losses) / max(len(step_losses), 1)
@@ -187,6 +198,7 @@ class OpenEndedTask(BaseTask):
             "iterations": len(step_losses), "seconds": elapsed,
             "samples_per_sec": round(
                 len(step_losses) * self.train_dataloader.batch_size / max(elapsed, 1e-9), 2),
+            **timer.summary(),
         })
         return step_losses
 
@@ -195,8 +207,9 @@ class OpenEndedTask(BaseTask):
         """SCST's beam draw: (n, k, L) ids, the k = TRAINING_BEAM_SIZE best
         beams of each sample, in eval mode."""
         self.model.eval()
-        outs, _ = generate(self.model, device_batch, self.training_beam_size,
-                           out_size=self.training_beam_size)
+        with self.eval_weights():
+            outs, _ = generate(self.model, device_batch, self.training_beam_size,
+                               out_size=self.training_beam_size)
         return outs
 
     def scst_loss(self, batch, advantages: torch.Tensor, outs: torch.Tensor) -> torch.Tensor:
@@ -246,8 +259,9 @@ class OpenEndedTask(BaseTask):
             valid = np.asarray(batch["sample_valid"])
             advantages = (reward - reward.mean(-1, keepdims=True)) * valid[:, None]
             self.optimizer.zero_grad(set_to_none=True)
-            loss = self.scst_loss(device_batch, torch.from_numpy(advantages).to(self.device),
-                                  outs)
+            # through train_forward, so that DDP averages the re-run's gradients
+            loss = self.train_forward(self.scst_loss, device_batch,
+                                      torch.from_numpy(advantages).to(self.device), outs)
             loss.backward()
             self.optimizer.step()
             self.scheduler.step()
@@ -337,8 +351,10 @@ class OpenEndedTask(BaseTask):
         """Beam-searched answers of one split, scored and written to
         <checkpoint dir>/<out_name>, each sample under key(batch, it, i)."""
         results, overall_gens, overall_gts = [], {}, {}
-        for it, (batch, device_batch) in enumerate(self.device_batches(dataloader)):
-            answers_gen = self.generate_answers(batch, device_batch)
+        with self.eval_weights():
+            answered = [(batch, self.generate_answers(batch, device_batch))
+                        for batch, device_batch in self.device_batches(dataloader)]
+        for it, (batch, answers_gen) in enumerate(answered):
             valid = np.asarray(batch["sample_valid"])
             gens, gts = {}, {}
             for i, (gts_i, gen_i) in enumerate(zip(batch["answers"], answers_gen)):

@@ -39,21 +39,22 @@ class VlspEvjVqaTask(OpenEndedTask):
         seed = int(config.TRAINING.get("SEED", 42))
         workers = fd.get("WORKERS", 4) or 1
 
-        def loader(dataset, batch_size, shuffle):
+        def loader(dataset, batch_size, shuffle, process_shard=True):
             if dataset is None:
                 return None
             return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
-                              num_workers=workers, seed=seed)
+                              num_workers=workers, seed=seed, process_shard=process_shard)
 
         self.train_dataloader = loader(self.train_dataset, fd.BATCH_SIZE, True)
         train_dict_bs = max(1, dd.BATCH_SIZE // config.TRAINING.TRAINING_BEAM_SIZE)
         eval_dict_bs = max(1, dd.BATCH_SIZE // config.TRAINING.EVALUATING_BEAM_SIZE)
         self.train_dict_dataloader = loader(self.train_dict_dataset, train_dict_bs, True)
         self.dev_dict_dataloader = loader(self.dev_dict_dataset, eval_dict_bs, False)
+        # every process predicts the whole test splits (complete prediction files)
         self.public_test_dict_dataloader = loader(self.public_test_dict_dataset, eval_dict_bs,
-                                                  False)
+                                                  False, process_shard=False)
         self.private_test_dict_dataloader = loader(self.private_test_dict_dataset,
-                                                   eval_dict_bs, False)
+                                                   eval_dict_bs, False, process_shard=False)
 
     def get_predictions(self):
         """Scores by test split, from best_model.pth; each sample keyed by its

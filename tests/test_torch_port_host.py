@@ -42,6 +42,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
     assert not roots & FORBIDDEN, f"{path.relative_to(ROOT)} imports {sorted(roots & FORBIDDEN)}"
 
 
+def test_walk_covers_the_scale_out_modules():
+    """The walk above reaches the scale-out modules and the migration tool."""
+    walked = {str(path.relative_to(ROOT)) for path in PORT_FILES}
+    for name in ("parallel/mesh.py", "parallel/multihost.py", "training/profiling.py",
+                 "tools/migrate_checkpoint.py"):
+        assert f"openvivqa_tpu_torch/{name}" in walked, name
+
+
 def _dataset_config(paths, kind):
     return ConfigNode({
         "TYPE": kind, "BATCH_SIZE": 8, "MAX_SCENE_TEXT": 8, "SCENE_TEXT_THRESHOLD": 0.3,
