@@ -252,6 +252,20 @@ Phases, each fatal on failure:
      against one process's full-batch step of 64 within STEP_GRAD_RTOL,
      equal parameter checksums after the Adam step, and with dropout 0.1
      different kernel seeds and keep bits on the two ranks.
+ 16. tensor parallelism (``TRAINING.MESH.MODEL_PARALLEL`` 2), last: one model
+     rank in this process, then two spawned gloo ranks at (data 1, model 2)
+     on the one card, each built from the seed with the same weights:
+     ``configs/mmf_m4c.yaml`` (incremental, dropout on) greedy-decodes one dev
+     batch inside ``eval_weights`` (tokens and teacher-forced scores bit-equal
+     to one rank's; the gather of the whole weights timed apart) and takes one
+     train step at generator seed 1234 (loss, and every gradient within
+     TP_GRAD_RTOL of one rank's), then three timed Adam steps (equal
+     replicated-parameter checksums and generator states on the two ranks);
+     ``configs/iterative_mcan.yaml`` beam-searches one dev batch on the layer
+     and staged routes (token agreement 100 %); every run's launch counts equal
+     one rank's exactly, with kernels C, F, D and the packed attention (eval),
+     the dropout pair (train), A, B and the layer step (beam) launched.  Its times are of two
+     processes sharing one card over gloo, and say nothing of NCCL's speed.
 Phase 2 prints the registers and spill bytes of every instance of block B, of
 the dropout backward kernels, of gemm_sm90.cu's kernels, of the persistent
 decoder-step kernel and of the streamed attention's two from nvcc's ptxas
@@ -4701,6 +4715,302 @@ def run_two_ranks(paths, tmp, seed, failures, smi):
         failures.append("[phase 15 (d)] the two ranks drew the same dropout seed or keep bits")
 
 
+# -- phase 16: tensor parallelism ------------------------------------------------------------
+# one train step's gradients at two model ranks against one, relative to each parameter
+# group's largest gradient: the split Linears' column blocks are the same float32 products
+# over half the columns, and the input gradients of a split Linear are summed over the two
+# ranks in another order; the bf16 kernels see the same whole weights and inputs, so the
+# steps differ by float32 rounding carried through 16 layers and back
+TP_GRAD_RTOL = 1e-3
+TP_RANKS = 2
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, device, reps: int = 1):
+    """(the last result of fn(), its median seconds over `reps` calls by the
+    host clock, each ending in a synchronize)."""
+    out, seconds = None, []
+    for _ in range(reps):
+        _sync(device)
+        start = time.perf_counter()
+        out = fn()
+        _sync(device)
+        seconds.append(time.perf_counter() - start)
+    return out, statistics.median(seconds)
+
+
+def tp_greedy(task, batch, device):
+    """Inside eval_weights (its gather timed apart): the incremental greedy
+    prev_inds and the teacher-forced scores on them, with their seconds."""
+    import torch
+
+    context = task.eval_weights()
+    _, gather_s = timed(context.__enter__, device)
+    try:
+        with torch.no_grad():
+            (prev, scores), decode_s = timed(lambda: (
+                lambda p: (p, task.model.compute_scores(batch, p)))(
+                    task.model.greedy_decode(batch)["prev_inds"]), device)
+    finally:
+        context.__exit__(None, None, None)
+    return prev, scores, gather_s, decode_s
+
+
+def tp_step(task, batch):
+    """One training loss and backward at generator seed 1234 (no optimizer
+    step): (loss, {name: whole gradient})."""
+    from openvivqa_tpu_torch.parallel.mesh import whole
+
+    task.generator.manual_seed(1234)
+    task.optimizer.zero_grad(set_to_none=True)
+    loss = task.train_forward(task.compute_loss, batch)
+    loss.backward()
+    grads = {name: whole(p.grad).detach().clone()
+             for name, p in task.model.named_parameters() if p.grad is not None}
+    task.optimizer.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def tp_beam(task, batch):
+    """IterativeMCAN's beam eval of one batch inside eval_weights on the layer
+    route (the layer step) and the staged route (kernels A, B and C), each
+    with its launch counts."""
+    import torch
+
+    from openvivqa_tpu_torch.training.decode import generate
+
+    out = {}
+    for route, parts in (("layer", "layer"), ("staged", "self,cross,ffn")):
+        _cuda_reset()
+        with decode_parts(parts), task.eval_weights(), torch.no_grad():
+            tokens, _ = generate(task.model, batch, task.evaluating_beam_size)
+        out[route] = (tokens, counts_now())
+    return out
+
+
+def phase16_work(mmf_dict, beam_dict, device):
+    """What phase 16 runs at one model rank and at two: MMF_M4C's greedy dev
+    batch and train step, then IterativeMCAN's beam batch, each with its
+    launch counts and seconds."""
+    import torch
+
+    from openvivqa_tpu_torch.builders import build_task
+    from openvivqa_tpu_torch.config import ConfigNode
+
+    task = build_task(ConfigNode(mmf_dict), device)
+    seed_samples_by_index(task)
+    _, dev = next(task.device_batches(task.dev_dict_dataloader))
+    _, batch = next(task.device_batches(task.train_dataloader))
+    tp_greedy(task, dev, device)  # the allocator's first growth, outside the counted run
+    _cuda_reset()
+    prev, scores, gather_s, decode_s = tp_greedy(task, dev, device)
+    out = {"prev": prev, "scores": scores, "eval_counts": counts_now(), "gather_s": gather_s,
+           "decode_s": decode_s}
+    _cuda_reset()
+    out["loss"], out["grads"] = tp_step(task, batch)
+    out["step_counts"] = counts_now()
+    task.generator.manual_seed(1234)
+    _, out["train_step_s"] = timed(lambda: task._train_step(batch), device, reps=3)
+    out["generator"] = task.generator.get_state()
+    out["checksum"] = float(sum(p.detach().double().sum() for p in task.model.parameters()
+                                if not hasattr(p, "placements")))
+    out["split"] = sum(hasattr(p, "placements") for p in task.model.parameters())
+    out["n_params"] = sum(p.numel() for p in task.model.parameters())
+    del task
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    beam_task = build_task(ConfigNode(beam_dict), device)
+    seed_samples_by_index(beam_task)
+    _, beam_batch = next(beam_task.device_batches(beam_task.dev_dict_dataloader))
+    out["beam"] = tp_beam(beam_task, beam_batch)
+    out["beam_split"] = sum(hasattr(p, "placements") for p in beam_task.model.parameters())
+    return out
+
+
+def phase16_rank(rank, port, mmf_dict, beam_dict, reference, device, results):
+    """One of phase 16's two gloo ranks at (data 1, model 2) on one device:
+    phase16_work, then its results against the one-rank reference."""
+    import traceback
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(TP_RANKS), LOCAL_RANK="0")
+    try:
+        import torch
+
+        sys.path.insert(0, str(ROOT))
+        from openvivqa_tpu_torch.builders import populate
+        from openvivqa_tpu_torch.parallel import multihost
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        multihost.initialize(device, backend="gloo")
+        populate()
+        got = phase16_work(mmf_dict, beam_dict, device)
+        want = torch.load(reference, map_location=device, weights_only=True)
+        result = {
+            "tokens_equal": torch.equal(got["prev"], want["prev"]),
+            "scores_equal": torch.equal(got["scores"], want["scores"]),
+            "loss": got["loss"], "rel": grad_rel(got["grads"], want["grads"]),
+            "grad_names_equal": sorted(got["grads"]) == sorted(want["grads"]),
+            "beam_agreement": {route: float((tokens == want["beam"][route]).float().mean())
+                               for route, (tokens, _) in got["beam"].items()},
+            "beam_counts": {route: counts for route, (_, counts) in got["beam"].items()},
+            "generator": got["generator"].tolist(),
+        }
+        result.update({key: got[key] for key in (
+            "eval_counts", "step_counts", "gather_s", "decode_s", "train_step_s", "checksum",
+            "split", "beam_split")})
+        results.put((rank, "ok", result))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))  # reported by the parent
+        raise
+    finally:
+        from openvivqa_tpu_torch.parallel import multihost
+
+        multihost.finalize()
+
+
+def run_phase16(config, beam_config, tmp, failures, smi, device="cuda"):
+    """Phase 16: ``configs/mmf_m4c.yaml`` (incremental greedy, dropout on) and
+    ``configs/iterative_mcan.yaml`` (beam) at one model rank in this process,
+    then at TRAINING.MESH.MODEL_PARALLEL 2 in two spawned gloo ranks on the one
+    device; returns the two ranks' launch counts."""
+    import multiprocessing
+    import queue
+
+    import torch
+
+    from openvivqa_tpu_torch.ops import _cuda
+
+    start = time.perf_counter()
+    # one loader worker: seed_samples_by_index seeds numpy's global generator, which
+    # two worker threads would share, and every rank must read the same samples
+    one_worker = {"FEATURE_DATASET": {"WORKERS": 1}, "DICT_DATASET": {"WORKERS": 1}}
+    mmf = config.merged({"DATASET": one_worker, "MODEL": {"DECODING_MODE": "incremental"},
+                         "TRAINING": {"CHECKPOINT_PATH": str(Path(tmp) / "phase16_mp1")}})
+    beam = beam_config.merged({"DATASET": one_worker, "TRAINING": {
+        "CHECKPOINT_PATH": str(Path(tmp) / "phase16_beam")}})
+    one = phase16_work(mmf.to_dict(), beam.to_dict(), device)
+    reference = Path(tmp) / "phase16_reference.pt"
+    torch.save({"prev": one["prev"], "scores": one["scores"], "grads": one["grads"],
+                "beam": {route: tokens for route, (tokens, _) in one["beam"].items()}}, reference)
+    counts = {"eval": one["eval_counts"], "step": one["step_counts"],
+              "beam": {route: c for route, (_, c) in one["beam"].items()}}
+    times = {key: one[key] for key in ("decode_s", "train_step_s", "loss")}
+    log(f"  [{smi}] one model rank: mmf_m4c ({one['n_params'] / 1e6:.2f}M parameters), greedy "
+        f"dev batch of {one['prev'].shape[0]} in {one['decode_s'] * 1e3:.3f} ms, train step "
+        f"{one['train_step_s'] * 1e3:.3f} ms (median of 3), loss {one['loss']:.6f}; launches: "
+        f"eval {json.dumps(nonzero(counts['eval']))}, step {json.dumps(nonzero(counts['step']))}, "
+        f"beam {json.dumps({r: nonzero(c) for r, c in counts['beam'].items()})}")
+    del one
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    tp = {"TRAINING": {"MESH": {"MODEL_PARALLEL": TP_RANKS}}}
+    procs = [ctx.Process(target=phase16_rank, args=(
+        rank, port, mmf.merged(tp).to_dict(), beam.merged(tp).to_dict(), str(reference),
+        device, results)) for rank in range(TP_RANKS)]
+    for proc in procs:
+        proc.start()
+    out, errors = {}, []
+    deadline = time.monotonic() + RANK_JOIN_SECONDS
+    try:
+        while len(out) + len(errors) < TP_RANKS:
+            try:
+                rank, status, value = results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                errors.append(f"no result within {RANK_JOIN_SECONDS} s")
+                break
+            if status == "error":
+                errors.append(f"rank {rank}: {value}")
+                break
+            out[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=30 if not errors else 5)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+    launches = {name: 0 for name in _cuda.LAUNCHES}
+    if errors:
+        failures.append("[phase 16] " + " | ".join(errors))
+        return launches
+
+    for rank, r in sorted(out.items()):
+        label = f"[phase 16, rank {rank}]"
+        worst = max(r["rel"].values())
+        log(f"  [{smi}] (a) rank {rank} of (data 1, model 2), gloo on one card: {r['split']} "
+            f"DTensor parameters; greedy dev batch inside eval_weights: tokens equal "
+            f"{r['tokens_equal']}, teacher-forced scores bit-equal {r['scores_equal']}; gather "
+            f"of the whole weights (entering eval_weights) {r['gather_s'] * 1e3:.3f} ms, decode "
+            f"{r['decode_s'] * 1e3:.3f} ms vs {times['decode_s'] * 1e3:.3f} ms at one rank; "
+            f"train step loss {r['loss']:.6f} vs {times['loss']:.6f}, max|grad diff|/max|grad| "
+            f"per group " + json.dumps({g: float(f"{v:.3e}") for g, v in r["rel"].items()})
+            + f" (tol {TP_GRAD_RTOL:.0e}); train step {r['train_step_s'] * 1e3:.3f} ms vs "
+            f"{times['train_step_s'] * 1e3:.3f} ms at one rank (median of 3; host clock)")
+        log(f"  [{smi}] (a) rank {rank} launches: eval {json.dumps(nonzero(r['eval_counts']))}, "
+            f"step {json.dumps(nonzero(r['step_counts']))}")
+        log(f"  [{smi}] (b) rank {rank}: iterative_mcan beam-{beam.TRAINING.EVALUATING_BEAM_SIZE} "
+            f"dev batch, {r['beam_split']} DTensor parameters, token agreement with one rank "
+            + json.dumps({k: f"{100 * v:.2f} %" for k, v in r["beam_agreement"].items()})
+            + "; launches " + json.dumps({k: nonzero(c) for k, c in r["beam_counts"].items()}))
+        if not (r["tokens_equal"] and r["scores_equal"]):
+            failures.append(f"{label} greedy tokens equal {r['tokens_equal']}, scores bit-equal "
+                            f"{r['scores_equal']}")
+        if not r["grad_names_equal"] or not worst <= TP_GRAD_RTOL:
+            failures.append(f"{label} gradient difference {worst} (tol {TP_GRAD_RTOL})")
+        if not math.isclose(r["loss"], times["loss"], rel_tol=1e-5):
+            failures.append(f"{label} loss {r['loss']} vs {times['loss']}")
+        if r["split"] == 0 or r["beam_split"] == 0:
+            failures.append(f"{label} no parameter was placed on the model axis")
+        if any(v != 1.0 for v in r["beam_agreement"].values()):
+            failures.append(f"{label} beam token agreement {r['beam_agreement']}")
+        for kind, got, want in (("eval", r["eval_counts"], counts["eval"]),
+                                ("step", r["step_counts"], counts["step"]),
+                                *(("beam " + route, r["beam_counts"][route], counts["beam"][route])
+                                  for route in counts["beam"])):
+            if got != want:
+                failures.append(f"{label} {kind} launches {nonzero(got)}, one rank's "
+                                f"{nonzero(want)}")
+            for name, n in got.items():
+                launches[name] += n
+        for name in ("fused_ffn_step", "fused_encoder_self_attention", "fused_bert_self_step"):
+            if r["eval_counts"][name] <= 0:
+                failures.append(f"{label} {name} was not launched by the greedy eval")
+        for name in DROPOUT_PAIR:
+            if r["step_counts"][name] <= 0:
+                failures.append(f"{label} {name} was not launched by the train step")
+        for route, name in (("layer", "fused_decoder_layer_step"),
+                            ("staged", "fused_self_attention_step"),
+                            ("staged", "fused_cross_attention_step")):
+            if r["beam_counts"][route][name] <= 0:
+                failures.append(f"{label} {name} was not launched by the {route} beam")
+    first, second = out[0], out[1]
+    log(f"  [{smi}] (a) the two model ranks after the Adam steps: replicated-parameter checksums "
+        f"{first['checksum']!r} / {second['checksum']!r}, generator states equal "
+        f"{first['generator'] == second['generator']}")
+    if first["checksum"] != second["checksum"] or first["generator"] != second["generator"]:
+        failures.append("[phase 16] the model ranks' replicated parameters or generator "
+                        "states differ")
+    log(f"  [{smi}] phase 16's times are of two gloo processes sharing one card, whose "
+        "collectives pass through host memory: they bound nothing of NCCL's speed across cards")
+    log(f"  phase 16 ranks and reference: {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def nonzero(counts: dict) -> dict:
+    return {name: n for name, n in counts.items() if n}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4953,6 +5263,15 @@ def main() -> int:
         phase15 = run_phase15(config, paths, tmp, args.seed, failures, smi)
         log(f"phase 15: dropout-pair launches of its REMAT, FSDP and DDP steps "
             f"{json.dumps(phase15)}; {time.perf_counter() - start:.1f} s")
+
+        # 16. tensor parallelism: two model ranks on the one card
+        start = time.perf_counter()
+        log("main path, phase 16: configs/mmf_m4c.yaml (incremental greedy dev batch, one train "
+            "step at dropout 0.1) and configs/iterative_mcan.yaml (beam dev batch) at one model "
+            "rank, then at TRAINING.MESH.MODEL_PARALLEL 2 in two gloo ranks on the one card")
+        for name, n in run_phase16(config, generative_config, tmp, failures, smi).items():
+            launches[name] += n
+        log(f"phase 16: {time.perf_counter() - start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

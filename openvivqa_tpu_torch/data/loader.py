@@ -3,7 +3,8 @@
 The port's copy of ``openvivqa_tpu/data/loader.py``: a thread pool hides the
 per-image `.npy` load latency, batches are collated to static shapes (see
 utils/instance.py), and the final partial batch is padded up to `batch_size`
-with a `sample_valid` mask.  Under ``torch.distributed`` each process reads a
+with a `sample_valid` mask.  Under ``torch.distributed`` each data group
+(``parallel.mesh.data_shard``: every process without a model axis) reads a
 disjoint round-robin share of the batches, wrap-padded to a common count.
 """
 
@@ -16,7 +17,7 @@ from typing import Iterator, Mapping, Optional
 
 import numpy as np
 
-from ..parallel.multihost import process_count, process_index
+from ..parallel.mesh import data_shard
 from ..utils.instance import Batch, collate
 
 
@@ -48,7 +49,7 @@ class DataLoader:
         self.drop_last = drop_last
         # each process reads every num_shards-th batch from shard_id on; every
         # process shuffles from the same seed, so all see one global order.
-        # The defaults are the process group's count and index; explicit
+        # The defaults are the data axis's count and index; explicit
         # values override them (and make the sharding testable in one process)
         self.process_shard = process_shard
         self.num_shards = num_shards
@@ -61,7 +62,7 @@ class DataLoader:
             return max(1, self.num_shards), self.shard_id or 0
         if not self.process_shard:
             return 1, 0
-        return process_count(), process_index()
+        return data_shard()
 
     def _n_batches(self) -> int:
         n = len(self.dataset)

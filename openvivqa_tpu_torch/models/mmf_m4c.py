@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..builders import META_ARCHITECTURE
+from ..parallel.mesh import whole
 from .m4c_common import (
     MMT,
     OcrPtrNet,
@@ -161,7 +162,7 @@ class MMF_M4C(nn.Module):
     def _scores_from_streams(self, streams, prev_inds, weights, generator=None):
         results = self.mmt(
             *streams["txt"], *streams["obj"], *streams["ocr"],
-            fixed_ans_emb=self.classifier.weight, prev_inds=prev_inds,
+            fixed_ans_emb=whole(self.classifier.weight), prev_inds=prev_inds,
             context_blind=self.context_blind,
             weights=None if weights is None else weights["mmt"], generator=generator,
             pre_ocr_streams=streams["pre_ocr"], extra_streams=streams["extra"],
@@ -227,7 +228,7 @@ class MMF_M4C(nn.Module):
         )
         ctx_ocr = context["ctx_out"][:, context["ocr_begin"]:context["ocr_end"]]
         state = self.mmt.init_fused_decode(context, self.max_iter, weights["mmt"])
-        fixed_ans_emb = self.classifier.weight
+        fixed_ans_emb = whole(self.classifier.weight)
         dec_table = self.mmt.build_dec_table(fixed_ans_emb, ocr_emb)
         ans_num = fixed_ans_emb.shape[0]
         ptr_keys = self.ocr_ptr_net.project_keys(ctx_ocr)

@@ -31,6 +31,7 @@ from torch import nn
 from ..builders import META_ARCHITECTURE
 from ..ops import _cuda
 from ..ops import decode_step as _ds
+from ..parallel.mesh import whole
 from .m4c_common import PrevPredEmbeddings, feature_box_encoding, l2_normalize
 from .mmf_m4c import _TORCH_LN_EPS, MMF_M4C
 from .modules.bert import LN_EPS, BertEmbeddings, BertEncoderStack
@@ -228,7 +229,7 @@ class _IterativeM4CBase(MMF_M4C):
         return enc["all_states"][i] if self.multilevel else enc["encoded"]
 
     def _scores_from_streams(self, enc, prev_inds, weights, generator=None):
-        dec = self.prev_pred_embeddings(self.classifier.weight, enc["ocr_emb"], prev_inds,
+        dec = self.prev_pred_embeddings(whole(self.classifier.weight), enc["ocr_emb"], prev_inds,
                                         generator=generator)
         dec_bias = causal_bias(dec.shape[1], dec.device)
         layer_weights = [None] * len(self.decoder.layer) if weights is None else weights["decoder"]
@@ -312,7 +313,7 @@ class _IterativeM4CBase(MMF_M4C):
         weights = self.kernel_weights()
         enc = self._encode_joint(batch, weights)
         state = self._init_dec_state(enc, weights["decoder"])
-        fixed_ans_emb = self.classifier.weight
+        fixed_ans_emb = whole(self.classifier.weight)
         table = self.prev_pred_embeddings.build_table(fixed_ans_emb, enc["ocr_emb"])
         ans_num = fixed_ans_emb.shape[0]
         ptr_keys = self.ocr_ptr_net.project_keys(

@@ -34,7 +34,7 @@ from torch import nn
 from ...ops import _cuda
 from ...ops import encoder_layer as _enc
 from .attentions import key_bias_rows
-from .bert import _matrix
+from .bert import _matrix, vector
 
 LN_EPS = 1e-12
 
@@ -100,11 +100,12 @@ class AlbertAttention(nn.Module):
         return {
             "wqkv": torch.cat([_matrix(self.query, dtype), _matrix(self.key, dtype),
                                _matrix(self.value, dtype)], dim=1),
-            "bqkv": torch.cat([self.query.bias, self.key.bias, self.value.bias]).detach().float(),
+            "bqkv": torch.cat([vector(self.query.bias), vector(self.key.bias),
+                              vector(self.value.bias)]),
             "wo": _matrix(self.dense, dtype),
-            "bo": self.dense.bias.detach().float(),
-            "ln_scale": self.LayerNorm.weight.detach().float(),
-            "ln_bias": self.LayerNorm.bias.detach().float(),
+            "bo": vector(self.dense.bias),
+            "ln_scale": vector(self.LayerNorm.weight),
+            "ln_bias": vector(self.LayerNorm.bias),
         }
 
     def forward(self, hidden, key_bias, weights):

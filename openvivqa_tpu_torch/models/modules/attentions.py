@@ -44,7 +44,7 @@ from ...builders import META_ATTENTION, build_attention
 from ...ops import _cuda
 from ...ops import decode_step as _ds
 from ...ops import fused_attention as _attn
-from .bert import dropout
+from .bert import dropout, vector
 from .ffn import LN_EPS, matrix
 from .masks import MASK_VALUE, box_relational_embedding
 
@@ -316,17 +316,17 @@ class MultiHeadAttention(nn.Module):
         core = self.attention
         dtype = dtype or _cuda.kernel_dtype(core.fc_q.weight.device)
         out = {
-            "wo": matrix(core.fc_o, dtype), "bo": core.fc_o.bias.detach().float(),
-            "ln_scale": self.layer_norm.weight.detach().float(),
-            "ln_bias": self.layer_norm.bias.detach().float(),
+            "wo": matrix(core.fc_o, dtype), "bo": vector(core.fc_o.bias),
+            "ln_scale": vector(self.layer_norm.weight),
+            "ln_bias": vector(self.layer_norm.bias),
         }
         if self.can_be_stateful:
             projections = (core.fc_q, core.fc_k, core.fc_v)
             out["wqkv"] = torch.cat([matrix(p, dtype) for p in projections], dim=1)
-            out["bqkv"] = torch.cat([p.bias for p in projections]).detach().float()
+            out["bqkv"] = torch.cat([vector(p.bias) for p in projections])
         else:
             out["wq"] = matrix(core.fc_q, dtype)
-            out["bq"] = core.fc_q.bias.detach().float()
+            out["bq"] = vector(core.fc_q.bias)
         return out
 
     def _require_cached_core(self) -> None:

@@ -50,12 +50,19 @@ from ...ops import _cuda
 from ...ops import decode_step as _ds
 from ...ops import encoder_layer as _enc
 from ...ops import fused_attention as _attn
+from ...parallel.mesh import whole
 
 LN_EPS = 1e-12
 
 
 def _matrix(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return linear.weight.detach().t().to(dtype).contiguous()
+    """A Linear's weight, whole, as the (in, out) matrix the kernels read."""
+    return whole(linear.weight).detach().t().to(dtype).contiguous()
+
+
+def vector(param: torch.Tensor) -> torch.Tensor:
+    """A bias or LayerNorm parameter, whole, as the float32 vector the kernels read."""
+    return whole(param).detach().float()
 
 
 def init_jax_law_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -139,11 +146,11 @@ class BertSelfAttention(nn.Module):
         return {
             "wqkv": torch.cat([_matrix(p.query, dtype), _matrix(p.key, dtype),
                                _matrix(p.value, dtype)], dim=1),
-            "bqkv": torch.cat([p.query.bias, p.key.bias, p.value.bias]).detach().float(),
+            "bqkv": torch.cat([vector(p.query.bias), vector(p.key.bias), vector(p.value.bias)]),
             "wo": _matrix(self.output.dense, dtype),
-            "bo": self.output.dense.bias.detach().float(),
-            "ln_scale": self.output.LayerNorm.weight.detach().float(),
-            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+            "bo": vector(self.output.dense.bias),
+            "ln_scale": vector(self.output.LayerNorm.weight),
+            "ln_bias": vector(self.output.LayerNorm.bias),
         }
 
     @torch.no_grad()
@@ -152,11 +159,11 @@ class BertSelfAttention(nn.Module):
         projected once per sequence) and the out projection + LayerNorm."""
         return {
             "wq": _matrix(self.self.query, dtype),
-            "bq": self.self.query.bias.detach().float(),
+            "bq": vector(self.self.query.bias),
             "wo": _matrix(self.output.dense, dtype),
-            "bo": self.output.dense.bias.detach().float(),
-            "ln_scale": self.output.LayerNorm.weight.detach().float(),
-            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+            "bo": vector(self.output.dense.bias),
+            "ln_scale": vector(self.output.LayerNorm.weight),
+            "ln_bias": vector(self.output.LayerNorm.bias),
         }
 
     def project_kv(self, states: torch.Tensor):
@@ -236,11 +243,11 @@ class BertLayer(nn.Module):
     def ffn_kernel_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         return {
             "w1": _matrix(self.intermediate.dense, dtype),
-            "b1": self.intermediate.dense.bias.detach().float(),
+            "b1": vector(self.intermediate.dense.bias),
             "w2": _matrix(self.output.dense, dtype),
-            "b2": self.output.dense.bias.detach().float(),
-            "ln_scale": self.output.LayerNorm.weight.detach().float(),
-            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+            "b2": vector(self.output.dense.bias),
+            "ln_scale": vector(self.output.LayerNorm.weight),
+            "ln_bias": vector(self.output.LayerNorm.bias),
         }
 
     def project_kv(self, states):

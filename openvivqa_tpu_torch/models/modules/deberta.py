@@ -42,7 +42,8 @@ from ...ops import _cuda
 from ...ops import decode_step as _ds
 from ...ops import fused_attention as _attn
 from .albert import init_lecun_law_
-from .bert import _matrix
+from ...parallel.mesh import whole
+from .bert import _matrix, vector
 
 
 def make_log_bucket_position(relative_pos: np.ndarray, bucket_size: int,
@@ -155,11 +156,11 @@ class DebertaV2Layer(nn.Module):
     def ffn_kernel_weights(self, dtype: torch.dtype):
         return {
             "w1": _matrix(self.intermediate.dense, dtype),
-            "b1": self.intermediate.dense.bias.detach().float(),
+            "b1": vector(self.intermediate.dense.bias),
             "w2": _matrix(self.output.dense, dtype),
-            "b2": self.output.dense.bias.detach().float(),
-            "ln_scale": self.output.LayerNorm.weight.detach().float(),
-            "ln_bias": self.output.LayerNorm.bias.detach().float(),
+            "b2": vector(self.output.dense.bias),
+            "ln_scale": vector(self.output.LayerNorm.weight),
+            "ln_bias": vector(self.output.LayerNorm.bias),
         }
 
     def ffn(self, hidden):
@@ -255,7 +256,7 @@ class DebertaV2EncoderStack(nn.Module):
             mask = (attention_bias[:, 0, 0, :] == 0).to(hidden.dtype)[..., None]
             hidden = hidden * mask
         encoder = self.encoder
-        rel_embeddings = encoder.rel_embeddings.weight
+        rel_embeddings = whole(encoder.rel_embeddings.weight)
         if hasattr(encoder, "LayerNorm"):
             rel_embeddings = encoder.LayerNorm(rel_embeddings)
         relative_pos = self.relative_position(token_ids.shape[1], hidden.device)

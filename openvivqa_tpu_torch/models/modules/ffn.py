@@ -18,14 +18,15 @@ from torch import nn
 
 from ...ops import _cuda
 from ...ops import decode_step as _ds
-from .bert import dropout
+from ...parallel.mesh import whole
+from .bert import dropout, vector
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX package keeps
 
 
 def matrix(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """A Linear's weight as the (in, out) matrix the kernels read."""
-    return linear.weight.detach().t().to(dtype).contiguous()
+    """A Linear's weight, whole, as the (in, out) matrix the kernels read."""
+    return whole(linear.weight).detach().t().to(dtype).contiguous()
 
 
 class PositionWiseFeedForward(nn.Module):
@@ -42,10 +43,10 @@ class PositionWiseFeedForward(nn.Module):
         the card unless told otherwise), the vectors float32."""
         dtype = dtype or _cuda.kernel_dtype(self.fc1.weight.device)
         return {
-            "w1": matrix(self.fc1, dtype), "b1": self.fc1.bias.detach().float(),
-            "w2": matrix(self.fc2, dtype), "b2": self.fc2.bias.detach().float(),
-            "ln_scale": self.layer_norm.weight.detach().float(),
-            "ln_bias": self.layer_norm.bias.detach().float(),
+            "w1": matrix(self.fc1, dtype), "b1": vector(self.fc1.bias),
+            "w2": matrix(self.fc2, dtype), "b2": vector(self.fc2.bias),
+            "ln_scale": vector(self.layer_norm.weight),
+            "ln_bias": vector(self.layer_norm.bias),
         }
 
     def decode_step(self, rows: torch.Tensor, weights: Dict[str, torch.Tensor]) -> torch.Tensor:

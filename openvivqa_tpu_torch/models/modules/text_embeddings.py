@@ -20,6 +20,7 @@ from torch import nn
 
 from ...builders import META_TEXT_EMBEDDING
 from ...ops.gather import take_rows, take_rows_shared
+from ...parallel.mesh import whole
 from .bert import dropout
 from .masks import causal_bias, padding_bias
 
@@ -167,7 +168,7 @@ class DynamicEmbedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor, oov_features: torch.Tensor, generator=None):
         masks = _token_masks(tokens, self.padding_idx)
-        return split_embedding_lookup(self.fixed_weights, oov_features, tokens,
+        return split_embedding_lookup(whole(self.fixed_weights), oov_features, tokens,
                                       self.padding_idx), masks
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import fused_attention as _attn
+from ...parallel.mesh import whole
 
 LN_EPS = 1e-12  # ViTConfig.layer_norm_eps
 
@@ -116,9 +117,9 @@ class _PatchEmbeddings(nn.Module):
         p = self.patch
         rows = pixel_values[:, :height // p * p, :width // p * p].reshape(
             b, height // p, p, width // p, p, 3).permute(0, 1, 3, 5, 2, 4)
-        weight = self.projection.weight
+        weight = whole(self.projection.weight)
         return F.linear(rows.reshape(b, -1, 3 * p * p), weight.reshape(weight.shape[0], -1),
-                        self.projection.bias)
+                        whole(self.projection.bias))
 
 
 class _Embeddings(nn.Module):

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from ..builders import META_ARCHITECTURE, build_text_embedding
+from ..parallel.mesh import whole
 from .m4c_common import OcrPtrNet, l2_normalize
 from .mmf_m4c import _TORCH_LN_EPS, resolve_decoding_mode
 from .modules.bert import BertEmbeddings, BertEncoderStack, dropout
@@ -129,7 +130,7 @@ class M4C(nn.Module):
     def _scores_from_streams(self, streams, prev_inds, weights, generator=None):
         (obj_emb, obj_bias), (ocr_emb, ocr_bias), (q_emb, q_bias) = streams
         ans_emb, (ans_bias, _) = self.dynamic_embedding(prev_inds, ocr_emb,
-                                                        self.vocab_proj.weight)
+                                                        whole(self.vocab_proj.weight))
         joint = torch.cat([obj_emb, ocr_emb, q_emb, ans_emb], dim=1)
         ans_len = ans_emb.shape[1]
         # the answer block holds the causal mask alone (answer padding dropped there)
@@ -194,8 +195,9 @@ class M4C(nn.Module):
         bs = batch["question_tokens"].shape[0]
         bos = torch.full((bs,), self.bos_idx, dtype=torch.long, device=ctx.device)
         token, all_scores = bos, []
+        fixed_rows = whole(self.vocab_proj.weight)
         for step in range(self.max_iter):
-            dec_emb, _ = self.dynamic_embedding(token[:, None], ocr_emb, self.vocab_proj.weight)
+            dec_emb, _ = self.dynamic_embedding(token[:, None], ocr_emb, fixed_rows)
             out = self.encoder.fused_decode_step(dec_emb, state, step)
             scores = torch.cat([self.vocab_proj(out),
                                 self.dynamic_network.score(out, ptr_keys, ocr_bias)],

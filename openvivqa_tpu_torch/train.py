@@ -9,6 +9,17 @@ each global batch (DDP; ``TRAINING.MESH.FSDP=true`` shards the model):
 
     torchrun --nproc_per_node N -m openvivqa_tpu_torch.train \
         --config-file configs/mmf_m4c.yaml --opts TRAINING.MESH.FSDP=true
+
+With ``TRAINING.MESH.MODEL_PARALLEL=2`` the N processes form a (data, model)
+grid of N / 2 x 2: the large weights are split over the two model ranks of
+each data group (tensor parallelism), which read the same batches; with
+``TRAINING.MESH.FSDP=true`` as well, FSDP2 shards them over the data groups:
+
+    torchrun --nproc_per_node N -m openvivqa_tpu_torch.train \
+        --config-file configs/mmf_m4c.yaml --opts TRAINING.MESH.MODEL_PARALLEL=2
+    torchrun --nproc_per_node N -m openvivqa_tpu_torch.train \
+        --config-file configs/mmf_m4c.yaml \
+        --opts TRAINING.MESH.MODEL_PARALLEL=2 TRAINING.MESH.FSDP=true
 """
 
 from __future__ import annotations

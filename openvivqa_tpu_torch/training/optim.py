@@ -11,7 +11,7 @@ the lambda, as the reference's tasks do, so
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch.optim.lr_scheduler import LambdaLR
@@ -30,7 +30,9 @@ def constant_lambda(base_lr: float) -> Callable[[int], float]:
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float,
-                   factor: Callable[[int], float]):
-    """(Adam, LambdaLR): call the schedule's step() after each optimizer step."""
-    optimizer = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.98), eps=1e-8)
+                   factor: Callable[[int], float], foreach: Optional[bool] = None):
+    """(Adam, LambdaLR): call the schedule's step() after each optimizer step.
+    `foreach` is Adam's (None: torch's default for the device)."""
+    optimizer = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.98), eps=1e-8,
+                                 foreach=foreach)
     return optimizer, LambdaLR(optimizer, factor)

@@ -6,14 +6,17 @@ and checkpoints.
 Counterpart of ``openvivqa_tpu/training/tasks/base_task.py``, the
 pretrained-weights policy included (``models/modules/pretrained_loading.py``,
 applied to every model it builds).  Scale-out follows the same keys:
-TRAINING.MESH (or more than one process) wraps the model for training in DDP,
-or with ``MESH.FSDP`` shards it with FSDP2 (``parallel/mesh.py``); every
-training loss is computed inside :meth:`BaseTask.train_forward`, and eval
-reads whole weights inside :meth:`BaseTask.eval_weights`.  Each process folds its
-rank into the generator's seed (``SEED + rank * 7919``, the JAX kernels'
-shard fold), so rank 0 draws the single-process stream and no two ranks draw
-the same dropout masks.  TRAINING.REMAT recomputes each layer's activations
-in the backward (:func:`checkpoint_layers`).
+TRAINING.MESH (or more than one process) lays the processes out on a (data,
+model) mesh: with ``MESH.MODEL_PARALLEL`` > 1 the chosen weights are split over
+``model`` (tensor parallelism), and the model is wrapped for training in DDP
+over ``data``, or with ``MESH.FSDP`` sharded with FSDP2 (``parallel/mesh.py``);
+every training loss is computed inside :meth:`BaseTask.train_forward`, and
+eval reads whole weights inside :meth:`BaseTask.eval_weights`.  Each process
+folds its data coordinate into the generator's seed (``SEED + data_index *
+7919``, the JAX kernels' shard fold), so rank 0 draws the single-process
+stream, the model ranks of one data group draw the same dropout masks and no
+two data groups draw the same ones.  TRAINING.REMAT recomputes each layer's
+activations in the backward (:func:`checkpoint_layers`).
 """
 
 from __future__ import annotations
@@ -39,14 +42,21 @@ from ...models.modules.bert import init_jax_law_
 from ...models.modules.pretrained_loading import apply_pretrained_policy
 from ...parallel.mesh import (
     TrainForward,
+    apply_tensor_parallel,
+    average_gradients,
+    data_count,
+    data_index,
+    data_shard,
     full_weights,
     get_mesh,
     get_mesh_2d,
     layer_modules,
+    model_count,
     reached_parameters,
+    whole_parameters,
     wrap_for_training,
 )
-from ...parallel.multihost import is_primary, process_count, process_index
+from ...parallel.multihost import is_primary, process_count
 from ...utils.instance import Batch
 from ..checkpoint import (
     LAST_NAME,
@@ -62,9 +72,9 @@ from ..optim import make_optimizer, noam_lambda
 
 logger = setup_logger()
 
-# each rank's generator seed is SEED + rank * RANK_SEED_STRIDE, the fold by which
-# each shard of the JAX package's dropout kernel offsets its seed
-# (openvivqa_tpu/ops/fused_attention.py: seed + axis_index * 7919)
+# each rank's generator seed is SEED + data_index * RANK_SEED_STRIDE, the fold by
+# which each data shard of the JAX package's dropout kernel offsets its seed
+# (openvivqa_tpu/ops/fused_attention.py: seed + axis_index("data") * 7919)
 RANK_SEED_STRIDE = 7919
 
 
@@ -130,19 +140,26 @@ class BaseTask:
 
         logger.info("Building model on %s", self.device)
         self.model = self.build_model(params).to(self.device).eval()
+        self.setup_mesh(config.TRAINING.get("MESH"))
         # every dropout of the training route draws from this generator, the
         # dropout kernels' seeds included; never from the global RNG
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(config.TRAINING.get("SEED", 42)) + process_index() * RANK_SEED_STRIDE
+            int(config.TRAINING.get("SEED", 42)) + data_index(self.mesh) * RANK_SEED_STRIDE
         )
         if config.TRAINING.get("REMAT"):
             checkpoint_layers(self.model, self.generator)
-        self.setup_parallel(config.TRAINING.get("MESH"))
+        self.setup_parallel()
         self.configuring_hyperparameters(config)
-        # after the wrap: FSDP replaces the parameters by their shards
+        # after the wrap: tensor parallelism and FSDP replace the parameters
+        # by DTensors; torch's foreach kernels take no mix of DTensors and
+        # plain tensors, so a model axis steps Adam one parameter at a time
         self.optimizer, self.scheduler = make_optimizer(
-            self.model.parameters(), config.TRAINING.LEARNING_RATE, self.lr_lambda()
+            self.model.parameters(), config.TRAINING.LEARNING_RATE, self.lr_lambda(),
+            foreach=False if self.tensor_parallel else None,
         )
+        if self.tensor_parallel and not self.fsdp and data_count(self.mesh) > 1:
+            average_gradients(self.optimizer, self.mesh.get_group("data"),
+                              data_count(self.mesh))
         self.epoch = 0
 
     # -- hooks -------------------------------------------------------------------
@@ -163,22 +180,37 @@ class BaseTask:
         return noam_lambda(d_model, self.config.TRAINING.WARMUP)
 
     # -- scale-out -------------------------------------------------------------------
-    def setup_parallel(self, mesh_config) -> None:
-        """TRAINING.MESH {MODEL_PARALLEL, FSDP}: the mesh and the training
-        wrapper (FSDP at once; DDP at the first training forward, which tells
-        it whether the loss leaves parameters unread).  One process with no
-        MESH keeps the bare model."""
-        self.mesh, self.wrapper, self.fsdp = None, None, False
+    def setup_mesh(self, mesh_config) -> None:
+        """TRAINING.MESH {MODEL_PARALLEL, FSDP}: the (data, model) mesh (a
+        ``data`` mesh over the group for more than one process without a
+        MESH).  One process with no MESH has none."""
+        self.mesh, self.wrapper = None, None
         mesh_config = mesh_config or {}
+        self.fsdp = bool(mesh_config.get("FSDP"))
         if not mesh_config and process_count() == 1:
             return
         if mesh_config:
             self.mesh = get_mesh_2d(int(mesh_config.get("MODEL_PARALLEL", 1)), self.device)
         else:
             self.mesh = get_mesh(self.device)
-        self.fsdp = bool(mesh_config.get("FSDP"))
         logger.info("Device mesh: %s (fsdp=%s)", dict(zip(self.mesh.mesh_dim_names,
                                                           self.mesh.shape)), self.fsdp)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return model_count(self.mesh) > 1
+
+    def setup_parallel(self) -> None:
+        """Tensor parallelism over ``model`` first, then the data wrapper:
+        FSDP at once (FSDP2's 2-D composition over the tensor-parallel
+        DTensors); DDP at the first training forward, which tells it whether
+        the loss leaves parameters unread, where there is no model axis (DDP
+        takes no DTensor: with one, ``average_gradients`` averages over
+        ``data``)."""
+        if self.tensor_parallel:
+            placed = apply_tensor_parallel(self.model, self.mesh)
+            logger.info("Tensor parallelism: %d parameters placed as DTensors on %d model ranks",
+                        len(placed), model_count(self.mesh))
         if self.fsdp:
             self.wrapper = wrap_for_training(TrainForward(self.model), self.mesh, fsdp=True)
 
@@ -204,18 +236,25 @@ class BaseTask:
         the DDP or FSDP wrapper's forward when there is one: there DDP sets its
         gradients to be averaged over the data axis, and FSDP gathers the
         weights."""
-        if self.mesh is None:
+        if self.mesh is None or (self.tensor_parallel and not self.fsdp):
             return fn(*args)
         if self.wrapper is None:
             self.wrapper = self._wrap_ddp(fn, args)
         return self.wrapper(fn, *args)
 
+    @contextlib.contextmanager
     def eval_weights(self):
-        """A context: under FSDP, the whole weights for the eval route, whose
-        decodes and kernel bundles read them outside any forward
-        (``parallel.mesh.full_weights``; every rank enters together);
-        otherwise nothing."""
-        return full_weights(self.wrapper) if self.fsdp else contextlib.nullcontext()
+        """A context: the whole weights for the eval route, whose decodes and
+        kernel bundles read them outside any forward: under FSDP gathered over
+        ``data`` (``parallel.mesh.full_weights``), under tensor parallelism
+        over ``model`` (``parallel.mesh.whole_parameters``), so that the eval
+        computes as one process does; every rank enters together."""
+        with contextlib.ExitStack() as stack:
+            if self.fsdp:
+                stack.enter_context(full_weights(self.wrapper))
+            if self.tensor_parallel:
+                stack.enter_context(whole_parameters(self.model))
+            yield
 
     # -- setup ---------------------------------------------------------------------
     def build_model(self, params: Optional[Mapping[str, Any]]):
@@ -279,11 +318,12 @@ class BaseTask:
         """Global sample key for eval dicts: the question_id when present
         (the same on every process, so gather_eval_dicts merges the batches
         that loader sharding repeats at an uneven tail), else a
-        process-unique (process, iteration, row) triple."""
+        (data shard, iteration, row) triple: the model ranks of one data group
+        score the same batches, whose copies land on one key."""
         qids = batch.get("question_id")
         if qids is not None:
             return f"q{qids[i]}"
-        return f"h{process_index()}_{it}_{i}"
+        return f"h{data_shard()[1]}_{it}_{i}"
 
     # -- observability ---------------------------------------------------------------
     @property
@@ -314,7 +354,9 @@ class BaseTask:
     def save_checkpoint(self, extras: Dict[str, Any]) -> None:
         """last_model.pth: model, optimizer and schedule state, the generator's
         state (the dropout stream resumes exactly; under a process group every
-        rank's) and metadata.  Every process calls it; the primary writes."""
+        rank's, with the mesh's (data, model) shape) and metadata.  Every
+        process calls it; the primary writes the whole state (gathered from
+        the shards under FSDP or a model axis)."""
         path = os.path.join(self.checkpoint_path, LAST_NAME)
         host = {
             "scheduler": self.scheduler.state_dict(),
@@ -324,13 +366,22 @@ class BaseTask:
         if process_count() > 1:
             states = [None] * process_count()
             dist.all_gather_object(states, self.generator.get_state())
+            model_ranks = model_count(self.mesh)
+            for rank, state in enumerate(states):
+                # row-major: rank r is model rank r % mp of data group r // mp
+                if not torch.equal(state, states[rank - rank % model_ranks]):
+                    raise RuntimeError(
+                        f"rank {rank}'s generator left its data group's stream: the model "
+                        "ranks of one data group must draw the same dropout masks")
             host["generator_by_rank"] = states
+            host["generator_layout"] = (data_count(self.mesh), model_ranks)
         if sharded_backend():
             root = self.wrapper if self.fsdp else TrainForward(self.model)
             save_sharded(path, root, self.optimizer, host)
             return
-        if self.fsdp:
-            model, optimizer = full_state(self.wrapper, self.optimizer, self._parameter_names())
+        if self.fsdp or self.tensor_parallel:
+            root = self.wrapper if self.fsdp else TrainForward(self.model)
+            model, optimizer = full_state(root, self.optimizer, self._parameter_names())
         else:
             model, optimizer = self.model.state_dict(), self.optimizer.state_dict()
         save_checkpoint(path, {"model": model, "optimizer": optimizer, **host})
@@ -338,11 +389,12 @@ class BaseTask:
             dist.barrier()
 
     def load_checkpoint(self, fname: str) -> Optional[Dict[str, Any]]:
-        """Restore the state save_checkpoint wrote, sharded again onto this
-        run's layout under FSDP; its metadata, or None when there is no file.
-        Each rank takes its own generator state when the checkpoint holds one
-        per rank of this world size; otherwise rank 0 takes the saved one and
-        the others keep their fresh folded seeds."""
+        """Restore the state save_checkpoint wrote, placed again onto this
+        run's layout under FSDP or a model axis (whatever the layout that
+        wrote it); its metadata, or None when there is no file.  Each rank
+        takes its data group's generator state when the checkpoint was written
+        by as many data groups; otherwise data group 0 takes the saved primary
+        one and the others keep their fresh folded seeds."""
         payload = load_checkpoint(fname)
         if payload is None:
             return None
@@ -350,17 +402,19 @@ class BaseTask:
         if "model" not in payload:  # the sharded backend
             root = self.wrapper if self.fsdp else TrainForward(self.model)
             load_sharded(fname, root, self.optimizer)
-        elif self.fsdp:
-            load_full_state(self.wrapper, self.optimizer, self._parameter_names(),
+        elif self.fsdp or self.tensor_parallel:
+            root = self.wrapper if self.fsdp else TrainForward(self.model)
+            load_full_state(root, self.optimizer, self._parameter_names(),
                             payload["model"], payload["optimizer"])
         else:
             self.model.load_state_dict(payload["model"])
             self.optimizer.load_state_dict(payload["optimizer"])
         self.scheduler.load_state_dict(payload["scheduler"])
         by_rank = payload.get("generator_by_rank")
-        if by_rank is not None and len(by_rank) == process_count():
-            self.generator.set_state(by_rank[process_index()])
-        elif process_index() == 0:
+        groups, model_ranks = payload.get("generator_layout", (len(by_rank or ()), 1))
+        if by_rank is not None and groups == data_count(self.mesh):
+            self.generator.set_state(by_rank[data_index(self.mesh) * model_ranks])
+        elif data_index(self.mesh) == 0:
             self.generator.set_state(payload["generator"])
         return payload["metadata"]
 

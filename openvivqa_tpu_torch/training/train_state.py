@@ -3,9 +3,11 @@
 
 Under a process group each loss is the masked mean over the GLOBAL batch, as
 the JAX step over a data mesh is one step over the global batch: the
-denominator is summed over every process, and each process's share is scaled
-so that the mean of the processes' gradients (DDP's and FSDP's reduction) is
-the gradient of the global mean.  The value returned is the global loss.
+denominator is summed over the data groups (``parallel.mesh.data_shard``; the
+model ranks of one group hold the same rows, which count once), and each
+group's share is scaled so that the mean of the groups' gradients (the
+reduction over ``data``) is the gradient of the global mean.  The value
+returned is the global loss.
 """
 
 from __future__ import annotations
@@ -15,20 +17,20 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..parallel.multihost import process_count
+from ..parallel.mesh import data_group, data_shard
 
 
 def masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """total / max(count, 1) over the whole batch: with one process the local
-    quotient; under a process group `count` (and, for the value, `total`) is
-    summed over the processes in one all-reduce of detached values, and the
-    gradient is that of world * total / global count, which the gradient
+    """total / max(count, 1) over the whole batch: with one data group the
+    local quotient; over several `count` (and, for the value, `total`) is
+    summed over the data groups in one all-reduce of detached values, and the
+    gradient is that of groups * total / global count, which the gradient
     reduction averages into the global mean's."""
-    world = process_count()
+    world = data_shard()[0]
     if world == 1:
         return total / count.clamp(min=1.0)
     sums = torch.stack([total.detach(), count.detach().to(total.dtype)])
-    dist.all_reduce(sums)
+    dist.all_reduce(sums, group=data_group())
     global_count = sums[1].clamp(min=1.0)
     scaled = total * (world / global_count)
     return scaled + (sums[0] / global_count - scaled).detach()
@@ -55,7 +57,7 @@ def bce_with_logits_loss(scores: torch.Tensor, targets: torch.Tensor,
     one_hot = torch.nn.functional.one_hot(targets.long(), scores.shape[-1]).to(scores.dtype)
     losses = scores.clamp(min=0) - scores * one_hot + torch.log1p(torch.exp(-scores.abs()))
     if weights is None:
-        if process_count() == 1:
+        if data_shard()[0] == 1:
             return losses.mean()
         return masked_mean(losses.sum(), torch.tensor(float(losses.numel()), device=losses.device))
     weights = weights.to(scores.dtype)[:, None]

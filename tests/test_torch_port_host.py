@@ -50,6 +50,70 @@ def test_walk_covers_the_scale_out_modules():
         assert f"openvivqa_tpu_torch/{name}" in walked, name
 
 
+def test_walk_covers_the_tensor_parallel_code():
+    """The walk above reads the module that holds tensor parallelism (the
+    placement rule, the DTensor placement, whole() and the eval swap) and
+    every module that reads a weight through whole()."""
+    walked = {str(path.relative_to(ROOT)): path for path in PORT_FILES}
+    mesh = walked["openvivqa_tpu_torch/parallel/mesh.py"]
+    defined = {node.name for node in ast.walk(ast.parse(mesh.read_text()))
+               if isinstance(node, ast.FunctionDef)}
+    assert {"param_placement", "apply_tensor_parallel", "whole", "whole_parameters",
+            "average_gradients", "data_index", "data_count", "data_shard"} <= defined
+    readers = {name for name, path in walked.items()
+               if any(isinstance(node, ast.ImportFrom)
+                      and (node.module or "").endswith("parallel.mesh")
+                      for node in ast.walk(ast.parse(path.read_text())))}
+    for name in ("models/modules/bert.py", "models/modules/ffn.py", "models/modules/deberta.py",
+                 "models/modules/vit.py", "models/mmf_m4c.py", "models/mmf_variants.py",
+                 "models/standalone_m4c.py", "models/modules/text_embeddings.py",
+                 "training/train_state.py", "data/loader.py"):
+        assert f"openvivqa_tpu_torch/{name}" in readers, name
+
+
+def test_tensor_parallel_code_imports_no_jax():
+    """In a fresh interpreter, the mesh module with tensor parallelism (a
+    one-process gloo group, a (1, 1) mesh, a DTensor made whole, the placement
+    rule, the eval swap) and the task layer import no jax and nothing of the
+    JAX package."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    code = """
+import os, sys
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=sys.argv[1], RANK="0", WORLD_SIZE="1")
+import torch
+from torch.distributed.tensor import Shard, distribute_tensor
+from openvivqa_tpu_torch.parallel import mesh, multihost
+from openvivqa_tpu_torch.training.tasks import base_task
+from openvivqa_tpu_torch import builders
+builders.populate()
+multihost.initialize("cpu", required=True)
+grid = mesh.get_mesh_2d(1, "cpu")
+linear = torch.nn.Linear(8, 4)
+linear.weight = torch.nn.Parameter(distribute_tensor(linear.weight.detach(), grid["model"],
+                                                     [Shard(0)]))
+assert torch.equal(mesh.whole(linear.weight), linear.weight.full_tensor())
+with mesh.whole_parameters(linear):
+    assert type(linear.weight) is torch.nn.Parameter
+assert mesh.param_placement(linear, "weight", linear.weight, 2) == Shard(0)
+assert mesh.data_shard() == (1, 0)
+multihost.finalize()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "openvivqa_tpu"))
+assert not bad, bad
+print("clean")
+"""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    done = subprocess.run([sys.executable, "-c", code, str(port)], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0 and done.stdout.strip().endswith("clean"), done.stderr[-2000:]
+
+
 def _dataset_config(paths, kind):
     return ConfigNode({
         "TYPE": kind, "BATCH_SIZE": 8, "MAX_SCENE_TEXT": 8, "SCENE_TEXT_THRESHOLD": 0.3,

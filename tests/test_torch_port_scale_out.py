@@ -1,7 +1,8 @@
 """The port's scale-out on the CPU: DDP and FSDP training in two gloo
 processes, SCST's re-run under DDP, a model with unread parameters under DDP,
-TRAINING.REMAT with dropout on, and the refusal of tensor parallelism, on
-narrow MMF_M4C (TrainingMMF) and SAAA (ClassificationTask) tasks.
+TRAINING.REMAT with dropout on, and the refusal of a model axis that does not
+divide the world, on narrow MMF_M4C (TrainingMMF) and SAAA
+(ClassificationTask) tasks.
 
 A data-parallel step over a global batch is the JAX package's one step over
 that batch on its data mesh: each rank here takes its round-robin share of
@@ -419,11 +420,11 @@ def test_remat_keeps_gradients_and_the_generator_stream(synthetic_data, tmp_path
 
 
 # -- tensor parallelism -----------------------------------------------------------------------------
-def test_model_parallel_mesh_is_refused(synthetic_data, tmp_path):
-    """MESH.MODEL_PARALLEL 2 raises NotImplementedError naming ROADMAP,
-    before anything needs a process group: no run falls back to data
-    parallelism."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_model_parallel_that_does_not_divide_the_world_is_refused(synthetic_data, tmp_path):
+    """MESH.MODEL_PARALLEL 2 in a world of one process raises the JAX
+    package's message, before anything needs a process group: no run falls
+    back to fewer model ranks or to data parallelism."""
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
         build(mmf_m4c_config(synthetic_data, tmp_path, MESH={"MODEL_PARALLEL": 2}))
 
 
