@@ -1559,7 +1559,7 @@ def run_generative(task, failures):
     n_batches = len(task.dev_dict_dataloader)
     steps = task.vocab.max_answer_length
     n_layers = len(task.model.decoder.layers)
-    launches = {name: 0 for name in _cuda.LAUNCHES}
+    launches = {name: 0 for name in _cuda.WRAPPERS}
 
     def timed_eval():
         torch.cuda.synchronize()
@@ -1792,7 +1792,7 @@ def run_iterative(tasks, config, paths, tmp, seed, failures):
     from openvivqa_tpu_torch.data.synthetic import generate_synthetic_dataset
     from openvivqa_tpu_torch.ops import _cuda
 
-    launches = {name: 0 for name in _cuda.LAUNCHES}
+    launches = {name: 0 for name in _cuda.WRAPPERS}
 
     def add(counts):
         for name, n in counts.items():
@@ -2284,7 +2284,7 @@ def run_joint_transformer(task, seed, failures):
         f"public / {len(task.private_test_dict_dataset)} private samples; joint stream of {keys} "
         f"keys (regions, region boxes, grids, grid boxes, question), {steps} answer steps, "
         f"{rows} decode rows")
-    launches = {name: 0 for name in _cuda.LAUNCHES}
+    launches = {name: 0 for name in _cuda.WRAPPERS}
     generate(model, batch, beam)  # the allocator's first growth, outside the counted runs
     torch.cuda.synchronize()
 
@@ -2579,7 +2579,7 @@ def exact_launches(**given) -> dict:
     """Every kernel's launch count: those given, none of the others."""
     from openvivqa_tpu_torch.ops import _cuda
 
-    return {name: given.get(name, 0) for name in _cuda.LAUNCHES}
+    return {name: given.get(name, 0) for name in _cuda.WRAPPERS}
 
 
 def exact_eval(task, label, failures, want):
@@ -4940,7 +4940,7 @@ def run_phase16(config, beam_config, tmp, failures, smi, device="cuda"):
             if proc.is_alive():
                 proc.terminate()
                 proc.join(timeout=10)
-    launches = {name: 0 for name in _cuda.LAUNCHES}
+    launches = {name: 0 for name in _cuda.WRAPPERS}
     if errors:
         failures.append("[phase 16] " + " | ".join(errors))
         return launches
@@ -5107,7 +5107,7 @@ def main() -> int:
         # 4. the eval path in both decode modes
         start = time.perf_counter()
         log("main path, eval: TrainingMMF.evaluate_metrics over the dev split")
-        launches = {name: 0 for name in _cuda.LAUNCHES}
+        launches = {name: 0 for name in _cuda.WRAPPERS}
         for mode, mode_task in tasks.items():
             expected = ["fused_ffn_step", "fused_encoder_self_attention",
                         "fused_bert_self_step" if mode == "incremental" else "fused_attention_packed"]

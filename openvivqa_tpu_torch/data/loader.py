@@ -3,9 +3,13 @@
 The port's copy of ``openvivqa_tpu/data/loader.py``: a thread pool hides the
 per-image `.npy` load latency, batches are collated to static shapes (see
 utils/instance.py), and the final partial batch is padded up to `batch_size`
-with a `sample_valid` mask.  Under ``torch.distributed`` each data group
-(``parallel.mesh.data_shard``: every process without a model axis) reads a
-disjoint round-robin share of the batches, wrap-padded to a common count.
+with a `sample_valid` mask.  Each batch carries a process-wide sequence
+number (``Batch.batch_id``), which the spans of ``utils.tracing`` that work on
+it record: the producer thread's ``data.batch`` (its ``data.load`` and
+``data.collate``) and the consumer's spans downstream.  Under
+``torch.distributed`` each data group (``parallel.mesh.data_shard``: every
+process without a model axis) reads a disjoint round-robin share of the
+batches, wrap-padded to a common count.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Iterator, Mapping, Optional
 import numpy as np
 
 from ..parallel.mesh import data_shard
+from ..utils import tracing
 from ..utils.instance import Batch, collate
 
 
@@ -84,18 +89,24 @@ class DataLoader:
         return indices
 
     def _make_batch(self, indices, pool) -> Batch:
-        samples = list(pool.map(self.dataset.__getitem__, indices))
-        batch_pad_to = (
-            self.batch_size
-            if (self.pad_last_batch and len(samples) < self.batch_size)
-            else None
-        )
-        return collate(
-            samples,
-            pad_to=self.pad_to,
-            pad_values=self.pad_values,
-            batch_pad_to=batch_pad_to,
-        )
+        batch_id = tracing.next_batch_id()
+        with tracing.span("data.batch", batch_id):
+            with tracing.span("data.load"):
+                samples = list(pool.map(self.dataset.__getitem__, indices))
+            batch_pad_to = (
+                self.batch_size
+                if (self.pad_last_batch and len(samples) < self.batch_size)
+                else None
+            )
+            with tracing.span("data.collate"):
+                batch = collate(
+                    samples,
+                    pad_to=self.pad_to,
+                    pad_values=self.pad_values,
+                    batch_pad_to=batch_pad_to,
+                )
+        batch.batch_id = batch_id
+        return batch
 
     def __iter__(self) -> Iterator[Batch]:
         order = self._order()

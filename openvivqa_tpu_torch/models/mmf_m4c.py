@@ -21,6 +21,7 @@ from torch import nn
 
 from ..builders import META_ARCHITECTURE
 from ..parallel.mesh import whole
+from ..utils import tracing
 from .m4c_common import (
     MMT,
     OcrPtrNet,
@@ -196,15 +197,17 @@ class MMF_M4C(nn.Module):
         incremental, the KV-cached decode instead."""
         if self.decoding_mode == "incremental":
             return self.incremental_greedy_decode(batch)
-        weights = self.kernel_weights()
-        streams = self._greedy_invariants(batch, weights)
-        bs = batch["question_tokens"].shape[0]
-        device = batch["question_tokens"].device
-        prev_inds = torch.zeros((bs, self.max_iter), dtype=torch.long, device=device)
-        prev_inds[:, 0] = self.bos_idx
+        with tracing.span("decode.encode"):
+            weights = self.kernel_weights()
+            streams = self._greedy_invariants(batch, weights)
+            bs = batch["question_tokens"].shape[0]
+            device = batch["question_tokens"].device
+            prev_inds = torch.zeros((bs, self.max_iter), dtype=torch.long, device=device)
+            prev_inds[:, 0] = self.bos_idx
         for step in range(self.max_iter):
-            scores = self._scores_from_streams(streams, prev_inds, weights)
-            prev_inds = self._update_prev_inds(prev_inds, scores, step)
+            with tracing.span("decode.step"):
+                scores = self._scores_from_streams(streams, prev_inds, weights)
+                prev_inds = self._update_prev_inds(prev_inds, scores, step)
         return {"scores": scores, "prev_inds": prev_inds}
 
     def _update_prev_inds(self, prev_inds, scores, step: int):
@@ -219,31 +222,33 @@ class MMF_M4C(nn.Module):
         """Encode [txt, obj, ocr] once, then one single-token step per position
         (kernels D and C) against read-only context K/V and in-place slot caches.
         Equal to the quadratic greedy under CONTEXT_BLIND."""
-        weights = self.kernel_weights()
-        streams = self._mmt_streams(batch, weights)
-        ocr_emb, ocr_bias = streams["ocr"]
-        context = self.mmt.encode_context(
-            *streams["txt"], *streams["obj"], *streams["ocr"], weights=weights["mmt"],
-            pre_ocr_streams=streams["pre_ocr"], extra_streams=streams["extra"],
-        )
-        ctx_ocr = context["ctx_out"][:, context["ocr_begin"]:context["ocr_end"]]
-        state = self.mmt.init_fused_decode(context, self.max_iter, weights["mmt"])
-        fixed_ans_emb = whole(self.classifier.weight)
-        dec_table = self.mmt.build_dec_table(fixed_ans_emb, ocr_emb)
-        ans_num = fixed_ans_emb.shape[0]
-        ptr_keys = self.ocr_ptr_net.project_keys(ctx_ocr)
+        with tracing.span("decode.encode"):
+            weights = self.kernel_weights()
+            streams = self._mmt_streams(batch, weights)
+            ocr_emb, ocr_bias = streams["ocr"]
+            context = self.mmt.encode_context(
+                *streams["txt"], *streams["obj"], *streams["ocr"], weights=weights["mmt"],
+                pre_ocr_streams=streams["pre_ocr"], extra_streams=streams["extra"],
+            )
+            ctx_ocr = context["ctx_out"][:, context["ocr_begin"]:context["ocr_end"]]
+            state = self.mmt.init_fused_decode(context, self.max_iter, weights["mmt"])
+            fixed_ans_emb = whole(self.classifier.weight)
+            dec_table = self.mmt.build_dec_table(fixed_ans_emb, ocr_emb)
+            ans_num = fixed_ans_emb.shape[0]
+            ptr_keys = self.ocr_ptr_net.project_keys(ctx_ocr)
 
         bs = batch["question_tokens"].shape[0]
         bos = torch.full((bs,), self.bos_idx, dtype=torch.long, device=ptr_keys.device)
         token, all_scores = bos, []
         for step in range(self.max_iter):
-            dec_emb = self.mmt.embed_step(dec_table, ans_num, token, step)
-            out = self.mmt.fused_decode_step(dec_emb, state, step)
-            fixed = self.classifier(out)
-            dynamic = self.ocr_ptr_net.score(out, ptr_keys, ocr_bias)
-            scores = torch.cat([fixed, dynamic], dim=-1)[:, 0]
-            token = scores.argmax(dim=-1)
-            all_scores.append(scores)
+            with tracing.span("decode.step"):
+                dec_emb = self.mmt.embed_step(dec_table, ans_num, token, step)
+                out = self.mmt.fused_decode_step(dec_emb, state, step)
+                fixed = self.classifier(out)
+                dynamic = self.ocr_ptr_net.score(out, ptr_keys, ocr_bias)
+                scores = torch.cat([fixed, dynamic], dim=-1)[:, 0]
+                token = scores.argmax(dim=-1)
+                all_scores.append(scores)
         scores = torch.stack(all_scores, dim=1)
         prev_inds = torch.cat([bos[:, None], scores[:, :-1].argmax(dim=-1)], dim=1)
         return {"scores": scores, "prev_inds": prev_inds}

@@ -32,6 +32,7 @@ from ..builders import META_ARCHITECTURE
 from ..ops import _cuda
 from ..ops import decode_step as _ds
 from ..parallel.mesh import whole
+from ..utils import tracing
 from .m4c_common import PrevPredEmbeddings, feature_box_encoding, l2_normalize
 from .mmf_m4c import _TORCH_LN_EPS, MMF_M4C
 from .modules.bert import LN_EPS, BertEmbeddings, BertEncoderStack
@@ -310,27 +311,29 @@ class _IterativeM4CBase(MMF_M4C):
         """One joint encode, then one token per step through the decoder
         layers against the frozen encoder K/V and the growing self-attention
         caches: equal to the quadratic greedy."""
-        weights = self.kernel_weights()
-        enc = self._encode_joint(batch, weights)
-        state = self._init_dec_state(enc, weights["decoder"])
-        fixed_ans_emb = whole(self.classifier.weight)
-        table = self.prev_pred_embeddings.build_table(fixed_ans_emb, enc["ocr_emb"])
-        ans_num = fixed_ans_emb.shape[0]
-        ptr_keys = self.ocr_ptr_net.project_keys(
-            enc["encoded"][:, enc["ocr_begin"]:enc["ocr_end"]])
+        with tracing.span("decode.encode"):
+            weights = self.kernel_weights()
+            enc = self._encode_joint(batch, weights)
+            state = self._init_dec_state(enc, weights["decoder"])
+            fixed_ans_emb = whole(self.classifier.weight)
+            table = self.prev_pred_embeddings.build_table(fixed_ans_emb, enc["ocr_emb"])
+            ans_num = fixed_ans_emb.shape[0]
+            ptr_keys = self.ocr_ptr_net.project_keys(
+                enc["encoded"][:, enc["ocr_begin"]:enc["ocr_end"]])
 
         bs = batch["question_tokens"].shape[0]
         bos = torch.full((bs,), self.bos_idx, dtype=torch.long, device=ptr_keys.device)
         token, all_scores = bos, []
         for step in range(self.max_iter):
-            dec = self.prev_pred_embeddings.embed_from_table(
-                table, ans_num, token[:, None], position_offset=step)
-            out = self._dec_step(state, dec, step)
-            scores = torch.cat([self.classifier(out),
-                                self.ocr_ptr_net.score(out, ptr_keys, enc["ocr_bias"])],
-                               dim=-1)[:, 0]
-            token = scores.argmax(dim=-1)
-            all_scores.append(scores)
+            with tracing.span("decode.step"):
+                dec = self.prev_pred_embeddings.embed_from_table(
+                    table, ans_num, token[:, None], position_offset=step)
+                out = self._dec_step(state, dec, step)
+                scores = torch.cat([self.classifier(out),
+                                    self.ocr_ptr_net.score(out, ptr_keys, enc["ocr_bias"])],
+                                   dim=-1)[:, 0]
+                token = scores.argmax(dim=-1)
+                all_scores.append(scores)
         scores = torch.stack(all_scores, dim=1)
         prev_inds = torch.cat([bos[:, None], scores[:, :-1].argmax(dim=-1)], dim=1)
         return {"scores": scores, "prev_inds": prev_inds}

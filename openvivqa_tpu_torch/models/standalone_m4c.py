@@ -38,6 +38,7 @@ from torch import nn
 
 from ..builders import META_ARCHITECTURE, build_text_embedding
 from ..parallel.mesh import whole
+from ..utils import tracing
 from .m4c_common import OcrPtrNet, l2_normalize
 from .mmf_m4c import _TORCH_LN_EPS, resolve_decoding_mode
 from .modules.bert import BertEmbeddings, BertEncoderStack, dropout
@@ -164,15 +165,17 @@ class M4C(nn.Module):
         DECODING_MODE incremental, the KV-cached decode instead."""
         if self.decoding_mode == "incremental":
             return self.incremental_greedy_decode(batch)
-        weights = self.kernel_weights()
-        streams = self._streams(batch, weights)
-        bs = batch["question_tokens"].shape[0]
-        prev_inds = torch.full((bs, self.max_iter), self.padding_idx, dtype=torch.long,
-                               device=batch["question_tokens"].device)
-        prev_inds[:, 0] = self.bos_idx
+        with tracing.span("decode.encode"):
+            weights = self.kernel_weights()
+            streams = self._streams(batch, weights)
+            bs = batch["question_tokens"].shape[0]
+            prev_inds = torch.full((bs, self.max_iter), self.padding_idx, dtype=torch.long,
+                                   device=batch["question_tokens"].device)
+            prev_inds[:, 0] = self.bos_idx
         for _ in range(self.max_iter):
-            scores = self._scores_from_streams(streams, prev_inds, weights)
-            prev_inds = torch.cat([prev_inds[:, :1], scores.argmax(dim=-1)[:, :-1]], dim=1)
+            with tracing.span("decode.step"):
+                scores = self._scores_from_streams(streams, prev_inds, weights)
+                prev_inds = torch.cat([prev_inds[:, :1], scores.argmax(dim=-1)[:, :-1]], dim=1)
         return {"scores": scores, "prev_inds": prev_inds}
 
     @torch.no_grad()
@@ -180,30 +183,33 @@ class M4C(nn.Module):
         """Encode [objects, OCR, question] once, then one token per step
         through kernels D and C against the frozen context K/V and the slot
         caches; equal to the quadratic greedy under CONTEXT_BLIND."""
-        weights = self.kernel_weights()
-        (obj_emb, obj_bias), (ocr_emb, ocr_bias), (q_emb, q_bias) = self._streams(batch, weights)
-        ctx = torch.cat([obj_emb, ocr_emb, q_emb], dim=1)
-        col_bias = torch.cat([obj_bias, ocr_bias, q_bias], dim=-1)
-        ctx_out, layer_inputs = self.encoder(ctx, col_bias, return_layer_inputs=True,
-                                             weights=weights["encoder"])
-        obj_len, ocr_len = obj_emb.shape[1], ocr_emb.shape[1]
-        ptr_keys = self.dynamic_network.project_keys(ctx_out[:, obj_len:obj_len + ocr_len])
-        state = self.encoder.init_fused_decode_state(
-            self.encoder.project_context(layer_inputs), col_bias, self.max_iter,
-            weights["encoder"])
+        with tracing.span("decode.encode"):
+            weights = self.kernel_weights()
+            (obj_emb, obj_bias), (ocr_emb, ocr_bias), (q_emb, q_bias) = self._streams(batch,
+                                                                                      weights)
+            ctx = torch.cat([obj_emb, ocr_emb, q_emb], dim=1)
+            col_bias = torch.cat([obj_bias, ocr_bias, q_bias], dim=-1)
+            ctx_out, layer_inputs = self.encoder(ctx, col_bias, return_layer_inputs=True,
+                                                 weights=weights["encoder"])
+            obj_len, ocr_len = obj_emb.shape[1], ocr_emb.shape[1]
+            ptr_keys = self.dynamic_network.project_keys(ctx_out[:, obj_len:obj_len + ocr_len])
+            state = self.encoder.init_fused_decode_state(
+                self.encoder.project_context(layer_inputs), col_bias, self.max_iter,
+                weights["encoder"])
 
         bs = batch["question_tokens"].shape[0]
         bos = torch.full((bs,), self.bos_idx, dtype=torch.long, device=ctx.device)
         token, all_scores = bos, []
         fixed_rows = whole(self.vocab_proj.weight)
         for step in range(self.max_iter):
-            dec_emb, _ = self.dynamic_embedding(token[:, None], ocr_emb, fixed_rows)
-            out = self.encoder.fused_decode_step(dec_emb, state, step)
-            scores = torch.cat([self.vocab_proj(out),
-                                self.dynamic_network.score(out, ptr_keys, ocr_bias)],
-                               dim=-1)[:, 0]
-            token = scores.argmax(dim=-1)
-            all_scores.append(scores)
+            with tracing.span("decode.step"):
+                dec_emb, _ = self.dynamic_embedding(token[:, None], ocr_emb, fixed_rows)
+                out = self.encoder.fused_decode_step(dec_emb, state, step)
+                scores = torch.cat([self.vocab_proj(out),
+                                    self.dynamic_network.score(out, ptr_keys, ocr_bias)],
+                                   dim=-1)[:, 0]
+                token = scores.argmax(dim=-1)
+                all_scores.append(scores)
         scores = torch.stack(all_scores, dim=1)
         prev_inds = torch.cat([bos[:, None], scores[:, :-1].argmax(dim=-1)], dim=1)
         return {"scores": scores, "prev_inds": prev_inds}

@@ -13,9 +13,10 @@ to the kernel's plain PyTorch version, tensors on one CUDA device go to the
 kernel, anything else raises.  There is no fallback from a CUDA tensor to the
 plain version.
 
-Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches its
-kernel and nowhere else, so a run can show that it went through the kernels;
-kernels C and F also tally their launches by row count (:data:`LAUNCHES_BY_ROWS`).
+Each wrapper counts one launch where it launches its kernel and nowhere else
+(the counter ``kernel.<wrapper>`` of ``utils.tracing``; :func:`launch_counts`
+reads them), so a run can show that it went through the kernels; kernels C and
+F also tally their launches by row count (:func:`launch_counts_by_rows`).
 
 :func:`gemm_plan` cuts each product of kernels C and F over the card (tile,
 K split, cluster): the launch plan lives here, where the CPU tests reach it, and
@@ -39,6 +40,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -46,28 +49,27 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# wrapper name -> launches of its kernel in this process
-LAUNCHES: Dict[str, int] = {
-    "fused_ffn_step": 0,
-    "fused_encoder_self_attention": 0,
-    "fused_attention_packed": 0,
-    "fused_bert_self_step": 0,
-    "fused_attention_packed_dropout": 0,
-    "fused_attention_packed_dropout_backward": 0,
-    "fused_self_attention_step": 0,
-    "fused_cross_attention_step": 0,
-    "fused_decoder_layer_step": 0,
-    "fused_cross_attention_streamed": 0,
-    "fused_attention_packed_2bias": 0,
-    "fused_attention_packed_streamed": 0,
-    "fused_attention": 0,
-}
-# wrapper name -> {rows of the call: launches}, for the kernels whose launches
-# fall at very different row counts (encodes, TextBert, decode steps)
-LAUNCHES_BY_ROWS: Dict[str, Dict[int, int]] = {
-    "fused_ffn_step": {},
-    "fused_encoder_self_attention": {},
-}
+# the wrappers whose launches are counted, each as the counter kernel.<name> of
+# utils.tracing; kernels C and F also as kernel.<name>@<rows>
+WRAPPERS = (
+    "fused_ffn_step",
+    "fused_encoder_self_attention",
+    "fused_attention_packed",
+    "fused_bert_self_step",
+    "fused_attention_packed_dropout",
+    "fused_attention_packed_dropout_backward",
+    "fused_self_attention_step",
+    "fused_cross_attention_step",
+    "fused_decoder_layer_step",
+    "fused_cross_attention_streamed",
+    "fused_attention_packed_2bias",
+    "fused_attention_packed_streamed",
+    "fused_attention",
+)
+# the wrappers counted by row count too, for the kernels whose launches fall
+# at very different row counts (encodes, TextBert, decode steps)
+BY_ROWS = ("fused_ffn_step", "fused_encoder_self_attention")
+_reset_at: Dict[str, int] = {}  # the kernel counters at the last reset
 
 # C entry -> argument kinds: p pointer, i int, l long long, f float (the
 # trailing stream argument is added by `launch`)
@@ -212,25 +214,37 @@ def ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def count(name: str, rows: Optional[int] = None) -> None:
-    LAUNCHES[name] += 1
+    tracing.count(f"kernel.{name}")
     if rows is not None:
-        by_rows = LAUNCHES_BY_ROWS[name]
-        by_rows[rows] = by_rows.get(rows, 0) + 1
+        tracing.count(f"kernel.{name}@{rows}")
+
+
+def _since_reset() -> Dict[str, int]:
+    return {key: value - _reset_at.get(key, 0)
+            for key, value in tracing.counters("kernel.").items()}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for by_rows in LAUNCHES_BY_ROWS.values():
-        by_rows.clear()
+    """Launch counts start again from 0 (the store's counters go on)."""
+    _reset_at.clear()
+    _reset_at.update(tracing.counters("kernel."))
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    """Each wrapper's launches since the last reset."""
+    counts = _since_reset()
+    return {name: counts.get(f"kernel.{name}", 0) for name in WRAPPERS}
 
 
 def launch_counts_by_rows() -> Dict[str, Dict[int, int]]:
-    return {name: dict(sorted(by_rows.items())) for name, by_rows in LAUNCHES_BY_ROWS.items()}
+    """Kernels C's and F's launches since the last reset, by rows of the call."""
+    counts = _since_reset()
+    out = {name: {} for name in BY_ROWS}
+    for key, value in counts.items():
+        name, _, rows = key[len("kernel."):].partition("@")
+        if rows and value:
+            out.setdefault(name, {})[int(rows)] = value
+    return {name: dict(sorted(by_rows.items())) for name, by_rows in out.items()}
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:

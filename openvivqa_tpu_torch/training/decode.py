@@ -27,6 +27,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
+
 NEG_INF = -1e18
 EOS_FREEZE = -999.0
 
@@ -99,37 +101,38 @@ def beam_search(
     stacked = []
 
     for t in range(max_len):
-        word_logprob, cache = step_fn(cache, selected_words)
-        vocab_size = word_logprob.shape[-1]
-        word_logprob = word_logprob.reshape(bs, beam, vocab_size).float()
-        candidate = seq_logprob + word_logprob
+        with tracing.span("decode.step"):
+            word_logprob, cache = step_fn(cache, selected_words)
+            vocab_size = word_logprob.shape[-1]
+            word_logprob = word_logprob.reshape(bs, beam, vocab_size).float()
+            candidate = seq_logprob + word_logprob
 
-        # freeze finished beams; at t = 0 the previous words are <bos>, a no-op
-        alive = (selected_words.reshape(bs, beam, 1) != eos_idx).to(torch.float32)
-        seq_mask = seq_mask * alive
-        masked_word_logprob = word_logprob * seq_mask
-        frozen = seq_logprob.expand_as(candidate).clone()
-        frozen[:, :, 1:] = EOS_FREEZE
-        candidate = seq_mask * candidate + frozen * (1.0 - seq_mask)
+            # freeze finished beams; at t = 0 the previous words are <bos>, a no-op
+            alive = (selected_words.reshape(bs, beam, 1) != eos_idx).to(torch.float32)
+            seq_mask = seq_mask * alive
+            masked_word_logprob = word_logprob * seq_mask
+            frozen = seq_logprob.expand_as(candidate).clone()
+            frozen[:, :, 1:] = EOS_FREEZE
+            candidate = seq_mask * candidate + frozen * (1.0 - seq_mask)
 
-        selected_logprob, selected_idx = _top_k_stable(
-            candidate.reshape(bs, beam * vocab_size), beam)
-        selected_beam = selected_idx // vocab_size  # (bs, beam)
-        words = selected_idx % vocab_size
+            selected_logprob, selected_idx = _top_k_stable(
+                candidate.reshape(bs, beam * vocab_size), beam)
+            selected_beam = selected_idx // vocab_size  # (bs, beam)
+            words = selected_idx % vocab_size
 
-        cache = _gather_beams(cache, selected_beam, bs, beam)
-        seq_logprob = selected_logprob[..., None]
-        seq_mask = _take_beams(seq_mask, selected_beam)
-        outputs = _take_beams(outputs, selected_beam)
-        outputs[:, :, t] = words
-        # the chosen word's log-prob under the masked distribution
-        this_word_logprob = _take_beams(masked_word_logprob, selected_beam).gather(
-            2, words[..., None])
-        log_probs = _take_beams(log_probs, selected_beam)
-        log_probs[:, :, t] = this_word_logprob[..., 0]
-        selected_words = words.reshape(bs * beam, 1)
-        if return_probs:
-            stacked.append(masked_word_logprob)
+            cache = _gather_beams(cache, selected_beam, bs, beam)
+            seq_logprob = selected_logprob[..., None]
+            seq_mask = _take_beams(seq_mask, selected_beam)
+            outputs = _take_beams(outputs, selected_beam)
+            outputs[:, :, t] = words
+            # the chosen word's log-prob under the masked distribution
+            this_word_logprob = _take_beams(masked_word_logprob, selected_beam).gather(
+                2, words[..., None])
+            log_probs = _take_beams(log_probs, selected_beam)
+            log_probs[:, :, t] = this_word_logprob[..., 0]
+            selected_words = words.reshape(bs * beam, 1)
+            if return_probs:
+                stacked.append(masked_word_logprob)
 
     # sort the beams by their final cumulative log-prob, stably
     order = torch.sort(-seq_logprob[:, :, 0], dim=1, stable=True).indices
@@ -164,13 +167,14 @@ def generate(model, batch: Dict[str, torch.Tensor], beam_size: int, out_size: in
     beam-search with the model's single-token decode step.  The batch size is
     the batch's own (loaders pad the last batch, so it is the same for a whole
     split)."""
-    encoder_features, encoder_bias = model.encode(batch)
-    enc_b = _repeat_rows(encoder_features, beam_size)
-    bias_b = _repeat_rows(encoder_bias, beam_size)
-    first = next(iter(batch.values()))
-    batch_size, device = first.shape[0], first.device
-    prep = model.prepare_decode(enc_b, bias_b)
-    cache = model.init_decode_cache(batch_size * beam_size, device)
+    with tracing.span("decode.encode"):
+        encoder_features, encoder_bias = model.encode(batch)
+        enc_b = _repeat_rows(encoder_features, beam_size)
+        bias_b = _repeat_rows(encoder_bias, beam_size)
+        first = next(iter(batch.values()))
+        batch_size, device = first.shape[0], first.device
+        prep = model.prepare_decode(enc_b, bias_b)
+        cache = model.init_decode_cache(batch_size * beam_size, device)
 
     def step_fn(cache, tokens):
         return model.decode_step(tokens, cache, prep), cache

@@ -2,8 +2,12 @@
 
 ``maybe_trace`` wraps a training epoch in a ``torch.profiler`` trace (host and
 CUDA activities) when TRAINING.PROFILE_DIR is set, and the primary process
-writes it there as a Chrome trace (``chrome://tracing``, Perfetto).
-``StepTimer`` collects host-side step latencies with percentile summaries.
+writes it there as a Chrome trace (``chrome://tracing``, Perfetto).  Where the
+installed torch accepts them, the profiler records every thread (so the
+loader's ``data.*`` spans of ``utils.tracing`` are in the trace) and the
+host's waits on the device.  ``EpochRecord`` gives a train epoch's
+``metrics.jsonl`` record its time, its rate over the valid rows it trained
+on, and, where the epoch recorded spans, their per-name aggregates.
 """
 
 from __future__ import annotations
@@ -13,13 +17,23 @@ import os
 import time
 from typing import Iterator, Optional
 
-import numpy as np
 import torch
 
 from ..logging_utils import setup_logger
 from ..parallel.multihost import is_primary, process_index
+from ..utils import tracing
 
 logger = setup_logger()
+
+
+def _experimental_config():
+    """Every thread and the CUDA sync events, where this torch takes them."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True, enable_cuda_sync_events=True)
+    except TypeError:
+        return None
 
 
 @contextlib.contextmanager
@@ -33,7 +47,7 @@ def maybe_trace(profile_dir: Optional[str], enabled: bool = True) -> Iterator[No
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     logger.info("Profiling to %s", profile_dir)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=_experimental_config()) as prof:
         yield
     if is_primary():
         os.makedirs(profile_dir, exist_ok=True)
@@ -42,34 +56,23 @@ def maybe_trace(profile_dir: Optional[str], enabled: bool = True) -> Iterator[No
         logger.info("Wrote profiler trace %s", path)
 
 
-class StepTimer:
-    """Host-side per-step latency tracker.
-
-    The task loops keep losses on the device (no per-step sync), so these
-    percentiles measure the host's dispatch of a step, not the device's step
-    time: the epoch's wall-clock 'seconds' field is the end-to-end figure, and
-    TRAINING.PROFILE_DIR traces give device time."""
+class EpochRecord:
+    """Made before a train epoch; ``fields()`` after it: ``seconds``,
+    ``samples_per_sec`` over the valid rows put on the device in between
+    (``data.rows_valid``: the last batch's padding rows do not count), and
+    ``spans``, the per-name aggregates of a session of spans that began in
+    between (under TRAINING.PROFILE_DIR or ``tracing.recording()``)."""
 
     def __init__(self) -> None:
-        self.durations = []
-        self._last = None
+        self.start = time.time()
+        self.rows = tracing.counters("data.rows_valid").get("data.rows_valid", 0)
+        self.session = tracing.session_number()
 
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def stop(self) -> None:
-        if self._last is not None:
-            self.durations.append(time.perf_counter() - self._last)
-            self._last = None
-
-    def summary(self) -> dict:
-        if not self.durations:
-            return {}
-        arr = np.asarray(self.durations)
-        return {
-            "steps": int(arr.size),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-            "max_s": float(arr.max()),
-        }
+    def fields(self) -> dict:
+        seconds = time.time() - self.start
+        rows = tracing.counters("data.rows_valid").get("data.rows_valid", 0) - self.rows
+        out = {"seconds": seconds, "samples_per_sec": round(rows / max(seconds, 1e-9), 2)}
+        snapshot = tracing.snapshot()
+        if snapshot is not None and snapshot["session"] > self.session:
+            out["spans"] = snapshot["names"]
+        return out

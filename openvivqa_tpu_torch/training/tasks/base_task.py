@@ -57,6 +57,7 @@ from ...parallel.mesh import (
     wrap_for_training,
 )
 from ...parallel.multihost import is_primary, process_count
+from ...utils import tracing
 from ...utils.instance import Batch
 from ..checkpoint import (
     LAST_NAME,
@@ -282,27 +283,39 @@ class BaseTask:
         """The batch's arrays as tensors on the task's device.  With
         TRAINING.TRANSFER_DTYPE (e.g. bfloat16) float32 arrays cross to the
         device in that type, half the bytes, and are cast back to float32
-        there."""
+        there.  Counts ``data.batches``, ``data.rows``, ``data.rows_valid``
+        and the bytes it sends, ``data.h2d_bytes``."""
         transfer = self.config.TRAINING.get("TRANSFER_DTYPE")
         transfer = getattr(torch, transfer) if transfer else None
-        out = {}
-        for key, value in batch.arrays().items():
-            tensor = torch.from_numpy(np.ascontiguousarray(value))
-            cast = transfer is not None and tensor.dtype == torch.float32
-            if cast:
-                tensor = tensor.to(transfer)
-            tensor = tensor.to(self.device, non_blocking=True)
-            out[key] = tensor.float() if cast else tensor
+        out, sent = {}, 0
+        with tracing.span("data.put_batch", batch.batch_id):
+            for key, value in batch.arrays().items():
+                tensor = torch.from_numpy(np.ascontiguousarray(value))
+                cast = transfer is not None and tensor.dtype == torch.float32
+                if cast:
+                    tensor = tensor.to(transfer)
+                sent += tensor.numel() * tensor.element_size()
+                tensor = tensor.to(self.device, non_blocking=True)
+                out[key] = tensor.float() if cast else tensor
+        valid = batch.get("sample_valid")
+        tracing.count("data.batches")
+        tracing.count("data.rows", batch.batch_size)
+        tracing.count("data.rows_valid", batch.batch_size if valid is None else int(valid.sum()))
+        tracing.count("data.h2d_bytes", sent)
         return out
 
     def device_batches(self, dataloader, depth: int = 2) -> Iterator[Tuple[Batch, Dict]]:
         """Yield (host_batch, device_batch), `depth` batches ahead of the
-        consumer so host-to-device copies are queued before they are needed."""
+        consumer so host-to-device copies are queued before they are needed.
+        The consumer's thread works on each yielded batch's id
+        (``tracing.set_batch``) until the next."""
         iterator = iter(dataloader)
         queue: deque = deque()
 
         def fill() -> None:
-            host = next(iterator, None)
+            with tracing.span("data.wait") as wait:
+                host = next(iterator, None)
+                wait.batch = getattr(host, "batch_id", None)
             if host is not None:
                 queue.append((host, self.put_batch(host)))
 
@@ -311,7 +324,22 @@ class BaseTask:
         while queue:
             host, device_batch = queue.popleft()
             fill()
+            tracing.set_batch(host.batch_id)
             yield host, device_batch
+
+    def _train_step(self, batch) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss, left on
+        the device."""
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss = self.train_forward(self.compute_loss, batch)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.optimizer"):
+                self.optimizer.step()
+                self.scheduler.step()
+        return loss.detach()
 
     @staticmethod
     def eval_key(batch, it: int, i: int) -> str:

@@ -18,7 +18,6 @@ that are logged and returned.
 from __future__ import annotations
 
 import os
-import time
 from typing import List
 
 import numpy as np
@@ -29,9 +28,10 @@ from ...data.loader import DataLoader
 from ...evaluation import compute_scores
 from ...logging_utils import setup_logger
 from ...parallel.multihost import gather_eval_dicts
+from ...utils import tracing
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
 from ..optim import constant_lambda
-from ..profiling import StepTimer, maybe_trace
+from ..profiling import EpochRecord, maybe_trace
 from ..train_state import nll_loss
 from .base_task import BaseTask
 
@@ -76,20 +76,19 @@ class ClassificationTask(BaseTask):
         return nll_loss(logprobs, batch["answer"].reshape(-1), self.vocab.padding_idx,
                         weights=batch["sample_valid"])
 
-    def _train_step(self, batch) -> torch.Tensor:
-        """One optimizer step; returns the loss, left on the device."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.train_forward(self.compute_loss, batch)
-        loss.backward()
-        self.optimizer.step()
-        self.scheduler.step()
-        return loss.detach()
+    def class_scores(self, batch) -> torch.Tensor:
+        """The model's class scores of one device batch, in eval mode."""
+        return self.model(batch)
 
     @torch.no_grad()
     def predict(self, batch) -> np.ndarray:
         """The argmax class of each sample of one device batch, on the host."""
-        self.model.eval()
-        return self.model(batch).argmax(dim=-1).cpu().numpy()
+        with tracing.span("eval.batch"):
+            self.model.eval()
+            with tracing.span("eval.decode"):
+                ids = self.class_scores(batch).argmax(dim=-1)
+            with tracing.span("eval.to_host"):
+                return ids.cpu().numpy()
 
     def _decode_eval(self, preds: np.ndarray, batch):
         """(ground-truth strings, predicted strings) of one batch."""
@@ -101,25 +100,17 @@ class ClassificationTask(BaseTask):
     def train(self) -> List[float]:
         """One epoch; returns the per-step losses, synced once."""
         losses = []
-        timer = StepTimer()
-        start = time.time()
+        epoch = EpochRecord()
         with maybe_trace(self.profile_dir, enabled=self.epoch == 0):
             for _, device_batch in self.device_batches(self.train_dataloader):
-                timer.start()
                 losses.append(self._train_step(device_batch))
-                timer.stop()
         step_losses = torch.stack(losses).tolist() if losses else []
-        elapsed = time.time() - start
+        record = epoch.fields()
         mean_loss = sum(step_losses) / max(len(step_losses), 1)
         logger.info("Epoch %d - training: loss=%.4f (%d it, %.1fs)",
-                    self.epoch, mean_loss, len(step_losses), elapsed)
-        self.log_metrics({
-            "phase": "train", "loss": mean_loss, "step_losses": step_losses,
-            "iterations": len(step_losses), "seconds": elapsed,
-            "samples_per_sec": round(
-                len(step_losses) * self.train_dataloader.batch_size / max(elapsed, 1e-9), 2),
-            **timer.summary(),
-        })
+                    self.epoch, mean_loss, len(step_losses), record["seconds"])
+        self.log_metrics({"phase": "train", "loss": mean_loss, "step_losses": step_losses,
+                          "iterations": len(step_losses), **record})
         return step_losses
 
     def evaluate_metrics(self, dataloader) -> dict:

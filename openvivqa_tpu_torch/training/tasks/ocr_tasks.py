@@ -50,8 +50,9 @@ class TrainingMMF(OcrOpenEndedTask):
         scores = self.model.greedy_decode(device_batch)["scores"]
         return scores.argmax(dim=-1).to(torch.int32)
 
-    def generate_answers(self, batch, device_batch) -> list:
-        return self._decode_batch(self.greedy_ids(device_batch).cpu().numpy(), batch)
+    def answer_ids(self, device_batch) -> torch.Tensor:
+        """Greedy ids."""
+        return self.greedy_ids(device_batch)
 
     def train_scst(self):
         raise NotImplementedError(
@@ -111,10 +112,8 @@ class MmfClassificationTask(ClassificationTask):
         return bce_with_logits_loss(scores, batch["answer"].reshape(-1),
                                     weights=batch["sample_valid"])
 
-    @torch.no_grad()
-    def predict(self, batch) -> np.ndarray:
-        self.model.eval()
-        return self.model(batch)["scores"].argmax(dim=-1).cpu().numpy()
+    def class_scores(self, batch) -> torch.Tensor:
+        return self.model(batch)["scores"]
 
     def _decode_eval(self, preds: np.ndarray, batch):
         ocr_tokens = _pad_tables(batch["ocr_tokens"], preds.shape[0])

@@ -45,10 +45,11 @@ from ...data.loader import DataLoader
 from ...evaluation import Cider, compute_scores
 from ...logging_utils import setup_logger
 from ...parallel.multihost import gather_eval_dicts
+from ...utils import tracing
 from ..checkpoint import BEST_NAME, LAST_NAME, promote
 from ..decode import generate
 from ..optim import constant_lambda, make_optimizer
-from ..profiling import StepTimer, maybe_trace
+from ..profiling import EpochRecord, maybe_trace
 from ..train_state import nll_loss
 from .base_task import BaseTask
 
@@ -129,15 +130,6 @@ class OpenEndedTask(BaseTask):
         return nll_loss(logprobs.reshape(-1, logprobs.shape[-1]), targets.reshape(-1),
                         self.vocab.padding_idx, weights=weights.reshape(-1))
 
-    def _train_step(self, batch) -> torch.Tensor:
-        """One optimizer step; returns the loss, left on the device."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.train_forward(self.compute_loss, batch)
-        loss.backward()
-        self.optimizer.step()
-        self.scheduler.step()
-        return loss.detach()
-
     def _decode_batch(self, outs: np.ndarray, batch=None) -> list:
         """(bs, T) ids, or (n, k, T) beam samples, -> answer strings,
         consecutive repeats merged.  When the batch carries each sample's OCR
@@ -155,11 +147,20 @@ class OpenEndedTask(BaseTask):
                                                    join_words=False)
         return [" ".join(k for k, _ in itertools.groupby(tokens)) for tokens in token_lists]
 
-    def generate_answers(self, batch, device_batch) -> list:
-        """Beam-searched answers of one batch; only (bs, T) ids cross to the host."""
+    def answer_ids(self, device_batch) -> torch.Tensor:
+        """The answers' ids of one device batch, on the device: beam-searched."""
         self.model.eval()
-        outs, _ = generate(self.model, device_batch, self.evaluating_beam_size)
-        return self._decode_batch(outs.cpu().numpy(), batch)
+        return generate(self.model, device_batch, self.evaluating_beam_size)[0]
+
+    def generate_answers(self, batch, device_batch) -> list:
+        """The answer strings of one batch; only (bs, T) ids cross to the host."""
+        with tracing.span("eval.batch"):
+            with tracing.span("eval.decode"):
+                ids = self.answer_ids(device_batch)
+            with tracing.span("eval.to_host"):
+                ids = ids.cpu().numpy()
+            with tracing.span("eval.strings"):
+                return self._decode_batch(ids, batch)
 
     def evaluate_metrics(self, dataloader) -> dict:
         """Scores of the generated answers over `dataloader` (this process's
@@ -181,25 +182,17 @@ class OpenEndedTask(BaseTask):
     def train(self) -> List[float]:
         """One XE epoch; returns the per-step losses, synced once."""
         losses = []
-        timer = StepTimer()
-        start = time.time()
+        epoch = EpochRecord()
         with maybe_trace(self.profile_dir, enabled=self.epoch == 0):
             for _, device_batch in self.device_batches(self.train_dataloader):
-                timer.start()
                 losses.append(self._train_step(device_batch))
-                timer.stop()
         step_losses = torch.stack(losses).tolist() if losses else []
-        elapsed = time.time() - start
+        record = epoch.fields()
         mean_loss = sum(step_losses) / max(len(step_losses), 1)
         logger.info("Epoch %d - XE training: loss=%.4f (%d it, %.1fs)",
-                    self.epoch, mean_loss, len(step_losses), elapsed)
-        self.log_metrics({
-            "phase": "train", "loss": mean_loss, "step_losses": step_losses,
-            "iterations": len(step_losses), "seconds": elapsed,
-            "samples_per_sec": round(
-                len(step_losses) * self.train_dataloader.batch_size / max(elapsed, 1e-9), 2),
-            **timer.summary(),
-        })
+                    self.epoch, mean_loss, len(step_losses), record["seconds"])
+        self.log_metrics({"phase": "train", "loss": mean_loss, "step_losses": step_losses,
+                          "iterations": len(step_losses), **record})
         return step_losses
 
     # -- SCST --------------------------------------------------------------------

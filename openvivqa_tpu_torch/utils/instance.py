@@ -41,7 +41,11 @@ class Batch(dict):
 
     Array fields are exposed by attribute exactly like the reference's
     InstanceList, so model code reads `batch.question_tokens` etc.
+    ``batch_id``, the loader's sequence number of the batch, is an attribute
+    and not a field: no host or device field list holds it.
     """
+
+    batch_id: Optional[int] = None
 
     def __getattr__(self, key: str) -> Any:
         try:
@@ -50,7 +54,10 @@ class Batch(dict):
             raise AttributeError(f"{key} not found") from None
 
     def __setattr__(self, key: str, value: Any) -> None:
-        self[key] = value
+        if key == "batch_id":
+            object.__setattr__(self, key, value)
+        else:
+            self[key] = value
 
     @property
     def batch_size(self) -> int:

@@ -1,5 +1,5 @@
-"""The port's tools against the JAX package's: the step timer and the
-profiler hook of the training epochs (``training/profiling.py``), and the
+"""The port's tools against the JAX package's: the profiler hook and the
+record of the training epochs (``training/profiling.py``), and the
 reference-checkpoint migration (``tools/migrate_checkpoint.py``), whose
 output must resume and give the JAX-migrated task's outputs.
 """
@@ -17,33 +17,16 @@ from openvivqa_tpu import builders as jax_builders
 from openvivqa_tpu.config import ConfigNode as JaxConfigNode
 from openvivqa_tpu.models.modules import torch_conversion
 from openvivqa_tpu.tools.migrate_checkpoint import migrate as jax_migrate
-from openvivqa_tpu.training.profiling import StepTimer as JaxStepTimer
 from openvivqa_tpu_torch.config import ConfigNode
 from openvivqa_tpu_torch.models.convert import params_from_flax
 from openvivqa_tpu_torch.tools import migrate_checkpoint
-from openvivqa_tpu_torch.training.profiling import StepTimer, maybe_trace
+from openvivqa_tpu_torch.training.profiling import maybe_trace
 from test_torch_port_multihost import build, classification_config, mmf_m4c_config
 
 jax_builders.populate()
 
 
-# -- the step timer and the profiler hook -------------------------------------------------------
-@pytest.mark.parametrize("durations", [[], [0.5], [0.3, 0.1, 0.2, 0.9, 0.4, 0.25, 0.7]])
-def test_step_timer_summary_matches_jax(durations):
-    ours, theirs = StepTimer(), JaxStepTimer()
-    ours.durations, theirs.durations = list(durations), list(durations)
-    assert ours.summary() == theirs.summary()
-
-
-def test_step_timer_times_start_to_stop():
-    timer = StepTimer()
-    timer.stop()  # no start: nothing recorded
-    timer.start()
-    timer.stop()
-    assert len(timer.durations) == 1 and timer.durations[0] >= 0.0
-    assert timer.summary()["steps"] == 1
-
-
+# -- the profiler hook and the epoch record ----------------------------------------------------
 def test_maybe_trace_writes_a_chrome_trace_only_when_enabled(tmp_path):
     with maybe_trace(None):
         pass
@@ -59,8 +42,11 @@ def test_maybe_trace_writes_a_chrome_trace_only_when_enabled(tmp_path):
 @pytest.mark.parametrize("kind", ["MMF_M4C", "SAAA"])
 def test_train_epochs_trace_epoch_0_and_log_the_step_timer(synthetic_data, tmp_path, kind):
     """TRAINING.PROFILE_DIR: the train epoch writes one trace at epoch 0 and
-    none after; each epoch's train record in metrics.jsonl carries the step
-    timer's summary over its steps."""
+    none after; epoch 0's train record in metrics.jsonl carries the spans it
+    recorded under the profiler (one train.step and one data.put_batch a
+    step, each step's forward, backward and optimizer inside it, and a
+    data.wait for each batch and for each of the two prefetch slots that find
+    the split at its end), epoch 1's none."""
     profile_dir = tmp_path / "profile"
     make = mmf_m4c_config if kind == "MMF_M4C" else classification_config
     task = build(make(synthetic_data, tmp_path / "ckpt", PROFILE_DIR=str(profile_dir)))
@@ -72,9 +58,20 @@ def test_train_epochs_trace_epoch_0_and_log_the_step_timer(synthetic_data, tmp_p
     with open(os.path.join(task.checkpoint_path, "metrics.jsonl")) as handle:
         records = [json.loads(line) for line in handle]
     assert [r["epoch"] for r in records] == [0, 1]
-    for record in records:
-        assert record["steps"] == record["iterations"] == len(task.train_dataloader)
-        assert 0.0 < record["p50_s"] <= record["max_s"]
+    steps = len(task.train_dataloader)
+    assert [r["iterations"] for r in records] == [steps, steps]
+    spans = records[0]["spans"]
+    for name in ("train.step", "train.forward", "train.backward", "train.optimizer",
+                 "data.put_batch"):
+        assert spans[name]["count"] == steps, name
+    assert spans["data.wait"]["count"] == steps + 2
+    step = spans["train.step"]
+    parts = sum(spans[name]["total_ms"] for name in ("train.forward", "train.backward",
+                                                     "train.optimizer"))
+    assert 0.0 < step["self_ms"] <= step["total_ms"]
+    assert step["total_ms"] - step["self_ms"] == pytest.approx(parts, rel=1e-6)
+    assert 0.0 < step["max_ms"] <= step["total_ms"]
+    assert "spans" not in records[1]
 
 
 # -- the checkpoint migration --------------------------------------------------------------------
