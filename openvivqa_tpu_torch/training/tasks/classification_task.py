@@ -57,7 +57,7 @@ class ClassificationTask(BaseTask):
 
     def create_dataloaders(self, config):
         fd = config.DATASET.FEATURE_DATASET
-        common = dict(batch_size=fd.BATCH_SIZE, num_workers=fd.get("WORKERS", 4) or 1,
+        common = dict(batch_size=fd.BATCH_SIZE, num_workers=fd.get("WORKERS", 4),
                       seed=int(config.TRAINING.get("SEED", 42)))
         self.train_dataloader = DataLoader(self.train_dataset, shuffle=True, **common)
         self.dev_dataloader = DataLoader(self.dev_dataset, shuffle=False, **common)

@@ -94,10 +94,10 @@ class OpenEndedTask(BaseTask):
         seed = int(config.TRAINING.get("SEED", 42))
         self.train_dataloader = DataLoader(
             self.train_dataset, batch_size=fd.BATCH_SIZE, shuffle=True,
-            num_workers=fd.get("WORKERS", 4) or 1, seed=seed,
+            num_workers=fd.get("WORKERS", 4), seed=seed,
         )
         eval_bs = max(1, dd.BATCH_SIZE // config.TRAINING.EVALUATING_BEAM_SIZE)
-        workers = dd.get("WORKERS", 4) or 1
+        workers = dd.get("WORKERS", 4)
         # SCST's beams: DICT_DATASET.BATCH_SIZE rows a batch, as in the eval
         train_beam = config.TRAINING.get("TRAINING_BEAM_SIZE")
         self.train_dict_dataloader = None if not train_beam else DataLoader(

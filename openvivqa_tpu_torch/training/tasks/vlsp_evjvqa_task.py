@@ -37,7 +37,7 @@ class VlspEvjVqaTask(OpenEndedTask):
         fd = config.DATASET.FEATURE_DATASET
         dd = config.DATASET.DICT_DATASET
         seed = int(config.TRAINING.get("SEED", 42))
-        workers = fd.get("WORKERS", 4) or 1
+        workers = fd.get("WORKERS", 4)
 
         def loader(dataset, batch_size, shuffle, process_shard=True):
             if dataset is None:

@@ -12,7 +12,7 @@ The port's copy of ``openvivqa_tpu/utils/instance.py``:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -103,6 +103,7 @@ def collate(
     pad_to: Optional[Mapping[str, int]] = None,
     pad_values: Optional[Mapping[str, float]] = None,
     batch_pad_to: Optional[int] = None,
+    empty: Optional[Callable[[str, tuple, np.dtype], np.ndarray]] = None,
 ) -> Batch:
     """Stack a list of Instances into a Batch with static shapes.
 
@@ -113,7 +114,11 @@ def collate(
       pad_values: field -> fill value (default 0, matching the reference's
         `pad_values` zero fill, instance.py:155-170).
       batch_pad_to: pad the batch dimension up to this size; padded rows are
-        marked invalid in the emitted `sample_valid` mask.
+        marked invalid in the emitted `sample_valid` mask (and repeat the
+        last real row).
+      empty: (field, shape, dtype) -> the uninitialised array an array field
+        is stacked into (default `np.empty`); the loader's workers lay large
+        fields out in shared memory through it.
     """
     if not samples:
         return Batch()
@@ -121,23 +126,21 @@ def collate(
     pad_values = pad_values or {}
 
     n_real = len(samples)
+    total = batch_pad_to if (batch_pad_to and batch_pad_to > n_real) else n_real
     batch = Batch()
     for key in samples[0].get_fields():
         values = [sample[key] for sample in samples]
         first = values[0]
         if isinstance(first, np.ndarray) and first.dtype != object:
-            fill = pad_values.get(key, 0)
-            if first.ndim == 0:
-                stacked = np.stack(values, axis=0)
-            else:
+            if first.ndim > 0:
+                fill = pad_values.get(key, 0)
                 target = pad_to.get(key, max(v.shape[0] for v in values))
-                stacked = np.stack(
-                    [_pad_first_dim(v, target, fill) for v in values], axis=0
-                )
-            if batch_pad_to is not None and batch_pad_to > n_real:
-                reps = [batch_pad_to - n_real] + [1] * (stacked.ndim - 1)
-                pad_rows = np.tile(stacked[-1:], reps)
-                stacked = np.concatenate([stacked, pad_rows], axis=0)
+                values = [_pad_first_dim(v, target, fill) for v in values]
+            dtype = np.result_type(*{v.dtype for v in values})
+            shape = (total,) + values[0].shape
+            stacked = empty(key, shape, dtype) if empty else np.empty(shape, dtype)
+            np.stack(values, axis=0, out=stacked[:n_real])
+            stacked[n_real:] = stacked[n_real - 1]
             batch[key] = stacked
         elif isinstance(first, (int, float, bool, np.integer, np.floating)):
             stacked = np.asarray(values)
@@ -150,7 +153,6 @@ def collate(
             # strings, token lists, answer lists: host-side only
             batch[key] = list(values)
 
-    total = batch_pad_to if (batch_pad_to and batch_pad_to > n_real) else n_real
     valid = np.zeros((total,), dtype=np.bool_)
     valid[:n_real] = True
     batch["sample_valid"] = valid

@@ -42,8 +42,10 @@ MAX_SPANS = 1_000_000
 
 # every span the port opens: name -> (thread, where)
 NAMES = {
-    "data.batch": ("loader", "DataLoader._make_batch: one batch, loaded and collated"),
-    "data.load": ("loader", "the pool's dataset.__getitem__ fan-out of one batch"),
+    "data.batch": ("loader", "one batch, loaded and collated: in a worker process "
+                   "(num_workers >= 1, recorded as the batch arrives, the worker's pid as "
+                   "thread), else DataLoader._make_batch on the producer thread"),
+    "data.load": ("loader", "dataset.__getitem__ over one batch's indices"),
     "data.collate": ("loader", "utils.instance.collate of one batch"),
     "data.wait": ("caller", "BaseTask.device_batches blocked on the loader's queue"),
     "data.put_batch": ("caller", "BaseTask.put_batch: the batch's arrays to the device"),
@@ -154,6 +156,32 @@ def span(name: str, batch: Optional[int] = None):
     if _live:
         _end_session()
     return _OFF
+
+
+def record_finished(thread: int, batch: Optional[int], spans) -> None:
+    """Spans that already ran, where no span could be opened (a loader worker
+    process, on the same ``perf_counter_ns`` clock): each (name, start_ns,
+    end_ns, parent), `parent` the position in `spans` of the span around it or
+    None.  Recorded, with `thread` and `batch`, only where :func:`span` would
+    record; no ``record_function``, since their time has passed."""
+    if not (_forced or _profiler._is_profiler_enabled):
+        if _live:
+            _end_session()
+        return
+    with _lock:
+        session = _open_locked()
+        indices: List[Optional[int]] = []
+        for name, start_ns, end_ns, parent in spans:
+            if len(session.spans) >= MAX_SPANS:
+                _counters["tracing.dropped"] = _counters.get("tracing.dropped", 0) + 1
+                indices.append(None)
+                continue
+            record = _Recorded(name, batch)
+            record.thread, record.start_ns, record.end_ns = thread, start_ns, end_ns
+            record.parent = None if parent is None else indices[parent]
+            record._session, record._index = session, len(session.spans)
+            indices.append(record._index)
+            session.spans.append(record)
 
 
 def set_batch(batch_id: Optional[int]) -> None:

@@ -276,11 +276,12 @@ def test_every_span_of_the_port_is_named_and_none_takes_a_benchmark_name():
 
 
 def test_the_profilers_chrome_trace_holds_the_loader_threads_spans(tmp_path):
-    """maybe_trace records every thread: the loader's data.batch spans reach
-    the Chrome trace, on another thread than the consumer's data.wait."""
+    """maybe_trace records every thread: the in-process loader's (num_workers
+    0: its producer thread opens record_function) data.batch spans reach the
+    Chrome trace, on another thread than the consumer's data.wait."""
     dataset = [Instance(x=np.zeros((2,), np.float32)) for _ in range(6)]
     with maybe_trace(str(tmp_path)):
-        for batch in DataLoader(dataset, batch_size=2, num_workers=1):
+        for batch in DataLoader(dataset, batch_size=2, num_workers=0):
             with tracing.span("data.wait"):
                 torch.from_numpy(batch["x"]).sum()
     (path,) = tmp_path.iterdir()
