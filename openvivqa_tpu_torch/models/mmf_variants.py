@@ -234,8 +234,10 @@ class _IterativeM4CBase(MMF_M4C):
                                         generator=generator)
         dec_bias = causal_bias(dec.shape[1], dec.device)
         layer_weights = [None] * len(self.decoder.layer) if weights is None else weights["decoder"]
-        for i, (layer, w) in enumerate(zip(self.decoder.layer, layer_weights)):
-            dec = layer(dec, dec_bias, w, generator, self._cross_states(enc, i), enc["enc_bias"])
+        with tracing.span("decode.decoder"):
+            for i, (layer, w) in enumerate(zip(self.decoder.layer, layer_weights)):
+                dec = layer(dec, dec_bias, w, generator, self._cross_states(enc, i),
+                            enc["enc_bias"])
         fixed = self.classifier(dec)
         dynamic = self.ocr_ptr_net(
             dec, enc["encoded"][:, enc["ocr_begin"]:enc["ocr_end"]], enc["ocr_bias"]

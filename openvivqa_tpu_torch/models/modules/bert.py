@@ -15,7 +15,9 @@ Eval routes (CPU tensors take each kernel's plain version; call under
     (1, 1, T, T) one included), and every cross-attention (``kv_states``, the
     ``crossattention`` sublayer of a cross-attention BertLayer) whatever its
     bias -> the packed attention kernel between plain q/k/v and out
-    projections; kernel F is self-attention only and never sees them;
+    projections; kernel F is self-attention only and never sees them (the
+    encoder rows a cross-attention projects to keys and values, here or in
+    ``BertLayer.project_cross_kv``, add to the ``decode.cross_kv_rows`` counter);
   * every FFN, multi-row encodes and single-row decode steps -> kernel C;
   * every incremental decode step of the MMT -> kernel D (the Iterative M4C
     family's decoder steps are driven by its model: kernels A, E and C).
@@ -51,6 +53,7 @@ from ...ops import decode_step as _ds
 from ...ops import encoder_layer as _enc
 from ...ops import fused_attention as _attn
 from ...parallel.mesh import whole
+from ...utils import tracing
 
 LN_EPS = 1e-12
 
@@ -195,6 +198,8 @@ class BertSelfAttention(nn.Module):
                 hidden.float().contiguous(), weights, key_bias, self.scale,
                 self.num_heads, LN_EPS,
             )
+        if kv_states is not None:
+            tracing.count("decode.cross_kv_rows", kv_states.shape[0] * kv_states.shape[1])
         k, v = self.project_kv(hidden if kv_states is None else kv_states)
         return self.attend(hidden, k, v, attention_bias)
 
@@ -256,6 +261,7 @@ class BertLayer(nn.Module):
     def project_cross_kv(self, states):
         """Packed (b, S, hd) cross-attention key and value projections of the
         encoder states: once per sequence when decoding."""
+        tracing.count("decode.cross_kv_rows", states.shape[0] * states.shape[1])
         return self.crossattention.project_kv(states)
 
     def decode_step(self, hidden, k_cache, v_cache, attention_bias, cross_kv=None,

@@ -1,8 +1,9 @@
 """The port's spans and counters: one store for the whole process.
 
 ``span(name)`` times one stretch of work at a layer boundary (the loader, the
-train step, the optimizer, the decode loop); ``count(name, n)`` adds to a
-counter (batches, rows, bytes sent to the device, kernel launches).
+train step, the optimizer, the decode loop and its decoder stack); ``count(name,
+n)`` adds to a counter (batches, rows, bytes sent to the device, kernel
+launches, encoder rows projected to cross-attention keys and values).
 
 Spans record only while :func:`recording` is entered or a ``torch.profiler``
 runs; otherwise ``span`` reads three flags and returns a shared no-op context,
@@ -59,6 +60,8 @@ NAMES = {
     "eval.strings": ("caller", "ids to answer strings"),
     "decode.encode": ("caller", "a decode's kernel bundles and invariant streams"),
     "decode.step": ("caller", "one position of a decode loop"),
+    "decode.decoder": ("caller", "the Iterative M4C family's decoder stack over the answer "
+                       "prefix: each quadratic greedy step, each teacher-forced forward"),
 }
 
 
